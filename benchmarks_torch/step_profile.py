@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Where the time of one Algorithm-1 iteration goes on the card.
+
+    python3 benchmarks_torch/step_profile.py [--d 163597056] [--m 4] [--iters 5]
+
+Builds the full-width task of ``chip_smoke.py``'s phase 5 (edge quadratics
+at the parameter count of ``chb-paper-lm-124m``, M=4, f32, chb with
+alpha=0.125, eps1=4), warms each configuration up with one
+``simulator.run``, then traces ``--iters`` iterations of another with
+``torch.profiler`` (CPU and CUDA activities). For each of dense and int8,
+on the kernel and the reference backend, it prints one JSON line: device
+time by kernel name, the window's wall time (CUDA events), the device's
+busy time (the sum of its kernels and copies) and its idle share
+(1 - busy / wall). Needs a CUDA card and
+fails without one; it fails too if the trace shows no device time.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch import opt  # noqa: E402
+from repro_torch.core import simulator  # noqa: E402
+from repro_torch.data import edge_tasks  # noqa: E402
+
+
+def _device_ms(evt) -> float:
+    us = getattr(evt, "self_device_time_total", None)
+    if us is None:
+        us = getattr(evt, "self_cuda_time_total", 0.0)
+    return us / 1e3
+
+
+def profile_run(task, quantize, backend, iters: int) -> dict:
+    o = opt.make("chb", 0.5 / 4, task.worker_data[1].shape[0], eps1=4.0,
+                 quantize=quantize, backend=backend)
+    simulator.run(o, task, 2)                        # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        simulator.run(o, task, iters)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    # device-side events only (kernels, copies): the CPU-side operator
+    # events carry their kernels' device time too and would count it twice
+    rows = sorted(((evt.key, _device_ms(evt), evt.count)
+                   for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA
+                   and _device_ms(evt) > 0),
+                  key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in rows)
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return {"transport": quantize or "dense", "backend": backend,
+            "iters": iters, "wall_ms": wall, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall,
+            "per_iter_ms": wall / iters,
+            "by_kernel": [{"name": k[:90], "ms": ms, "calls": n}
+                          for k, ms, n in rows[:14]]}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--d", type=int, default=163_597_056)
+    ap.add_argument("--m", type=int, default=4)
+    ap.add_argument("--iters", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("step_profile: needs a CUDA card")
+    task = edge_tasks.make_edge_quadratics(m=args.m, d=args.d, seed=0,
+                                           dtype=torch.float32)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "d": args.d, "m": args.m}), flush=True)
+    for quantize in (None, "int8"):
+        for backend in ("cuda", "reference"):
+            print(json.dumps(profile_run(task, quantize, backend,
+                                         args.iters)), flush=True)
+            torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

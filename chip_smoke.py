@@ -1,0 +1,563 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Runs from the repository root (it puts ``src/`` on ``sys.path`` itself)
+and imports only ``repro_torch``. Phases, each printing one JSON line:
+
+  1. device   -- CUDA must be present; prints ``nvidia-smi``'s name and
+                 power limit.
+  2. build    -- compiles ``src/repro_torch/kernels/csrc`` with nvcc.
+  3. kernels  -- each kernel against its plain PyTorch version on the
+                 card: M in {1, 4, 9}, n in {1, 127, 128*257+3, 2^20+17},
+                 f32 and f64, masks all 0 / all 1 / mixed, inputs salted
+                 with -0.0 and one all-zero int8 pending row.
+  4. golden   -- ``simulator.run`` of chb on the paper's linreg task
+                 (m=5, n_per=30, d=20, seed=0) for 60 iterations, dense
+                 and int8, f64 and f32, kernel backend against reference
+                 backend, f64 uploads against the JAX package's.
+  5. full     -- the main path at the width of ``chb-paper-lm-124m``
+                 (163,597,056 f32 parameters, M=4 workers), 20 iterations,
+                 dense and int8, kernel backend against reference backend.
+  6. timing   -- each kernel, its plain version and its byte bound at the
+                 full-width shape; then the ``{"kernels": [...]}`` line.
+
+The last line is ``{"ok": true, "device": {...}}``. Every failed check
+raises, so the script exits non-zero and prints no last line; without
+CUDA it stops before any phase.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+import repro_torch  # noqa: E402,F401  (fails at once outside a checkout)
+
+# full-width configuration: the parameter count of configs/chb_paper_lm.py
+# (chb-paper-lm-124m), M = TrainConfig.num_workers' default, and the
+# step size / eps1 of benchmarks/fed_mesh.py's edge-quadratics runs
+FULL_D = 163_597_056
+FULL_M = 4
+FULL_ITERS = 20
+FULL_ALPHA = 0.5 / FULL_M
+FULL_EPS1 = 4.0
+
+# chb on linreg (m=5, n_per=30, d=20, seed=0), 60 iterations. At f64 the
+# JAX package's reference and pallas backends both give these uploads and
+# final objectives (tests/test_torch_simulator.py holds the port to that
+# run in-process); every eq.-(8) decision there clears its threshold by
+# more than 2%, so the count is the same on any platform.
+GOLDEN_F64 = {"dense": (240, float.fromhex("0x1.107a2630170dfp+6")),
+              "int8": (240, float.fromhex("0x1.107a2630170dep+6"))}
+# at f32 the run reaches the f32 noise floor near iteration 30, after which
+# eq. (8) compares rounding noise and the totals depend on the platform's
+# rounding: tests/test_backend.py pins XLA-CPU's, printed here beside ours
+GOLDEN_F32 = {"dense": 262, "int8": 259}
+GOLDEN_OBJECTIVE = float.fromhex("0x1.107a260000000p+6")
+
+# H100 SXM device-memory rate (NVIDIA data sheet); the bound of every
+# kernel here is its bytes over this rate
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+# sqnorms accumulate in f32 for both bank dtypes (the delta is cast to f32
+# before squaring, as in the JAX kernels), so one bound serves both: the
+# kernel's chunked tree and torch.sum group the same f32 terms differently
+SQNORM_RTOL = 1e-5
+
+KERNEL_META = {
+    "censor_delta_sqnorm_batched": ("src/repro_torch/kernels/csrc/censor.cu",
+                                    "src/repro/kernels/censor.py:131"),
+    "fused_dense_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
+                         "src/repro/kernels/fused_step.py:126"),
+    "int8_stats_batched": ("src/repro_torch/kernels/csrc/fused_step.cu",
+                           "src/repro/kernels/fused_step.py:198"),
+    "fused_int8_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
+                        "src/repro/kernels/fused_step.py:270"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a float tensor (tells -0.0 from +0.0)."""
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32
+                               else torch.int64)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and torch.equal(bits(a), bits(b))
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ------------------------------------------------------------ phase 1
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this script "
+                         "runs on a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device_count": torch.cuda.device_count()})
+    return smi
+
+
+# ------------------------------------------------------------ phase 2
+def phase_build() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    logs = build.build()
+    seconds = time.perf_counter() - t0
+    for name, log in logs.items():
+        print(f"--- nvcc {name}.cu\n{log}", file=sys.stderr)
+    for name in build.SOURCES:
+        build.library(name)
+    emit({"phase": "build", "seconds": seconds,
+          "compiled": sorted(logs), "dir": str(build.BUILD_DIR)})
+
+
+# ------------------------------------------------------------ phase 3
+def _inputs(m, n, dtype, seed, device):
+    """g, ghat, err (M, n) and theta, theta_prev (n,), salted with -0.0."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float64).to(dtype)
+
+    g, h, e = randn(m, n), randn(m, n), randn(m, n) * 0.01
+    t, p = randn(n), randn(n)
+    neg0 = torch.tensor(-0.0, dtype=dtype, device=device)
+    g[:, ::7] = neg0
+    h[:, ::11] = neg0
+    e[:, ::5] = neg0
+    h[:, ::77] = 0.0            # g = -0.0, ghat = +0.0 on these columns
+    t[::13] = neg0
+    p[::13] = 0.0
+    zero_row = m - 1 if m > 1 else (0 if n == 1 else None)
+    if zero_row is not None:     # pending all zero: amax 0, scale 1
+        g[zero_row] = h[zero_row]
+        e[zero_row] = 0.0
+    return g, h, e, t, p
+
+
+def _masks(m, device):
+    mixed = torch.tensor([float(i % 2 == 0) for i in range(m)],
+                         device=device)
+    return {"zeros": torch.zeros(m, device=device),
+            "ones": torch.ones(m, device=device), "mixed": mixed}
+
+
+def _rel_err(k: torch.Tensor, p: torch.Tensor) -> float:
+    scale = torch.clamp(p.abs(), min=torch.finfo(torch.float32).tiny)
+    return float(torch.max((k - p).abs() / scale))
+
+
+def phase_kernels(device, ms=(1, 4, 9),
+                  ns=(1, 127, 128 * 257 + 3, 2 ** 20 + 17),
+                  dtypes=(torch.float32, torch.float64)) -> dict:
+    """Every kernel against its plain version; returns max abs errors."""
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import censor, fused_step, ref
+    max_err = {name: 0.0 for name in KERNEL_META}
+    cases = 0
+    alpha, beta = 0.0123, 0.4
+    for dtype in dtypes:
+        for m in ms:
+            for n in ns:
+                seed = 1000 * m + n % 997 + (dtype == torch.float64)
+                g, h, e, t, p = _inputs(m, n, dtype, seed, device)
+                tag = f"{dtype} M={m} n={n}"
+
+                # B1
+                k = censor.censor_delta_sqnorm_batched(g, h)
+                pl = ref.censor_delta_sqnorm_batched(g, h)
+                check(_rel_err(k, pl) <= SQNORM_RTOL, f"B1 sqnorm {tag}")
+                max_err["censor_delta_sqnorm_batched"] = max(
+                    max_err["censor_delta_sqnorm_batched"],
+                    float((k - pl).abs().max()))
+                check(same_bits(k, censor.censor_delta_sqnorm_batched(g, h)),
+                      f"B1 repeat {tag}")
+                for w in range(m):
+                    check(same_bits(k[w:w + 1],
+                                    censor.censor_delta_sqnorm_batched(
+                                        g[w:w + 1], h[w:w + 1])),
+                          f"B1 M=1 slice {w} {tag}")
+
+                # B5
+                sq, am = fused_step.int8_stats_batched(g, h, e)
+                sq_p, am_p = ref.int8_stats_batched(g, h, e)
+                check(_rel_err(sq, sq_p) <= SQNORM_RTOL, f"B5 sqnorm {tag}")
+                check(same_bits(am, am_p), f"B5 absmax {tag}")
+                max_err["int8_stats_batched"] = max(
+                    max_err["int8_stats_batched"],
+                    float((sq - sq_p).abs().max()))
+                sq2, am2 = fused_step.int8_stats_batched(g, h, e)
+                check(same_bits(sq, sq2) and same_bits(am, am2),
+                      f"B5 repeat {tag}")
+                for w in range(m):
+                    sq1, am1 = fused_step.int8_stats_batched(
+                        g[w:w + 1], h[w:w + 1], e[w:w + 1])
+                    check(same_bits(sq[w:w + 1], sq1)
+                          and same_bits(am[w:w + 1], am1),
+                          f"B5 M=1 slice {w} {tag}")
+                scale = int8_scale(am)
+                if m > 1 or n == 1:
+                    check(float(scale[-1]) == 1.0, f"B5 zero row scale {tag}")
+
+                for mname, mask in _masks(m, device).items():
+                    mtag = f"{tag} mask={mname}"
+                    # B2
+                    out = fused_step.fused_dense_step(g, h, t, p, mask,
+                                                      alpha, beta)
+                    plain = ref.fused_dense_step(g, h, t, p, mask,
+                                                 alpha, beta)
+                    for a, b, what in zip(out, plain,
+                                          ("ghat'", "agg", "theta'")):
+                        check(same_bits(a, b), f"B2 {what} {mtag}")
+                    again = fused_step.fused_dense_step(g, h, t, p, mask,
+                                                        alpha, beta)
+                    check(all(same_bits(a, b) for a, b in zip(out, again)),
+                          f"B2 repeat {mtag}")
+                    for w in range(m):
+                        one = fused_step.fused_dense_step(
+                            g[w:w + 1], h[w:w + 1], t, p, mask[w:w + 1],
+                            alpha, beta)
+                        check(same_bits(one[0], out[0][w:w + 1]),
+                              f"B2 M=1 slice {w} {mtag}")
+                    # B6
+                    out = fused_step.fused_int8_step(g, h, e, t, p, mask,
+                                                     scale, alpha, beta)
+                    plain = ref.fused_int8_step(g, h, e, t, p, mask, scale,
+                                                alpha, beta)
+                    for a, b, what in zip(out, plain, ("ghat'", "err'",
+                                                       "agg", "theta'")):
+                        check(same_bits(a, b), f"B6 {what} {mtag}")
+                    again = fused_step.fused_int8_step(g, h, e, t, p, mask,
+                                                       scale, alpha, beta)
+                    check(all(same_bits(a, b) for a, b in zip(out, again)),
+                          f"B6 repeat {mtag}")
+                    for w in range(m):
+                        one = fused_step.fused_int8_step(
+                            g[w:w + 1], h[w:w + 1], e[w:w + 1], t, p,
+                            mask[w:w + 1], scale[w:w + 1], alpha, beta)
+                        check(same_bits(one[0], out[0][w:w + 1])
+                              and same_bits(one[1], out[1][w:w + 1]),
+                              f"B6 M=1 slice {w} {mtag}")
+                    cases += 1
+    emit({"phase": "kernels", "cases": cases, "max_abs_err": max_err,
+          "sqnorm_rtol": SQNORM_RTOL,
+          "elementwise": "bitwise, including the sign of zero"})
+    return max_err
+
+
+# ------------------------------------------------------------ phase 4
+class StepRecorder:
+    """Wraps an optimizer; records CUDA events and stats around ``step``."""
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.events = []
+        self.stats = []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def step(self, state, params, grads):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.opt.step(state, params, grads)
+        end.record()
+        self.events.append((start, end))
+        self.stats.append((out[2].delta_sq, out[2].step_sq))
+        return out
+
+    def median_ms(self) -> float:
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b)
+                                 for a, b in self.events[1:])
+
+    def min_margin(self, eps1: float) -> float:
+        """Smallest |dsq - eps1*ssq| / (eps1*ssq) over steps with ssq > 0."""
+        out = float("inf")
+        for dsq, ssq in self.stats:
+            if float(ssq) > 0:
+                thr = eps1 * ssq.double()
+                out = min(out, float(((dsq.double() - thr).abs()
+                                      / thr).min()))
+        return out
+
+
+def _noise_floor(rec: "StepRecorder", thetas: list) -> int:
+    """First iteration whose f32 step is below 256 ulps of theta (rms).
+
+    Past it both sides of eq. (8) are rounding noise: the decision turns
+    on how each platform rounds the gradient, not on the descent.
+    """
+    eps = torch.finfo(torch.float32).eps
+    for k, (_, ssq) in enumerate(rec.stats):
+        if 0 < float(ssq) < (256 * eps) ** 2 * thetas[k]:
+            return k
+    return len(rec.stats)
+
+
+class ThetaRecorder:
+    """Wraps a task's grad_fn to record ||theta^k||^2 at each iteration."""
+
+    def __init__(self, task):
+        self.norms = []
+        self.task = task._replace(grad_fn=self.grad_fn)
+        self._grad_fn = task.grad_fn
+
+    def grad_fn(self, params, data):
+        self.norms.append(float(torch.sum(params.double() ** 2)))
+        return self._grad_fn(params, data)
+
+
+def phase_golden(device) -> None:
+    from repro_torch import opt
+    from repro_torch.core import simulator
+    from repro_torch.data import paper_tasks
+    bundle = paper_tasks.make_linear_regression(m=5, n_per=30, d=20, seed=0,
+                                                device=device)
+    out = {}
+    for kind, quant in (("dense", None), ("int8", "int8")):
+        hist, recs = {}, {}
+        for prec, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            for backend in ("cuda", "reference"):
+                rec = StepRecorder(opt.make("chb", bundle.alpha_paper, 5,
+                                            quantize=quant, backend=backend))
+                th = ThetaRecorder(simulator.task_to(bundle.task,
+                                                     dtype=dtype))
+                hist[prec, backend] = simulator.run(rec, th.task, 60,
+                                                    device=device)
+                recs[prec, backend] = (rec, th.norms)
+        for prec in ("f64", "f32"):
+            hk, hr = hist[prec, "cuda"], hist[prec, "reference"]
+            check(torch.equal(hk.mask, hr.mask)
+                  and torch.equal(hk.comm_cum, hr.comm_cum),
+                  f"golden {kind} {prec}: masks differ between backends")
+            check(same_bits(hk.objective, hr.objective)
+                  and same_bits(hk.final_params, hr.final_params),
+                  f"golden {kind} {prec}: trajectories differ between "
+                  "backends")
+            check(int(hk.comm_cum[-1]) == int(hk.mask.sum()),
+                  f"golden {kind} {prec}: comm_cum != mask sum")
+        h64, h32 = hist["f64", "cuda"], hist["f32", "cuda"]
+        comm64, obj64 = int(h64.comm_cum[-1]), float(h64.objective[-1])
+        want64, want_obj64 = GOLDEN_F64[kind]
+        check(comm64 == want64, f"golden {kind} f64: {comm64} uploads, "
+              f"the JAX package gives {want64}")
+        check(abs(obj64 - want_obj64) <= 1e-9 * want_obj64,
+              f"golden {kind} f64: objective {obj64!r}")
+        obj32 = float(h32.objective[-1])
+        check(abs(obj32 - GOLDEN_OBJECTIVE) <= 1e-4 * GOLDEN_OBJECTIVE,
+              f"golden {kind} f32: objective {obj32!r}")
+        floor = _noise_floor(*recs["f32", "cuda"])
+        check(floor >= 20, f"golden {kind} f32: noise floor at {floor}")
+        check(torch.equal(h32.mask[:floor], h64.mask[:floor]),
+              f"golden {kind}: f32 masks leave the f64 run's before the "
+              f"f32 noise floor ({floor})")
+        out[kind] = {"f64_comm_cum": comm64, "f64_objective": obj64,
+                     "f32_comm_cum": int(h32.comm_cum[-1]),
+                     "f32_jax_pin": GOLDEN_F32[kind], "f32_objective": obj32,
+                     "f32_noise_floor_iter": floor,
+                     "f32_first_mask_diff_vs_f64": next(
+                         (k for k in range(60)
+                          if not torch.equal(h32.mask[k], h64.mask[k])),
+                         None)}
+    emit({"phase": "golden", **out})
+
+
+# ------------------------------------------------------------ phase 5
+def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
+    from repro_torch import opt
+    from repro_torch.core import simulator
+    from repro_torch.data import edge_tasks
+    from repro_torch.kernels import common
+    t0 = time.perf_counter()
+    task = edge_tasks.make_edge_quadratics(m=m, d=d, seed=0,
+                                           dtype=torch.float32)
+    fstar = edge_tasks.edge_quadratics_fstar(task)
+    setup_s = time.perf_counter() - t0
+    payload = {None: 4 * d, "int8": d + 4}
+    runs = {}
+
+    def one_run(quant, backend):
+        rec = StepRecorder(opt.make("chb", FULL_ALPHA, m, eps1=FULL_EPS1,
+                                    quantize=quant, backend=backend))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = simulator.run(rec, task, iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        comm = hist.final_state.comm
+        res = {
+            "mask": hist.mask.cpu(), "comm_cum": hist.comm_cum.cpu(),
+            "uplink_count": comm.uplink_count.cpu(),
+            "uplink_bytes": comm.uplink_bytes_exact(),
+            "theta": hist.final_params,
+            "objective": float(hist.objective[-1]),
+            "step_ms": rec.median_ms(), "wall_s": wall,
+            "min_margin": rec.min_margin(FULL_EPS1),
+        }
+        del hist, rec
+        torch.cuda.empty_cache()
+        return res
+
+    common.reset_launches()
+    for quant in (None, "int8"):
+        runs[(quant, "cuda")] = one_run(quant, "cuda")
+    launches = dict(common.LAUNCHES)
+    for quant in (None, "int8"):
+        runs[(quant, "reference")] = one_run(quant, "reference")
+    check(common.LAUNCHES == launches,
+          "the reference backend launched a kernel")
+    for name in common.KERNELS:
+        check(launches[name] == iters,
+              f"{name} launched {launches[name]} times, want {iters}")
+
+    summary = {}
+    for quant in (None, "int8"):
+        k, r = runs[(quant, "cuda")], runs[(quant, "reference")]
+        kind = quant or "dense"
+        check(torch.equal(k["mask"], r["mask"]), f"full {kind}: masks")
+        check(torch.equal(k["comm_cum"], r["comm_cum"]),
+              f"full {kind}: comm_cum")
+        check(torch.equal(k["uplink_count"], r["uplink_count"]),
+              f"full {kind}: uplink_count")
+        sent = int(k["mask"].sum())
+        want = sent * payload[quant]
+        check(k["uplink_bytes"] == want == r["uplink_bytes"],
+              f"full {kind}: uplink bytes {k['uplink_bytes']} != {want}")
+        check(want > 2 ** 31, f"full {kind}: {want} bytes do not pass 2^31")
+        theta_rel = float((k["theta"] - r["theta"]).abs().max()
+                          / r["theta"].abs().max())
+        check(theta_rel <= 1e-5, f"full {kind}: theta rel {theta_rel}")
+        check(all(x == x for x in (k["objective"], r["objective"])),
+              f"full {kind}: objective is NaN")
+        summary[kind] = {
+            "uploads": sent, "uplink_bytes": k["uplink_bytes"],
+            "payload_bytes": payload[quant],
+            "theta_max_rel_diff": theta_rel,
+            "min_eq8_margin": min(k["min_margin"], r["min_margin"]),
+            "objective": k["objective"],
+            "fstar_rel_gap": (k["objective"] - fstar) / fstar,
+            "step_ms_cuda": k["step_ms"], "step_ms_reference": r["step_ms"],
+            "wall_s_cuda": k["wall_s"], "wall_s_reference": r["wall_s"],
+        }
+    del runs, task
+    torch.cuda.empty_cache()
+    emit({"phase": "full", "d": d, "m": m, "iters": iters,
+          "setup_s": setup_s, "launches": launches, **summary})
+    return launches
+
+
+# ------------------------------------------------------------ phase 6
+def _time_ms(fn, reps: int) -> float:
+    """Mean ms of one call over ``reps`` calls queued back to back between
+    two CUDA events, after one warm-up call (the queue hides the host's
+    launch latency, as on the main path)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def phase_timing(launches, max_err, d=FULL_D, m=FULL_M) -> list:
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import censor, fused_step, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    g, h, e = randn(m, d), randn(m, d), randn(m, d) * 0.01
+    t, p = randn(d), randn(d)
+    mask = torch.tensor([1.0, 0.0] * (m // 2) + [1.0] * (m % 2), device=dev)
+    scale = int8_scale(ref.absmax_batched((g - h) + e))
+    el = 4                                             # f32 bytes
+    work = {   # name: (kernel, plain, bytes moved, f32 operations)
+        "censor_delta_sqnorm_batched": (
+            lambda: censor.censor_delta_sqnorm_batched(g, h),
+            lambda: ref.censor_delta_sqnorm_batched(g, h),
+            2 * m * d * el + 4 * m, 3 * m * d),
+        "fused_dense_step": (
+            lambda: fused_step.fused_dense_step(g, h, t, p, mask, 0.1, 0.4),
+            lambda: ref.fused_dense_step(g, h, t, p, mask, 0.1, 0.4),
+            ((2 * m + 2) + (m + 2)) * d * el + 4 * m, (4 * m + 5) * d),
+        "int8_stats_batched": (
+            lambda: fused_step.int8_stats_batched(g, h, e),
+            lambda: ref.int8_stats_batched(g, h, e),
+            3 * m * d * el + 8 * m, 6 * m * d),
+        "fused_int8_step": (
+            lambda: fused_step.fused_int8_step(g, h, e, t, p, mask, scale,
+                                               0.1, 0.4),
+            lambda: ref.fused_int8_step(g, h, e, t, p, mask, scale, 0.1,
+                                        0.4),
+            ((3 * m + 2) + (2 * m + 2)) * d * el + 8 * m, (16 * m + 5) * d),
+    }
+    rows = []
+    for name, (kfn, pfn, nbytes, ops) in work.items():
+        ms = _time_ms(kfn, 10)
+        plain_ms = _time_ms(pfn, 3)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_FLOPS * 1e3
+        src, replaces = KERNEL_META[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "bytes": nbytes,
+            "shape": f"M={m} n={d} float32"})
+        torch.cuda.empty_cache()
+    return rows
+
+
+def main() -> None:
+    phase_device()
+    phase_build()
+    dev = torch.device("cuda")
+    max_err = phase_kernels(dev)
+    phase_golden(dev)
+    launches = phase_full()
+    rows = phase_timing(launches, max_err)
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

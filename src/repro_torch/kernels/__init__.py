@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels of the CHB step, with their plain versions.
+
+``censor`` (B1) and ``fused_step`` (B2, B5, B6) hold the kernel wrappers;
+``ref`` the plain PyTorch versions; ``ops`` the tree-level dispatch the
+``backend="cuda"`` optimizer runs; ``build`` compiles ``csrc/`` with
+``nvcc`` on first use. See ``common`` for the dispatch rule.
+"""
+from . import build, censor, common, fused_step, ops, ref

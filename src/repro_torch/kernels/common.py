@@ -1,0 +1,75 @@
+"""Shared plumbing for the kernel wrappers.
+
+Dispatch rule (every wrapper): a tensor on the CPU runs the kernel's plain
+version from ``ref.py``; a tensor on a CUDA device launches the
+hand-written kernel or raises. Nothing falls back from one to the other.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made in this
+process: each wrapper adds one where it calls into the compiled library
+and nowhere else, so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
+           "int8_stats_batched", "fused_int8_step")
+
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+
+#: bank dtypes the kernels are built for (sub-f32 banks are not ported)
+KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def reset_launches() -> None:
+    """Zero every launch count."""
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32 for sub-f32 params, the params' own precision otherwise."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """Which side of the dispatch rule the operands fall on.
+
+    True: all operands are contiguous tensors on one CUDA device. False:
+    all lie on the CPU. Anything else raises.
+    """
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: operands must all lie on the CPU or all "
+                         f"on one CUDA device, got "
+                         f"{sorted(str(t.device) for t in tensors)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: CUDA operands must be contiguous")
+    return True
+
+
+def check_bank(name: str, *tensors: torch.Tensor) -> str:
+    """All operands share one kernel dtype; returns its suffix."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise TypeError(f"{name}: operands must share one dtype, got "
+                        f"{sorted(str(d) for d in dtypes)}")
+    dtype = dtypes.pop()
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: bank dtype {dtype} is not supported "
+                        "(the kernels take float32 and float64)")
+    return KERNEL_DTYPES[dtype]
+
+
+def check_worker_vector(name: str, what: str, v: torch.Tensor,
+                        m: int) -> None:
+    """A per-worker (M,) float32 operand such as the mask or the scales."""
+    if v.dtype != torch.float32 or tuple(v.shape) != (m,):
+        raise ValueError(f"{name}: {what} must be ({m},) float32, got "
+                         f"{tuple(v.shape)} {v.dtype}")

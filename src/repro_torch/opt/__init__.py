@@ -1,0 +1,24 @@
+"""repro_torch.opt: the composable federated optimizer (port of repro.opt).
+
+    from repro_torch import opt
+    o = opt.make("chb", alpha=0.05, num_workers=9, backend="cuda")
+    hist = simulator.run(o, task, 1000)
+"""
+from .api import OptState, StepStats, static_pos
+from .censor import Eq8Censor, NeverCensor
+from .optimizer import BACKENDS, ComposedOptimizer
+from .registry import (BACKEND_ALIASES, CENSOR_KINDS, SERVER_KINDS,
+                       TRANSPORT_KINDS, from_spec, make, make_transport,
+                       names, register, to_spec)
+from .server import GradientDescent, HeavyBall
+from .transport import DenseTransport, Int8Transport
+
+__all__ = [
+    "OptState", "StepStats", "static_pos",
+    "NeverCensor", "Eq8Censor",
+    "DenseTransport", "Int8Transport",
+    "GradientDescent", "HeavyBall",
+    "ComposedOptimizer", "BACKENDS", "BACKEND_ALIASES",
+    "register", "make", "names", "to_spec", "from_spec", "make_transport",
+    "CENSOR_KINDS", "TRANSPORT_KINDS", "SERVER_KINDS",
+]
