@@ -2,17 +2,19 @@
 """Where the time of one Algorithm-1 iteration goes on the card.
 
     python3 benchmarks_torch/step_profile.py [--d 163597056] [--m 4] [--iters 5]
+        [--transport dense int8 topk lowrank]
 
 Builds the full-width task of ``chip_smoke.py``'s phase 5 (edge quadratics
 at the parameter count of ``chb-paper-lm-124m``, M=4, f32, chb with
-alpha=0.125, eps1=4), warms each configuration up with one
+alpha=0.125, eps1=4; top-k keeps (2d)//5 entries, low-rank runs rank 2 on
+the model's 12 leaves), warms each configuration up with one
 ``simulator.run``, then traces ``--iters`` iterations of another with
-``torch.profiler`` (CPU and CUDA activities). For each of dense and int8,
-on the kernel and the reference backend, it prints one JSON line: device
-time by kernel name, the window's wall time (CUDA events), the device's
-busy time (the sum of its kernels and copies) and its idle share
-(1 - busy / wall). Needs a CUDA card and
-fails without one; it fails too if the trace shows no device time.
+``torch.profiler`` (CPU and CUDA activities). For each transport, on the
+kernel and the reference backend, it prints one JSON line: device time by
+kernel name, the window's wall time (CUDA events), the device's busy time
+(the sum of its kernels and copies) and its idle share (1 - busy / wall).
+Needs a CUDA card and fails without one; it fails too if the trace shows
+no device time.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
@@ -31,6 +34,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import opt  # noqa: E402
 from repro_torch.core import simulator  # noqa: E402
 from repro_torch.data import edge_tasks  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+from chip_smoke import FULL_RANK, lm_tree_task  # noqa: E402
 
 
 def _device_ms(evt) -> float:
@@ -40,9 +46,19 @@ def _device_ms(evt) -> float:
     return us / 1e3
 
 
-def profile_run(task, quantize, backend, iters: int) -> dict:
-    o = opt.make("chb", 0.5 / 4, task.worker_data[1].shape[0], eps1=4.0,
-                 quantize=quantize, backend=backend)
+def transport_kw(transport: str, d: int) -> dict:
+    """The ``opt.make`` keywords of one transport at width ``d``."""
+    return {"dense": {}, "int8": {"quantize": "int8"},
+            "topk": {"transport": "topk", "k": (2 * d) // 5},
+            "lowrank": {"transport": "lowrank", "rank": FULL_RANK}
+            }[transport]
+
+
+def profile_run(task, transport, backend, iters: int) -> dict:
+    m = task.worker_data[0].shape[0]
+    d = sum(x.numel() for x in tree_leaves(task.init_params))
+    o = opt.make("chb", 0.5 / 4, m, eps1=4.0, backend=backend,
+                 **transport_kw(transport, d))
     simulator.run(o, task, 2)                        # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -64,7 +80,7 @@ def profile_run(task, quantize, backend, iters: int) -> dict:
     busy = sum(ms for _, ms, _ in rows)
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return {"transport": quantize or "dense", "backend": backend,
+    return {"transport": transport, "backend": backend,
             "iters": iters, "wall_ms": wall, "busy_ms": busy,
             "idle_share": 1.0 - busy / wall,
             "per_iter_ms": wall / iters,
@@ -77,6 +93,11 @@ def main() -> None:
     ap.add_argument("--d", type=int, default=163_597_056)
     ap.add_argument("--m", type=int, default=4)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--transport", nargs="+",
+                    choices=("dense", "int8", "topk", "lowrank"),
+                    default=["dense", "int8", "topk", "lowrank"],
+                    help="low-rank views the task as chb-paper-lm-124m's "
+                    "leaves, so it needs the default --d")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: needs a CUDA card")
@@ -84,9 +105,11 @@ def main() -> None:
                                            dtype=torch.float32)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "d": args.d, "m": args.m}), flush=True)
-    for quantize in (None, "int8"):
+    for transport in args.transport:
+        # low-rank runs on the model's leaves, the rest on one leaf
+        run_task = lm_tree_task(task) if transport == "lowrank" else task
         for backend in ("cuda", "reference"):
-            print(json.dumps(profile_run(task, quantize, backend,
+            print(json.dumps(profile_run(run_task, transport, backend,
                                          args.iters)), flush=True)
             torch.cuda.empty_cache()
 

@@ -12,16 +12,21 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
   3. kernels  -- each kernel against its plain PyTorch version on the
                  card: M in {1, 4, 9}, n in {1, 127, 128*257+3, 2^20+17},
                  f32 and f64, masks all 0 / all 1 / mixed, inputs salted
-                 with -0.0 and one all-zero int8 pending row.
+                 with -0.0, one all-zero int8 pending row, top-k keep
+                 masks that keep -0.0 entries.
   4. golden   -- ``simulator.run`` of chb on the paper's linreg task
-                 (m=5, n_per=30, d=20, seed=0) for 60 iterations, dense
-                 and int8, f64 and f32, kernel backend against reference
-                 backend, f64 uploads against the JAX package's.
-  5. full     -- the main path at the width of ``chb-paper-lm-124m``
-                 (163,597,056 f32 parameters, M=4 workers), 20 iterations,
-                 dense and int8, kernel backend against reference backend.
-  6. timing   -- each kernel, its plain version and its byte bound at the
-                 full-width shape; then the ``{"kernels": [...]}`` line.
+                 (m=5, n_per=30, d=20, seed=0) for 60 iterations, dense,
+                 int8, top-k (k=8) and low-rank (rank 2), f64 and f32,
+                 kernel backend against reference backend, f64 uploads
+                 against the JAX package's.
+  5. full     -- each path at the width of ``chb-paper-lm-124m``
+                 (163,597,056 f32 parameters, M=4 workers), 20 iterations:
+                 dense, int8 and top-k on one leaf, low-rank on the model's
+                 12 leaves; kernel backend against reference backend, the
+                 launch counts read per path.
+  6. timing   -- each kernel, its plain version, its library call where
+                 one exists and its byte bound at the full-width shape;
+                 then the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``. Every failed check
 raises, so the script exits non-zero and prints no last line; without
@@ -30,6 +35,7 @@ CUDA it stops before any phase.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -42,6 +48,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 import repro_torch  # noqa: E402,F401  (fails at once outside a checkout)
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 # full-width configuration: the parameter count of configs/chb_paper_lm.py
 # (chb-paper-lm-124m), M = TrainConfig.num_workers' default, and the
@@ -56,14 +63,37 @@ FULL_EPS1 = 4.0
 # JAX package's reference and pallas backends both give these uploads and
 # final objectives (tests/test_torch_simulator.py holds the port to that
 # run in-process); every eq.-(8) decision there clears its threshold by
-# more than 2%, so the count is the same on any platform.
+# more than 2%, so the count is the same on any platform. Top-k runs at
+# k=8 and low-rank at rank 2; the task's one leaf is a vector, which the
+# low-rank transport ships dense, so its run is the dense run.
 GOLDEN_F64 = {"dense": (240, float.fromhex("0x1.107a2630170dfp+6")),
-              "int8": (240, float.fromhex("0x1.107a2630170dep+6"))}
+              "int8": (240, float.fromhex("0x1.107a2630170dep+6")),
+              "topk": (295, float.fromhex("0x1.107a279e9e656p+6")),
+              "lowrank": (240, float.fromhex("0x1.107a2630170dfp+6"))}
 # at f32 the run reaches the f32 noise floor near iteration 30, after which
 # eq. (8) compares rounding noise and the totals depend on the platform's
 # rounding: tests/test_backend.py pins XLA-CPU's, printed here beside ours
-GOLDEN_F32 = {"dense": 262, "int8": 259}
+GOLDEN_F32 = {"dense": 262, "int8": 259, "topk": 295, "lowrank": 262}
 GOLDEN_OBJECTIVE = float.fromhex("0x1.107a260000000p+6")
+GOLDEN_KW = {"dense": {}, "int8": {"quantize": "int8"},
+             "topk": {"transport": "topk", "k": 8},
+             "lowrank": {"transport": "lowrank", "rank": 2}}
+
+# top-k keeps 40% of the entries: the repo's density rule (2*d)//5 of
+# benchmarks/common.py's task-scaled top-k curve
+FULL_TOPK_K = (2 * FULL_D) // 5
+FULL_RANK = 2
+# the 12 parameter leaves of chb-paper-lm-124m (jax.eval_shape of
+# models.model.init_params), the tree the low-rank path runs on
+LM_LEAVES = {
+    "blocks.l0.ffn.wg": (12, 768, 3072), "blocks.l0.ffn.wi": (12, 768, 3072),
+    "blocks.l0.ffn.wo": (12, 3072, 768),
+    "blocks.l0.mixer.wk": (12, 768, 768), "blocks.l0.mixer.wo": (12, 768, 768),
+    "blocks.l0.mixer.wq": (12, 768, 768), "blocks.l0.mixer.wv": (12, 768, 768),
+    "blocks.l0.norm1.scale": (12, 768), "blocks.l0.norm2.scale": (12, 768),
+    "embed": (32768, 768), "final_norm.scale": (768,),
+    "lm_head": (768, 32768),
+}
 
 # H100 SXM device-memory rate (NVIDIA data sheet); the bound of every
 # kernel here is its bytes over this rate
@@ -78,6 +108,16 @@ SQNORM_RTOL = 1e-5
 KERNEL_META = {
     "censor_delta_sqnorm_batched": ("src/repro_torch/kernels/csrc/censor.cu",
                                     "src/repro/kernels/censor.py:131"),
+    "sqnorm_batched": ("src/repro_torch/kernels/csrc/censor.cu",
+                       "src/repro/kernels/censor.py:168"),
+    "bank_advance": ("src/repro_torch/kernels/csrc/censor.cu",
+                     "src/repro/kernels/censor.py:248"),
+    "hb_update": ("src/repro_torch/kernels/csrc/hb_update.cu",
+                  "src/repro/kernels/hb_update.py:41"),
+    "select_pack_ef_batched": ("src/repro_torch/kernels/csrc/topk_pack.cu",
+                               "src/repro/kernels/topk_pack.py:47"),
+    "residual_ef_batched": ("src/repro_torch/kernels/csrc/lowrank_ef.cu",
+                            "src/repro/kernels/lowrank_ef.py:43"),
     "fused_dense_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                          "src/repro/kernels/fused_step.py:126"),
     "int8_stats_batched": ("src/repro_torch/kernels/csrc/fused_step.cu",
@@ -169,6 +209,65 @@ def _masks(m, device):
             "ones": torch.ones(m, device=device), "mixed": mixed}
 
 
+def _keep(g: torch.Tensor, seed: int) -> torch.Tensor:
+    """0/1 top-k keep masks in g's dtype. g holds -0.0 on every 7th
+    column: columns 7, 21, ... keep theirs, 0, 14, ... drop it; a -0.0 in
+    the mask itself reads as "drop"."""
+    gen = torch.Generator(device=g.device).manual_seed(seed + 5)
+    keep = (torch.rand(g.shape, generator=gen, device=g.device) < 0.4
+            ).to(g.dtype)
+    keep[:, ::7] = 1.0
+    keep[:, ::14] = 0.0
+    keep[:, 3::29] = -0.0
+    return keep
+
+
+def _check_staged(g, h, e, keep, mask, mtag, ref, censor, topk_pack,
+                  lowrank_ef) -> None:
+    """B9, B10 and B11 against their plain versions under one mask:
+    bitwise, on repeat launches and on M=1 calls of each worker."""
+    m = g.shape[0]
+    calls = {  # kernel: (wrapper, plain, operands without the mask)
+        "B9": (censor.bank_advance, ref.bank_advance, (h, g)),
+        "B10": (topk_pack.select_pack_ef_batched, ref.select_pack_ef_batched,
+                (g, e, keep)),
+        # an arbitrary-float payload: the residual of a reconstruction
+        "B11": (lowrank_ef.residual_ef_batched, ref.residual_ef_batched,
+                (g, h, e)),
+    }
+    for kname, (fn, plain, ops) in calls.items():
+        out = fn(*ops, mask)
+        want = plain(*ops, mask)
+        outs = out if isinstance(out, tuple) else (out,)
+        wants = want if isinstance(want, tuple) else (want,)
+        check(all(same_bits(a, b) for a, b in zip(outs, wants)),
+              f"{kname} {mtag}")
+        again = fn(*ops, mask)
+        again = again if isinstance(again, tuple) else (again,)
+        check(all(same_bits(a, b) for a, b in zip(outs, again)),
+              f"{kname} repeat {mtag}")
+        for w in range(m):
+            one = fn(*(x[w:w + 1] for x in ops), mask[w:w + 1])
+            one = one if isinstance(one, tuple) else (one,)
+            check(all(same_bits(a, b[w:w + 1]) for a, b in zip(one, outs)),
+                  f"{kname} M=1 slice {w} {mtag}")
+
+
+def _check_rows(g, h, e, keep, tag, topk_pack, lowrank_ef) -> None:
+    """The ``*_row`` wrappers equal the batched call's worker slice under
+    the all-ones mask they pin."""
+    m = g.shape[0]
+    ones = torch.ones(m, device=g.device)
+    pay, ne = topk_pack.select_pack_ef_batched(g, e, keep, ones)
+    res = lowrank_ef.residual_ef_batched(g, h, e, ones)
+    for w in range(m):
+        rp, rn = topk_pack.select_pack_ef_row(g[w], e[w], keep[w])
+        check(same_bits(rp, pay[w]) and same_bits(rn, ne[w]),
+              f"B10 row {w} {tag}")
+        check(same_bits(lowrank_ef.residual_ef_row(g[w], h[w], e[w]),
+                        res[w]), f"B11 row {w} {tag}")
+
+
 def _rel_err(k: torch.Tensor, p: torch.Tensor) -> float:
     scale = torch.clamp(p.abs(), min=torch.finfo(torch.float32).tiny)
     return float(torch.max((k - p).abs() / scale))
@@ -179,7 +278,9 @@ def phase_kernels(device, ms=(1, 4, 9),
                   dtypes=(torch.float32, torch.float64)) -> dict:
     """Every kernel against its plain version; returns max abs errors."""
     from repro_torch.core.quantize import int8_scale
-    from repro_torch.kernels import censor, fused_step, ref
+    from repro_torch.kernels import (censor, fused_step, hb_update,
+                                     lowrank_ef, ref, topk_pack)
+    from repro_torch.opt import GradientDescent, HeavyBall
     max_err = {name: 0.0 for name in KERNEL_META}
     cases = 0
     alpha, beta = 0.0123, 0.4
@@ -205,6 +306,35 @@ def phase_kernels(device, ms=(1, 4, 9),
                                         g[w:w + 1], h[w:w + 1])),
                           f"B1 M=1 slice {w} {tag}")
 
+                # B8: on x = g - ghat it is B1, bit for bit
+                x = g - h
+                k8 = censor.sqnorm_batched(x)
+                pl = ref.sqnorm_batched(x)
+                check(_rel_err(k8, pl) <= SQNORM_RTOL, f"B8 sqnorm {tag}")
+                check(same_bits(k8, k), f"B8 on g - ghat != B1 {tag}")
+                max_err["sqnorm_batched"] = max(max_err["sqnorm_batched"],
+                                                float((k8 - pl).abs().max()))
+                check(same_bits(k8, censor.sqnorm_batched(x)),
+                      f"B8 repeat {tag}")
+                for w in range(m):
+                    check(same_bits(k8[w:w + 1],
+                                    censor.sqnorm_batched(x[w:w + 1])),
+                          f"B8 M=1 slice {w} {tag}")
+                del x
+
+                # B3, at beta > 0 and at the gd server's beta = 0
+                nab = g[0]
+                for a_, b_, server in ((alpha, beta, HeavyBall(alpha, beta)),
+                                       (alpha, 0.0, GradientDescent(alpha))):
+                    out = hb_update.hb_update(t, nab, p, a_, b_)
+                    check(same_bits(out, ref.hb_update(t, nab, p, a_, b_)),
+                          f"B3 beta={b_} {tag}")
+                    check(same_bits(out, server.apply(t, p, nab)),
+                          f"B3 beta={b_} != {type(server).__name__} {tag}")
+                    check(same_bits(out, hb_update.hb_update(t, nab, p, a_,
+                                                             b_)),
+                          f"B3 repeat beta={b_} {tag}")
+
                 # B5
                 sq, am = fused_step.int8_stats_batched(g, h, e)
                 sq_p, am_p = ref.int8_stats_batched(g, h, e)
@@ -225,6 +355,7 @@ def phase_kernels(device, ms=(1, 4, 9),
                 scale = int8_scale(am)
                 if m > 1 or n == 1:
                     check(float(scale[-1]) == 1.0, f"B5 zero row scale {tag}")
+                keep = _keep(g, seed)
 
                 for mname, mask in _masks(m, device).items():
                     mtag = f"{tag} mask={mname}"
@@ -265,7 +396,10 @@ def phase_kernels(device, ms=(1, 4, 9),
                         check(same_bits(one[0], out[0][w:w + 1])
                               and same_bits(one[1], out[1][w:w + 1]),
                               f"B6 M=1 slice {w} {mtag}")
+                    _check_staged(g, h, e, keep, mask, mtag, ref, censor,
+                                  topk_pack, lowrank_ef)
                     cases += 1
+                _check_rows(g, h, e, keep, tag, topk_pack, lowrank_ef)
     emit({"phase": "kernels", "cases": cases, "max_abs_err": max_err,
           "sqnorm_rtol": SQNORM_RTOL,
           "elementwise": "bitwise, including the sign of zero"})
@@ -343,12 +477,12 @@ def phase_golden(device) -> None:
     bundle = paper_tasks.make_linear_regression(m=5, n_per=30, d=20, seed=0,
                                                 device=device)
     out = {}
-    for kind, quant in (("dense", None), ("int8", "int8")):
+    for kind, kw in GOLDEN_KW.items():
         hist, recs = {}, {}
         for prec, dtype in (("f64", torch.float64), ("f32", torch.float32)):
             for backend in ("cuda", "reference"):
                 rec = StepRecorder(opt.make("chb", bundle.alpha_paper, 5,
-                                            quantize=quant, backend=backend))
+                                            backend=backend, **kw))
                 th = ThetaRecorder(simulator.task_to(bundle.task,
                                                      dtype=dtype))
                 hist[prec, backend] = simulator.run(rec, th.task, 60,
@@ -368,18 +502,24 @@ def phase_golden(device) -> None:
         h64, h32 = hist["f64", "cuda"], hist["f32", "cuda"]
         comm64, obj64 = int(h64.comm_cum[-1]), float(h64.objective[-1])
         want64, want_obj64 = GOLDEN_F64[kind]
-        check(comm64 == want64, f"golden {kind} f64: {comm64} uploads, "
-              f"the JAX package gives {want64}")
+        check(comm64 == want64 == int(h64.mask.sum()),
+              f"golden {kind} f64: {comm64} uploads, the JAX package "
+              f"gives {want64}")
         check(abs(obj64 - want_obj64) <= 1e-9 * want_obj64,
               f"golden {kind} f64: objective {obj64!r}")
         obj32 = float(h32.objective[-1])
         check(abs(obj32 - GOLDEN_OBJECTIVE) <= 1e-4 * GOLDEN_OBJECTIVE,
               f"golden {kind} f32: objective {obj32!r}")
         floor = _noise_floor(*recs["f32", "cuda"])
-        check(floor >= 20, f"golden {kind} f32: noise floor at {floor}")
-        check(torch.equal(h32.mask[:floor], h64.mask[:floor]),
-              f"golden {kind}: f32 masks leave the f64 run's before the "
-              f"f32 noise floor ({floor})")
+        if kind != "topk":
+            # top-k's deferred mass keeps its steps above the 256-ulp floor
+            # to the end, so the rule has no floor to hold it to; an f32
+            # top-k choice between two near-equal entries may differ from
+            # the f64 one, and its masks are only printed
+            check(floor >= 20, f"golden {kind} f32: noise floor at {floor}")
+            check(torch.equal(h32.mask[:floor], h64.mask[:floor]),
+                  f"golden {kind}: f32 masks leave the f64 run's before "
+                  f"the f32 noise floor ({floor})")
         out[kind] = {"f64_comm_cum": comm64, "f64_objective": obj64,
                      "f32_comm_cum": int(h32.comm_cum[-1]),
                      "f32_jax_pin": GOLDEN_F32[kind], "f32_objective": obj32,
@@ -392,22 +532,95 @@ def phase_golden(device) -> None:
 
 
 # ------------------------------------------------------------ phase 5
+# the kernels each path launches per step, per leaf: one leaf for dense,
+# int8 and top-k, the model's 12 for low-rank
+PATH_KERNELS = {
+    "dense": ("censor_delta_sqnorm_batched", "fused_dense_step"),
+    "int8": ("int8_stats_batched", "fused_int8_step"),
+    "topk": ("sqnorm_batched", "select_pack_ef_batched", "bank_advance",
+             "hb_update"),
+    "lowrank": ("sqnorm_batched", "residual_ef_batched", "bank_advance",
+                "hb_update"),
+}
+
+
+def _lm_grad(theta, data):
+    a, c = data
+    return {k: a.view((-1,) + (1,) * x.dim()) * (x - c[k])
+            for k, x in theta.items()}
+
+
+def _lm_loss(theta, data):
+    a, c = data
+    total = torch.zeros_like(a)
+    for k, x in theta.items():
+        r = x - c[k]
+        total = total + 0.5 * a * torch.sum(r * r, dim=tuple(
+            range(1, r.dim())))
+    return total
+
+
+def lm_tree_task(task):
+    """The edge quadratics viewed as the 12 leaves of chb-paper-lm-124m.
+
+    The gradient of ``0.5*a_m*||theta - c_m||^2`` is elementwise, so each
+    leaf's gradient is the flat task's on that leaf's span of the centers:
+    the same objective with the same f*. The centers are views of the flat
+    task's, so the view costs no memory.
+    """
+    from repro_torch.core.simulator import FedTask
+    a, c = task.worker_data
+    m, off, centers, init = c.shape[0], 0, {}, {}
+    for name, shape in LM_LEAVES.items():
+        size = math.prod(shape)
+        centers[name] = c[:, off:off + size].view((m,) + shape)
+        init[name] = torch.zeros(shape, dtype=c.dtype, device=c.device)
+        off += size
+    check(off == c.shape[1], f"the model's leaves hold {off} parameters, "
+          f"the task {c.shape[1]}")
+    return FedTask(init_params=init, grad_fn=_lm_grad, loss_fn=_lm_loss,
+                   worker_data=(a, centers), name="edge_quadratics_lm_tree")
+
+
+def lowrank_payload_bytes(rank: int) -> int:
+    """Bytes of one low-rank transmission of the model's leaves: two
+    factors of rank min(rank, rows, cols) per matrix leaf (rows =
+    shape[0]), a vector leaf dense."""
+    total = 0
+    for shape in LM_LEAVES.values():
+        if len(shape) >= 2:
+            r, c = shape[0], math.prod(shape[1:])
+            total += min(rank, r, c) * (r + c) * 4
+        else:
+            total += math.prod(shape) * 4
+    return total
+
+
 def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
+    """Each path at full width on both backends; returns each path's
+    launch counts."""
     from repro_torch import opt
     from repro_torch.core import simulator
     from repro_torch.data import edge_tasks
     from repro_torch.kernels import common
     t0 = time.perf_counter()
-    task = edge_tasks.make_edge_quadratics(m=m, d=d, seed=0,
+    flat = edge_tasks.make_edge_quadratics(m=m, d=d, seed=0,
                                            dtype=torch.float32)
-    fstar = edge_tasks.edge_quadratics_fstar(task)
+    fstar = edge_tasks.edge_quadratics_fstar(flat)
     setup_s = time.perf_counter() - t0
-    payload = {None: 4 * d, "int8": d + 4}
-    runs = {}
+    tree = lm_tree_task(flat)
+    paths = {  # path: (opt.make keywords, task, bytes of one transmission)
+        "dense": ({}, flat, 4 * d),
+        "int8": ({"quantize": "int8"}, flat, d + 4),
+        "topk": ({"transport": "topk", "k": FULL_TOPK_K}, flat,
+                 FULL_TOPK_K * (4 + 4)),
+        "lowrank": ({"transport": "lowrank", "rank": FULL_RANK}, tree,
+                    lowrank_payload_bytes(FULL_RANK)),
+    }
 
-    def one_run(quant, backend):
+    def one_run(kw, task, backend):
         rec = StepRecorder(opt.make("chb", FULL_ALPHA, m, eps1=FULL_EPS1,
-                                    quantize=quant, backend=backend))
+                                    backend=backend, **kw))
         torch.cuda.synchronize()
         t = time.perf_counter()
         hist = simulator.run(rec, task, iters)
@@ -418,7 +631,7 @@ def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
             "mask": hist.mask.cpu(), "comm_cum": hist.comm_cum.cpu(),
             "uplink_count": comm.uplink_count.cpu(),
             "uplink_bytes": comm.uplink_bytes_exact(),
-            "theta": hist.final_params,
+            "theta": tree_leaves(hist.final_params),
             "objective": float(hist.objective[-1]),
             "step_ms": rec.median_ms(), "wall_s": wall,
             "min_margin": rec.min_margin(FULL_EPS1),
@@ -427,51 +640,63 @@ def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
         torch.cuda.empty_cache()
         return res
 
-    common.reset_launches()
-    for quant in (None, "int8"):
-        runs[(quant, "cuda")] = one_run(quant, "cuda")
-    launches = dict(common.LAUNCHES)
-    for quant in (None, "int8"):
-        runs[(quant, "reference")] = one_run(quant, "reference")
-    check(common.LAUNCHES == launches,
-          "the reference backend launched a kernel")
-    for name in common.KERNELS:
-        check(launches[name] == iters,
-              f"{name} launched {launches[name]} times, want {iters}")
-
-    summary = {}
-    for quant in (None, "int8"):
-        k, r = runs[(quant, "cuda")], runs[(quant, "reference")]
-        kind = quant or "dense"
+    summary, launches = {}, {}
+    for kind, (kw, task, payload) in paths.items():
+        common.reset_launches()
+        k = one_run(kw, task, "cuda")
+        launches[kind] = dict(common.LAUNCHES)
+        common.reset_launches()
+        r = one_run(kw, task, "reference")
+        check(not any(common.LAUNCHES.values()),
+              f"full {kind}: the reference backend launched a kernel")
+        per_step = len(tree_leaves(task.init_params))
+        want_launches = {name: (iters * per_step
+                                if name in PATH_KERNELS[kind] else 0)
+                         for name in common.KERNELS}
+        check(launches[kind] == want_launches,
+              f"full {kind}: launches {launches[kind]}, want "
+              f"{want_launches}")
         check(torch.equal(k["mask"], r["mask"]), f"full {kind}: masks")
         check(torch.equal(k["comm_cum"], r["comm_cum"]),
               f"full {kind}: comm_cum")
         check(torch.equal(k["uplink_count"], r["uplink_count"]),
               f"full {kind}: uplink_count")
         sent = int(k["mask"].sum())
-        want = sent * payload[quant]
+        want = sent * payload
         check(k["uplink_bytes"] == want == r["uplink_bytes"],
               f"full {kind}: uplink bytes {k['uplink_bytes']} != {want}")
-        check(want > 2 ** 31, f"full {kind}: {want} bytes do not pass 2^31")
-        theta_rel = float((k["theta"] - r["theta"]).abs().max()
-                          / r["theta"].abs().max())
-        check(theta_rel <= 1e-5, f"full {kind}: theta rel {theta_rel}")
-        check(all(x == x for x in (k["objective"], r["objective"])),
-              f"full {kind}: objective is NaN")
+        bitwise = all(same_bits(a, b) for a, b in zip(k["theta"],
+                                                      r["theta"]))
+        theta_rel = max(float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(k["theta"], r["theta"]))
+        if kind in ("dense", "int8"):
+            check(want > 2 ** 31,
+                  f"full {kind}: {want} bytes do not pass 2^31")
+            check(theta_rel <= 1e-5, f"full {kind}: theta rel {theta_rel}")
+        else:
+            check(bitwise, f"full {kind}: final theta differs between "
+                  f"backends (max rel {theta_rel})")
+        check(all(math.isfinite(x) for x in (k["objective"],
+                                             r["objective"])),
+              f"full {kind}: objective is not finite")
         summary[kind] = {
             "uploads": sent, "uplink_bytes": k["uplink_bytes"],
-            "payload_bytes": payload[quant],
-            "theta_max_rel_diff": theta_rel,
+            "payload_bytes": payload, "leaves": per_step,
+            "theta_bitwise": bitwise, "theta_max_rel_diff": theta_rel,
             "min_eq8_margin": min(k["min_margin"], r["min_margin"]),
             "objective": k["objective"],
             "fstar_rel_gap": (k["objective"] - fstar) / fstar,
             "step_ms_cuda": k["step_ms"], "step_ms_reference": r["step_ms"],
             "wall_s_cuda": k["wall_s"], "wall_s_reference": r["wall_s"],
+            "launches": {n: c for n, c in launches[kind].items() if c},
         }
-    del runs, task
+        del k, r
+        torch.cuda.empty_cache()
+    del paths, tree, flat
     torch.cuda.empty_cache()
     emit({"phase": "full", "d": d, "m": m, "iters": iters,
-          "setup_s": setup_s, "launches": launches, **summary})
+          "topk_k": FULL_TOPK_K, "lowrank_rank": FULL_RANK,
+          "setup_s": setup_s, **summary})
     return launches
 
 
@@ -492,67 +717,107 @@ def _time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def phase_timing(launches, max_err, d=FULL_D, m=FULL_M) -> list:
+def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
+    """Each kernel at the full-width shape (B3 at n, the rest at M x n):
+    its time, its plain version's, one PyTorch call's where one computes
+    the same function, and its bound. ``launches`` maps each path to its
+    kernels' counts from phase 5."""
     from repro_torch.core.quantize import int8_scale
-    from repro_torch.kernels import censor, fused_step, ref
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(7)
+    from repro_torch.kernels import (censor, fused_step, hb_update,
+                                     lowrank_ef, ref, topk_pack)
+    gen = torch.Generator(device=device).manual_seed(7)
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+        return torch.randn(shape, generator=gen, device=device)
 
     g, h, e = randn(m, d), randn(m, d), randn(m, d) * 0.01
     t, p = randn(d), randn(d)
-    mask = torch.tensor([1.0, 0.0] * (m // 2) + [1.0] * (m % 2), device=dev)
+    keep = (randn(m, d) > 0.2533).to(torch.float32)   # about 40% kept
+    mask = torch.tensor([1.0, 0.0] * (m // 2) + [1.0] * (m % 2),
+                        device=device)
     scale = int8_scale(ref.absmax_batched((g - h) + e))
+    nab = g[0]
     el = 4                                             # f32 bytes
-    work = {   # name: (kernel, plain, bytes moved, f32 operations)
+    work = {   # name: (kernel, plain, library call or None, bytes moved,
+               #        f32 operations)
         "censor_delta_sqnorm_batched": (
             lambda: censor.censor_delta_sqnorm_batched(g, h),
-            lambda: ref.censor_delta_sqnorm_batched(g, h),
+            lambda: ref.censor_delta_sqnorm_batched(g, h), None,
             2 * m * d * el + 4 * m, 3 * m * d),
         "fused_dense_step": (
             lambda: fused_step.fused_dense_step(g, h, t, p, mask, 0.1, 0.4),
-            lambda: ref.fused_dense_step(g, h, t, p, mask, 0.1, 0.4),
+            lambda: ref.fused_dense_step(g, h, t, p, mask, 0.1, 0.4), None,
             ((2 * m + 2) + (m + 2)) * d * el + 4 * m, (4 * m + 5) * d),
         "int8_stats_batched": (
             lambda: fused_step.int8_stats_batched(g, h, e),
-            lambda: ref.int8_stats_batched(g, h, e),
+            lambda: ref.int8_stats_batched(g, h, e), None,
             3 * m * d * el + 8 * m, 6 * m * d),
         "fused_int8_step": (
             lambda: fused_step.fused_int8_step(g, h, e, t, p, mask, scale,
                                                0.1, 0.4),
             lambda: ref.fused_int8_step(g, h, e, t, p, mask, scale, 0.1,
-                                        0.4),
+                                        0.4), None,
             ((3 * m + 2) + (2 * m + 2)) * d * el + 8 * m, (16 * m + 5) * d),
+        "sqnorm_batched": (
+            lambda: censor.sqnorm_batched(g),
+            lambda: ref.sqnorm_batched(g),
+            lambda: torch.linalg.vecdot(g, g),
+            m * d * el + 4 * m, 2 * m * d),
+        "bank_advance": (
+            lambda: censor.bank_advance(h, g, mask),
+            lambda: ref.bank_advance(h, g, mask),
+            lambda: torch.addcmul(h, mask[:, None], g),
+            3 * m * d * el + 4 * m, 2 * m * d),
+        "hb_update": (
+            lambda: hb_update.hb_update(t, nab, p, 0.1, 0.4),
+            lambda: ref.hb_update(t, nab, p, 0.1, 0.4), None,
+            4 * d * el, 5 * d),
+        "select_pack_ef_batched": (
+            lambda: topk_pack.select_pack_ef_batched(g, e, keep, mask),
+            lambda: ref.select_pack_ef_batched(g, e, keep, mask), None,
+            5 * m * d * el + 4 * m, 5 * m * d),
+        "residual_ef_batched": (
+            lambda: lowrank_ef.residual_ef_batched(g, h, e, mask),
+            lambda: ref.residual_ef_batched(g, h, e, mask), None,
+            4 * m * d * el + 4 * m, 5 * m * d),
     }
     rows = []
-    for name, (kfn, pfn, nbytes, ops) in work.items():
+    for name, (kfn, pfn, lfn, nbytes, ops) in work.items():
         ms = _time_ms(kfn, 10)
         plain_ms = _time_ms(pfn, 3)
+        library_ms = None if lfn is None else _time_ms(lfn, 10)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_FLOPS * 1e3
         src, replaces = KERNEL_META[name]
+        by_path = {path: c[name] for path, c in launches.items()
+                   if c[name]}
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "bytes": nbytes,
-            "shape": f"M={m} n={d} float32"})
+            "library_ms": library_ms, "launches_by_path": by_path,
+            "bytes": nbytes,
+            "shape": (f"n={d} float32" if name == "hb_update"
+                      else f"M={m} n={d} float32")})
         torch.cuda.empty_cache()
     return rows
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     phase_device()
+    # the low-rank factors are plain matmuls: full f32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_build()
     dev = torch.device("cuda")
     max_err = phase_kernels(dev)
     phase_golden(dev)
     launches = phase_full()
-    rows = phase_timing(launches, max_err)
+    rows = phase_timing(dev, launches, max_err)
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("censor", "fused_step")
+SOURCES = ("censor", "fused_step", "hb_update", "topk_pack", "lowrank_ef")
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
@@ -38,20 +38,28 @@ _REDUCE_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _I64, _I64, _P)
 _DENSE_ARGS = (_DEV,) + (_P,) * 8 + (_I64, _I64, _F64, _F64, _P)
 _STATS_ARGS = (_DEV,) + (_P,) * 7 + (_I64, _I64, _I64, _P)
 _INT8_ARGS = (_DEV,) + (_P,) * 11 + (_I64, _I64, _F64, _F64, _P)
+_SQNORM_ARGS = (_DEV,) + (_P,) * 3 + (_I64, _I64, _I64, _P)
+_BANK_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _I64, _P)
+_HB_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _F64, _F64, _P)
+_PACK_ARGS = (_DEV,) + (_P,) * 6 + (_I64, _I64, _P)
+_RESIDUAL_ARGS = (_DEV,) + (_P,) * 5 + (_I64, _I64, _P)
+
+
+def _both(name: str, argtypes: tuple) -> dict:
+    """The f32 and f64 launchers of one kernel."""
+    return {f"{name}_{s}": argtypes for s in ("f32", "f64")}
+
 
 SIGNATURES = {
-    "censor": {
-        "censor_delta_sqnorm_batched_f32": _REDUCE_ARGS,
-        "censor_delta_sqnorm_batched_f64": _REDUCE_ARGS,
-    },
-    "fused_step": {
-        "fused_dense_step_f32": _DENSE_ARGS,
-        "fused_dense_step_f64": _DENSE_ARGS,
-        "int8_stats_batched_f32": _STATS_ARGS,
-        "int8_stats_batched_f64": _STATS_ARGS,
-        "fused_int8_step_f32": _INT8_ARGS,
-        "fused_int8_step_f64": _INT8_ARGS,
-    },
+    "censor": {**_both("censor_delta_sqnorm_batched", _REDUCE_ARGS),
+               **_both("sqnorm_batched", _SQNORM_ARGS),
+               **_both("bank_advance", _BANK_ARGS)},
+    "fused_step": {**_both("fused_dense_step", _DENSE_ARGS),
+                   **_both("int8_stats_batched", _STATS_ARGS),
+                   **_both("fused_int8_step", _INT8_ARGS)},
+    "hb_update": _both("hb_update", _HB_ARGS),
+    "topk_pack": _both("select_pack_ef_batched", _PACK_ARGS),
+    "lowrank_ef": _both("residual_ef_batched", _RESIDUAL_ARGS),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -13,7 +13,9 @@ from __future__ import annotations
 import torch
 
 KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
-           "int8_stats_batched", "fused_int8_step")
+           "int8_stats_batched", "fused_int8_step", "sqnorm_batched",
+           "bank_advance", "hb_update", "select_pack_ef_batched",
+           "residual_ef_batched")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -65,6 +67,15 @@ def check_bank(name: str, *tensors: torch.Tensor) -> str:
         raise TypeError(f"{name}: bank dtype {dtype} is not supported "
                         "(the kernels take float32 and float64)")
     return KERNEL_DTYPES[dtype]
+
+
+def check_leaves(name: str, *xs: torch.Tensor) -> str:
+    """Operands share one (M, ...) shape and one kernel dtype; returns its
+    suffix."""
+    if xs[0].dim() < 1 or any(x.shape != xs[0].shape for x in xs):
+        raise ValueError(f"{name}: operands must share one (M, ...) shape, "
+                         f"got {[tuple(x.shape) for x in xs]}")
+    return check_bank(name, *xs)
 
 
 def check_worker_vector(name: str, what: str, v: torch.Tensor,

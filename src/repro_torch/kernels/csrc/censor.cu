@@ -1,19 +1,32 @@
-// B1: per-worker eq.-(8) norms sum_j (g[m,j] - ghat[m,j])^2 of one (M, n)
-// bank leaf. The subtraction runs in the bank dtype, the square-sum in f32.
+// The censor kernels of one (M, n) bank leaf, on Hopper.
 //
-// Replaces the TPU kernel src/repro/kernels/censor.py:censor_delta_sqnorm_batched.
+//   B1 censor_delta_sqnorm_batched replaces src/repro/kernels/censor.py:censor_delta_sqnorm_batched
+//   B8 sqnorm_batched              replaces src/repro/kernels/censor.py:sqnorm_batched
+//   B9 bank_advance                replaces src/repro/kernels/censor.py:bank_advance
 //
-// Bound: bytes. It reads 2*M*n elements once and writes M floats; an f32
-// leaf at M=4, n=163,597,056 (5.23 GB) needs at least 1.56 ms at an H100
-// SXM's 3.35 TB/s. The 3 flops an element are far below the f32 rate.
+// B1 gives the per-worker eq.-(8) norms sum_j (g[m,j] - ghat[m,j])^2, the
+// subtraction in the bank dtype and the square-sum in f32. B8 gives the
+// same sum of a pending delta already in memory (the stateful transports'
+// staged step), and B9 advances the bank by an encoded payload,
+// ghat + m*payload.
 //
-// Design: pass 1 gives each (chunk, worker) block kChunk contiguous
-// elements with coalesced loads (neighbouring threads on neighbouring
-// addresses, kItems independent loads in flight per thread) and writes one
-// f32 partial in a fixed tree order; pass 2 (finish_partials) folds each
-// worker's partials in a fixed order. No atomics: the same input gives the
-// same bits on every launch, and since a worker's chunks depend only on n,
-// the M=1 call on one worker equals that worker's slice of a batched call.
+// Bound: bytes, for all three (a handful of flops an element). At M=4,
+// n=163,597,056 in f32 on an H100 SXM (3.35 TB/s):
+//   B1 reads 2*M*n elements and writes M floats:   5.23 GB, >= 1.56 ms;
+//   B8 reads M*n elements and writes M floats:     2.62 GB, >= 0.78 ms;
+//   B9 reads 2*M*n elements and writes M*n:        7.85 GB, >= 2.34 ms.
+//
+// Design: pass 1 of B1 and B8 gives each (chunk, worker) block kChunk
+// contiguous elements with coalesced loads (neighbouring threads on
+// neighbouring addresses, kItems independent loads in flight per thread)
+// and writes one f32 partial in a fixed tree order; pass 2
+// (finish_partials) folds each worker's partials in a fixed order. No
+// atomics: the same input gives the same bits on every launch, and since a
+// worker's chunks depend only on n, the M=1 call on one worker equals that
+// worker's slice of a batched call. B8 squares (float)x where B1 squares
+// (float)(g - ghat) with the same chunks and tree, so B8 on g - ghat equals
+// B1 on (g, ghat) bit for bit. B9 is one grid-stride pass in which each
+// thread owns a column and walks the workers, every row access coalesced.
 #include "reduce.cuh"
 
 using namespace repro;
@@ -55,6 +68,64 @@ static int launch_delta_sqnorm(const void* g, const void* h, void* part, void* o
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sqnorm_partials(const T* __restrict__ x, float* __restrict__ part, int64_t n, int64_t nchunks) {
+  __shared__ float scratch[kThreads / 32];
+  const int64_t w = blockIdx.y;
+  const int64_t c = blockIdx.x;
+  const T* xw = x + w * n;
+  const int64_t base = c * kChunk + threadIdx.x;
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int64_t j = base + (int64_t)k * kThreads;
+    if (j < n) {
+      const float d = (float)xw[j];
+      acc = add(acc, mul(d, d));
+    }
+  }
+  acc = block_reduce(acc, 0.0f, SumOp(), scratch);
+  if (threadIdx.x == 0) part[w * nchunks + c] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bank_advance_kernel(const T* __restrict__ h, const T* __restrict__ q,
+                    const float* __restrict__ mask, T* __restrict__ out, int64_t m, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x; j < n; j += stride) {
+    for (int64_t w = 0; w < m; ++w) {
+      const int64_t o = w * n + j;
+      // the arithmetic mask form ghat + mk * payload
+      out[o] = add(h[o], mul((T)mask[w], q[o]));
+    }
+  }
+}
+
+template <typename T>
+static int launch_sqnorm(const void* x, void* part, void* out, int64_t m, int64_t n,
+                         int64_t nchunks, void* stream) {
+  if (!reduction_shape_ok(m, n, nchunks)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  sqnorm_partials<T><<<dim3((unsigned)nchunks, (unsigned)m), kThreads, 0, s>>>(
+      (const T*)x, (float*)part, n, nchunks);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  finish_partials<float, SumOp><<<(unsigned)m, kThreads, 0, s>>>(
+      (const float*)part, (float*)out, nchunks, 0.0f);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_bank_advance(const void* h, const void* q, const void* mask, void* out,
+                               int64_t m, int64_t n, void* stream) {
+  if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  bank_advance_kernel<T><<<elementwise_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)h, (const T*)q, (const float*)mask, (T*)out, m, n);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 int censor_delta_sqnorm_batched_f32(int device, const void* g, const void* h, void* part, void* out,
@@ -69,6 +140,34 @@ int censor_delta_sqnorm_batched_f64(int device, const void* g, const void* h, vo
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
   return launch_delta_sqnorm<double>(g, h, part, out, m, n, nchunks, stream);
+}
+
+int sqnorm_batched_f32(int device, const void* x, void* part, void* out, int64_t m, int64_t n,
+                       int64_t nchunks, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_sqnorm<float>(x, part, out, m, n, nchunks, stream);
+}
+
+int sqnorm_batched_f64(int device, const void* x, void* part, void* out, int64_t m, int64_t n,
+                       int64_t nchunks, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_sqnorm<double>(x, part, out, m, n, nchunks, stream);
+}
+
+int bank_advance_f32(int device, const void* h, const void* q, const void* mask, void* out,
+                     int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_bank_advance<float>(h, q, mask, out, m, n, stream);
+}
+
+int bank_advance_f64(int device, const void* h, const void* q, const void* mask, void* out,
+                     int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_bank_advance<double>(h, q, mask, out, m, n, stream);
 }
 
 }  // extern "C"

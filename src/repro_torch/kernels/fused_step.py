@@ -8,9 +8,9 @@ bank advance, the eq.-(5) worker sum and the eq.-(4) update. CPU tensors
 run ``ref``'s plain versions; CUDA tensors launch the kernels.
 
 ``alpha``/``beta`` reach the kernels as runtime arguments, so no
-hyperparameter value is compiled into a kernel. The staged route of the
-JAX package (``force_staged``) needs the staged kernels B3, B4 and B7-B9,
-which are not ported yet.
+hyperparameter value is compiled into a kernel. The staged dense and int8
+route of the JAX package (``force_staged``) needs the staged kernels B4,
+B7a and B7b, which are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,10 +24,12 @@ from .common import (check_bank, check_worker_vector, count_launch,
 
 
 def force_staged():
-    """The staged kernel route: not ported (it needs B3, B4, B7-B9)."""
+    """The staged dense/int8 kernel route: not ported (it needs B4, B7)."""
     raise NotImplementedError(
-        "the staged kernel route needs B3/B4/B7-B9, which are not ported "
-        "yet (ROADMAP B); the cuda backend runs the fused route only")
+        "the staged dense/int8 kernel route needs B4 (censor_bank_advance) "
+        "and B7 (absmax_batched, quantize_ef_batched), which are not "
+        "ported yet (ROADMAP B); the cuda backend runs dense and int8 on "
+        "the fused route only")
 
 
 def _check_step(name, g, ghat, theta, theta_prev, *banks):

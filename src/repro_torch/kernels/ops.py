@@ -1,6 +1,8 @@
 """Tree-level dispatch onto the kernels (port of ``repro/kernels/ops.py``'s
-``tree_delta_sqnorms``, ``tree_fused_dense_step``, ``tree_int8_stats`` and
-``tree_fused_int8_step``): what the ``backend="cuda"`` optimizer runs.
+``tree_delta_sqnorms``, ``tree_sqnorms``, ``tree_bank_advance``,
+``tree_topk_pack_ef``, ``tree_residual_ef``, ``tree_fused_dense_step``,
+``tree_int8_stats``, ``tree_fused_int8_step`` and ``tree_hb_update``): what
+the ``backend="cuda"`` optimizer runs.
 
 Per-leaf (M,) partials accumulate leaf by leaf, ``acc = acc + partial``
 in f32, in tree order, exactly as the JAX dispatch does.
@@ -10,8 +12,8 @@ from __future__ import annotations
 import torch
 
 from ..core.quantize import int8_scale
-from ..tree import tree_flatten, tree_leaves, tree_unflatten
-from . import censor, fused_step
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from . import censor, fused_step, hb_update, lowrank_ef, topk_pack
 
 
 def tree_delta_sqnorms(grads, bank) -> torch.Tensor:
@@ -23,6 +25,46 @@ def tree_delta_sqnorms(grads, bank) -> torch.Tensor:
     for g, h in zip(leaves_g, leaves_h):
         acc = acc + censor.censor_delta_sqnorm_batched(g, h)
     return acc
+
+
+def tree_sqnorms(pending) -> torch.Tensor:
+    """(M,) per-worker ||x_m||^2 of a materialized pending tree (B8 per
+    leaf)."""
+    leaves = tree_leaves(pending)
+    acc = torch.zeros((leaves[0].shape[0],), dtype=torch.float32,
+                      device=leaves[0].device)
+    for x in leaves:
+        acc = acc + censor.sqnorm_batched(x)
+    return acc
+
+
+def tree_bank_advance(bank, payload, mask):
+    """``ghat + mask * payload`` per leaf (B9)."""
+    return tree_map(lambda h, q: censor.bank_advance(h, q, mask),
+                    bank, payload)
+
+
+def tree_topk_pack_ef(pending, err, keep, mask):
+    """B10 per leaf. Returns ``(payload, new_err)`` trees."""
+    leaves_p, treedef = tree_flatten(pending)
+    outs = [topk_pack.select_pack_ef_batched(p, e, kp, mask)
+            for p, e, kp in zip(leaves_p, tree_leaves(err),
+                                tree_leaves(keep))]
+    return tuple(tree_unflatten(treedef, [o[i] for o in outs])
+                 for i in range(2))
+
+
+def tree_residual_ef(pending, payload, err, mask):
+    """``mask*(pending - payload) + (1 - mask)*err`` per leaf (B11)."""
+    return tree_map(lambda p, q, e: lowrank_ef.residual_ef_batched(
+        p, q, e, mask), pending, payload, err)
+
+
+def tree_hb_update(params, prev_params, agg, alpha, beta):
+    """The eq.-(4) server update per leaf (B3); gd is ``beta = 0``."""
+    return tree_map(lambda t, tp, g: hb_update.hb_update(t, g, tp, alpha,
+                                                         beta),
+                    params, prev_params, agg)
 
 
 def tree_fused_dense_step(grads, bank, params, prev_params, mask, alpha,

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the kernels (the correctness contract).
 
-A line-for-line port of ``repro/kernels/ref.py`` for B1, B2, B5 and B6, in
-the same operation order and dtypes. One deliberate difference: the worker
-sum is a left fold from ``ghat'_0`` (``core.util.tree_sum_leading``), not
+A line-for-line port of ``repro/kernels/ref.py`` for B1, B2, B3, B5, B6
+and B8-B11, in the same operation order and dtypes. One deliberate
+difference: the worker sum is a left fold from ``ghat'_0`` (``core.util.tree_sum_leading``), not
 ``jnp.sum(axis=0)``, because the CUDA kernels fold in that order and must
 equal these functions bit for bit on the card. The wrappers in
-``censor.py``/``fused_step.py`` run these on CPU tensors.
+``censor.py``, ``fused_step.py``, ``hb_update.py``, ``topk_pack.py`` and
+``lowrank_ef.py`` run these on CPU tensors.
 """
 from __future__ import annotations
 
@@ -63,6 +64,29 @@ def quantize_ef_batched(pending: torch.Tensor, err: torch.Tensor,
     new_err = mk * (pending - payload) \
         + (1.0 - mk) * err.to(pending.dtype)
     return payload, new_err
+
+
+def select_pack_ef_batched(pending: torch.Tensor, err: torch.Tensor,
+                           keep: torch.Tensor, mask: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(payload, new_err) of the top-k select/pack + EF sweep.
+
+    The payload is a ``where`` select (not a multiply: ``x * 0`` flips
+    negative zeros)."""
+    payload = torch.where(keep != 0, pending, torch.zeros_like(pending))
+    mk = _bcast(mask, pending)
+    new_err = mk * (pending - payload) \
+        + (1.0 - mk) * err.to(pending.dtype)
+    return payload, new_err
+
+
+def residual_ef_batched(pending: torch.Tensor, payload: torch.Tensor,
+                        err: torch.Tensor, mask: torch.Tensor
+                        ) -> torch.Tensor:
+    """Masked EF residual: ``mk*(pending - payload) + (1-mk)*err``."""
+    mk = _bcast(mask, pending)
+    return mk * (pending - payload.to(pending.dtype)) \
+        + (1.0 - mk) * err.to(pending.dtype)
 
 
 def hb_update(theta: torch.Tensor, nabla: torch.Tensor,

@@ -11,12 +11,14 @@ from .registry import (BACKEND_ALIASES, CENSOR_KINDS, SERVER_KINDS,
                        TRANSPORT_KINDS, from_spec, make, make_transport,
                        names, register, to_spec)
 from .server import GradientDescent, HeavyBall
-from .transport import DenseTransport, Int8Transport
+from .transport import (DenseTransport, Int8Transport, LowRankTransport,
+                        TopKTransport, tree_topk_keep)
 
 __all__ = [
     "OptState", "StepStats", "static_pos",
     "NeverCensor", "Eq8Censor",
-    "DenseTransport", "Int8Transport",
+    "DenseTransport", "Int8Transport", "TopKTransport", "LowRankTransport",
+    "tree_topk_keep",
     "GradientDescent", "HeavyBall",
     "ComposedOptimizer", "BACKENDS", "BACKEND_ALIASES",
     "register", "make", "names", "to_spec", "from_spec", "make_transport",

@@ -6,15 +6,20 @@ Two backends:
   * ``"reference"`` -- plain PyTorch stage calls (``_step``, a port of the
     JAX reference step);
   * ``"cuda"`` -- the kernel step (``_step_kernels``, a port of the JAX
-    package's fused ``_step_pallas`` route): per parameter leaf one
-    reduction (B1 for dense, B5 for int8) feeds the censor decision, then
-    one fused pass (B2 / B6) advances the bank, sums the workers and
-    applies eq. (4). On CPU tensors the kernel wrappers run their plain
-    versions, so this backend also runs, and is tested, on the CPU.
+    package's ``_step_pallas``). Dense and int8 take the fused route: per
+    parameter leaf one reduction (B1 for dense, B5 for int8) feeds the
+    censor decision, then one fused pass (B2 / B6) advances the bank, sums
+    the workers and applies eq. (4). Top-k, low-rank and any other
+    stateful transport with ``encode_feedback_cuda`` take the staged
+    route: the pending tree in plain torch, its norms (B8), the
+    transport's encode + EF tail (B10 / B11), the bank advance (B9), the
+    worker sum and ``apply_server`` (B3). On CPU tensors the kernel
+    wrappers run their plain versions, so this backend also runs, and is
+    tested, on the CPU.
 
 Not ported yet: ``per_tensor`` granularity (ROADMAP A6), ``shard_step``
-(A10), the staged kernel route and ``apply_server`` on the kernel backend
-(B3/B4/B7-B9).
+(A10) and the staged dense/int8 route (``fused_step.force_staged``, which
+needs B4 and B7).
 """
 from __future__ import annotations
 
@@ -66,11 +71,17 @@ class ComposedOptimizer:
         if self.granularity != "global":
             raise ValueError(f"unknown granularity {self.granularity!r}")
         if self.backend == "cuda":
-            if type(self.transport) not in (DenseTransport, Int8Transport):
+            # the fused route implements dense and int8 itself; any other
+            # transport opts in by being stateful with encode_feedback_cuda
+            # (a custom stage falling back silently would misreport what ran)
+            t = self.transport
+            if not (type(t) in (DenseTransport, Int8Transport)
+                    or (t.stateful and hasattr(t, "encode_feedback_cuda"))):
                 raise TypeError(
-                    "backend='cuda' fuses the dense and int8 transports; "
-                    f"{type(self.transport).__name__} must run on the "
-                    "reference backend")
+                    "backend='cuda' runs the built-in transports (dense | "
+                    "int8 | topk | lowrank) and stateful transports "
+                    "providing encode_feedback_cuda; custom transport "
+                    f"{type(t).__name__} must run on the reference backend")
             if not isinstance(self.server, (GradientDescent, HeavyBall)):
                 raise TypeError(
                     "backend='cuda' fuses the gd and hb servers; "
@@ -154,31 +165,51 @@ class ComposedOptimizer:
                             new_err, new_censor, agg, new_params)
 
     def _step_kernels(self, state: OptState, params, worker_grads):
-        int8 = type(self.transport) is Int8Transport
-        if int8:
+        kind = type(self.transport)
+        fused = kind in (DenseTransport, Int8Transport)
+        pending = scales = None
+        if kind is Int8Transport:
             # sweep 1: sqnorms + abs-max from pending recomputed in
             # registers; the pending tree is never materialized
             dsq, scales = kernel_ops.tree_int8_stats(
                 worker_grads, state.ghat, state.err)
-        else:
+        elif fused:
             dsq = kernel_ops.tree_delta_sqnorms(worker_grads, state.ghat)
+        else:
+            delta = tree_map(lambda g, h: g.to(h.dtype) - h,
+                             worker_grads, state.ghat)
+            pending = self.transport.prepare(delta, state.err)
+            del delta
+            dsq = kernel_ops.tree_sqnorms(pending)
         ssq = step_sqnorm(params, state.prev_params)
         mask, new_censor = self.censor.decide(state.censor, dsq, ssq)
 
-        # sweep 2: bank advance + worker sum + eq. (4) in one pass per leaf
-        if int8:
+        if kind is Int8Transport:
+            # sweep 2: int8 round trip + EF + bank advance + worker sum +
+            # eq. (4) in one pass per leaf
             new_ghat, new_err, agg, new_params = \
                 kernel_ops.tree_fused_int8_step(
                     worker_grads, state.ghat, state.err, params,
                     state.prev_params, mask, scales, self.alpha, self.beta)
-        else:
+        elif fused:
             new_err = state.err
             new_ghat, agg, new_params = kernel_ops.tree_fused_dense_step(
                 worker_grads, state.ghat, params, state.prev_params, mask,
                 self.alpha, self.beta)
-        # the diagnostic is recomputed from the bank, as the JAX fused
-        # route does (the kernel's agg is the same left fold, bit for bit)
-        agg = tree_sum_leading(new_ghat)
+        else:
+            payload, new_err = self.transport.encode_feedback_cuda(
+                pending, state.err, mask)
+            del pending
+            new_ghat = kernel_ops.tree_bank_advance(state.ghat, payload,
+                                                    mask)
+            del payload
+            agg = tree_sum_leading(new_ghat)
+            new_params = self.apply_server(params, state.prev_params, agg)
+        if fused:
+            # the diagnostic is recomputed from the bank, as the JAX fused
+            # route does (the kernel's agg is the same left fold, bit for
+            # bit); the staged route's agg already is that fold
+            agg = tree_sum_leading(new_ghat)
         return self._finish(state, params, mask, dsq, ssq, new_ghat,
                             new_err, new_censor, agg, new_params)
 
@@ -202,11 +233,14 @@ class ComposedOptimizer:
             "shard_step is not ported yet (ROADMAP A10)")
 
     def apply_server(self, params, prev_params, agg):
-        """The backend-dispatched server update (the fed runtime's hook)."""
+        """The backend-dispatched server update (the fed runtime's hook).
+
+        On ``cuda`` it runs B3 per leaf; gd runs it at beta = 0, which is
+        bit-identical to ``GradientDescent.apply``.
+        """
         if self.backend == "cuda":
-            raise NotImplementedError(
-                "apply_server on the cuda backend needs B3 (hb_update), "
-                "which is not ported yet (ROADMAP B)")
+            return kernel_ops.tree_hb_update(params, prev_params, agg,
+                                             self.alpha, self.beta)
         return self.server.apply(params, prev_params, agg)
 
 

@@ -9,7 +9,8 @@ The spec schema is the JAX package's, so a JAX ``opt.to_spec(...)`` dict
 loads unchanged. Backend mapping: the JAX kernel backend ``"pallas"`` loads
 as this package's kernel backend ``"cuda"``; ``"reference"`` stays
 ``"reference"``. Registered here: gd, hb, lag, chb, with the censor kinds
-never/eq8, the transport kinds dense/int8 and the server kinds gd/hb.
+never/eq8, the transport kinds dense/int8/topk/lowrank and the server kinds
+gd/hb.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from ..core.censoring import paper_eps1
 from .censor import Eq8Censor, NeverCensor
 from .optimizer import ComposedOptimizer
 from .server import GradientDescent, HeavyBall
-from .transport import DenseTransport, Int8Transport
+from .transport import (DenseTransport, Int8Transport, LowRankTransport,
+                        TopKTransport)
 
 Builder = Callable[..., ComposedOptimizer]
 
@@ -30,7 +32,9 @@ _ALGORITHMS: dict[str, Builder] = {}
 
 CENSOR_KINDS: dict[str, type] = {"never": NeverCensor, "eq8": Eq8Censor}
 TRANSPORT_KINDS: dict[str, type] = {"dense": DenseTransport,
-                                    "int8": Int8Transport}
+                                    "int8": Int8Transport,
+                                    "topk": TopKTransport,
+                                    "lowrank": LowRankTransport}
 SERVER_KINDS: dict[str, type] = {"gd": GradientDescent, "hb": HeavyBall}
 
 #: JAX spec backends and the backend each one loads as here
@@ -59,66 +63,97 @@ def make(name: str, alpha, num_workers: int, **hyper) -> ComposedOptimizer:
     return _ALGORITHMS[name](alpha, num_workers, **hyper)
 
 
-def make_transport(kind: Optional[str]):
-    """Build a transport by kind (``None`` is the dense passthrough)."""
+def make_transport(kind: Optional[str], **hyper):
+    """Build a transport by kind (``None`` is the dense passthrough).
+
+    ``hyper`` holds the transport's hyperparameters (``k`` for topk,
+    ``rank`` for lowrank); one the transport does not have raises.
+    """
     kind = "dense" if kind is None else kind
     if kind not in TRANSPORT_KINDS:
-        raise ValueError(f"transport {kind!r} is not ported (valid: "
-                         f"{sorted(TRANSPORT_KINDS)}; top-k and low-rank "
-                         "are ROADMAP A7)")
-    return TRANSPORT_KINDS[kind]()
+        raise ValueError(f"unknown quantize mode {kind!r} (expected None "
+                         f"or one of {sorted(TRANSPORT_KINDS)})")
+    return TRANSPORT_KINDS[kind](**hyper)
 
 
-def _compose(censor, server, num_workers, quantize, transport,
-             granularity, bank_dtype, backend) -> ComposedOptimizer:
+def _resolve_transport(quantize, transport, k, rank):
+    """The transport that the keywords of ``opt.make`` describe.
+
+    ``transport`` may be a kind string, a ready transport instance (its
+    hyperparameters already bound), or ``None``; ``quantize`` is the
+    legacy alias for the kind string. ``k`` and ``rank`` go to the
+    matching transport's constructor.
+    """
+    if transport is not None and not isinstance(transport, str):
+        if quantize is not None or k is not None or rank is not None:
+            raise ValueError(
+                "a Transport instance already binds its hyperparameters; "
+                "do not also pass quantize/k/rank")
+        return transport
     if transport is not None and quantize is not None \
             and transport != quantize:
-        raise ValueError(f"conflicting transport={transport!r} and "
-                         f"quantize={quantize!r} (quantize is the legacy "
-                         "alias; pass one)")
+        raise ValueError(
+            f"conflicting transport={transport!r} and quantize={quantize!r} "
+            "(quantize is the legacy alias; pass one)")
+    hyper = {}
+    if k is not None:
+        hyper["k"] = k
+    if rank is not None:
+        hyper["rank"] = rank
+    return make_transport(transport if transport is not None else quantize,
+                          **hyper)
+
+
+def _compose(censor, server, num_workers, quantize, transport, k, rank,
+             granularity, bank_dtype, backend) -> ComposedOptimizer:
     return ComposedOptimizer(
         censor=censor, server=server, num_workers=num_workers,
-        transport=make_transport(transport if transport is not None
-                                 else quantize),
+        transport=_resolve_transport(quantize, transport, k, rank),
         granularity=granularity, bank_dtype=bank_dtype, backend=backend)
 
 
 @register("gd")
-def _gd(alpha, num_workers, *, quantize=None, transport=None,
-        granularity="global", bank_dtype=None, backend="reference"):
+def _gd(alpha, num_workers, *, quantize=None, transport=None, k=None,
+        rank=None, granularity="global", bank_dtype=None,
+        backend="reference"):
     """Classical distributed gradient descent (every worker transmits)."""
     return _compose(NeverCensor(), GradientDescent(alpha), num_workers,
-                    quantize, transport, granularity, bank_dtype, backend)
+                    quantize, transport, k, rank, granularity, bank_dtype,
+                    backend)
 
 
 @register("hb")
 def _hb(alpha, num_workers, *, beta=0.4, quantize=None, transport=None,
-        granularity="global", bank_dtype=None, backend="reference"):
+        k=None, rank=None, granularity="global", bank_dtype=None,
+        backend="reference"):
     """Classical heavy ball (eq. 2); paper default beta=0.4."""
     return _compose(NeverCensor(), HeavyBall(alpha, beta), num_workers,
-                    quantize, transport, granularity, bank_dtype, backend)
+                    quantize, transport, k, rank, granularity, bank_dtype,
+                    backend)
 
 
 @register("lag")
 def _lag(alpha, num_workers, *, eps1=None, eps1_scale=0.1, quantize=None,
-         transport=None, granularity="global", bank_dtype=None,
-         backend="reference"):
+         transport=None, k=None, rank=None, granularity="global",
+         bank_dtype=None, backend="reference"):
     """Censoring-based GD (LAG-WK) with the shared eq. (8)."""
     if eps1 is None:
         eps1 = paper_eps1(alpha, num_workers, eps1_scale)
     return _compose(Eq8Censor(eps1), GradientDescent(alpha), num_workers,
-                    quantize, transport, granularity, bank_dtype, backend)
+                    quantize, transport, k, rank, granularity, bank_dtype,
+                    backend)
 
 
 @register("chb")
 def _chb(alpha, num_workers, *, beta=0.4, eps1=None, eps1_scale=0.1,
-         quantize=None, transport=None, granularity="global",
-         bank_dtype=None, backend="reference"):
+         quantize=None, transport=None, k=None, rank=None,
+         granularity="global", bank_dtype=None, backend="reference"):
     """The paper's algorithm with its Sec.-IV default constants."""
     if eps1 is None:
         eps1 = paper_eps1(alpha, num_workers, eps1_scale)
     return _compose(Eq8Censor(eps1), HeavyBall(alpha, beta), num_workers,
-                    quantize, transport, granularity, bank_dtype, backend)
+                    quantize, transport, k, rank, granularity, bank_dtype,
+                    backend)
 
 
 # --------------------------------------------------------- spec round-trip

@@ -15,7 +15,8 @@ from repro_torch import opt
 from repro_torch.core import simulator
 from repro_torch.core.quantize import int8_scale
 from repro_torch.data import edge_tasks
-from repro_torch.kernels import censor, common, fused_step, ref
+from repro_torch.kernels import (censor, common, fused_step, hb_update,
+                                 lowrank_ef, ref, topk_pack)
 
 pytestmark = pytest.mark.cuda
 
@@ -69,23 +70,84 @@ def test_kernels_match_plain_versions(card, m, n, dtype):
                                              0.1, 0.4)):
         assert _same(a, b)
     assert _same(k, censor.censor_delta_sqnorm_batched(g, h))
+    x = g - h
+    k8 = censor.sqnorm_batched(x)
+    torch.testing.assert_close(k8, ref.sqnorm_batched(x), rtol=1e-5, atol=0)
+    assert _same(k8, k)
+    assert _same(censor.bank_advance(h, g, mask),
+                 ref.bank_advance(h, g, mask))
+    assert _same(hb_update.hb_update(t, g[0], p, 0.1, 0.4),
+                 ref.hb_update(t, g[0], p, 0.1, 0.4))
+    keep = (g > 0.3).to(dtype)
+    keep[:, ::7] = 1.0                  # keeps g's -0.0 entries
+    for a, b in zip(topk_pack.select_pack_ef_batched(g, e, keep, mask),
+                    ref.select_pack_ef_batched(g, e, keep, mask)):
+        assert _same(a, b)
+    assert _same(lowrank_ef.residual_ef_batched(g, h, e, mask),
+                 ref.residual_ef_batched(g, h, e, mask))
     torch.cuda.synchronize()
     assert common.LAUNCHES == {"censor_delta_sqnorm_batched": 2,
                                "fused_dense_step": 1,
                                "int8_stats_batched": 1,
-                               "fused_int8_step": 1}
+                               "fused_int8_step": 1,
+                               "sqnorm_batched": 1, "bank_advance": 1,
+                               "hb_update": 1, "select_pack_ef_batched": 1,
+                               "residual_ef_batched": 1}
 
 
-@pytest.mark.parametrize("quantize", [None, "int8"], ids=["dense", "int8"])
-def test_main_path_launches_each_kernel_once_per_step(card, quantize):
+@pytest.mark.parametrize("kw,names", [
+    ({}, ("censor_delta_sqnorm_batched", "fused_dense_step")),
+    ({"quantize": "int8"}, ("int8_stats_batched", "fused_int8_step")),
+    ({"transport": "topk", "k": 4_000}, ("sqnorm_batched",
+                                         "select_pack_ef_batched",
+                                         "bank_advance", "hb_update")),
+], ids=["dense", "int8", "topk"])
+def test_main_path_launches_each_kernel_once_per_step(card, kw, names):
     task = edge_tasks.make_edge_quadratics(m=4, d=10_000, seed=0,
                                            dtype=torch.float32)
     common.reset_launches()
-    runs = [simulator.run(opt.make("chb", 0.125, 4, eps1=4.0,
-                                   quantize=quantize, backend=b), task, 3)
+    runs = [simulator.run(opt.make("chb", 0.125, 4, eps1=4.0, backend=b,
+                                   **kw), task, 3)
             for b in ("cuda", "reference")]
     assert torch.equal(runs[0].mask, runs[1].mask)
-    names = (("int8_stats_batched", "fused_int8_step") if quantize
-             else ("censor_delta_sqnorm_batched", "fused_dense_step"))
+    assert torch.equal(runs[0].final_params, runs[1].final_params)
     assert {k: v for k, v in common.LAUNCHES.items() if v} == \
         {name: 3 for name in names}
+
+
+def test_lowrank_path_launches_per_leaf(card):
+    """Low-rank on a two-matrix tree: four kernels per leaf per step."""
+    flat = edge_tasks.make_edge_quadratics(m=4, d=60 * 70 + 30 * 8, seed=0,
+                                           dtype=torch.float32)
+    a, c = flat.worker_data
+    task = simulator.FedTask(
+        init_params={"u": torch.zeros((60, 70), device=card),
+                     "v": torch.zeros((30, 8), device=card)},
+        grad_fn=lambda th, d: {k: d[0].view(-1, 1, 1) * (x - d[1][k])
+                               for k, x in th.items()},
+        loss_fn=lambda th, d: sum(0.5 * d[0] * ((x - d[1][k]) ** 2).sum(
+            dim=(1, 2)) for k, x in th.items()),
+        worker_data=(a, {"u": c[:, :4200].view(4, 60, 70),
+                         "v": c[:, 4200:].view(4, 30, 8)}))
+    common.reset_launches()
+    runs = [simulator.run(opt.make("chb", 0.05, 4, eps1=4.0, backend=b,
+                                   transport="lowrank", rank=2), task, 3)
+            for b in ("cuda", "reference")]
+    assert torch.equal(runs[0].mask, runs[1].mask)
+    for k in ("u", "v"):
+        assert _same(runs[0].final_params[k], runs[1].final_params[k])
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == \
+        {name: 6 for name in ("sqnorm_batched", "residual_ef_batched",
+                              "bank_advance", "hb_update")}
+
+
+@pytest.mark.parametrize("k", [1, 700, 3799, 4099, 5000])
+def test_topk_keep_on_the_card_equals_the_cpu(card, k):
+    """The exact keep masks rank ties by index on the card as on the CPU
+    (where the CPU tests hold them to ``lax.top_k``)."""
+    gen = torch.Generator().manual_seed(k)
+    x = torch.randint(-3, 4, (4, 4099), generator=gen).to(torch.float32)
+    x[:, ::5] = torch.where(x[:, ::5] == 0, -0.0, x[:, ::5])
+    got = opt.tree_topk_keep(x.to(card), k).cpu()
+    assert _same(got, opt.tree_topk_keep(x, k))
+    assert (got.sum(dim=1) == min(k, 4099)).all()

@@ -1,6 +1,7 @@
 """The port's kernel wrappers (their plain versions, on CPU tensors) held
 against the JAX package's Pallas kernels (interpret mode) and its
-``kernels/ref.py`` oracles.
+``kernels/ref.py`` oracles: B1, B2, B5, B6 of the fused route, and B3,
+B8, B9, B10, B11 of the staged route and ``apply_server``.
 
 Tolerances and why:
   * masks, abs-max and the int8 outputs err' and ghat': exact (the same
@@ -14,8 +15,15 @@ Tolerances and why:
     for theta') plus a few ulps of theta's terms, because XLA's axis-0
     reduce may group the worker sum differently from the port's left fold;
     with cancellation a relative bound would mean nothing;
-  * sqnorms: rel 1e-5 for both bank dtypes, since the delta is cast to f32
-    before squaring and both sides accumulate in f32, in other orders.
+  * sqnorms (B1, B5, B8): rel 1e-5 for both bank dtypes, since the delta
+    is cast to f32 before squaring and both sides accumulate in f32, in
+    other orders;
+  * B9, B10 and B11: exact against both, -0.0 included. Every product
+    there has a 0/1 mask or keep factor, so it is exact and an FMA cannot
+    change the sum;
+  * B3: exact against ``ref.py``; against the interpreted kernel within
+    2 eps (|theta| + |alpha*nabla| + |beta*(theta - theta_prev)|), since
+    XLA may contract either product-and-sum into an FMA.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
 """
@@ -30,9 +38,14 @@ import torch
 
 from repro.kernels import censor as j_censor
 from repro.kernels import fused_step as j_fused
+from repro.kernels import hb_update as j_hb
+from repro.kernels import lowrank_ef as j_lowrank
 from repro.kernels import ref as j_ref
+from repro.kernels import topk_pack as j_topk
 from repro_torch.core.quantize import int8_scale
-from repro_torch.kernels import censor, common, fused_step
+from repro_torch.kernels import (censor, common, fused_step, hb_update,
+                                 lowrank_ef, topk_pack)
+from repro_torch.opt import GradientDescent, HeavyBall
 
 LEAVES = [(20,), (3, 50), (300, 129)]
 WORKERS = [1, 5]
@@ -54,6 +67,18 @@ def _inputs(m, shape, dtype, seed=0):
         e[-1] = 0.0
     mask = np.array([1.0, 0.0, 1.0, 1.0, 0.0][:m], np.float32)
     return g, h, e, t, p, mask
+
+
+def _keep(m, shape, dtype):
+    """0/1 keep masks that keep some of pending's -0.0 entries (every 7th
+    flat index holds one) and drop others; a -0.0 mask entry drops."""
+    rng = np.random.default_rng(7 * m + len(shape))
+    keep = (rng.random((m,) + shape) < 0.4).astype(dtype)
+    flat = keep.reshape(m, -1)
+    flat[:, ::7] = 1.0
+    flat[:, ::14] = 0.0
+    flat[:, 3::29] = -0.0
+    return keep
 
 
 def _t(*xs):
@@ -169,6 +194,118 @@ def test_b6_fused_int8_step(m, shape, dtype):
         _within(out, want[3], theta_b)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", LEAVES)
+@pytest.mark.parametrize("m", WORKERS)
+def test_b8_sqnorm(m, shape, dtype):
+    g, h, *_ = _inputs(m, shape, dtype)
+    x = g - h
+    got = censor.sqnorm_batched(*_t(x))
+    assert got.dtype == torch.float32 and got.shape == (m,)
+    for want in (j_censor.sqnorm_batched(*_j(x), interpret=True),
+                 j_ref.sqnorm_batched(*_j(x))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    # the plain versions of B8 on g - ghat and of B1 on (g, ghat) agree
+    np.testing.assert_allclose(
+        got.numpy(), censor.censor_delta_sqnorm_batched(*_t(g, h)).numpy(),
+        rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", LEAVES)
+@pytest.mark.parametrize("m", WORKERS)
+def test_b9_bank_advance(m, shape, dtype):
+    g, h, _, _, _, mask = _inputs(m, shape, dtype)
+    got = censor.bank_advance(*_t(h, g, mask))
+    for want in (j_censor.bank_advance(*_j(h, g, mask), interpret=True),
+                 j_ref.bank_advance(*_j(h, g, mask))):
+        _exact(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", LEAVES)
+@pytest.mark.parametrize("m", WORKERS)
+def test_b10_select_pack_ef(m, shape, dtype):
+    g, _, e, _, _, mask = _inputs(m, shape, dtype)
+    keep = _keep(m, shape, dtype)
+    payload, new_err = topk_pack.select_pack_ef_batched(*_t(g, e, keep,
+                                                            mask))
+    for want in (j_topk.select_pack_ef_batched(*_j(g, e, keep, mask),
+                                               interpret=True),
+                 j_ref.select_pack_ef_batched(*_j(g, e, keep, mask))):
+        _exact(payload, want[0])
+        _exact(new_err, want[1])
+    kept = keep != 0
+    assert np.signbit(payload.numpy()[kept & (g == 0)]).any(), \
+        "no kept -0.0 entry was tested"
+    ones = np.ones((m,), np.float32)
+    full = topk_pack.select_pack_ef_batched(*_t(g, e, keep, ones))
+    w = m - 1
+    row = topk_pack.select_pack_ef_row(*_t(g[w], e[w], keep[w]))
+    j_row = j_topk.select_pack_ef_row(*_j(g[w], e[w], keep[w]),
+                                      interpret=True)
+    for got, batched, want in zip(row, full, j_row):
+        _exact(got, batched[w].numpy())
+        _exact(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", LEAVES)
+@pytest.mark.parametrize("m", WORKERS)
+def test_b11_residual_ef(m, shape, dtype):
+    g, h, e, _, _, mask = _inputs(m, shape, dtype)
+    got = lowrank_ef.residual_ef_batched(*_t(g, h, e, mask))
+    for want in (j_lowrank.residual_ef_batched(*_j(g, h, e, mask),
+                                               interpret=True),
+                 j_ref.residual_ef_batched(*_j(g, h, e, mask))):
+        _exact(got, want)
+    w = m - 1
+    row = lowrank_ef.residual_ef_row(*_t(g[w], h[w], e[w]))
+    ones = np.ones((m,), np.float32)
+    _exact(row, lowrank_ef.residual_ef_batched(*_t(g, h, e, ones))[w]
+           .numpy())
+    _exact(row, j_lowrank.residual_ef_row(*_j(g[w], h[w], e[w]),
+                                          interpret=True))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", LEAVES)
+def test_b3_hb_update(shape, dtype):
+    g, _, _, t, p, _ = _inputs(1, shape, dtype)
+    nab = g[0]
+    eps = np.finfo(dtype).eps
+    bound = 2 * eps * (np.abs(t) + np.abs(ALPHA * nab)
+                       + np.abs(BETA * (t - p)))
+    for beta, server in ((BETA, HeavyBall(ALPHA, BETA)),
+                         (0.0, GradientDescent(ALPHA))):
+        got = hb_update.hb_update(*_t(t, nab, p), ALPHA, beta)
+        _exact(got, j_ref.hb_update(*_j(t, nab, p), ALPHA, beta))
+        _exact(got, server.apply(*_t(t, p, nab)).numpy())
+        _within(got, j_hb.hb_update(*_j(t, nab, p), ALPHA, beta,
+                                    interpret=True), bound)
+
+
+@pytest.mark.parametrize("shape", [(0,), (3, 0)], ids=["0", "3x0"])
+def test_size_zero_leaves_return_what_jax_returns(shape):
+    m, dt = 2, np.float32
+    x = np.zeros((m,) + shape, dt)
+    mask = np.ones((m,), np.float32)
+    x_t, mask_t = _t(x, mask)
+    _exact(censor.sqnorm_batched(x_t),
+           j_censor.sqnorm_batched(*_j(x), interpret=True))
+    assert censor.bank_advance(x_t, x_t, mask_t) is x_t
+    payload, new_err = topk_pack.select_pack_ef_batched(x_t, x_t, x_t,
+                                                        mask_t)
+    assert payload is x_t and new_err.shape == x.shape
+    for got, want in zip((payload, new_err), j_topk.select_pack_ef_batched(
+            *_j(x, x, x, mask), interpret=True)):
+        _exact(got, want)
+    _exact(lowrank_ef.residual_ef_batched(x_t, x_t, x_t, mask_t),
+           j_lowrank.residual_ef_batched(*_j(x, x, x, mask), interpret=True))
+    theta = x_t[0]
+    assert hb_update.hb_update(theta, theta, theta, ALPHA, BETA) is theta
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     g, h, e, t, p, mask = _t(*_inputs(2, (8,), np.float32))
     with pytest.raises(TypeError, match="bank dtype"):
@@ -183,6 +320,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                    ALPHA, BETA)
     with pytest.raises(ValueError, match="shape"):
         fused_step.fused_dense_step(g, h, t[:4], p, mask, ALPHA, BETA)
+    with pytest.raises(ValueError, match="shape"):
+        topk_pack.select_pack_ef_batched(g, e, h[:1], mask)
+    with pytest.raises(ValueError, match="mask"):
+        censor.bank_advance(h, g, mask.double())
+    with pytest.raises(TypeError, match="one dtype"):
+        lowrank_ef.residual_ef_batched(g, h.double(), e, mask)
+    with pytest.raises(TypeError, match="bank dtype"):
+        hb_update.hb_update(t.half(), t.half(), t.half(), ALPHA, BETA)
     # a device that is neither the CPU nor CUDA is refused, not run plainly
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         censor.censor_delta_sqnorm_batched(g.to("meta"), h.to("meta"))

@@ -3,14 +3,19 @@ package's reference step, plus the registry's spec mapping.
 
 Both packages start from one state (carried across by
 ``repro_torch.convert``) and take five steps on the same numpy-drawn
-gradients over a three-leaf dict tree. Tolerances and why:
+gradients over a three-leaf dict tree, for every transport (top-k at k=4,
+low-rank at rank 2). Tolerances and why:
   * masks and every ``CommStats`` counter: exact. The data are drawn so
     that no eq.-(8) decision lies within 1e-3 of its threshold (checked),
     far beyond what a summation-order difference can move;
   * delta sqnorms: rel 1e-5 (f32 accumulation, other order);
-  * the bank and the EF bank: exact. The JAX step runs eagerly, so each
-    of its elementwise ops rounds on its own, as each torch op does (a
-    jitted step may contract a mul+add pair into an FMA);
+  * the bank and the transport state: exact, except for low-rank. The JAX
+    step runs eagerly, so each of its elementwise ops rounds on its own,
+    as each torch op does (a jitted step may contract a mul+add pair into
+    an FMA), and the top-k keep sets are exact selections. Low-rank's
+    payload and factors are matrix products, which torch and XLA sum in
+    other orders: its bank, EF bank and factors are held to 1e-5 (f32) /
+    1e-12 (f64) of the leaf's max |x|;
   * theta: rel 1e-5 (f32) / 1e-12 (f64) of max |theta|, since XLA's
     axis-0 worker sum groups differently from the port's left fold and
     the difference feeds back through five steps of momentum.
@@ -27,8 +32,10 @@ import pytest
 import torch
 
 from repro import opt as j_opt
+from repro.opt import registry as j_registry
 from repro_torch import convert, opt, tree
 from repro_torch.kernels import common, fused_step
+from repro_torch.opt import registry
 
 M = 5
 SHAPES = {"w1": (6, 10), "b1": (10,), "w2": (10, 3)}
@@ -36,7 +43,9 @@ ALPHA = 0.05
 EPS1 = 60.0
 STEPS = 5
 CASES = [("gd", {}), ("hb", {}), ("lag", {}), ("chb", {}),
-         ("chb", {"quantize": "int8"})]
+         ("chb", {"quantize": "int8"}),
+         ("chb", {"transport": "topk", "k": 4}),
+         ("chb", {"transport": "lowrank", "rank": 2})]
 
 
 def _params(dtype):
@@ -70,8 +79,11 @@ def jax_steps():
         for name, extra in CASES:
             o = j_opt.make(name, ALPHA, M, **_kw(name, extra))
             # eager: each jnp op rounds on its own, as each torch op does
-            # (a jitted step may contract mul+add pairs into FMAs)
-            step = o.step
+            # (a jitted step may contract mul+add pairs into FMAs); the
+            # low-rank step is held to a tolerance anyway, and compiles
+            # once instead of dispatching its per-worker loop op by op
+            step = (jax.jit(o.step) if extra.get("transport") == "lowrank"
+                    else o.step)
             params = jax.tree_util.tree_map(jnp.asarray, _params(dtype))
             state = o.init(params)
             start = jax.tree_util.tree_map(np.asarray, state)
@@ -89,7 +101,8 @@ def jax_steps():
 @pytest.mark.parametrize("dtype", [np.float32, np.float64],
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("name,extra", CASES,
-                         ids=["gd", "hb", "lag", "chb", "chb-int8"])
+                         ids=["gd", "hb", "lag", "chb", "chb-int8",
+                              "chb-topk", "chb-lowrank"])
 def test_step_matches_jax(jax_steps, name, extra, dtype, backend):
     start, recs = jax_steps[name, tuple(extra.items()), dtype]
     o = opt.make(name, ALPHA, M, backend=backend, **_kw(name, extra))
@@ -112,11 +125,19 @@ def test_step_matches_jax(jax_steps, name, extra, dtype, backend):
                   "downlink_count", "iterations"):
             np.testing.assert_array_equal(
                 getattr(state.comm, f).numpy(), getattr(j_state.comm, f))
+        exact = extra.get("transport") != "lowrank"
+        for got, want in zip(
+                tree.tree_leaves((state.ghat, state.err)),
+                jax.tree_util.tree_leaves((j_state.ghat, j_state.err))):
+            assert got.shape == want.shape
+            if exact:
+                np.testing.assert_array_equal(got.numpy(), want)
+            else:
+                np.testing.assert_allclose(
+                    got.numpy(), want, rtol=0,
+                    atol=(1e-5 if f32 else 1e-12)
+                    * np.abs(want).max(initial=1.0))
         for key in SHAPES:
-            np.testing.assert_array_equal(state.ghat[key].numpy(),
-                                          j_state.ghat[key])
-            np.testing.assert_array_equal(state.err[key].numpy(),
-                                          j_state.err[key])
             scale = np.abs(j_params[key]).max()
             np.testing.assert_allclose(params[key].numpy(), j_params[key],
                                        rtol=0,
@@ -126,13 +147,15 @@ def test_step_matches_jax(jax_steps, name, extra, dtype, backend):
 
 
 def test_jax_spec_loads_with_pallas_as_cuda():
-    for kw in ({}, {"quantize": "int8"}):
+    for kw in ({}, {"quantize": "int8"}, {"transport": "topk", "k": 8},
+               {"transport": "lowrank", "rank": 2}):
         j = j_opt.make("chb", 0.1, M, backend="pallas", **kw)
         spec = json.loads(json.dumps(j_opt.to_spec(j)))
         o = opt.from_spec(spec)
         assert o.backend == "cuda"
         assert o == opt.make("chb", 0.1, M, backend="cuda", **kw)
         assert opt.from_spec(opt.to_spec(o)) == o
+        assert opt.to_spec(o) == dict(spec, backend="cuda")
         ref = dict(spec, backend="reference")
         assert opt.from_spec(ref).backend == "reference"
     for name in ("gd", "hb", "lag"):
@@ -141,27 +164,71 @@ def test_jax_spec_loads_with_pallas_as_cuda():
     o = opt.make("chb", 0.1, M, bank_dtype=torch.float64)
     assert opt.from_spec(opt.to_spec(o)).bank_dtype is torch.float64
     with pytest.raises(ValueError, match="unknown or unported"):
-        opt.from_spec(j_opt.to_spec(j_opt.make("chb", 0.1, M,
-                                               quantize="topk", k=4)))
+        opt.from_spec(j_opt.to_spec(j_opt.make("csgd", 0.1, M)))
     with pytest.raises(ValueError, match="unknown backend"):
         opt.from_spec(dict(j_opt.to_spec(j_opt.make("gd", 0.1, M)),
                            backend="tpu"))
 
 
+@pytest.mark.parametrize("quantize,transport,k,rank", [
+    ("topk", None, 4, None),
+    (None, "lowrank", None, 3),
+    ("int8", "topk", None, None),           # conflicting kinds
+    (None, "instance", 4, None),            # an instance binds its own k
+    ("int8", "instance", None, None),
+    (None, "instance", None, 2),
+    ("dense", None, 4, None),               # dense has no k
+    (None, "int8", None, 2),                # int8 has no rank
+    ("fp4", None, None, None),              # unknown kind
+], ids=["topk-k", "lowrank-rank", "conflict", "inst-k", "inst-quantize",
+        "inst-rank", "dense-k", "int8-rank", "unknown"])
+def test_resolve_transport_matches_jax(quantize, transport, k, rank):
+    def resolve(reg, topk):
+        t = topk(k=5) if transport == "instance" else transport
+        try:
+            return reg._resolve_transport(quantize, t, k, rank)
+        except (TypeError, ValueError) as exc:
+            return type(exc)
+
+    got = resolve(registry, opt.TopKTransport)
+    want = resolve(j_registry, j_opt.TopKTransport)
+    if isinstance(want, type):
+        assert got is want
+    else:
+        assert (registry._kind_of(got, opt.TRANSPORT_KINDS, "t"),
+                dict(vars(got))) == \
+            (j_registry._kind_of(want, j_opt.TRANSPORT_KINDS, "t"),
+             dict(vars(want)))
+
+
+@pytest.mark.parametrize("name", ["hb", "gd"])
+def test_apply_server_on_cuda_is_server_apply(name):
+    common.reset_launches()
+    o = opt.make(name, ALPHA, M, backend="cuda")
+    for dtype in (np.float32, np.float64):
+        params = convert.params(_params(dtype), "cpu")
+        prev = tree.tree_map(lambda x: x * 0.5, params)
+        agg = convert.params(_grads(0, dtype), "cpu")
+        agg = tree.tree_map(lambda g: g[0], agg)
+        got = o.apply_server(params, prev, agg)
+        want = o.server.apply(params, prev, agg)
+        for key in SHAPES:
+            assert got[key].dtype == want[key].dtype
+            assert torch.equal(got[key].view(torch.uint8),
+                               want[key].view(torch.uint8))
+    assert common.LAUNCHES == {k: 0 for k in common.KERNELS}
+
+
 def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="A6"):
         opt.make("chb", 0.1, M, granularity="per_tensor")
-    with pytest.raises(NotImplementedError, match="staged"):
+    with pytest.raises(NotImplementedError, match="B4"):
         fused_step.force_staged()
     o = opt.make("chb", 0.1, M, backend="cuda")
     params = tree.tree_map(torch.from_numpy, _params(np.float32))
     state = o.init(params)
     with pytest.raises(NotImplementedError, match="A10"):
         o.shard_step(state, params, params)
-    with pytest.raises(NotImplementedError, match="B3"):
-        o.apply_server(params, params, params)
-    with pytest.raises(ValueError, match="not ported"):
-        opt.make("chb", 0.1, M, quantize="topk")
     with pytest.raises(ValueError, match="unknown backend"):
         opt.make("chb", 0.1, M, backend="pallas")
     with pytest.raises(TypeError, match="server"):
@@ -169,4 +236,16 @@ def test_unported_routes_raise():
                               transport=opt.DenseTransport(),
                               server=object(), num_workers=M,
                               backend="cuda")
+
+    class Stateless(opt.DenseTransport):
+        pass
+
+    with pytest.raises(TypeError, match="custom transport Stateless"):
+        opt.ComposedOptimizer(censor=opt.NeverCensor(),
+                              transport=Stateless(),
+                              server=opt.HeavyBall(0.1), num_workers=M,
+                              backend="cuda")
+    assert opt.ComposedOptimizer(censor=opt.NeverCensor(),
+                                 transport=Stateless(),
+                                 server=opt.HeavyBall(0.1), num_workers=M)
     assert o.name == "chb" and opt.make("gd", 0.1, M).name == "gd"

@@ -1,6 +1,8 @@
 """The slice as a whole: the port's ``simulator.run`` held against the JAX
 package's on the paper's golden linreg task (m=5, n_per=30, d=20, seed=0,
-60 iterations) and on the edge quadratics.
+60 iterations), with the dense, int8, top-k (k=8) and low-rank (rank 2)
+transports, and on the edge quadratics, flat and as a three-leaf tree
+that runs the low-rank factors through the whole loop.
 
 Tolerances and why:
   * f64: masks, ``comm_cum`` and the uplink counters exact over all 60
@@ -14,7 +16,15 @@ Tolerances and why:
     both sides of eq. (8) are rounding noise, so the decisions follow each
     platform's rounding of the gradient: the JAX package itself gives 260
     uploads for dense chb on an AVX-512 Xeon where ``tests/test_backend.py``
-    pins the 262 of the host that recorded it.
+    pins the 262 of the host that recorded it. Top-k's deferred mass keeps
+    its steps above that floor, but its f32 top-k choices carry each
+    package's rounding forward: its masks are held exactly up to the first
+    eq.-(8) decision within 2% of its threshold, and its upload total to
+    within 2%;
+  * low-rank on the three-leaf edge quadratics (f64, 30 iterations):
+    masks exact, objective within rel 1e-9 and theta within 1e-8 of its
+    max |theta|: the factor products sum in other orders in torch and XLA,
+    and 30 rounds of subspace iteration carry those differences forward.
 The port's kernel backend on CPU tensors (the kernels' plain versions) is
 held to its reference backend bit for bit.
 """
@@ -38,8 +48,12 @@ from repro_torch.data import edge_tasks, paper_tasks
 M = 5
 ITERS = 60
 CASES = [("gd", {}), ("hb", {}), ("lag", {}), ("chb", {}),
-         ("chb", {"quantize": "int8"})]
-IDS = ["gd", "hb", "lag", "chb", "chb-int8"]
+         ("chb", {"quantize": "int8"}),
+         ("chb", {"transport": "topk", "k": 8}),
+         ("chb", {"transport": "lowrank", "rank": 2})]
+IDS = ["gd", "hb", "lag", "chb", "chb-int8", "chb-topk", "chb-lowrank"]
+# the JAX package's f64 uploads of the golden run, per transport
+GOLDEN_F64_UPLOADS = {"dense": 240, "int8": 240, "topk": 295, "lowrank": 240}
 
 
 def _cast(t, dtype):
@@ -80,7 +94,7 @@ def jax_runs(tasks):
 def _port_run(p, task, name, extra, backend):
     """``simulator.run`` plus each step's ||theta^k||^2 and step sqnorm."""
     o = opt.make(name, p.alpha_paper, M, backend=backend, **extra)
-    seen = {"theta": [], "ssq": []}
+    seen = {"theta": [], "ssq": [], "margin": []}
 
     class Recorder:
         def init(self, params):
@@ -89,7 +103,12 @@ def _port_run(p, task, name, extra, backend):
         def step(self, state, params, grads):
             seen["theta"].append(float(torch.sum(params.double() ** 2)))
             out = o.step(state, params, grads)
-            seen["ssq"].append(float(out[2].step_sq))
+            ssq = float(out[2].step_sq)
+            seen["ssq"].append(ssq)
+            thr = float(o.eps1) * ssq
+            seen["margin"].append(
+                float(((out[2].delta_sq.double() - thr).abs() / thr).min())
+                if thr > 0 else np.inf)
             return out
 
     return simulator.run(Recorder(), task, ITERS, device="cpu"), seen
@@ -101,6 +120,13 @@ def _noise_floor(seen) -> int:
         if 0 < ssq < (256 * eps) ** 2 * th:
             return k
     return ITERS
+
+
+def _first_close_call(seen, within=0.02) -> int:
+    """First iteration with an eq.-(8) decision within ``within`` of its
+    threshold (relative), or ITERS."""
+    return next((k for k, mg in enumerate(seen["margin"]) if mg < within),
+                ITERS)
 
 
 def test_tasks_draw_identical_data(tasks):
@@ -126,6 +152,10 @@ def test_f64_run_matches_jax(tasks, jax_runs, name, extra, backend):
                                rtol=1e-9)
     np.testing.assert_allclose(ph.final_params.numpy(), jh.final_params,
                                rtol=1e-9, atol=1e-12)
+    if name == "chb":
+        kind = extra.get("transport", extra.get("quantize", "dense"))
+        assert int(ph.comm_cum[-1]) == int(ph.mask.sum()) \
+            == GOLDEN_F64_UPLOADS[kind]
 
 
 @pytest.mark.parametrize("name,extra", CASES, ids=IDS)
@@ -135,16 +165,32 @@ def test_f32_run_matches_jax_to_the_noise_floor(tasks, jax_runs, name,
     jh = jax_runs(name, extra, np.float32)
     ph, seen = _port_run(p, p_tasks[np.float32], name, extra, "cuda")
     floor = _noise_floor(seen)
+    if extra.get("transport") == "topk":
+        # top-k's deferred mass keeps its steps far above the f32 floor, so
+        # the 256-ulp rule finds none; instead its f32 top-k choices and
+        # the momentum carry each package's rounding forward, and a
+        # decision 2.5% from its threshold at iteration 54 (273 times one
+        # rounding of the gradient) falls the other way on an AVX-512
+        # Xeon. Its masks are held exactly to the first decision within 2%
+        # of its threshold (iteration 24 there), its total to within 2%
+        assert floor == ITERS
+        floor = _first_close_call(seen)
+        assert abs(int(ph.comm_cum[-1]) - int(jh.comm_cum[-1])) \
+            <= 0.02 * int(jh.comm_cum[-1])
     assert floor >= 20
     np.testing.assert_array_equal(ph.mask.numpy()[:floor], jh.mask[:floor])
     np.testing.assert_array_equal(ph.comm_cum.numpy()[:floor],
                                   jh.comm_cum[:floor])
     np.testing.assert_allclose(ph.objective.numpy(), jh.objective,
                                rtol=1e-4)
+    # after its masks part, top-k defers other mass: theta to 1e-3 of max
+    atol = 1e-3 * np.abs(jh.final_params).max() \
+        if extra.get("transport") == "topk" else 1e-6
     np.testing.assert_allclose(ph.final_params.numpy(), jh.final_params,
-                               rtol=1e-4, atol=1e-6)
+                               rtol=1e-4, atol=atol)
     comm = ph.final_state.comm
-    payload = 20 * 4 if "quantize" not in extra else 20 + 4
+    payload = {"int8": 20 + 4, "topk": 8 * (4 + 4)}.get(
+        extra.get("quantize", extra.get("transport")), 20 * 4)
     assert int(comm.uplink_count.sum()) == int(ph.comm_cum[-1]) \
         == int(ph.mask.sum())
     assert comm.uplink_bytes_exact() == int(ph.comm_cum[-1]) * payload
@@ -152,12 +198,15 @@ def test_f32_run_matches_jax_to_the_noise_floor(tasks, jax_runs, name,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("quantize", [None, "int8"], ids=["dense", "int8"])
-def test_kernel_backend_on_cpu_equals_reference(tasks, quantize, dtype):
+@pytest.mark.parametrize("kw", [{}, {"quantize": "int8"},
+                                {"transport": "topk", "k": 8},
+                                {"transport": "lowrank", "rank": 2}],
+                         ids=["dense", "int8", "topk", "lowrank"])
+def test_kernel_backend_on_cpu_equals_reference(tasks, kw, dtype):
     _, p, _, _ = tasks
     task = simulator.task_to(p.task, dtype=dtype)
-    runs = [simulator.run(opt.make("chb", p.alpha_paper, M,
-                                   quantize=quantize, backend=b),
+    runs = [simulator.run(opt.make("chb", p.alpha_paper, M, backend=b,
+                                   **kw),
                           task, ITERS, device="cpu")
             for b in ("cuda", "reference")]
     for f in ("objective", "comm_cum", "mask", "agg_grad_sqnorm",
@@ -184,3 +233,81 @@ def test_edge_quadratics_match_jax():
     assert 0 < int(ph.comm_cum[-1]) < 30 * 16
     assert simulator.iterations_to_accuracy(ph, 0.0, 1e30) == 0
     assert simulator.comms_to_accuracy(ph, 0.0, -1.0) == -1
+
+
+
+TREE = {"w1": (6, 10), "b1": (10,), "w2": (2, 3, 4)}
+M_TREE = 6
+
+
+def _tree_tasks():
+    """The edge quadratics ``0.5*a_m*||theta - c_m||^2`` over a three-leaf
+    tree, built here for both packages from one numpy draw."""
+    from repro.core.simulator import FedTask as JFedTask
+    rng = np.random.default_rng(4)
+    a = np.exp(rng.uniform(0.0, np.log(3.0), size=(M_TREE,)))
+    c = {k: rng.normal(size=(M_TREE,) + s) for k, s in TREE.items()}
+
+    def j_grad(theta, data):                 # one worker's slice
+        am, cm = data
+        return {k: am * (x - cm[k]) for k, x in theta.items()}
+
+    def j_loss(theta, data):
+        am, cm = data
+        return sum(0.5 * am * jnp.sum((x - cm[k]) ** 2)
+                   for k, x in theta.items())
+
+    def p_grad(theta, data):                 # all workers at once
+        am, cm = data
+        return {k: am.reshape((-1,) + (1,) * x.dim()) * (x - cm[k])
+                for k, x in theta.items()}
+
+    def p_loss(theta, data):
+        am, cm = data
+        return sum(0.5 * am * torch.sum((x - cm[k]).reshape(M_TREE, -1) ** 2,
+                                        dim=1)
+                   for k, x in theta.items())
+
+    init = {k: np.zeros(s) for k, s in TREE.items()}
+    jt = JFedTask(init_params={k: jnp.asarray(v) for k, v in init.items()},
+                  grad_fn=j_grad, loss_fn=j_loss,
+                  worker_data=(jnp.asarray(a),
+                               {k: jnp.asarray(v) for k, v in c.items()}))
+    pt = simulator.FedTask(
+        init_params={k: torch.from_numpy(v) for k, v in init.items()},
+        grad_fn=p_grad, loss_fn=p_loss,
+        worker_data=(torch.from_numpy(a),
+                     {k: torch.from_numpy(v) for k, v in c.items()}))
+    return jt, pt
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_lowrank_on_matrix_leaves_matches_jax(backend):
+    jt, pt = _tree_tasks()
+    # a step small enough for the rank-2 error feedback to converge, and
+    # an eps1 at which some workers censor (every decision clears its
+    # threshold by more than 2%)
+    kw = {"eps1": 60.0, "transport": "lowrank", "rank": 2}
+    alpha = 0.15 / M_TREE
+    jh = j_simulator.run(j_opt.make("chb", alpha, M_TREE, **kw), jt, 30)
+    ph = simulator.run(opt.make("chb", alpha, M_TREE, backend=backend,
+                                **kw), pt, 30, device="cpu")
+    np.testing.assert_array_equal(ph.mask.numpy(), np.asarray(jh.mask))
+    np.testing.assert_array_equal(ph.comm_cum.numpy(),
+                                  np.asarray(jh.comm_cum))
+    assert 0 < int(ph.comm_cum[-1]) < 30 * M_TREE
+    np.testing.assert_allclose(ph.objective.numpy(),
+                               np.asarray(jh.objective), rtol=1e-9)
+    assert float(ph.objective[-1]) < float(ph.objective[0])
+    for k in TREE:
+        want = np.asarray(jh.final_params[k])
+        np.testing.assert_allclose(ph.final_params[k].numpy(), want,
+                                   rtol=0, atol=1e-8 * np.abs(want).max())
+    pc, jc = ph.final_state.comm, jh.final_state.comm
+    assert pc.uplink_bytes_exact() == int(jc.uplink_mib) * 2 ** 20 \
+        + int(jc.uplink_rem)
+    # the factors of the matrix leaves really moved
+    q = ph.final_state.err["q"]
+    assert q["b1"].shape == (M_TREE, 0)
+    assert not torch.equal(q["w1"], opt.LowRankTransport(2).init(
+        pt.init_params, M_TREE)["q"]["w1"])
