@@ -2,12 +2,15 @@
 """Where the time of one Algorithm-1 iteration goes on the card.
 
     python3 benchmarks_torch/step_profile.py [--d 163597056] [--m 4] [--iters 5]
-        [--transport dense int8 topk lowrank]
+        [--transport dense int8 topk lowrank dense_staged int8_staged
+         per_tensor]
 
 Builds the full-width task of ``chip_smoke.py``'s phase 5 (edge quadratics
 at the parameter count of ``chb-paper-lm-124m``, M=4, f32, chb with
-alpha=0.125, eps1=4; top-k keeps (2d)//5 entries, low-rank runs rank 2 on
-the model's 12 leaves), warms each configuration up with one
+alpha=0.125, eps1=4; top-k keeps (2d)//5 entries, low-rank runs rank 2 and
+per_tensor granularity runs on the model's 12 leaves, the ``_staged``
+paths run dense and int8 under ``force_staged()``), warms each
+configuration up with one
 ``simulator.run``, then traces ``--iters`` iterations of another with
 ``torch.profiler`` (CPU and CUDA activities). For each transport, on the
 kernel and the reference backend, it prints one JSON line: device time by
@@ -19,6 +22,7 @@ no device time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -34,9 +38,15 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import opt  # noqa: E402
 from repro_torch.core import simulator  # noqa: E402
 from repro_torch.data import edge_tasks  # noqa: E402
+from repro_torch.kernels import fused_step  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 from chip_smoke import FULL_RANK, lm_tree_task  # noqa: E402
+
+TRANSPORTS = ("dense", "int8", "topk", "lowrank", "dense_staged",
+              "int8_staged", "per_tensor")
+# the paths that run on the model's leaves; the rest run on one leaf
+TREE_PATHS = ("lowrank", "per_tensor")
 
 
 def _device_ms(evt) -> float:
@@ -47,10 +57,12 @@ def _device_ms(evt) -> float:
 
 
 def transport_kw(transport: str, d: int) -> dict:
-    """The ``opt.make`` keywords of one transport at width ``d``."""
+    """The ``opt.make`` keywords of one path at width ``d``."""
     return {"dense": {}, "int8": {"quantize": "int8"},
             "topk": {"transport": "topk", "k": (2 * d) // 5},
-            "lowrank": {"transport": "lowrank", "rank": FULL_RANK}
+            "lowrank": {"transport": "lowrank", "rank": FULL_RANK},
+            "dense_staged": {}, "int8_staged": {"quantize": "int8"},
+            "per_tensor": {"granularity": "per_tensor"},
             }[transport]
 
 
@@ -59,16 +71,19 @@ def profile_run(task, transport, backend, iters: int) -> dict:
     d = sum(x.numel() for x in tree_leaves(task.init_params))
     o = opt.make("chb", 0.5 / 4, m, eps1=4.0, backend=backend,
                  **transport_kw(transport, d))
-    simulator.run(o, task, 2)                        # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        simulator.run(o, task, iters)
-        end.record()
+    route = fused_step.force_staged() if transport.endswith("_staged") \
+        else contextlib.nullcontext()
+    with route:
+        simulator.run(o, task, 2)                    # warm-up
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            simulator.run(o, task, iters)
+            end.record()
+            torch.cuda.synchronize()
     wall = start.elapsed_time(end)
     # device-side events only (kernels, copies): the CPU-side operator
     # events carry their kernels' device time too and would count it twice
@@ -93,11 +108,11 @@ def main() -> None:
     ap.add_argument("--d", type=int, default=163_597_056)
     ap.add_argument("--m", type=int, default=4)
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--transport", nargs="+",
-                    choices=("dense", "int8", "topk", "lowrank"),
-                    default=["dense", "int8", "topk", "lowrank"],
-                    help="low-rank views the task as chb-paper-lm-124m's "
-                    "leaves, so it needs the default --d")
+    ap.add_argument("--transport", nargs="+", choices=TRANSPORTS,
+                    default=list(TRANSPORTS),
+                    help="low-rank and per_tensor view the task as "
+                    "chb-paper-lm-124m's leaves, so they need the default "
+                    "--d")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: needs a CUDA card")
@@ -106,8 +121,7 @@ def main() -> None:
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "d": args.d, "m": args.m}), flush=True)
     for transport in args.transport:
-        # low-rank runs on the model's leaves, the rest on one leaf
-        run_task = lm_tree_task(task) if transport == "lowrank" else task
+        run_task = lm_tree_task(task) if transport in TREE_PATHS else task
         for backend in ("cuda", "reference"):
             print(json.dumps(profile_run(run_task, transport, backend,
                                          args.iters)), flush=True)

@@ -13,17 +13,24 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  card: M in {1, 4, 9}, n in {1, 127, 128*257+3, 2^20+17},
                  f32 and f64, masks all 0 / all 1 / mixed, inputs salted
                  with -0.0, one all-zero int8 pending row, top-k keep
-                 masks that keep -0.0 entries.
+                 masks that keep -0.0 entries; the int8 kernels (B5, B6,
+                 B7a, B7b) also on rows salted with NaN and +-inf; and four
+                 cross-kernel identities (one JSON line).
   4. golden   -- ``simulator.run`` of chb on the paper's linreg task
                  (m=5, n_per=30, d=20, seed=0) for 60 iterations, dense,
                  int8, top-k (k=8) and low-rank (rank 2), f64 and f32,
                  kernel backend against reference backend, f64 uploads
-                 against the JAX package's.
+                 against the JAX package's; at f64 also dense and int8
+                 under ``force_staged()`` (against the fused route), and
+                 per_tensor granularity and the adaptive censor for 80.
   5. full     -- each path at the width of ``chb-paper-lm-124m``
                  (163,597,056 f32 parameters, M=4 workers), 20 iterations:
                  dense, int8 and top-k on one leaf, low-rank on the model's
-                 12 leaves; kernel backend against reference backend, the
-                 launch counts read per path.
+                 12 leaves, the staged dense and int8 routes and the
+                 single-shard ``shard_step`` + ``apply_server`` anchor on
+                 one leaf, per_tensor on the 12 leaves; kernel backend
+                 against reference backend, staged and sharded against the
+                 fused steps, the launch counts read per path.
   6. timing   -- each kernel, its plain version, its library call where
                  one exists and its byte bound at the full-width shape;
                  then the ``{"kernels": [...]}`` line.
@@ -34,6 +41,7 @@ CUDA it stops before any phase.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -78,6 +86,11 @@ GOLDEN_OBJECTIVE = float.fromhex("0x1.107a260000000p+6")
 GOLDEN_KW = {"dense": {}, "int8": {"quantize": "int8"},
              "topk": {"transport": "topk", "k": 8},
              "lowrank": {"transport": "lowrank", "rank": 2}}
+# the same task for 80 iterations at f64: the JAX package's uploads for chb
+# with per_tensor granularity and for the adaptive censor (0.25, decay 0.9)
+# with the hb server (tests/test_opt.py's pre-redesign pins)
+GOLDEN_F64_80 = {"per_tensor": 339, "adaptive": 83}
+GOLDEN_ADAPTIVE = 0.25
 
 # top-k keeps 40% of the entries: the repo's density rule (2*d)//5 of
 # benchmarks/common.py's task-scaled top-k curve
@@ -124,6 +137,12 @@ KERNEL_META = {
                            "src/repro/kernels/fused_step.py:198"),
     "fused_int8_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                         "src/repro/kernels/fused_step.py:270"),
+    "censor_bank_advance": ("src/repro_torch/kernels/csrc/censor.cu",
+                            "src/repro/kernels/censor.py:203"),
+    "absmax_batched": ("src/repro_torch/kernels/csrc/quantize_ef.cu",
+                       "src/repro/kernels/quantize_ef.py:40"),
+    "quantize_ef_batched": ("src/repro_torch/kernels/csrc/quantize_ef.cu",
+                            "src/repro/kernels/quantize_ef.py:79"),
 }
 
 
@@ -140,6 +159,18 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape \
         and torch.equal(bits(a), bits(b))
+
+
+def same_or_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """NaN exactly where b is NaN, the same bits everywhere else."""
+    nan = torch.isnan(b)
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and torch.equal(torch.isnan(a), nan) \
+        and torch.equal(bits(a)[~nan], bits(b)[~nan])
+
+
+def max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
 
 
 def check(cond: bool, what: str) -> None:
@@ -222,24 +253,38 @@ def _keep(g: torch.Tensor, seed: int) -> torch.Tensor:
     return keep
 
 
-def _check_staged(g, h, e, keep, mask, mtag, ref, censor, topk_pack,
-                  lowrank_ef) -> None:
-    """B9, B10 and B11 against their plain versions under one mask:
-    bitwise, on repeat launches and on M=1 calls of each worker."""
+def _check_staged(g, h, e, keep, pend, scale, mask, mtag, max_err) -> dict:
+    """B4, B7b, B9, B10 and B11 against their plain versions under one
+    mask: bitwise, on repeat launches and on M=1 calls of each worker.
+    Returns each kernel's outputs."""
+    from repro_torch.kernels import (censor, lowrank_ef, quantize_ef, ref,
+                                     topk_pack)
     m = g.shape[0]
-    calls = {  # kernel: (wrapper, plain, operands without the mask)
-        "B9": (censor.bank_advance, ref.bank_advance, (h, g)),
-        "B10": (topk_pack.select_pack_ef_batched, ref.select_pack_ef_batched,
-                (g, e, keep)),
+    calls = {  # kernel: (label, wrapper, plain, operands without the mask)
+        "censor_bank_advance": ("B4", censor.censor_bank_advance,
+                                ref.censor_bank_advance, (g, h)),
+        "quantize_ef_batched": (
+            "B7b", lambda p_, e_, s_, mk: quantize_ef.quantize_ef_batched(
+                p_, e_, mk, s_),
+            lambda p_, e_, s_, mk: ref.quantize_ef_batched(p_, e_, mk, s_),
+            (pend, e, scale)),
+        "bank_advance": ("B9", censor.bank_advance, ref.bank_advance,
+                         (h, g)),
+        "select_pack_ef_batched": ("B10", topk_pack.select_pack_ef_batched,
+                                   ref.select_pack_ef_batched, (g, e, keep)),
         # an arbitrary-float payload: the residual of a reconstruction
-        "B11": (lowrank_ef.residual_ef_batched, ref.residual_ef_batched,
-                (g, h, e)),
+        "residual_ef_batched": ("B11", lowrank_ef.residual_ef_batched,
+                                ref.residual_ef_batched, (g, h, e)),
     }
-    for kname, (fn, plain, ops) in calls.items():
+    results = {}
+    for name, (kname, fn, plain, ops) in calls.items():
         out = fn(*ops, mask)
         want = plain(*ops, mask)
         outs = out if isinstance(out, tuple) else (out,)
         wants = want if isinstance(want, tuple) else (want,)
+        results[name] = outs
+        max_err[name] = max([max_err[name]] + [
+            max_diff(a, b) for a, b in zip(outs, wants)])
         check(all(same_bits(a, b) for a, b in zip(outs, wants)),
               f"{kname} {mtag}")
         again = fn(*ops, mask)
@@ -251,6 +296,49 @@ def _check_staged(g, h, e, keep, mask, mtag, ref, censor, topk_pack,
             one = one if isinstance(one, tuple) else (one,)
             check(all(same_bits(a, b[w:w + 1]) for a, b in zip(one, outs)),
                   f"{kname} M=1 slice {w} {mtag}")
+    return results
+
+
+def _check_nonfinite(g, h, e, t, p, tag) -> None:
+    """B5, B6, B7a and B7b on rows salted with NaN and +-inf: NaN where
+    their plain versions give NaN (as torch.amax and torch.clamp do), the
+    same bits elsewhere. A NaN row's scale is 1 and its NaN entry stays NaN
+    in the payload, not a clipped -127*scale."""
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import fused_step, quantize_ef, ref
+    m, n = g.shape
+    g, h = g.clone(), h.clone()
+    g[0, 1] = float("nan")
+    if m > 1:
+        g[1, 0] = float("inf")
+        g[1, n - 1] = float("-inf")
+    if m > 2:
+        h[2, n // 2] = float("nan")
+    mask = torch.tensor([float(i % 2 == 0) for i in range(m)],
+                        device=g.device)
+    sq, am = fused_step.int8_stats_batched(g, h, e)
+    sq_p, am_p = ref.int8_stats_batched(g, h, e)
+    check(same_or_nan(am, am_p), f"B5 absmax, NaN/inf rows {tag}")
+    fin = torch.isfinite(sq_p)
+    check(torch.equal(torch.isfinite(sq), fin)
+          and (not fin.any() or _rel_err(sq[fin], sq_p[fin]) <= SQNORM_RTOL),
+          f"B5 sqnorm, NaN/inf rows {tag}")
+    scale = int8_scale(am)
+    check(bool(torch.isnan(am[0])) and float(scale[0]) == 1.0,
+          f"B5 NaN row: amax {float(am[0])}, scale {float(scale[0])} {tag}")
+    out = fused_step.fused_int8_step(g, h, e, t, p, mask, scale, 0.1, 0.4)
+    plain = ref.fused_int8_step(g, h, e, t, p, mask, scale, 0.1, 0.4)
+    for a, b, what in zip(out, plain, ("ghat'", "err'", "agg", "theta'")):
+        check(same_or_nan(a, b), f"B6 {what}, NaN/inf rows {tag}")
+    pend = (g - h) + e
+    am7 = quantize_ef.absmax_batched(pend)
+    check(same_or_nan(am7, ref.absmax_batched(pend)) and same_or_nan(am7, am),
+          f"B7a, NaN/inf rows {tag}")
+    pay, err = quantize_ef.quantize_ef_batched(pend, e, mask, scale)
+    pay_p, err_p = ref.quantize_ef_batched(pend, e, mask, scale)
+    check(same_or_nan(pay, pay_p) and same_or_nan(err, err_p)
+          and same_or_nan(err, out[1]), f"B7b, NaN/inf rows {tag}")
+    check(bool(torch.isnan(pay[0, 1])), f"B7b NaN entry not kept {tag}")
 
 
 def _check_rows(g, h, e, keep, tag, topk_pack, lowrank_ef) -> None:
@@ -279,10 +367,13 @@ def phase_kernels(device, ms=(1, 4, 9),
     """Every kernel against its plain version; returns max abs errors."""
     from repro_torch.core.quantize import int8_scale
     from repro_torch.kernels import (censor, fused_step, hb_update,
-                                     lowrank_ef, ref, topk_pack)
+                                     lowrank_ef, quantize_ef, ref, topk_pack)
     from repro_torch.opt import GradientDescent, HeavyBall
     max_err = {name: 0.0 for name in KERNEL_META}
-    cases = 0
+    cases = nonfinite = 0
+    # the cross-kernel identities: each must hold bit for bit in every case
+    ident = {"B4 == B2 ghat'": 0, "B7a == B5 amax": 0,
+             "B7b err' == B6 err'": 0, "B8(pending) == B5 sqnorm": 0}
     alpha, beta = 0.0123, 0.4
     for dtype in dtypes:
         for m in ms:
@@ -357,6 +448,29 @@ def phase_kernels(device, ms=(1, 4, 9),
                     check(float(scale[-1]) == 1.0, f"B5 zero row scale {tag}")
                 keep = _keep(g, seed)
 
+                # B7a, on the pending tree the staged int8 step materializes
+                pend = (g - h) + e
+                am7 = quantize_ef.absmax_batched(pend)
+                check(same_bits(am7, ref.absmax_batched(pend)), f"B7a {tag}")
+                max_err["absmax_batched"] = max(
+                    max_err["absmax_batched"],
+                    max_diff(am7, ref.absmax_batched(pend)))
+                check(same_bits(am7, quantize_ef.absmax_batched(pend)),
+                      f"B7a repeat {tag}")
+                for w in range(m):
+                    check(same_bits(am7[w:w + 1],
+                                    quantize_ef.absmax_batched(
+                                        pend[w:w + 1])),
+                          f"B7a M=1 slice {w} {tag}")
+                check(same_bits(am7, am), f"B7a != B5 amax {tag}")
+                ident["B7a == B5 amax"] += 1
+                # the staged int8 masks equal the fused ones only if B8 on
+                # the materialized pending is B5's sqnorm, bit for bit
+                check(same_bits(censor.sqnorm_batched(pend), sq),
+                      f"B8 on pending != B5 sqnorm {tag}: max rel "
+                      f"{_rel_err(censor.sqnorm_batched(pend), sq)}")
+                ident["B8(pending) == B5 sqnorm"] += 1
+
                 for mname, mask in _masks(m, device).items():
                     mtag = f"{tag} mask={mname}"
                     # B2
@@ -371,6 +485,7 @@ def phase_kernels(device, ms=(1, 4, 9),
                                                         alpha, beta)
                     check(all(same_bits(a, b) for a, b in zip(out, again)),
                           f"B2 repeat {mtag}")
+                    dense_ghat = out[0]
                     for w in range(m):
                         one = fused_step.fused_dense_step(
                             g[w:w + 1], h[w:w + 1], t, p, mask[w:w + 1],
@@ -396,13 +511,26 @@ def phase_kernels(device, ms=(1, 4, 9),
                         check(same_bits(one[0], out[0][w:w + 1])
                               and same_bits(one[1], out[1][w:w + 1]),
                               f"B6 M=1 slice {w} {mtag}")
-                    _check_staged(g, h, e, keep, mask, mtag, ref, censor,
-                                  topk_pack, lowrank_ef)
+                    staged = _check_staged(g, h, e, keep, pend, scale, mask,
+                                           mtag, max_err)
+                    check(same_bits(staged["censor_bank_advance"][0],
+                                    dense_ghat), f"B4 != B2 ghat' {mtag}")
+                    ident["B4 == B2 ghat'"] += 1
+                    check(same_bits(staged["quantize_ef_batched"][1],
+                                    out[1]), f"B7b err' != B6 err' {mtag}")
+                    ident["B7b err' == B6 err'"] += 1
+                    del staged
                     cases += 1
                 _check_rows(g, h, e, keep, tag, topk_pack, lowrank_ef)
-    emit({"phase": "kernels", "cases": cases, "max_abs_err": max_err,
-          "sqnorm_rtol": SQNORM_RTOL,
-          "elementwise": "bitwise, including the sign of zero"})
+                if n >= 3:
+                    _check_nonfinite(g, h, e, t, p, tag)
+                    nonfinite += 1
+                del pend
+    emit({"phase": "kernels", "cases": cases, "nonfinite_cases": nonfinite,
+          "max_abs_err": max_err, "sqnorm_rtol": SQNORM_RTOL,
+          "elementwise": "bitwise, including the sign of zero; NaN where "
+          "the plain version gives NaN"})
+    emit({"phase": "identities", "cases_held_bitwise": ident})
     return max_err
 
 
@@ -470,13 +598,27 @@ class ThetaRecorder:
         return self._grad_fn(params, data)
 
 
+def same_run(a, b) -> bool:
+    """Two ``simulator.run`` histories: masks, counts, bytes, objective and
+    final theta bit for bit."""
+    return (torch.equal(a.mask, b.mask) and torch.equal(a.comm_cum, b.comm_cum)
+            and torch.equal(a.final_state.comm.uplink_count,
+                            b.final_state.comm.uplink_count)
+            and a.final_state.comm.uplink_bytes_exact()
+            == b.final_state.comm.uplink_bytes_exact()
+            and same_bits(a.objective, b.objective)
+            and all(same_bits(x, y) for x, y in zip(
+                tree_leaves(a.final_params), tree_leaves(b.final_params))))
+
+
 def phase_golden(device) -> None:
     from repro_torch import opt
     from repro_torch.core import simulator
     from repro_torch.data import paper_tasks
+    from repro_torch.kernels import fused_step
     bundle = paper_tasks.make_linear_regression(m=5, n_per=30, d=20, seed=0,
                                                 device=device)
-    out = {}
+    out, fused64 = {}, {}
     for kind, kw in GOLDEN_KW.items():
         hist, recs = {}, {}
         for prec, dtype in (("f64", torch.float64), ("f32", torch.float32)):
@@ -500,6 +642,7 @@ def phase_golden(device) -> None:
             check(int(hk.comm_cum[-1]) == int(hk.mask.sum()),
                   f"golden {kind} {prec}: comm_cum != mask sum")
         h64, h32 = hist["f64", "cuda"], hist["f32", "cuda"]
+        fused64[kind] = h64
         comm64, obj64 = int(h64.comm_cum[-1]), float(h64.objective[-1])
         want64, want_obj64 = GOLDEN_F64[kind]
         check(comm64 == want64 == int(h64.mask.sum()),
@@ -528,6 +671,41 @@ def phase_golden(device) -> None:
                          (k for k in range(60)
                           if not torch.equal(h32.mask[k], h64.mask[k])),
                          None)}
+    task64 = simulator.task_to(bundle.task, dtype=torch.float64)
+    # the staged route: the fused route's bits, the JAX package's uploads
+    for kind in ("dense", "int8"):
+        with fused_step.force_staged():
+            h = simulator.run(opt.make("chb", bundle.alpha_paper, 5,
+                                       backend="cuda", **GOLDEN_KW[kind]),
+                              task64, 60, device=device)
+        check(same_run(h, fused64[kind]),
+              f"golden {kind} f64: the staged route differs from the fused")
+        check(int(h.comm_cum[-1]) == GOLDEN_F64[kind][0],
+              f"golden {kind} staged: {int(h.comm_cum[-1])} uploads")
+        out[f"{kind}_staged"] = {"f64_comm_cum": int(h.comm_cum[-1]),
+                                 "equals_fused": True}
+    # per_tensor granularity and the adaptive censor, 80 iterations
+    builders = {
+        "per_tensor": lambda b: opt.make("chb", bundle.alpha_paper, 5,
+                                         granularity="per_tensor",
+                                         backend=b),
+        "adaptive": lambda b: opt.ComposedOptimizer(
+            censor=opt.AdaptiveCensor(GOLDEN_ADAPTIVE),
+            transport=opt.DenseTransport(),
+            server=opt.HeavyBall(bundle.alpha_paper, 0.4), num_workers=5,
+            backend=b),
+    }
+    for kind, build in builders.items():
+        hk, hr = (simulator.run(build(b), task64, 80, device=device)
+                  for b in ("cuda", "reference"))
+        check(same_run(hk, hr), f"golden {kind} f64: backends differ")
+        sent = int(hk.comm_cum[-1])
+        check(sent == GOLDEN_F64_80[kind] == int(hk.mask.sum()),
+              f"golden {kind} f64: {sent} uploads, the JAX package gives "
+              f"{GOLDEN_F64_80[kind]}")
+        out[kind] = {"f64_comm_cum": sent,
+                     "uplink_bytes": hk.final_state.comm.uplink_bytes_exact(),
+                     "f64_objective": float(hk.objective[-1])}
     emit({"phase": "golden", **out})
 
 
@@ -541,7 +719,42 @@ PATH_KERNELS = {
              "hb_update"),
     "lowrank": ("sqnorm_batched", "residual_ef_batched", "bank_advance",
                 "hb_update"),
+    "dense_staged": ("censor_delta_sqnorm_batched", "censor_bank_advance",
+                     "hb_update"),
+    "int8_staged": ("sqnorm_batched", "absmax_batched", "quantize_ef_batched",
+                    "bank_advance", "hb_update"),
+    "per_tensor": ("sqnorm_batched", "bank_advance", "hb_update"),
+    # B3 through apply_server, after the (one-shard) fold
+    "shard_dense": ("censor_delta_sqnorm_batched", "censor_bank_advance",
+                    "hb_update"),
+    "shard_int8": ("sqnorm_batched", "absmax_batched", "quantize_ef_batched",
+                   "bank_advance", "hb_update"),
 }
+# the path each staged or sharded path must equal bit for bit
+SAME_AS = {"dense_staged": "dense", "int8_staged": "int8",
+           "shard_dense": "dense", "shard_int8": "int8"}
+
+
+class ShardAnchor:
+    """The single-shard sync anchor as an optimizer ``simulator.run`` can
+    drive: ``shard_step`` over every worker with no gates, then
+    ``apply_server`` on the partial sum."""
+
+    def __init__(self, opt):
+        self.opt = opt
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def step(self, state, params, grads):
+        from repro_torch.core.util import tree_sqnorm
+        from repro_torch.opt import StepStats
+        new_state, partial, st = self.opt.shard_step(state, params, grads)
+        new_params = self.opt.apply_server(params, state.prev_params,
+                                           partial)
+        return new_state, new_params, StepStats(
+            mask=st.mask, delta_sq=st.delta_sq, step_sq=st.step_sq,
+            agg_grad_sqnorm=tree_sqnorm(partial))
 
 
 def _lm_grad(theta, data):
@@ -602,28 +815,40 @@ def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
     from repro_torch import opt
     from repro_torch.core import simulator
     from repro_torch.data import edge_tasks
-    from repro_torch.kernels import common
+    from repro_torch.kernels import common, fused_step
     t0 = time.perf_counter()
     flat = edge_tasks.make_edge_quadratics(m=m, d=d, seed=0,
                                            dtype=torch.float32)
     fstar = edge_tasks.edge_quadratics_fstar(flat)
     setup_s = time.perf_counter() - t0
     tree = lm_tree_task(flat)
+    int8 = {"quantize": "int8"}
     paths = {  # path: (opt.make keywords, task, bytes of one transmission)
         "dense": ({}, flat, 4 * d),
-        "int8": ({"quantize": "int8"}, flat, d + 4),
+        "int8": (int8, flat, d + 4),
         "topk": ({"transport": "topk", "k": FULL_TOPK_K}, flat,
                  FULL_TOPK_K * (4 + 4)),
         "lowrank": ({"transport": "lowrank", "rank": FULL_RANK}, tree,
                     lowrank_payload_bytes(FULL_RANK)),
+        "dense_staged": ({}, flat, 4 * d),
+        "int8_staged": (int8, flat, d + 4),
+        # bytes count per transmitted leaf: at most 4d a worker-iteration
+        "per_tensor": ({"granularity": "per_tensor"}, tree, None),
+        "shard_dense": ({}, flat, 4 * d),
+        "shard_int8": (int8, flat, d + 4),
     }
 
-    def one_run(kw, task, backend):
-        rec = StepRecorder(opt.make("chb", FULL_ALPHA, m, eps1=FULL_EPS1,
-                                    backend=backend, **kw))
+    def one_run(kind, kw, task, backend, keep_state=False):
+        o = opt.make("chb", FULL_ALPHA, m, eps1=FULL_EPS1, backend=backend,
+                     **kw)
+        rec = StepRecorder(ShardAnchor(o) if kind.startswith("shard")
+                           else o)
+        staged = fused_step.force_staged() if kind.endswith("_staged") \
+            else contextlib.nullcontext()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        hist = simulator.run(rec, task, iters)
+        with staged:
+            hist = simulator.run(rec, task, iters)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         comm = hist.final_state.comm
@@ -634,19 +859,28 @@ def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
             "theta": tree_leaves(hist.final_params),
             "objective": float(hist.objective[-1]),
             "step_ms": rec.median_ms(), "wall_s": wall,
-            "min_margin": rec.min_margin(FULL_EPS1),
+            # eq. (8) per leaf has no one global margin
+            "min_margin": (None if kind == "per_tensor"
+                           else rec.min_margin(FULL_EPS1)),
         }
+        if keep_state:
+            s = hist.final_state
+            res["state"] = tree_leaves([s.prev_params, s.ghat, s.err,
+                                        list(s.comm)])
         del hist, rec
         torch.cuda.empty_cache()
         return res
 
-    summary, launches = {}, {}
+    summary, launches, fused = {}, {}, {}
     for kind, (kw, task, payload) in paths.items():
+        # the fused steps stay for the staged and sharded paths to equal
+        keep = kind in SAME_AS.values()
         common.reset_launches()
-        k = one_run(kw, task, "cuda")
+        k = one_run(kind, kw, task, "cuda",
+                    keep_state=keep or kind.startswith("shard"))
         launches[kind] = dict(common.LAUNCHES)
         common.reset_launches()
-        r = one_run(kw, task, "reference")
+        r = one_run(kind, kw, task, "reference")
         check(not any(common.LAUNCHES.values()),
               f"full {kind}: the reference backend launched a kernel")
         per_step = len(tree_leaves(task.init_params))
@@ -662,37 +896,62 @@ def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
         check(torch.equal(k["uplink_count"], r["uplink_count"]),
               f"full {kind}: uplink_count")
         sent = int(k["mask"].sum())
-        want = sent * payload
+        if payload is None:
+            want = r["uplink_bytes"]
+            check(0 < want <= sent * 4 * d and want % 4 == 0,
+                  f"full {kind}: uplink bytes {want} for {sent} uploads")
+        else:
+            want = sent * payload
         check(k["uplink_bytes"] == want == r["uplink_bytes"],
               f"full {kind}: uplink bytes {k['uplink_bytes']} != {want}")
-        bitwise = all(same_bits(a, b) for a, b in zip(k["theta"],
-                                                      r["theta"]))
         theta_rel = max(float((a - b).abs().max() / b.abs().max())
                         for a, b in zip(k["theta"], r["theta"]))
+        check(all(same_bits(a, b) for a, b in zip(k["theta"], r["theta"])),
+              f"full {kind}: final theta differs between backends (max rel "
+              f"{theta_rel})")
         if kind in ("dense", "int8"):
             check(want > 2 ** 31,
                   f"full {kind}: {want} bytes do not pass 2^31")
-            check(theta_rel <= 1e-5, f"full {kind}: theta rel {theta_rel}")
-        else:
-            check(bitwise, f"full {kind}: final theta differs between "
-                  f"backends (max rel {theta_rel})")
+        if kind in SAME_AS:
+            f = fused[SAME_AS[kind]]
+            check(torch.equal(k["mask"], f["mask"])
+                  and torch.equal(k["comm_cum"], f["comm_cum"])
+                  and torch.equal(k["uplink_count"], f["uplink_count"])
+                  and k["uplink_bytes"] == f["uplink_bytes"],
+                  f"full {kind}: masks, counts or bytes differ from "
+                  f"{SAME_AS[kind]}'s")
+            check(all(same_bits(a, b) for a, b in zip(k["theta"],
+                                                      f["theta"])),
+                  f"full {kind}: final theta differs from {SAME_AS[kind]}'s")
+            if kind.startswith("shard"):
+                check(len(k["state"]) == len(f["state"]) and all(
+                    same_bits(a, b) if a.is_floating_point()
+                    else torch.equal(a, b)
+                    for a, b in zip(k["state"], f["state"])),
+                      f"full {kind}: the state differs from "
+                      f"{SAME_AS[kind]}'s step")
         check(all(math.isfinite(x) for x in (k["objective"],
                                              r["objective"])),
               f"full {kind}: objective is not finite")
+        margins = [x["min_margin"] for x in (k, r)
+                   if x["min_margin"] is not None]
         summary[kind] = {
             "uploads": sent, "uplink_bytes": k["uplink_bytes"],
             "payload_bytes": payload, "leaves": per_step,
-            "theta_bitwise": bitwise, "theta_max_rel_diff": theta_rel,
-            "min_eq8_margin": min(k["min_margin"], r["min_margin"]),
+            "theta_bitwise": True, "theta_max_rel_diff": theta_rel,
+            "equals": SAME_AS.get(kind),
+            "min_eq8_margin": min(margins) if margins else None,
             "objective": k["objective"],
             "fstar_rel_gap": (k["objective"] - fstar) / fstar,
             "step_ms_cuda": k["step_ms"], "step_ms_reference": r["step_ms"],
             "wall_s_cuda": k["wall_s"], "wall_s_reference": r["wall_s"],
             "launches": {n: c for n, c in launches[kind].items() if c},
         }
+        if keep:
+            fused[kind] = k
         del k, r
         torch.cuda.empty_cache()
-    del paths, tree, flat
+    del paths, tree, flat, fused
     torch.cuda.empty_cache()
     emit({"phase": "full", "d": d, "m": m, "iters": iters,
           "topk_k": FULL_TOPK_K, "lowrank_rank": FULL_RANK,
@@ -724,7 +983,7 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
     kernels' counts from phase 5."""
     from repro_torch.core.quantize import int8_scale
     from repro_torch.kernels import (censor, fused_step, hb_update,
-                                     lowrank_ef, ref, topk_pack)
+                                     lowrank_ef, quantize_ef, ref, topk_pack)
     gen = torch.Generator(device=device).manual_seed(7)
 
     def randn(*shape):
@@ -735,7 +994,8 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
     keep = (randn(m, d) > 0.2533).to(torch.float32)   # about 40% kept
     mask = torch.tensor([1.0, 0.0] * (m // 2) + [1.0] * (m % 2),
                         device=device)
-    scale = int8_scale(ref.absmax_batched((g - h) + e))
+    pend = (g - h) + e
+    scale = int8_scale(ref.absmax_batched(pend))
     nab = g[0]
     el = 4                                             # f32 bytes
     work = {   # name: (kernel, plain, library call or None, bytes moved,
@@ -780,6 +1040,21 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
             lambda: lowrank_ef.residual_ef_batched(g, h, e, mask),
             lambda: ref.residual_ef_batched(g, h, e, mask), None,
             4 * m * d * el + 4 * m, 5 * m * d),
+        "censor_bank_advance": (
+            lambda: censor.censor_bank_advance(g, h, mask),
+            lambda: ref.censor_bank_advance(g, h, mask),
+            # rounds otherwise at weight 1 (h + 1*(g - h) is not g): a time
+            lambda: torch.lerp(h, g, mask[:, None]),
+            3 * m * d * el + 4 * m, 3 * m * d),
+        "absmax_batched": (
+            lambda: quantize_ef.absmax_batched(pend),
+            lambda: ref.absmax_batched(pend),
+            lambda: torch.linalg.vector_norm(pend, ord=math.inf, dim=1),
+            m * d * el + el * m, 2 * m * d),
+        "quantize_ef_batched": (
+            lambda: quantize_ef.quantize_ef_batched(pend, e, mask, scale),
+            lambda: ref.quantize_ef_batched(pend, e, mask, scale), None,
+            4 * m * d * el + 8 * m, 9 * m * d),
     }
     rows = []
     for name, (kfn, pfn, lfn, nbytes, ops) in work.items():

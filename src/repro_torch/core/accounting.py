@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 MIB = 1 << 20
 
 
@@ -37,9 +39,13 @@ class CommStats(NamedTuple):
     iterations: torch.Tensor       # () iterations taken
 
     @classmethod
-    def init(cls, num_workers: int, device="cpu") -> "CommStats":
+    def init(cls, num_workers: int, device=None) -> "CommStats":
+        """Zero counters on ``device`` (``None`` means CUDA, see
+        ``repro_torch.device.resolve_device``)."""
+        dev = resolve_device(device)
+
         def z(shape):
-            return torch.zeros(shape, dtype=torch.int32, device=device)
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
         return cls(uplink_count=z((num_workers,)), uplink_mib=z(()),
                    uplink_rem=z(()), downlink_count=z(()), iterations=z(()))
 

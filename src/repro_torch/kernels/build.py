@@ -20,7 +20,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("censor", "fused_step", "hb_update", "topk_pack", "lowrank_ef")
+SOURCES = ("censor", "fused_step", "hb_update", "topk_pack", "lowrank_ef",
+           "quantize_ef")
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
@@ -53,13 +54,16 @@ def _both(name: str, argtypes: tuple) -> dict:
 SIGNATURES = {
     "censor": {**_both("censor_delta_sqnorm_batched", _REDUCE_ARGS),
                **_both("sqnorm_batched", _SQNORM_ARGS),
-               **_both("bank_advance", _BANK_ARGS)},
+               **_both("bank_advance", _BANK_ARGS),
+               **_both("censor_bank_advance", _BANK_ARGS)},
     "fused_step": {**_both("fused_dense_step", _DENSE_ARGS),
                    **_both("int8_stats_batched", _STATS_ARGS),
                    **_both("fused_int8_step", _INT8_ARGS)},
     "hb_update": _both("hb_update", _HB_ARGS),
     "topk_pack": _both("select_pack_ef_batched", _PACK_ARGS),
     "lowrank_ef": _both("residual_ef_batched", _RESIDUAL_ARGS),
+    "quantize_ef": {**_both("absmax_batched", _SQNORM_ARGS),
+                    **_both("quantize_ef_batched", _PACK_ARGS)},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,8 @@
-"""B1, B8, B9: the censor kernels of one bank leaf, on the card.
+"""B1, B8, B9, B4: the censor kernels of one bank leaf, on the card.
 
 Wraps ``csrc/censor.cu`` (port of ``repro/kernels/censor.py``'s
-``censor_delta_sqnorm_batched``, ``sqnorm_batched`` and ``bank_advance``).
+``censor_delta_sqnorm_batched``, ``sqnorm_batched``, ``bank_advance`` and
+``censor_bank_advance``).
 CPU tensors run ``ref``'s plain versions; CUDA tensors launch the kernels
 (see ``common`` for the dispatch rule).
 """
@@ -82,4 +83,26 @@ def bank_advance(ghat: torch.Tensor, payload: torch.Tensor,
     count_launch(name)
     launch("censor", f"{name}_{suffix}", ghat.device, _ptr(ghat),
            _ptr(payload), _ptr(mask), _ptr(out), m, n)
+    return out
+
+
+def censor_bank_advance(g: torch.Tensor, ghat: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """``ghat + mask * (g - ghat)`` of one (M, ...) leaf, in one pass.
+
+    The arithmetic-mask form, not a select (``h + (g - h) != g`` in
+    floating point): it equals B2's ``new_ghat`` for the same operands.
+    """
+    name = "censor_bank_advance"
+    suffix = check_leaves(name, g, ghat)
+    m, n = ghat.shape[0], ghat[0].numel()
+    check_worker_vector(name, "mask", mask, m)
+    if n == 0:
+        return ghat
+    if not on_card(name, g, ghat, mask):
+        return ref.censor_bank_advance(g, ghat, mask)
+    out = torch.empty_like(ghat)
+    count_launch(name)
+    launch("censor", f"{name}_{suffix}", ghat.device, _ptr(g), _ptr(ghat),
+           _ptr(mask), _ptr(out), m, n)
     return out

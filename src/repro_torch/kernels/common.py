@@ -15,7 +15,8 @@ import torch
 KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
            "int8_stats_batched", "fused_int8_step", "sqnorm_batched",
            "bank_advance", "hb_update", "select_pack_ef_batched",
-           "residual_ef_batched")
+           "residual_ef_batched", "censor_bank_advance", "absmax_batched",
+           "quantize_ef_batched")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -3,18 +3,21 @@
 //   B1 censor_delta_sqnorm_batched replaces src/repro/kernels/censor.py:censor_delta_sqnorm_batched
 //   B8 sqnorm_batched              replaces src/repro/kernels/censor.py:sqnorm_batched
 //   B9 bank_advance                replaces src/repro/kernels/censor.py:bank_advance
+//   B4 censor_bank_advance         replaces src/repro/kernels/censor.py:censor_bank_advance
 //
 // B1 gives the per-worker eq.-(8) norms sum_j (g[m,j] - ghat[m,j])^2, the
 // subtraction in the bank dtype and the square-sum in f32. B8 gives the
 // same sum of a pending delta already in memory (the stateful transports'
-// staged step), and B9 advances the bank by an encoded payload,
-// ghat + m*payload.
+// staged step), B9 advances the bank by an encoded payload,
+// ghat + m*payload, and B4 by the raw gradient, ghat + m*(g - ghat) (the
+// staged dense step and shard_step).
 //
-// Bound: bytes, for all three (a handful of flops an element). At M=4,
+// Bound: bytes, for all four (a handful of flops an element). At M=4,
 // n=163,597,056 in f32 on an H100 SXM (3.35 TB/s):
 //   B1 reads 2*M*n elements and writes M floats:   5.23 GB, >= 1.56 ms;
 //   B8 reads M*n elements and writes M floats:     2.62 GB, >= 0.78 ms;
-//   B9 reads 2*M*n elements and writes M*n:        7.85 GB, >= 2.34 ms.
+//   B9 reads 2*M*n elements and writes M*n:        7.85 GB, >= 2.34 ms;
+//   B4 reads 2*M*n elements and writes M*n:        7.85 GB, >= 2.34 ms.
 //
 // Design: pass 1 of B1 and B8 gives each (chunk, worker) block kChunk
 // contiguous elements with coalesced loads (neighbouring threads on
@@ -27,6 +30,11 @@
 // (float)(g - ghat) with the same chunks and tree, so B8 on g - ghat equals
 // B1 on (g, ghat) bit for bit. B9 is one grid-stride pass in which each
 // thread owns a column and walks the workers, every row access coalesced.
+// B4 tiles each worker row (grid y = worker): a thread loads kRowItems
+// elements of g and ghat before it computes any, so several loads are in
+// flight per thread (see PERF.md). It advances in the arithmetic mask
+// form of B2, so its output equals B2's ghat' bit for bit (a select would
+// not: h + (g - h) != g in floating point).
 #include "reduce.cuh"
 
 using namespace repro;
@@ -104,6 +112,30 @@ bank_advance_kernel(const T* __restrict__ h, const T* __restrict__ q,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+censor_bank_advance_kernel(const T* __restrict__ g, const T* __restrict__ h,
+                           const float* __restrict__ mask, T* __restrict__ out, int64_t n) {
+  const int64_t w = blockIdx.y;
+  const T mk = (T)mask[w];
+  const T* gw = g + w * n;
+  const T* hw = h + w * n;
+  T* ow = out + w * n;
+  const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
+  T gv[kRowItems], hv[kRowItems];
+#pragma unroll
+  for (int k = 0; k < kRowItems; ++k) {
+    const int64_t j = base + (int64_t)k * kThreads;
+    gv[k] = j < n ? gw[j] : T(0);
+    hv[k] = j < n ? hw[j] : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < kRowItems; ++k) {
+    const int64_t j = base + (int64_t)k * kThreads;
+    if (j < n) ow[j] = add(hv[k], mul(mk, sub(gv[k], hv[k])));
+  }
+}
+
+template <typename T>
 static int launch_sqnorm(const void* x, void* part, void* out, int64_t m, int64_t n,
                          int64_t nchunks, void* stream) {
   if (!reduction_shape_ok(m, n, nchunks)) return (int)cudaErrorInvalidValue;
@@ -123,6 +155,15 @@ static int launch_bank_advance(const void* h, const void* q, const void* mask, v
   if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
   bank_advance_kernel<T><<<elementwise_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)h, (const T*)q, (const float*)mask, (T*)out, m, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_censor_bank_advance(const void* g, const void* h, const void* mask, void* out,
+                                      int64_t m, int64_t n, void* stream) {
+  if (!row_tiles_ok(m, n)) return (int)cudaErrorInvalidValue;
+  censor_bank_advance_kernel<T><<<row_tiles(m, n), kThreads, 0, (cudaStream_t)stream>>>(
+          (const T*)g, (const T*)h, (const float*)mask, (T*)out, n);
   return (int)cudaGetLastError();
 }
 
@@ -168,6 +209,20 @@ int bank_advance_f64(int device, const void* h, const void* q, const void* mask,
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
   return launch_bank_advance<double>(h, q, mask, out, m, n, stream);
+}
+
+int censor_bank_advance_f32(int device, const void* g, const void* h, const void* mask, void* out,
+                            int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_censor_bank_advance<float>(g, h, mask, out, m, n, stream);
+}
+
+int censor_bank_advance_f64(int device, const void* g, const void* h, const void* mask, void* out,
+                            int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_censor_bank_advance<double>(g, h, mask, out, m, n, stream);
 }
 
 }  // extern "C"

@@ -99,7 +99,7 @@ fused_int8_step_kernel(const T* __restrict__ g, const T* __restrict__ h,
       const T pending = add(sub(g[o], hv), ev);
       // int8 round trip in f32: rintf rounds half to even, like torch.round
       const float sc = scale[w];
-      const float q = fminf(fmaxf(rintf(__fdiv_rn((float)pending, sc)), -127.0f), 127.0f);
+      const float q = clampval(rintf(__fdiv_rn((float)pending, sc)), -127.0f, 127.0f);
       const T payload = (T)__fmul_rn(q, sc);
       const T mk = (T)mask[w];
       new_e[o] = add(mul(mk, sub(pending, payload)), mul(sub(T(1), mk), ev));

@@ -25,8 +25,14 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float absval(float a) { return fabsf(a); }
 __device__ __forceinline__ double absval(double a) { return fabs(a); }
-__device__ __forceinline__ float maxval(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double maxval(double a, double b) { return fmax(a, b); }
+// max that keeps a NaN, as torch.amax and jnp.max do (fmaxf/fmax drop it)
+template <typename T>
+__device__ __forceinline__ T maxval(T a, T b) { return (a > b || isnan(a)) ? a : b; }
+// clip(x, lo, hi) with NaN in, NaN out, as torch.clamp and jnp.clip do
+// (fminf/fmaxf would turn a NaN into a bound)
+__device__ __forceinline__ float clampval(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
 
 struct SumOp {
   template <typename T>
@@ -87,6 +93,20 @@ inline bool reduction_shape_ok(int64_t m, int64_t n, int64_t nchunks) {
 inline unsigned elementwise_blocks(int64_t n) {
   const int64_t b = (n + kThreads - 1) / kThreads;
   return (unsigned)(b < 0x7fffffff ? b : 0x7fffffff);
+}
+
+// Elements of one worker row that one thread of a row-tiled elementwise
+// pass owns: it issues all their loads before it computes, so several
+// loads are in flight per thread.
+constexpr int kRowItems = 4;
+constexpr int64_t kRowTile = (int64_t)kThreads * kRowItems;
+
+// The grid of a row-tiled pass: x walks the tiles of a row, y the workers.
+inline bool row_tiles_ok(int64_t m, int64_t n) {
+  return m >= 1 && m <= 65535 && n >= 1 && (n + kRowTile - 1) / kRowTile <= 0x7fffffff;
+}
+inline dim3 row_tiles(int64_t m, int64_t n) {
+  return dim3((unsigned)((n + kRowTile - 1) / kRowTile), (unsigned)m);
 }
 
 }  // namespace repro

@@ -8,11 +8,14 @@ bank advance, the eq.-(5) worker sum and the eq.-(4) update. CPU tensors
 run ``ref``'s plain versions; CUDA tensors launch the kernels.
 
 ``alpha``/``beta`` reach the kernels as runtime arguments, so no
-hyperparameter value is compiled into a kernel. The staged dense and int8
-route of the JAX package (``force_staged``) needs the staged kernels B4,
-B7a and B7b, which are not ported yet.
+hyperparameter value is compiled into a kernel. Inside
+:func:`force_staged` the optimizer runs the staged kernels instead (B1, B4
+and B3 for dense; B8, B7a, B7b, B9 and B3 for int8), which give the same
+bits with more passes.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -23,13 +26,31 @@ from .common import (check_bank, check_worker_vector, count_launch,
                      on_card)
 
 
+_FUSION_ENABLED = True
+
+
+def fusion_enabled() -> bool:
+    """Whether the ``cuda`` backend runs dense and int8 on the fused route.
+
+    Read at every step: flipping it changes the steps taken after the flip.
+    """
+    return _FUSION_ENABLED
+
+
+@contextlib.contextmanager
 def force_staged():
-    """The staged dense/int8 kernel route: not ported (it needs B4, B7)."""
-    raise NotImplementedError(
-        "the staged dense/int8 kernel route needs B4 (censor_bank_advance) "
-        "and B7 (absmax_batched, quantize_ef_batched), which are not "
-        "ported yet (ROADMAP B); the cuda backend runs dense and int8 on "
-        "the fused route only")
+    """Run the staged per-stage kernels instead of the fused ones.
+
+    For A/B comparison: both routes give the same bits at f32 and f64, the
+    staged one just moves more bytes.
+    """
+    global _FUSION_ENABLED
+    prev = _FUSION_ENABLED
+    _FUSION_ENABLED = False
+    try:
+        yield
+    finally:
+        _FUSION_ENABLED = prev
 
 
 def _check_step(name, g, ghat, theta, theta_prev, *banks):

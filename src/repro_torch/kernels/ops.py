@@ -1,8 +1,9 @@
 """Tree-level dispatch onto the kernels (port of ``repro/kernels/ops.py``'s
-``tree_delta_sqnorms``, ``tree_sqnorms``, ``tree_bank_advance``,
-``tree_topk_pack_ef``, ``tree_residual_ef``, ``tree_fused_dense_step``,
-``tree_int8_stats``, ``tree_fused_int8_step`` and ``tree_hb_update``): what
-the ``backend="cuda"`` optimizer runs.
+``tree_delta_sqnorms``, ``tree_sqnorms``, ``tree_censor_bank_advance``,
+``tree_bank_advance``, ``tree_int8_roundtrip_ef``, ``tree_topk_pack_ef``,
+``tree_residual_ef``, ``tree_fused_dense_step``, ``tree_int8_stats``,
+``tree_fused_int8_step`` and ``tree_hb_update``): what the
+``backend="cuda"`` optimizer runs.
 
 Per-leaf (M,) partials accumulate leaf by leaf, ``acc = acc + partial``
 in f32, in tree order, exactly as the JAX dispatch does.
@@ -13,7 +14,7 @@ import torch
 
 from ..core.quantize import int8_scale
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
-from . import censor, fused_step, hb_update, lowrank_ef, topk_pack
+from . import censor, fused_step, hb_update, lowrank_ef, quantize_ef, topk_pack
 
 
 def tree_delta_sqnorms(grads, bank) -> torch.Tensor:
@@ -38,10 +39,29 @@ def tree_sqnorms(pending) -> torch.Tensor:
     return acc
 
 
+def tree_censor_bank_advance(grads, bank, mask):
+    """``ghat + mask * (g - ghat)`` per leaf (B4)."""
+    return tree_map(lambda g, h: censor.censor_bank_advance(g, h, mask),
+                    grads, bank)
+
+
 def tree_bank_advance(bank, payload, mask):
     """``ghat + mask * payload`` per leaf (B9)."""
     return tree_map(lambda h, q: censor.bank_advance(h, q, mask),
                     bank, payload)
+
+
+def tree_int8_roundtrip_ef(pending, err, mask):
+    """B7a then B7b per leaf: the per-worker abs-max, the scales
+    ``where(amax > 0, amax / 127, 1)`` (``core.quantize.int8_scale``), then
+    the payload and the next error-feedback leaf in one pass. Returns
+    ``(payload, new_err)`` trees."""
+    leaves_p, treedef = tree_flatten(pending)
+    outs = [quantize_ef.quantize_ef_batched(
+        p, e, mask, int8_scale(quantize_ef.absmax_batched(p)))
+        for p, e in zip(leaves_p, tree_leaves(err))]
+    return tuple(tree_unflatten(treedef, [o[i] for o in outs])
+                 for i in range(2))
 
 
 def tree_topk_pack_ef(pending, err, keep, mask):

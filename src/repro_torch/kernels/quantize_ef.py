@@ -1,0 +1,70 @@
+"""B7a, B7b: the staged int8 + error-feedback kernels of one pending leaf,
+on the card.
+
+Wraps ``csrc/quantize_ef.cu`` (port of ``repro/kernels/quantize_ef.py``'s
+``absmax_batched`` and ``quantize_ef_batched``). A staged int8 step runs
+B7a for the per-worker abs-max, derives the scales with
+``core.quantize.int8_scale``, then B7b for the payload and the next
+error-feedback leaf. CPU tensors run ``ref``'s plain versions; CUDA
+tensors launch the kernels (see ``common`` for the dispatch rule).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .build import REDUCE_CHUNK, launch
+from .censor import _ptr
+from .common import check_leaves, check_worker_vector, count_launch, on_card
+
+
+def absmax_batched(x: torch.Tensor) -> torch.Tensor:
+    """(M,) ``max_j |x[m, j]|`` of one (M, ...) leaf, in ``x.dtype``.
+
+    A NaN in a worker's row gives NaN, as ``torch.amax`` does; on the
+    same pending it equals B5's abs-max.
+    """
+    name = "absmax_batched"
+    suffix = check_leaves(name, x)
+    m, n = x.shape[0], x[0].numel()
+    if n == 0:
+        return torch.zeros((m,), dtype=x.dtype, device=x.device)
+    if not on_card(name, x):
+        return ref.absmax_batched(x)
+    nchunks = -(-n // REDUCE_CHUNK)
+    part = torch.empty((m, nchunks), dtype=x.dtype, device=x.device)
+    out = torch.empty((m,), dtype=x.dtype, device=x.device)
+    count_launch(name)
+    launch("quantize_ef", f"{name}_{suffix}", x.device, _ptr(x), _ptr(part),
+           _ptr(out), m, n, nchunks)
+    return out
+
+
+def quantize_ef_batched(pending: torch.Tensor, err: torch.Tensor,
+                        mask: torch.Tensor, scale: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 round trip and error-feedback update of one (M, ...) leaf,
+    in one pass.
+
+    ``scale`` is the (M,) f32 per-worker scale (``core.quantize.int8_scale``
+    of :func:`absmax_batched`). Returns ``(payload, new_err)``: the
+    dequantized ``clip(rint(f32(p)/s), -127, 127)*s`` in the pending dtype,
+    and ``mask*(p - payload) + (1 - mask)*err``; its ``new_err`` equals
+    B6's on the same operands.
+    """
+    name = "quantize_ef_batched"
+    suffix = check_leaves(name, pending, err)
+    m, n = pending.shape[0], pending[0].numel()
+    check_worker_vector(name, "mask", mask, m)
+    check_worker_vector(name, "scale", scale, m)
+    if n == 0:
+        return pending, torch.zeros_like(pending)
+    if not on_card(name, pending, err, mask, scale):
+        return ref.quantize_ef_batched(pending, err, mask, scale)
+    payload = torch.empty_like(pending)
+    new_err = torch.empty_like(pending)
+    count_launch(name)
+    launch("quantize_ef", f"{name}_{suffix}", pending.device, _ptr(pending),
+           _ptr(err), _ptr(mask), _ptr(scale), _ptr(payload), _ptr(new_err),
+           m, n)
+    return payload, new_err

@@ -1,12 +1,12 @@
 """Plain PyTorch versions of the kernels (the correctness contract).
 
-A line-for-line port of ``repro/kernels/ref.py`` for B1, B2, B3, B5, B6
-and B8-B11, in the same operation order and dtypes. One deliberate
+A line-for-line port of ``repro/kernels/ref.py`` for B1-B11, in the same
+operation order and dtypes. One deliberate
 difference: the worker sum is a left fold from ``ghat'_0`` (``core.util.tree_sum_leading``), not
 ``jnp.sum(axis=0)``, because the CUDA kernels fold in that order and must
 equal these functions bit for bit on the card. The wrappers in
-``censor.py``, ``fused_step.py``, ``hb_update.py``, ``topk_pack.py`` and
-``lowrank_ef.py`` run these on CPU tensors.
+``censor.py``, ``fused_step.py``, ``hb_update.py``, ``topk_pack.py``,
+``lowrank_ef.py`` and ``quantize_ef.py`` run these on CPU tensors.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@
     o = opt.make("chb", alpha=0.05, num_workers=9, backend="cuda")
     hist = simulator.run(o, task, 1000)
 """
-from .api import OptState, StepStats, static_pos
-from .censor import Eq8Censor, NeverCensor
+from .api import OptState, ShardStepStats, StepStats, static_pos
+from .censor import AdaptiveCensor, Eq8Censor, NeverCensor
 from .optimizer import BACKENDS, ComposedOptimizer
 from .registry import (BACKEND_ALIASES, CENSOR_KINDS, SERVER_KINDS,
                        TRANSPORT_KINDS, from_spec, make, make_transport,
@@ -15,8 +15,8 @@ from .transport import (DenseTransport, Int8Transport, LowRankTransport,
                         TopKTransport, tree_topk_keep)
 
 __all__ = [
-    "OptState", "StepStats", "static_pos",
-    "NeverCensor", "Eq8Censor",
+    "OptState", "StepStats", "ShardStepStats", "static_pos",
+    "NeverCensor", "Eq8Censor", "AdaptiveCensor",
     "DenseTransport", "Int8Transport", "TopKTransport", "LowRankTransport",
     "tree_topk_keep",
     "GradientDescent", "HeavyBall",

@@ -20,7 +20,8 @@ class OptState(NamedTuple):
       err: transport state: the (M, ...) error-feedback bank for int8,
         empty (0,) leaves for dense transport.
       comm: split-int32 uplink/downlink counters (``core.accounting``).
-      censor: censor-policy state, ``()`` for the stateless policies.
+      censor: censor-policy state: ``()`` for the stateless policies, the
+        (M,) EMA for the adaptive one.
     """
     prev_params: Any
     ghat: Any
@@ -35,6 +36,21 @@ class StepStats(NamedTuple):
     delta_sq: torch.Tensor         # (M,) ||delta_m||^2
     step_sq: torch.Tensor          # () ||theta^k - theta^{k-1}||^2
     agg_grad_sqnorm: torch.Tensor  # () ||grad_k||^2
+
+
+class ShardStepStats(NamedTuple):
+    """Per-round diagnostics from ``ComposedOptimizer.shard_step``.
+
+    All shard-local ``(M_local,)`` rows. ``mask`` is the raw censor
+    decision; ``attempted`` adds the participation gate (what went on the
+    air: the byte basis); ``delivered`` adds the channel gate (what the
+    bank folded).
+    """
+    mask: torch.Tensor        # (M_local,) censor pass
+    attempted: torch.Tensor   # (M_local,) censor AND participate
+    delivered: torch.Tensor   # (M_local,) attempted AND channel pass
+    delta_sq: torch.Tensor    # (M_local,) ||delta_m||^2
+    step_sq: torch.Tensor     # () ||theta^k - theta^{k-1}||^2
 
 
 def static_pos(x) -> Optional[bool]:

@@ -9,8 +9,8 @@ The spec schema is the JAX package's, so a JAX ``opt.to_spec(...)`` dict
 loads unchanged. Backend mapping: the JAX kernel backend ``"pallas"`` loads
 as this package's kernel backend ``"cuda"``; ``"reference"`` stays
 ``"reference"``. Registered here: gd, hb, lag, chb, with the censor kinds
-never/eq8, the transport kinds dense/int8/topk/lowrank and the server kinds
-gd/hb.
+never/eq8/adaptive, the transport kinds dense/int8/topk/lowrank, the server
+kinds gd/hb and the granularities global/per_tensor.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Callable, Optional
 import torch
 
 from ..core.censoring import paper_eps1
-from .censor import Eq8Censor, NeverCensor
+from .censor import AdaptiveCensor, Eq8Censor, NeverCensor
 from .optimizer import ComposedOptimizer
 from .server import GradientDescent, HeavyBall
 from .transport import (DenseTransport, Int8Transport, LowRankTransport,
@@ -30,7 +30,8 @@ Builder = Callable[..., ComposedOptimizer]
 
 _ALGORITHMS: dict[str, Builder] = {}
 
-CENSOR_KINDS: dict[str, type] = {"never": NeverCensor, "eq8": Eq8Censor}
+CENSOR_KINDS: dict[str, type] = {"never": NeverCensor, "eq8": Eq8Censor,
+                                 "adaptive": AdaptiveCensor}
 TRANSPORT_KINDS: dict[str, type] = {"dense": DenseTransport,
                                     "int8": Int8Transport,
                                     "topk": TopKTransport,

@@ -16,9 +16,10 @@ fed runtime). Stage anatomy of one batched step:
     payload, aux = encode(pending, err)
     new_err = feedback(mask, pending, payload, aux, err)
 
-A stateful transport other than int8 runs on the ``cuda`` backend through
+A stateful transport runs the staged steps of the ``cuda`` backend through
 ``encode_feedback_cuda(pending, err, mask) -> (payload, new_err)``, which
-hands its elementwise tail to a kernel (B10 for top-k, B11 for low-rank).
+hands its elementwise tail to kernels (B7a + B7b for int8, B10 for top-k,
+B11 for low-rank).
 The selections and factor products around it are plain PyTorch, as the
 JAX package leaves them to XLA; they assume
 ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default),
@@ -103,6 +104,11 @@ class Int8Transport:
 
     def feedback(self, mask, pending, payload, aux, err):
         return _ef_blend(mask, pending, payload, err)
+
+    def encode_feedback_cuda(self, pending, err, mask):
+        """The staged kernel route: one abs-max reduction (B7a), then one
+        pass emitting the payload and the new EF bank together (B7b)."""
+        return kernel_ops.tree_int8_roundtrip_ef(pending, err, mask)
 
     def payload_bytes(self, params) -> int:
         return payload_bytes_int8(params)

@@ -136,7 +136,7 @@ def test_comm_stats_exact_past_2_24_and_2_31():
     payload = 654_388_224           # one dense f32 upload at d=163,597,056
     rng = np.random.default_rng(5)
     masks = (rng.uniform(size=(12, 4)) < 0.6).astype(np.float32)
-    c = accounting.CommStats.init(4)
+    c = accounting.CommStats.init(4, device="cpu")
     j = j_accounting.CommStats.init(4)
     for row in masks:
         c = c.update(torch.from_numpy(row), payload)
@@ -151,7 +151,7 @@ def test_comm_stats_exact_past_2_24_and_2_31():
     assert c.uplink_mib.dtype == torch.int32
     assert float(c.uplink_bytes) == float(sent * payload)
     # one byte at a time past 2^24: a float32 counter would stall here
-    c = accounting.CommStats.init(1)._replace(
+    c = accounting.CommStats.init(1, device="cpu")._replace(
         uplink_mib=torch.tensor(16, dtype=torch.int32))
     for _ in range(3):
         c = c.update(torch.ones(1), 1)

@@ -15,8 +15,9 @@ from repro_torch import opt
 from repro_torch.core import simulator
 from repro_torch.core.quantize import int8_scale
 from repro_torch.data import edge_tasks
+from repro_torch.core.util import tree_sqnorm
 from repro_torch.kernels import (censor, common, fused_step, hb_update,
-                                 lowrank_ef, ref, topk_pack)
+                                 lowrank_ef, quantize_ef, ref, topk_pack)
 
 pytestmark = pytest.mark.cuda
 
@@ -36,6 +37,13 @@ def _bits(t):
 
 def _same(a, b):
     return a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+def _same_or_nan(a, b):
+    """Bitwise equal where b is a number; NaN exactly where b is NaN."""
+    nan = torch.isnan(b)
+    return a.dtype == b.dtype and torch.equal(torch.isnan(a), nan) \
+        and torch.equal(_bits(a)[~nan], _bits(b)[~nan])
 
 
 def _inputs(m, n, dtype, device):
@@ -85,6 +93,16 @@ def test_kernels_match_plain_versions(card, m, n, dtype):
         assert _same(a, b)
     assert _same(lowrank_ef.residual_ef_batched(g, h, e, mask),
                  ref.residual_ef_batched(g, h, e, mask))
+    b4 = censor.censor_bank_advance(g, h, mask)
+    assert _same(b4, ref.censor_bank_advance(g, h, mask))
+    assert _same(b4, ref.fused_dense_step(g, h, t, p, mask, 0.1, 0.4)[0])
+    pend = (g - h) + e
+    am7 = quantize_ef.absmax_batched(pend)
+    assert _same(am7, ref.absmax_batched(pend)) and _same(am7, am)
+    out7 = quantize_ef.quantize_ef_batched(pend, e, mask, scale)
+    for a, b in zip(out7, ref.quantize_ef_batched(pend, e, mask, scale)):
+        assert _same(a, b)
+    assert _same(out7[1], out[1])        # B6's err'
     torch.cuda.synchronize()
     assert common.LAUNCHES == {"censor_delta_sqnorm_batched": 2,
                                "fused_dense_step": 1,
@@ -92,7 +110,42 @@ def test_kernels_match_plain_versions(card, m, n, dtype):
                                "fused_int8_step": 1,
                                "sqnorm_batched": 1, "bank_advance": 1,
                                "hb_update": 1, "select_pack_ef_batched": 1,
-                               "residual_ef_batched": 1}
+                               "residual_ef_batched": 1,
+                               "censor_bank_advance": 1,
+                               "absmax_batched": 1,
+                               "quantize_ef_batched": 1}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_nan_and_inf_rows_propagate_as_in_the_plain_versions(card, dtype):
+    """B5, B6, B7a and B7b keep a NaN where torch.amax and torch.clamp do:
+    a NaN row gets scale 1 and a NaN payload entry, not -127*scale."""
+    g, h, e, t, p, _ = _inputs(4, 70001, dtype, card)
+    g[0, 3] = float("nan")
+    g[1, 2] = float("inf")
+    g[1, -1] = float("-inf")
+    h[2, 9] = float("nan")
+    mask = torch.tensor([1.0, 0.0, 0.0, 1.0], device=card)
+    sq, am = fused_step.int8_stats_batched(g, h, e)
+    sq_p, am_p = ref.int8_stats_batched(g, h, e)
+    assert torch.equal(torch.isnan(sq), torch.isnan(sq_p))
+    assert _same_or_nan(am, am_p)
+    assert torch.isnan(am[0]) and torch.isinf(am[1]) and torch.isnan(am[2])
+    scale = int8_scale(am)
+    assert float(scale[0]) == 1.0
+    out = fused_step.fused_int8_step(g, h, e, t, p, mask, scale, 0.1, 0.4)
+    for a, b in zip(out, ref.fused_int8_step(g, h, e, t, p, mask, scale,
+                                             0.1, 0.4)):
+        assert _same_or_nan(a, b)
+    pend = (g - h) + e
+    am7 = quantize_ef.absmax_batched(pend)
+    assert _same_or_nan(am7, ref.absmax_batched(pend))
+    assert _same_or_nan(am7, am)
+    pay, err = quantize_ef.quantize_ef_batched(pend, e, mask, scale)
+    pay_p, err_p = ref.quantize_ef_batched(pend, e, mask, scale)
+    assert _same_or_nan(pay, pay_p) and _same_or_nan(err, err_p)
+    assert _same_or_nan(err, out[1])
+    assert torch.isnan(pay[0, 3]) and torch.isnan(pay[1]).all()
 
 
 @pytest.mark.parametrize("kw,names", [
@@ -151,3 +204,75 @@ def test_topk_keep_on_the_card_equals_the_cpu(card, k):
     got = opt.tree_topk_keep(x.to(card), k).cpu()
     assert _same(got, opt.tree_topk_keep(x, k))
     assert (got.sum(dim=1) == min(k, 4099)).all()
+
+
+@pytest.mark.parametrize("kw,names", [
+    ({}, ("censor_delta_sqnorm_batched", "censor_bank_advance",
+          "hb_update")),
+    ({"quantize": "int8"}, ("sqnorm_batched", "absmax_batched",
+                            "quantize_ef_batched", "bank_advance",
+                            "hb_update")),
+], ids=["dense", "int8"])
+def test_staged_route_equals_the_fused_route(card, kw, names):
+    task = edge_tasks.make_edge_quadratics(m=4, d=10_000, seed=0,
+                                           dtype=torch.float32)
+    o = opt.make("chb", 0.125, 4, eps1=4.0, backend="cuda", **kw)
+    fused = simulator.run(o, task, 3)
+    common.reset_launches()
+    with fused_step.force_staged():
+        staged = simulator.run(o, task, 3)
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == \
+        {name: 3 for name in names}
+    assert torch.equal(staged.mask, fused.mask)
+    assert _same(staged.final_params, fused.final_params)
+    for a, b in zip(staged.final_state.ghat, fused.final_state.ghat):
+        assert _same(a, b)
+
+
+@pytest.mark.parametrize("kw", [{}, {"quantize": "int8"}],
+                         ids=["dense", "int8"])
+def test_shard_step_plus_apply_server_is_step(card, kw):
+    task = edge_tasks.make_edge_quadratics(m=4, d=10_000, seed=0,
+                                           dtype=torch.float32)
+    o = opt.make("chb", 0.125, 4, eps1=4.0, backend="cuda", **kw)
+    params = task.init_params.to(card)
+    a, c = (x.to(card) for x in task.worker_data)
+    s1 = s2 = o.init(params)
+    p1 = p2 = params
+    for _ in range(3):
+        s1, p1, st1 = o.step(s1, p1, task.grad_fn(p1, (a, c)))
+        new, partial, st2 = o.shard_step(s2, p2, task.grad_fn(p2, (a, c)))
+        p2 = o.apply_server(p2, s2.prev_params, partial)
+        s2 = new
+        assert torch.equal(st1.mask, st2.mask)
+        assert _same(tree_sqnorm(partial), st1.agg_grad_sqnorm)
+    assert _same(p1, p2) and _same(s1.ghat, s2.ghat)
+    for f in s1.comm._fields:
+        assert torch.equal(getattr(s1.comm, f), getattr(s2.comm, f))
+
+
+def test_per_tensor_launches_per_leaf(card):
+    """per_tensor on a two-leaf tree: B8, B9 and B3 once a leaf a step."""
+    flat = edge_tasks.make_edge_quadratics(m=4, d=60 * 70 + 30 * 8, seed=0,
+                                           dtype=torch.float32)
+    a, c = flat.worker_data
+    task = simulator.FedTask(
+        init_params={"u": torch.zeros((60, 70), device=card),
+                     "v": torch.zeros((30, 8), device=card)},
+        grad_fn=lambda th, d: {k: d[0].view(-1, 1, 1) * (x - d[1][k])
+                               for k, x in th.items()},
+        loss_fn=lambda th, d: sum(0.5 * d[0] * ((x - d[1][k]) ** 2).sum(
+            dim=(1, 2)) for k, x in th.items()),
+        worker_data=(a, {"u": c[:, :4200].view(4, 60, 70),
+                         "v": c[:, 4200:].view(4, 30, 8)}))
+    common.reset_launches()
+    runs = [simulator.run(opt.make("chb", 0.05, 4, eps1=4.0, backend=b,
+                                   granularity="per_tensor"), task, 3)
+            for b in ("cuda", "reference")]
+    assert torch.equal(runs[0].mask, runs[1].mask)
+    assert runs[0].final_state.comm.uplink_bytes_exact() == \
+        runs[1].final_state.comm.uplink_bytes_exact()
+    for k in ("u", "v"):
+        assert _same(runs[0].final_params[k], runs[1].final_params[k])
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == \
+        {name: 6 for name in ("sqnorm_batched", "bank_advance", "hb_update")}

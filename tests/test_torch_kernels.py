@@ -44,7 +44,7 @@ from repro.kernels import ref as j_ref
 from repro.kernels import topk_pack as j_topk
 from repro_torch.core.quantize import int8_scale
 from repro_torch.kernels import (censor, common, fused_step, hb_update,
-                                 lowrank_ef, topk_pack)
+                                 lowrank_ef, quantize_ef, topk_pack)
 from repro_torch.opt import GradientDescent, HeavyBall
 
 LEAVES = [(20,), (3, 50), (300, 129)]
@@ -331,5 +331,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     # a device that is neither the CPU nor CUDA is refused, not run plainly
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         censor.censor_delta_sqnorm_batched(g.to("meta"), h.to("meta"))
-    with pytest.raises(NotImplementedError, match="staged"):
-        fused_step.force_staged()
+    # the staged kernels B4, B7a and B7b check their operands the same way
+    with pytest.raises(ValueError, match="mask"):
+        censor.censor_bank_advance(g, h, mask[:1])
+    with pytest.raises(TypeError, match="bank dtype"):
+        quantize_ef.absmax_batched(g.half())
+    with pytest.raises(ValueError, match="scale"):
+        quantize_ef.quantize_ef_batched(g, e, mask,
+                                        torch.ones(2, dtype=torch.float64))
+    with pytest.raises(TypeError, match="one dtype"):
+        quantize_ef.quantize_ef_batched(g, e.double(), mask,
+                                        torch.ones(2))

@@ -220,15 +220,33 @@ def test_apply_server_on_cuda_is_server_apply(name):
 
 
 def test_unported_routes_raise():
-    with pytest.raises(NotImplementedError, match="A6"):
-        opt.make("chb", 0.1, M, granularity="per_tensor")
-    with pytest.raises(NotImplementedError, match="B4"):
-        fused_step.force_staged()
-    o = opt.make("chb", 0.1, M, backend="cuda")
+    # the stochastic (CSGD) censor waits for the ported PRNG
+    with pytest.raises(ValueError, match="censor kind 'stochastic'"):
+        opt.from_spec(j_opt.to_spec(j_opt.make("csgd", 0.1, M)))
     params = tree.tree_map(torch.from_numpy, _params(np.float32))
-    state = o.init(params)
-    with pytest.raises(NotImplementedError, match="A10"):
-        o.shard_step(state, params, params)
+    grads = convert.params(_grads(0, np.float32), "cpu")
+    for backend in ("reference", "cuda"):
+        o = opt.make("chb", 0.1, M, eps1=EPS1, granularity="per_tensor",
+                     backend=backend)
+        with pytest.raises(NotImplementedError, match="global granularity"):
+            o.shard_step(o.init(params), params, grads)
+        o = opt.make("chb", 0.1, M, eps1=EPS1, granularity="per_tensor",
+                     quantize="int8", backend=backend)
+        with pytest.raises(NotImplementedError, match="stateful transport"):
+            o.step(o.init(params), params, grads)
+    # the kernels take f32 and f64 banks only
+    o = opt.make("chb", 0.1, M, eps1=EPS1, backend="cuda")
+    half = tree.tree_map(lambda x: x.to(torch.bfloat16), params)
+    with pytest.raises(TypeError, match="bfloat16"):
+        o.step(o.init(half), half,
+               tree.tree_map(lambda x: x.to(torch.bfloat16), grads))
+    with pytest.raises(ValueError, match="unknown granularity"):
+        opt.make("chb", 0.1, M, granularity="per_leaf")
+    # the routes that used to raise here now run
+    with fused_step.force_staged():
+        assert not fused_step.fusion_enabled()
+    o = opt.make("chb", 0.1, M, backend="cuda")
+    o.shard_step(o.init(params), params, grads)
     with pytest.raises(ValueError, match="unknown backend"):
         opt.make("chb", 0.1, M, backend="pallas")
     with pytest.raises(TypeError, match="server"):
