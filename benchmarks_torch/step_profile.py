@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of one Algorithm-1 iteration goes on the card.
+"""Where the time of one Algorithm-1 iteration, or of serving, goes on the
+card.
 
     python3 benchmarks_torch/step_profile.py [--d 163597056] [--m 4] [--iters 5]
         [--transport dense int8 topk lowrank dense_staged int8_staged
          per_tensor]
+    python3 benchmarks_torch/step_profile.py --serve default long [--iters 5]
 
 Builds the full-width task of ``chip_smoke.py``'s phase 5 (edge quadratics
 at the parameter count of ``chb-paper-lm-124m``, M=4, f32, chb with
@@ -16,6 +18,13 @@ configuration up with one
 kernel and the reference backend, it prints one JSON line: device time by
 kernel name, the window's wall time (CUDA events), the device's busy time
 (the sum of its kernels and copies) and its idle share (1 - busy / wall).
+With ``--serve``, it profiles chb-paper-lm-124m at full width instead,
+at ``chip_smoke.py``'s serving shapes (default: batch 4, prompt 64; long:
+batch 8, prompt 2048), with random weights from a seeded generator: after
+a warm-up prefill and step, one traced prefill, then ``--iters`` traced
+decode steps, each window on the cuda and the reference backend, one JSON
+line each (idle share and top device ops: whether B13, the LM head or the
+weight reads set a decode step's pace).
 Needs a CUDA card and fails without one; it fails too if the trace shows
 no device time.
 """
@@ -41,7 +50,7 @@ from repro_torch.data import edge_tasks  # noqa: E402
 from repro_torch.kernels import fused_step  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
-from chip_smoke import FULL_RANK, lm_tree_task  # noqa: E402
+from chip_smoke import FULL_RANK, LM_ARCH, SERVE_RUNS, lm_tree_task  # noqa: E402
 
 TRANSPORTS = ("dense", "int8", "topk", "lowrank", "dense_staged",
               "int8_staged", "per_tensor")
@@ -84,7 +93,13 @@ def profile_run(task, transport, backend, iters: int) -> dict:
             simulator.run(o, task, iters)
             end.record()
             torch.cuda.synchronize()
-    wall = start.elapsed_time(end)
+    return _summary(prof, start.elapsed_time(end), iters,
+                    transport=transport, backend=backend)
+
+
+def _summary(prof, wall: float, iters: int, **meta) -> dict:
+    """Device time by kernel name, busy time and idle share of a window of
+    ``wall`` ms (CUDA events) holding ``iters`` iterations."""
     # device-side events only (kernels, copies): the CPU-side operator
     # events carry their kernels' device time too and would count it twice
     rows = sorted(((evt.key, _device_ms(evt), evt.count)
@@ -95,12 +110,59 @@ def profile_run(task, transport, backend, iters: int) -> dict:
     busy = sum(ms for _, ms, _ in rows)
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return {"transport": transport, "backend": backend,
-            "iters": iters, "wall_ms": wall, "busy_ms": busy,
+    return {**meta, "iters": iters, "wall_ms": wall, "busy_ms": busy,
             "idle_share": 1.0 - busy / wall,
             "per_iter_ms": wall / iters,
             "by_kernel": [{"name": k[:90], "ms": ms, "calls": n}
                           for k, ms, n in rows[:14]]}
+
+
+def profile_serve(kind: str, iters: int) -> list:
+    """One traced prefill and ``iters`` traced decode steps of
+    chb-paper-lm-124m at ``chip_smoke.SERVE_RUNS["serve_" + kind]``, on
+    each backend."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import full_f32, prompts_of
+    from repro_torch.models import model
+    full_f32()
+    shape = SERVE_RUNS[f"serve_{kind}"]
+    b, l = shape["batch"], shape["prompt"]
+    cache_len = l + max(shape["gen"], iters + 2) + 1
+    cfg = get(LM_ARCH)
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    prompts = prompts_of(cfg, b, l, "cuda")
+    out = []
+    for backend in ("cuda", "reference"):
+        logits, cache = model.prefill(params, cfg, prompts,
+                                      cache_len=cache_len, backend=backend)
+        tok = torch.argmax(logits, -1)[:, None]
+        model.serve_step(params, cfg, cache, tok, l, backend=backend)
+        for window in ("prefill", "decode"):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                start.record()
+                if window == "prefill":
+                    model.prefill(params, cfg, prompts, cache_len=cache_len,
+                                  backend=backend)
+                else:
+                    for i in range(iters):
+                        logits, cache = model.serve_step(
+                            params, cfg, cache, tok, l + 1 + i,
+                            backend=backend)
+                        tok = torch.argmax(logits, -1)[:, None]
+                end.record()
+                torch.cuda.synchronize()
+            out.append(_summary(prof, start.elapsed_time(end),
+                                1 if window == "prefill" else iters,
+                                serve=kind, window=window, backend=backend,
+                                batch=b, prompt=l))
+        del cache
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -113,9 +175,18 @@ def main() -> None:
                     help="low-rank and per_tensor view the task as "
                     "chb-paper-lm-124m's leaves, so they need the default "
                     "--d")
+    ap.add_argument("--serve", nargs="+", choices=("default", "long"),
+                    help="profile serving chb-paper-lm-124m instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: needs a CUDA card")
+    if args.serve:
+        print(json.dumps({"device": torch.cuda.get_device_name(0)}),
+              flush=True)
+        for kind in args.serve:
+            for row in profile_serve(kind, args.iters):
+                print(json.dumps(row), flush=True)
+        return
     task = edge_tasks.make_edge_quadratics(m=args.m, d=args.d, seed=0,
                                            dtype=torch.float32)
     print(json.dumps({"device": torch.cuda.get_device_name(0),

@@ -15,7 +15,13 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  with -0.0, one all-zero int8 pending row, top-k keep
                  masks that keep -0.0 entries; the int8 kernels (B5, B6,
                  B7a, B7b) also on rows salted with NaN and +-inf; and four
-                 cross-kernel identities (one JSON line).
+                 cross-kernel identities (one JSON line). Then (phase
+                 attention_kernels) B14 over GQA 1/2/4, causal, window
+                 and non-causal rectangular shapes off the tile, f32 and
+                 bf16; B13 over C in {1, 97, 2081}, empty slots, wrapped
+                 rings and pos 0; both against an f64 plain version
+                 (ATTN_FACTOR); B12a within SQNORM_RTOL and repeatable,
+                 B12b bitwise with -0.0 and NaN salted.
   4. golden   -- ``simulator.run`` of chb on the paper's linreg task
                  (m=5, n_per=30, d=20, seed=0) for 60 iterations, dense,
                  int8, top-k (k=8) and low-rank (rank 2), f64 and f32,
@@ -31,9 +37,23 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  one leaf, per_tensor on the 12 leaves; kernel backend
                  against reference backend, staged and sharded against the
                  fused steps, the launch counts read per path.
+  serve       -- ``launch.serve.generate`` of chb-paper-lm-124m at full
+                 width (163,597,056 f32 parameters, random weights from a
+                 seeded generator), serve_default (batch 4, prompt 64, gen
+                 32) and serve_long (batch 8, prompt 2048, gen 32): the
+                 cuda backend teacher-forced with the reference backend's
+                 tokens, logits within SERVE_LOGIT_TOL and argmax equal
+                 where the gap is clear; prefill ms, decode ms a step,
+                 tok/s; B14 12 launches a prefill, B13 12 a step.
+  jax_pin     -- the reduced and GQA configs with numpy weights on the
+                 cuda backend: the JAX package's greedy tokens exactly and
+                 its prefill-logit checksums (SERVE_PIN).
+  ops         -- the four single-tensor ``kernels.ops`` entry points
+                 (B12a, B12b, B3 at n = 163,597,056 f32, B14) against their
+                 plain versions.
   6. timing   -- each kernel, its plain version, its library call where
-                 one exists and its byte bound at the full-width shape;
-                 then the ``{"kernels": [...]}`` line.
+                 one exists and its bound at the main path's shape; then
+                 the ``{"kernels": [...]}`` line of all 16 kernels.
 
 The last line is ``{"ok": true, "device": {...}}``. Every failed check
 raises, so the script exits non-zero and prints no last line; without
@@ -56,12 +76,22 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 import repro_torch  # noqa: E402,F401  (fails at once outside a checkout)
+from repro_torch.configs import get as get_config  # noqa: E402
+from repro_torch.convert import named_leaves  # noqa: E402
+from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+
+LM_ARCH = "chb-paper-lm-124m"
+# the parameter leaves of chb-paper-lm-124m, read from the port's own
+# init_params on the meta device (shapes only): the tree the low-rank and
+# per_tensor paths run on, and the width of the full-width phase
+LM_LEAVES = {name: tuple(x.shape) for name, x in named_leaves(init_params(
+    torch.Generator(), get_config(LM_ARCH), device="meta")).items()}
 
 # full-width configuration: the parameter count of configs/chb_paper_lm.py
 # (chb-paper-lm-124m), M = TrainConfig.num_workers' default, and the
 # step size / eps1 of benchmarks/fed_mesh.py's edge-quadratics runs
-FULL_D = 163_597_056
+FULL_D = sum(math.prod(shape) for shape in LM_LEAVES.values())
 FULL_M = 4
 FULL_ITERS = 20
 FULL_ALPHA = 0.5 / FULL_M
@@ -96,17 +126,38 @@ GOLDEN_ADAPTIVE = 0.25
 # benchmarks/common.py's task-scaled top-k curve
 FULL_TOPK_K = (2 * FULL_D) // 5
 FULL_RANK = 2
-# the 12 parameter leaves of chb-paper-lm-124m (jax.eval_shape of
-# models.model.init_params), the tree the low-rank path runs on
-LM_LEAVES = {
-    "blocks.l0.ffn.wg": (12, 768, 3072), "blocks.l0.ffn.wi": (12, 768, 3072),
-    "blocks.l0.ffn.wo": (12, 3072, 768),
-    "blocks.l0.mixer.wk": (12, 768, 768), "blocks.l0.mixer.wo": (12, 768, 768),
-    "blocks.l0.mixer.wq": (12, 768, 768), "blocks.l0.mixer.wv": (12, 768, 768),
-    "blocks.l0.norm1.scale": (12, 768), "blocks.l0.norm2.scale": (12, 768),
-    "embed": (32768, 768), "final_norm.scale": (768,),
-    "lm_head": (768, 32768),
+
+# The JAX pin of serving. chb-paper-lm-124m's reduced() (2 layers, d 256,
+# vocab 512) and its GQA variant (2 kv heads, layers "AS", window 16,
+# qk_norm), with weights from convert.numpy_model_params(cfg, seed), prompts
+# serve.prompts_of(cfg, 2, 24) and a cache of 41 slots: the JAX package's
+# greedy tokens of 16 steps (prefill's argmax, then 15 serve_steps) and the
+# sum and abs-sum of its prefill logits, computed with the JAX package on
+# the CPU in f32 (models.model.prefill / serve_step). The seeds keep every
+# compared top-2 gap above 1e-3 (0.024 and 0.021 here), so the tokens do
+# not turn on rounding. tests/test_torch_models.py recomputes both with
+# the JAX package and holds them to these constants:
+#   PYTHONPATH=src python -m pytest -q tests/test_torch_models.py -k pins
+SERVE_PIN_SEEDS = {"reduced": 0, "gqa": 1}
+SERVE_PIN = {
+    "reduced": (
+        [[106, 491, 424, 231, 307, 334, 306, 466, 58, 179, 62, 201, 132, 18,
+          317, 437],
+         [233, 428, 89, 233, 269, 124, 124, 127, 53, 270, 124, 187, 233, 139,
+          233, 411]],
+        -12.472770690917969, 792.0371704101562),
+    "gqa": (
+        [[454, 287, 169, 75, 75, 287, 169, 311, 148, 347, 287, 287, 287, 287,
+          471, 24],
+         [417, 354, 417, 199, 252, 354, 252, 392, 147, 235, 261, 229, 392, 149,
+          261, 422]],
+        -7.226400375366211, 799.6193237304688),
 }
+# both checksums within this fraction of the abs-sum: the largest
+# per-logit difference between the JAX package on the CPU and the port is
+# about 6e-6 against a mean |logit| near 0.78 (tests/test_torch_models.py)
+SERVE_PIN_RTOL = 1e-4
+SERVE_PIN_SHAPE = {"batch": 2, "prompt": 24, "gen": 16, "cache": 41}
 
 # H100 SXM device-memory rate (NVIDIA data sheet); the bound of every
 # kernel here is its bytes over this rate
@@ -143,7 +194,38 @@ KERNEL_META = {
                        "src/repro/kernels/quantize_ef.py:40"),
     "quantize_ef_batched": ("src/repro_torch/kernels/csrc/quantize_ef.cu",
                             "src/repro/kernels/quantize_ef.py:79"),
+    "censor_delta_sqnorm": ("src/repro_torch/kernels/csrc/censor.cu",
+                            "src/repro/kernels/censor.py:60"),
+    "censor_select": ("src/repro_torch/kernels/csrc/censor.cu",
+                      "src/repro/kernels/censor.py:93"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:60"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:71"),
 }
+
+# B13/B14 against their plain versions: the kernel's max abs error against
+# an f64 plain version on the card (the same function without the f32
+# casts) is at most ATTN_FACTOR times the f32 plain version's own max abs
+# error against it, plus ATTN_FLOOR. Both f32 versions round the one f64
+# function; the kernel sums its products and its softmax in another order
+# (online, tile by tile), which may cost a few times the plain version's
+# rounding, never more.
+ATTN_FACTOR = 4.0
+ATTN_FLOOR = 1e-6
+
+# serving at full width: chb-paper-lm-124m (12 layers, d 768, 12/12 heads,
+# hd 64, vocab 32,768), weights from init_params with a seeded generator.
+# serve_default is launch/serve.py's defaults; serve_long a 2048-token
+# prompt, whose decode steps read 12 x 102 MB of KV cache through B13 (more
+# than the 0.65 GB of weights). The cache holds prompt + gen + 1 slots.
+SERVE_RUNS = {"serve_default": {"batch": 4, "prompt": 64, "gen": 32},
+              "serve_long": {"batch": 8, "prompt": 2048, "gen": 32}}
+# the cuda and reference backends' logits (prefill and every
+# teacher-forced step) agree within SERVE_LOGIT_TOL (absolute); their
+# argmax must then agree wherever the reference's top-2 gap exceeds twice
+# it (an order that no pair of errors within the tolerance can flip)
+SERVE_LOGIT_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -152,8 +234,9 @@ def emit(obj) -> None:
 
 def bits(t: torch.Tensor) -> torch.Tensor:
     """The raw bits of a float tensor (tells -0.0 from +0.0)."""
-    return t.contiguous().view(torch.int32 if t.dtype == torch.float32
-                               else torch.int64)
+    return t.contiguous().view({torch.float32: torch.int32,
+                                torch.float64: torch.int64,
+                                torch.bfloat16: torch.int16}[t.dtype])
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -532,6 +615,174 @@ def phase_kernels(device, ms=(1, 4, 9),
           "the plain version gives NaN"})
     emit({"phase": "identities", "cases_held_bitwise": ident})
     return max_err
+
+
+# ----------------------------------------------------------- phase 3b
+def _flash_f64(q, k, v, causal, window):
+    """B14's function in f64 (the plain version without its f32 casts)."""
+    b, h, lq, d = q.shape
+    kh, s_len = k.shape[1], k.shape[2]
+    q5 = q.double().reshape(b, kh, h // kh, lq, d)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q5, k.double()) * d ** -0.5
+    qpos = torch.arange(lq, device=q.device)[:, None]
+    kpos = torch.arange(s_len, device=q.device)[None, :]
+    m = torch.ones((lq, s_len), dtype=torch.bool, device=q.device)
+    if causal:
+        m = m & (kpos <= qpos)
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    p = torch.softmax(torch.where(m, s, -1e30), dim=-1)
+    return torch.einsum("bkgqs,bksd->bkgqd", p,
+                        v.double()).reshape(b, h, lq, d)
+
+
+def _decode_f64(q, k, v, cpos, pos):
+    """B13's function in f64."""
+    b, h, d = q.shape
+    kh = k.shape[1]
+    s = torch.einsum("bkgd,bkcd->bkgc", q.double().reshape(b, kh, h // kh, d),
+                     k.double()) * d ** -0.5
+    valid = (cpos >= 0) & (cpos <= pos)
+    p = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
+    return torch.einsum("bkgc,bkcd->bkgd", p, v.double()).reshape(b, h, d)
+
+
+def _attn_check(kernel, plain, exact, tag) -> tuple:
+    """The B13/B14 rule; returns (kernel's error, plain version's error)."""
+    err_k = float((kernel.double() - exact).abs().max())
+    err_p = float((plain.double() - exact).abs().max())
+    check(math.isfinite(err_k) and err_k <= ATTN_FACTOR * err_p + ATTN_FLOOR,
+          f"{tag}: kernel error {err_k} against the f64 version, the f32 "
+          f"plain version's {err_p}")
+    return err_k, err_p
+
+
+# (b, h, kh, lq, s, d, causal, window, dtype): GQA 1/2/4 (and 6), Lq and S
+# off the 64-row tile, causal, window, non-causal rectangular, Lq > S with
+# rows that have no valid key (they visit every tile and give the mean of
+# v), head dims 32-256, bf16, and one batch row of serve_long's prefill
+FLASH_CASES = [
+    (2, 8, 8, 100, 100, 64, True, None, torch.float32),
+    (2, 8, 4, 130, 130, 64, True, 48, torch.float32),
+    (1, 8, 2, 77, 333, 64, False, None, torch.float32),
+    (1, 8, 2, 200, 150, 32, False, 40, torch.float32),
+    (1, 12, 2, 190, 190, 64, True, 7, torch.float32),
+    (2, 4, 4, 257, 257, 128, True, None, torch.float32),
+    (1, 4, 2, 65, 65, 256, True, 16, torch.float32),
+    (2, 8, 4, 130, 130, 64, True, 48, torch.bfloat16),
+    (1, 8, 2, 77, 333, 64, False, None, torch.bfloat16),
+    (1, 12, 12, 2048, 2048, 64, True, None, torch.float32),
+]
+# (b, h, kh, c, d, pos, dtype; pos None: every slot empty): C 1, 97 and
+# 2081, pos 0, empty slots, wrapped rings, G 1/2/4/8/16 (two head groups),
+# head dims 64-256, bf16, and serve_long's last decode step
+DECODE_CASES = [
+    (2, 8, 8, 1, 64, 0, torch.float32),
+    (3, 8, 4, 97, 64, 0, torch.float32),
+    (3, 8, 4, 97, 64, 40, torch.float32),
+    (2, 8, 2, 97, 64, 300, torch.float32),
+    (2, 4, 2, 97, 64, None, torch.float32),
+    (8, 12, 12, 2081, 64, 2078, torch.float32),
+    (2, 16, 2, 2081, 64, 5000, torch.float32),
+    (1, 32, 2, 97, 64, 50, torch.float32),
+    (2, 4, 2, 97, 128, 120, torch.float32),
+    (2, 4, 2, 97, 256, 120, torch.float32),
+    (3, 8, 4, 97, 64, 40, torch.bfloat16),
+    (2, 8, 8, 2081, 64, 3000, torch.bfloat16),
+]
+SINGLE_PAIRS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
+                (torch.float64, torch.float32), (torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.bfloat16)]
+
+
+def phase_attention_kernels(device, max_err) -> None:
+    """B12a, B12b, B13 and B14 against their plain versions on the card."""
+    from repro_torch.kernels import (censor, decode_attention,
+                                     flash_attention, ref)
+    from repro_torch.models.kvcache import slot_positions
+    gen = torch.Generator(device=device).manual_seed(31)
+    worst = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    for b, h, kh, lq, s_len, d, causal, window, dtype in FLASH_CASES:
+        tag = f"B14 b={b} h={h} kh={kh} lq={lq} s={s_len} d={d} " \
+              f"causal={causal} window={window} {dtype}"
+        # (B, H, L, d) views of (B, L, H, d), as the model passes them
+        q = randn(b, lq, h, d).to(dtype).transpose(1, 2)
+        k = randn(b, s_len, kh, d).to(dtype).transpose(1, 2)
+        v = randn(b, s_len, kh, d).to(dtype).transpose(1, 2)
+        out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+        plain = ref.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+        check(out.dtype == dtype and out.shape == plain.shape, tag)
+        worst[tag] = _attn_check(out, plain,
+                                 _flash_f64(q, k, v, causal, window), tag)
+        check(same_bits(out, flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window)), f"{tag}: repeat")
+        if dtype == torch.float32:
+            max_err["flash_attention"] = max(max_err["flash_attention"],
+                                             max_diff(out, plain))
+        del q, k, v, out, plain
+    for b, h, kh, c, d, pos, dtype in DECODE_CASES:
+        tag = f"B13 b={b} h={h} kh={kh} c={c} d={d} pos={pos} {dtype}"
+        q = randn(b, h, d).to(dtype)
+        # (B, K, C, d) views of the model's (B, C, K, d) cache
+        k = randn(b, c, kh, d).to(dtype).transpose(1, 2)
+        v = randn(b, c, kh, d).to(dtype).transpose(1, 2)
+        if pos is None:
+            cpos, pos = torch.full((c,), -1, dtype=torch.int32,
+                                   device=device), 10
+        else:
+            cpos = slot_positions(pos + 1, c, device)
+        out = decode_attention.decode_attention(q, k, v, cpos, pos)
+        plain = ref.decode_attention_ref(q, k, v, cpos, pos)
+        check(out.dtype == dtype and out.shape == plain.shape, tag)
+        worst[tag] = _attn_check(out, plain,
+                                 _decode_f64(q, k, v, cpos, pos), tag)
+        check(same_bits(out, decode_attention.decode_attention(
+            q, k, v, cpos, pos)), f"{tag}: repeat")
+        if dtype == torch.float32:
+            max_err["decode_attention"] = max(max_err["decode_attention"],
+                                              max_diff(out, plain))
+    single = 0
+    for n in (1, 127, 2 ** 20 + 17):
+        for dg, dh in SINGLE_PAIRS:
+            tag = f"n={n} g {dg} ghat {dh}"
+            g = randn(n).to(dg)
+            h = (g.double() + 0.1 * randn(n).double()).to(dh)
+            g[::7] = -0.0
+            h[::11] = -0.0
+            sq = censor.censor_delta_sqnorm(g, h)
+            sq_p = ref.censor_delta_sqnorm(g, h)
+            check(sq.shape == () and _rel_err(sq, sq_p) <= SQNORM_RTOL,
+                  f"B12a {tag}: {float(sq)} against {float(sq_p)}")
+            check(same_bits(sq, censor.censor_delta_sqnorm(g, h)),
+                  f"B12a repeat {tag}")
+            max_err["censor_delta_sqnorm"] = max(
+                max_err["censor_delta_sqnorm"], max_diff(sq, sq_p))
+            if n > 5:
+                g[3] = float("nan")
+                h[5] = float("nan")
+            for t in (0, 1):
+                out = censor.censor_select(g, h, t)
+                check(same_bits(out, ref.censor_select(g, h, t)),
+                      f"B12b transmit={t} {tag}")
+                check(same_bits(out, h if t == 0 else g.to(dh)),
+                      f"B12b transmit={t} {tag}: not a select")
+            single += 1
+    max_err["censor_select"] = 0.0
+    emit({"phase": "attention_kernels", "flash_cases": len(FLASH_CASES),
+          "decode_cases": len(DECODE_CASES), "single_tensor_cases": single,
+          "rule": f"attention: error vs f64 <= {ATTN_FACTOR} x plain f32's "
+          f"+ {ATTN_FLOOR}; B12a rel {SQNORM_RTOL}; B12b bitwise with -0.0 "
+          "and NaN",
+          "worst_ratio": max(ek / (ep + ATTN_FLOOR)
+                             for ek, ep in worst.values()),
+          "errors": {k: {"kernel": ek, "plain_f32": ep}
+                     for k, (ek, ep) in worst.items()}})
 
 
 # ------------------------------------------------------------ phase 4
@@ -959,13 +1210,184 @@ def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
     return launches
 
 
+# ------------------------------------------------------- phase serve
+def _gap(logits: torch.Tensor) -> torch.Tensor:
+    """Each row's top-2 gap."""
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def phase_serve(device) -> dict:
+    """chb-paper-lm-124m at full width through ``launch.serve.generate``:
+    the reference backend, then the cuda backend teacher-forced with the
+    reference's tokens; logits, argmax and launch counts. Returns each
+    run's launch counts."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve
+    cfg = get_config(LM_ARCH)
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == FULL_D == 163_597_056,
+          f"serve: {n_params} parameters")
+    check(cfg.num_layers == 12 and cfg.d_model == 768
+          and cfg.num_heads == cfg.num_kv_heads == 12 and cfg.head_dim == 64
+          and cfg.vocab_size == 32768, f"serve: {cfg}")
+    out, launches = {}, {}
+    for run, shape in SERVE_RUNS.items():
+        b, l, gen = shape["batch"], shape["prompt"], shape["gen"]
+        prompts = serve.prompts_of(cfg, b, l, device)
+        ref_runs = [serve.generate(params, cfg, prompts, gen,
+                                   backend="reference", device=device)
+                    for _ in range(2)]          # the first warms up
+        ref = ref_runs[-1]
+        check(torch.equal(ref.tokens, ref_runs[0].tokens),
+              f"{run}: the reference backend is not repeatable")
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              f"{run}: TF32 matmuls are on")
+        serve.generate(params, cfg, prompts, gen, feed=ref.tokens,
+                       device=device)            # warm-up
+        common.reset_launches()
+        cud = serve.generate(params, cfg, prompts, gen, feed=ref.tokens,
+                             device=device)
+        torch.cuda.synchronize()
+        launches[run] = dict(common.LAUNCHES)
+        want = {name: 0 for name in common.KERNELS}
+        want["flash_attention"] = cfg.num_layers
+        want["decode_attention"] = cfg.num_layers * (gen - 1)
+        check(launches[run] == want,
+              f"{run}: launches {launches[run]}, want {want}")
+        diff = max(max_diff(a, r) for a, r in zip(cud.logits, ref.logits))
+        check(all(bool(torch.isfinite(x).all()) for x in cud.logits)
+              and tuple(cud.logits[0].shape) == (b, cfg.vocab_size),
+              f"{run}: logits not finite or of the wrong shape")
+        check(diff <= SERVE_LOGIT_TOL,
+              f"{run}: logits differ between backends by {diff}")
+        gaps = torch.stack([_gap(r) for r in ref.logits], dim=1)
+        clear = gaps > 2 * SERVE_LOGIT_TOL
+        check(torch.equal(cud.tokens[clear], ref.tokens[clear]),
+              f"{run}: argmax differs where the top-2 gap is clear")
+
+        def rate(g):
+            return b * gen / ((g.prefill_ms + sum(g.step_ms)) / 1e3)
+        out[run] = {
+            "batch": b, "prompt": l, "gen": gen, "cache": l + gen + 1,
+            "max_logit_diff": diff,
+            "argmax_compared": int(clear.sum()),
+            "argmax_total": int(clear.numel()),
+            "argmax_equal_all": bool(torch.equal(cud.tokens, ref.tokens)),
+            "prefill_ms_cuda": cud.prefill_ms,
+            "prefill_ms_reference": ref.prefill_ms,
+            "decode_ms_per_step_cuda": statistics.median(cud.step_ms),
+            "decode_ms_per_step_reference": statistics.median(ref.step_ms),
+            "tok_per_s_cuda": rate(cud), "tok_per_s_reference": rate(ref),
+            "launches": {k: c for k, c in launches[run].items() if c},
+        }
+        del ref_runs, ref, cud, prompts
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "arch": LM_ARCH, "params": FULL_D,
+          "logit_tol": SERVE_LOGIT_TOL, "tf32": False, **out})
+    return launches
+
+
+def phase_pin(device) -> None:
+    """The JAX pin: the reduced and GQA configs with numpy weights, on the
+    cuda backend: greedy tokens exactly, the prefill-logit checksums within
+    SERVE_PIN_RTOL of the abs-sum."""
+    import dataclasses
+
+    from repro_torch.convert import model_params, numpy_model_params
+    from repro_torch.launch import serve
+    base = get_config(LM_ARCH).reduced()
+    cfgs = {"reduced": base,
+            "gqa": dataclasses.replace(base, num_kv_heads=2,
+                                       layer_pattern="AS", sliding_window=16,
+                                       qk_norm=True).validate()}
+    out = {}
+    for name, cfg in cfgs.items():
+        params = model_params(numpy_model_params(cfg, SERVE_PIN_SEEDS[name]),
+                              cfg, device)
+        sh = SERVE_PIN_SHAPE
+        prompts = serve.prompts_of(cfg, sh["batch"], sh["prompt"], device)
+        g = serve.generate(params, cfg, prompts, sh["gen"],
+                           cache_len=sh["cache"], device=device)
+        toks, total, abs_total = SERVE_PIN[name]
+        first = g.logits[0].double()
+        got = (float(first.sum()), float(first.abs().sum()))
+        check(g.tokens.cpu().tolist() == toks,
+              f"pin {name}: tokens {g.tokens.cpu().tolist()}, the JAX "
+              f"package's {toks}")
+        tol = SERVE_PIN_RTOL * abs_total
+        check(abs(got[0] - total) <= tol and abs(got[1] - abs_total) <= tol,
+              f"pin {name}: checksums {got}, the JAX package's "
+              f"{(total, abs_total)}")
+        out[name] = {"tokens_equal": True, "sum": got[0], "abs_sum": got[1],
+                     "jax_sum": total, "jax_abs_sum": abs_total}
+    emit({"phase": "jax_pin", **out})
+
+
+def phase_ops(device, d=FULL_D) -> dict:
+    """The four single-tensor ``ops`` entry points on the card against their
+    plain versions: B12a, B12b and B3 at n = d in f32, B14 at one batch row
+    of serve_long's prefill. Returns the launch counts of the run."""
+    from repro_torch.kernels import common, ops
+    gen = torch.Generator(device=device).manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    g, h, t, p = randn(d), randn(d), randn(d), randn(d)
+    g[::7] = -0.0
+    h[::11] = -0.0
+    q, k, v = (randn(1, 2048, 12, 64).transpose(1, 2) for _ in range(3))
+    torch.cuda.synchronize()
+    common.reset_launches()
+    sq = ops.censor_delta_sqnorm(g, h)
+    sq_p = ops.censor_delta_sqnorm(g, h, use_pallas=False)   # no launch
+    g[3] = float("nan")
+    h[5] = float("nan")
+    sel = [ops.censor_select(g, h, flag) for flag in (0, 1)]
+    hb = ops.hb_param_update(t, h, p, 0.1, 0.4)
+    att = ops.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+    want = {name: 0 for name in common.KERNELS}
+    want.update(censor_delta_sqnorm=1, censor_select=2, hb_update=1,
+                flash_attention=1)
+    check(launches == want, f"ops: launches {launches}, want {want}")
+    check(_rel_err(sq, sq_p) <= SQNORM_RTOL,
+          f"ops B12a: {float(sq)} against {float(sq_p)}")
+    for flag, out in zip((0, 1), sel):
+        check(same_bits(out, ops.censor_select(g, h, flag,
+                                               use_pallas=False)),
+              f"ops B12b transmit={flag}")
+    check(same_bits(hb, ops.hb_param_update(t, h, p, 0.1, 0.4,
+                                            use_pallas=False)), "ops B3")
+    err = _attn_check(att, ops.flash_attention_fwd(q, k, v,
+                                                   use_pallas=False),
+                      _flash_f64(q, k, v, True, None), "ops B14")
+    emit({"phase": "ops", "n": d, "B12a_rel_err": _rel_err(sq, sq_p),
+          "B12b": "bitwise", "B3": "bitwise", "B14_errors": err,
+          "launches": {k_: c for k_, c in launches.items() if c}})
+    return launches
+
+
 # ------------------------------------------------------------ phase 6
+# device cycles the card sleeps before a timed window, while the host
+# queues the window's calls: about 10 ms at an H100's 1.98 GHz, longer than
+# any window's host time, so the events time the card's work alone (B13's
+# wrapper takes longer on the host than its kernel on the card)
+SLEEP_CYCLES = 20_000_000
+
+
 def _time_ms(fn, reps: int) -> float:
     """Mean ms of one call over ``reps`` calls queued back to back between
-    two CUDA events, after one warm-up call (the queue hides the host's
-    launch latency, as on the main path)."""
+    two CUDA events, after one warm-up call; the card sleeps first while
+    the host queues the calls, so no host time falls in the window."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -1077,6 +1499,83 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
             "shape": (f"n={d} float32" if name == "hb_update"
                       else f"M={m} n={d} float32")})
         torch.cuda.empty_cache()
+    del g, h, e, t, p, keep, pend, nab
+    torch.cuda.empty_cache()
+    return rows + model_timing_rows(device, launches, max_err, d)
+
+
+def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
+    """B12a and B12b at n = d in f32; B13 at serve_long's last decode step
+    and B14 at its prefill (batch 8, 12 heads, head dim 64, the model's
+    strided views). Bounds count what these inputs need: B12b reads only
+    the side it selects, B14 the causal band's products."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (censor, decode_attention,
+                                     flash_attention, ref)
+    from repro_torch.models.kvcache import slot_positions
+    gen = torch.Generator(device=device).manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    g, h = randn(d), randn(d)
+    flag = torch.tensor(True, device=device)
+    run = SERVE_RUNS["serve_long"]
+    b, l, hd, nh = run["batch"], run["prompt"], 64, 12
+    c, pos = l + run["gen"] + 1, l + run["gen"] - 2
+    q1 = randn(b, nh, hd)
+    kc, vc = randn(b, c, nh, hd), randn(b, c, nh, hd)
+    cpos = slot_positions(pos + 1, c, device)
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    valid = (cpos >= 0) & (cpos <= pos)
+    q, k, v = (randn(b, l, nh, hd).transpose(1, 2) for _ in range(3))
+    pairs = l * (l + 1) // 2                      # causal (q, k) pairs
+    work = {   # name: (kernel, plain, library, bytes, f32 operations, shape)
+        "censor_delta_sqnorm": (
+            lambda: censor.censor_delta_sqnorm(g, h),
+            lambda: ref.censor_delta_sqnorm(g, h),
+            lambda: torch.dist(g, h), 2 * d * 4 + 4, 3 * d,
+            f"n={d} float32"),
+        "censor_select": (
+            lambda: censor.censor_select(g, h, 1),
+            lambda: ref.censor_select(g, h, 1),
+            lambda: torch.where(flag, g, h), 2 * d * 4, 0,
+            f"n={d} float32, transmit=1"),
+        "decode_attention": (
+            lambda: decode_attention.decode_attention(q1, kt, vt, cpos, pos),
+            lambda: ref.decode_attention_ref(q1, kt, vt, cpos, pos),
+            lambda: F.scaled_dot_product_attention(
+                q1[:, :, None], kt, vt, attn_mask=valid),
+            2 * b * c * nh * hd * 4 + 2 * b * nh * hd * 4 + 4 * c,
+            4 * b * nh * c * hd,
+            f"B={b} H=K={nh} C={c} d={hd} float32, pos={pos}"),
+        "flash_attention": (
+            lambda: flash_attention.flash_attention(q, k, v, causal=True),
+            lambda: ref.flash_attention_fwd(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            4 * b * nh * l * hd * 4, 4 * b * nh * pairs * hd,
+            f"B={b} H=K={nh} L={l} d={hd} float32, causal"),
+    }
+    rows = []
+    for name, (kfn, pfn, lfn, nbytes, ops_, shape) in work.items():
+        ms = _time_ms(kfn, 10)
+        plain_ms = _time_ms(pfn, 3)
+        library_ms = _time_ms(lfn, 10)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_ / F32_FLOPS * 1e3
+        src, replaces = KERNEL_META[name]
+        by_path = {path: cnt[name] for path, cnt in launches.items()
+                   if cnt[name]}
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "launches_by_path": by_path,
+            "bytes": nbytes, "operations": ops_, "shape": shape})
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1086,12 +1585,19 @@ def main() -> None:
     # the low-rank factors are plain matmuls: full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    check(FULL_D == 163_597_056, f"chb-paper-lm-124m has {FULL_D} "
+          "parameters in the port's init_params")
     phase_build()
     dev = torch.device("cuda")
     max_err = phase_kernels(dev)
+    phase_attention_kernels(dev, max_err)
     phase_golden(dev)
     launches = phase_full()
+    launches.update(phase_serve(dev))
+    phase_pin(dev)
+    launches["ops"] = phase_ops(dev)
     rows = phase_timing(dev, launches, max_err)
+    check(len(rows) == len(KERNEL_META) == 16, f"{len(rows)} kernel rows")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -21,7 +21,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("censor", "fused_step", "hb_update", "topk_pack", "lowrank_ef",
-           "quantize_ef")
+           "quantize_ef", "flash_attention", "decode_attention")
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
@@ -29,6 +29,10 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: elements of one worker row that one reduction block sums (kChunk in
 #: csrc/reduce.cuh); the launchers reject a partial buffer of another size
 REDUCE_CHUNK = 2048
+#: cache slots of one partial of the decode-attention kernel (kDecodeSlots
+#: in csrc/decode_attention.cu); its launcher rejects partial buffers of
+#: another length
+DECODE_SLOTS = 32
 
 # every launcher takes (device index, operands..., stream) and returns a
 # cudaError_t; pointers and the stream must be c_void_p, or ctypes would
@@ -44,6 +48,16 @@ _BANK_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _I64, _P)
 _HB_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _F64, _F64, _P)
 _PACK_ARGS = (_DEV,) + (_P,) * 6 + (_I64, _I64, _P)
 _RESIDUAL_ARGS = (_DEV,) + (_P,) * 5 + (_I64, _I64, _P)
+_SELECT_ARGS = (_DEV,) + (_P,) * 3 + (_I64, ctypes.c_int, _P)
+# the attention launchers take their sizes and strides as a host int64
+# array (a pointer) and the softmax scale as a double
+_FLASH_ARGS = (_DEV,) + (_P,) * 5 + (_F64, _P)
+_DECODE_ARGS = (_DEV,) + (_P,) * 8 + (_F64, _P)
+#: the dtypes of the single-tensor entry points B12a/B12b and of the
+#: attention kernels, by launcher suffix
+SINGLE_DTYPES = {torch.float32: "f32", torch.float64: "f64",
+                 torch.bfloat16: "bf16"}
+ATTENTION_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _both(name: str, argtypes: tuple) -> dict:
@@ -51,11 +65,20 @@ def _both(name: str, argtypes: tuple) -> dict:
     return {f"{name}_{s}": argtypes for s in ("f32", "f64")}
 
 
+def _pairs(name: str, argtypes: tuple) -> dict:
+    """The launchers of one single-tensor kernel, one per (g, ghat) dtype
+    pair."""
+    return {f"{name}_{a}_{b}": argtypes for a in SINGLE_DTYPES.values()
+            for b in SINGLE_DTYPES.values()}
+
+
 SIGNATURES = {
     "censor": {**_both("censor_delta_sqnorm_batched", _REDUCE_ARGS),
                **_both("sqnorm_batched", _SQNORM_ARGS),
                **_both("bank_advance", _BANK_ARGS),
-               **_both("censor_bank_advance", _BANK_ARGS)},
+               **_both("censor_bank_advance", _BANK_ARGS),
+               **_pairs("censor_delta_sqnorm", _REDUCE_ARGS),
+               **_pairs("censor_select", _SELECT_ARGS)},
     "fused_step": {**_both("fused_dense_step", _DENSE_ARGS),
                    **_both("int8_stats_batched", _STATS_ARGS),
                    **_both("fused_int8_step", _INT8_ARGS)},
@@ -64,6 +87,10 @@ SIGNATURES = {
     "lowrank_ef": _both("residual_ef_batched", _RESIDUAL_ARGS),
     "quantize_ef": {**_both("absmax_batched", _SQNORM_ARGS),
                     **_both("quantize_ef_batched", _PACK_ARGS)},
+    "flash_attention": {f"flash_attention_{s}": _FLASH_ARGS
+                        for s in ATTENTION_DTYPES.values()},
+    "decode_attention": {f"decode_attention_{s}": _DECODE_ARGS
+                         for s in ATTENTION_DTYPES.values()},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

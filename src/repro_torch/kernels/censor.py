@@ -1,8 +1,9 @@
-"""B1, B8, B9, B4: the censor kernels of one bank leaf, on the card.
+"""B1, B8, B9, B4, B12a, B12b: the censor kernels, on the card.
 
 Wraps ``csrc/censor.cu`` (port of ``repro/kernels/censor.py``'s
 ``censor_delta_sqnorm_batched``, ``sqnorm_batched``, ``bank_advance`` and
-``censor_bank_advance``).
+``censor_bank_advance`` of one (M, ...) bank leaf, and of the single-tensor
+``censor_delta_sqnorm`` and ``censor_select``).
 CPU tensors run ``ref``'s plain versions; CUDA tensors launch the kernels
 (see ``common`` for the dispatch rule).
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .build import REDUCE_CHUNK, launch
+from .build import REDUCE_CHUNK, SINGLE_DTYPES, launch
 from .common import check_leaves, check_worker_vector, count_launch, on_card
 
 
@@ -105,4 +106,68 @@ def censor_bank_advance(g: torch.Tensor, ghat: torch.Tensor,
     count_launch(name)
     launch("censor", f"{name}_{suffix}", ghat.device, _ptr(g), _ptr(ghat),
            _ptr(mask), _ptr(out), m, n)
+    return out
+
+
+# ------------------------------------------------ single-tensor entry points
+def _single(name: str, g: torch.Tensor, ghat: torch.Tensor) -> str:
+    """g and ghat share one shape, each in f32, f64 or bf16; returns the
+    launcher suffix of the pair."""
+    if g.shape != ghat.shape:
+        raise ValueError(f"{name}: g and ghat must share one shape, got "
+                         f"{tuple(g.shape)} and {tuple(ghat.shape)}")
+    for t in (g, ghat):
+        if t.dtype not in SINGLE_DTYPES:
+            raise TypeError(f"{name}: dtype {t.dtype} is not supported "
+                            "(float32, float64 and bfloat16 are)")
+    return f"{SINGLE_DTYPES[g.dtype]}_{SINGLE_DTYPES[ghat.dtype]}"
+
+
+def censor_delta_sqnorm(g: torch.Tensor, ghat: torch.Tensor) -> torch.Tensor:
+    """() f32 ``sum (float(g) - float(ghat))^2`` of one tensor pair (B12a).
+
+    Both are cast to f32 *before* the subtraction (B1 subtracts in the
+    bank dtype). B1's chunks and fixed-order tree at M=1: two launches give
+    the same bits.
+    """
+    name = "censor_delta_sqnorm"
+    suffix = _single(name, g, ghat)
+    n = g.numel()
+    if n == 0:
+        return torch.zeros((), dtype=torch.float32, device=g.device)
+    if not on_card(name, g, ghat):
+        return ref.censor_delta_sqnorm(g, ghat)
+    return _sqnorm_launch(name, f"{name}_{suffix}", g.device,
+                          (_ptr(g), _ptr(ghat)), 1, n).reshape(())
+
+
+def _flag(name: str, transmit) -> int:
+    """The transmit flag as 0/1: a Python bool or int, or a one-element
+    bool or integer tensor (the JAX kernel reads it as an int32)."""
+    t = torch.as_tensor(transmit)
+    if t.numel() != 1 or t.is_floating_point() or t.is_complex():
+        raise TypeError(f"{name}: transmit must be one bool or integer, got "
+                        f"{t.dtype} of shape {tuple(t.shape)}")
+    return int(t.item() != 0)
+
+
+def censor_select(g: torch.Tensor, ghat: torch.Tensor,
+                  transmit) -> torch.Tensor:
+    """``ghat' = transmit ? g.to(ghat.dtype) : ghat`` of one tensor (B12b).
+
+    A select, not a mask multiply: -0.0 and NaN on either side come through
+    bit for bit. The kernel reads only the side it selects.
+    """
+    name = "censor_select"
+    suffix = _single(name, g, ghat)
+    flag = _flag(name, transmit)
+    n = ghat.numel()
+    if n == 0:
+        return ghat
+    if not on_card(name, g, ghat):
+        return ref.censor_select(g, ghat, flag)
+    out = torch.empty_like(ghat)
+    count_launch(name)
+    launch("censor", f"{name}_{suffix}", ghat.device, _ptr(g), _ptr(ghat),
+           _ptr(out), n, flag)
     return out

@@ -16,7 +16,8 @@ KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
            "int8_stats_batched", "fused_int8_step", "sqnorm_batched",
            "bank_advance", "hb_update", "select_pack_ef_batched",
            "residual_ef_batched", "censor_bank_advance", "absmax_batched",
-           "quantize_ef_batched")
+           "quantize_ef_batched", "censor_delta_sqnorm", "censor_select",
+           "flash_attention", "decode_attention")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -39,11 +40,13 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def on_card(name: str, *tensors: torch.Tensor) -> bool:
+def on_card(name: str, *tensors: torch.Tensor,
+            contiguous: bool = True) -> bool:
     """Which side of the dispatch rule the operands fall on.
 
-    True: all operands are contiguous tensors on one CUDA device. False:
-    all lie on the CPU. Anything else raises.
+    True: all operands are tensors on one CUDA device, contiguous unless
+    the kernel reads by strides (``contiguous=False``). False: all lie on
+    the CPU. Anything else raises.
     """
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
@@ -52,7 +55,7 @@ def on_card(name: str, *tensors: torch.Tensor) -> bool:
         raise ValueError(f"{name}: operands must all lie on the CPU or all "
                          f"on one CUDA device, got "
                          f"{sorted(str(t.device) for t in tensors)}")
-    if not all(t.is_contiguous() for t in tensors):
+    if contiguous and not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: CUDA operands must be contiguous")
     return True
 

@@ -4,6 +4,8 @@
 //   B8 sqnorm_batched              replaces src/repro/kernels/censor.py:sqnorm_batched
 //   B9 bank_advance                replaces src/repro/kernels/censor.py:bank_advance
 //   B4 censor_bank_advance         replaces src/repro/kernels/censor.py:censor_bank_advance
+//   B12a censor_delta_sqnorm       replaces src/repro/kernels/censor.py:censor_delta_sqnorm
+//   B12b censor_select             replaces src/repro/kernels/censor.py:censor_select
 //
 // B1 gives the per-worker eq.-(8) norms sum_j (g[m,j] - ghat[m,j])^2, the
 // subtraction in the bank dtype and the square-sum in f32. B8 gives the
@@ -18,6 +20,10 @@
 //   B8 reads M*n elements and writes M floats:     2.62 GB, >= 0.78 ms;
 //   B9 reads 2*M*n elements and writes M*n:        7.85 GB, >= 2.34 ms;
 //   B4 reads 2*M*n elements and writes M*n:        7.85 GB, >= 2.34 ms.
+// and for one f32 tensor of n elements:
+//   B12a reads 2*n elements and writes one float:  1.31 GB, >= 0.39 ms;
+//   B12b reads n elements (the selected side only) and writes n:
+//                                                   1.31 GB, >= 0.39 ms.
 //
 // Design: pass 1 of B1 and B8 gives each (chunk, worker) block kChunk
 // contiguous elements with coalesced loads (neighbouring threads on
@@ -35,6 +41,18 @@
 // flight per thread (see PERF.md). It advances in the arithmetic mask
 // form of B2, so its output equals B2's ghat' bit for bit (a select would
 // not: h + (g - h) != g in floating point).
+//
+// B12a and B12b are the single-tensor entry points of one (g, ghat) pair
+// whose dtypes may differ (f32, f64 or bf16 each). B12a casts both to f32
+// *before* it subtracts, as the JAX kernel does (B1 subtracts in the bank
+// dtype, so at f64 or for a mixed pair the two differ); it then runs B1's
+// chunks, tree and fixed-order pass 2 at M=1. B12b is a select, not a mask
+// multiply: with the transmit flag a runtime int, it copies g cast to
+// ghat's dtype, or ghat, so -0.0 and NaN on either side come through as
+// jnp.where passes them. It reads only the side it selects, with B4's
+// tiling (kRowItems loads in flight a thread).
+#include <cuda_bf16.h>
+
 #include "reduce.cuh"
 
 using namespace repro;
@@ -167,7 +185,127 @@ static int launch_censor_bank_advance(const void* g, const void* h, const void* 
   return (int)cudaGetLastError();
 }
 
+// conversions of B12a and B12b, rounding as torch's .to() does (a double
+// goes to bf16 through float, as c10::BFloat16 converts it)
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(double x) { return __double2float_rn(x); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename TO>
+struct Cast;
+template <>
+struct Cast<float> {
+  template <typename TI>
+  __device__ __forceinline__ static float of(TI x) { return to_f32(x); }
+};
+template <>
+struct Cast<double> {
+  __device__ __forceinline__ static double of(double x) { return x; }
+  __device__ __forceinline__ static double of(float x) { return (double)x; }
+  __device__ __forceinline__ static double of(__nv_bfloat16 x) { return (double)__bfloat162float(x); }
+};
+template <>
+struct Cast<__nv_bfloat16> {
+  __device__ __forceinline__ static __nv_bfloat16 of(__nv_bfloat16 x) { return x; }
+  template <typename TI>
+  __device__ __forceinline__ static __nv_bfloat16 of(TI x) { return __float2bfloat16_rn(to_f32(x)); }
+};
+
+template <typename TG, typename TH>
+__global__ void __launch_bounds__(kThreads)
+delta_sqnorm_f32_partials(const TG* __restrict__ g, const TH* __restrict__ h,
+                          float* __restrict__ part, int64_t n) {
+  __shared__ float scratch[kThreads / 32];
+  const int64_t c = blockIdx.x;
+  const int64_t base = c * kChunk + threadIdx.x;
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int64_t j = base + (int64_t)k * kThreads;
+    if (j < n) {
+      const float d = sub(to_f32(g[j]), to_f32(h[j]));
+      acc = add(acc, mul(d, d));
+    }
+  }
+  acc = block_reduce(acc, 0.0f, SumOp(), scratch);
+  if (threadIdx.x == 0) part[c] = acc;
+}
+
+template <typename TG, typename TH>
+static int launch_delta_sqnorm_f32(const void* g, const void* h, void* part, void* out,
+                                   int64_t m, int64_t n, int64_t nchunks, void* stream) {
+  if (m != 1 || !reduction_shape_ok(m, n, nchunks)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  delta_sqnorm_f32_partials<TG, TH><<<(unsigned)nchunks, kThreads, 0, s>>>(
+      (const TG*)g, (const TH*)h, (float*)part, n);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  finish_partials<float, SumOp><<<1, kThreads, 0, s>>>((const float*)part, (float*)out, nchunks,
+                                                      0.0f);
+  return (int)cudaGetLastError();
+}
+
+template <typename TG, typename TH>
+__global__ void __launch_bounds__(kThreads)
+censor_select_kernel(const TG* __restrict__ g, const TH* __restrict__ h, TH* __restrict__ out,
+                     int64_t n, int transmit) {
+  const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
+  TH x[kRowItems];
+  if (transmit) {
+#pragma unroll
+    for (int k = 0; k < kRowItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      if (j < n) x[k] = Cast<TH>::of(g[j]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRowItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      if (j < n) x[k] = h[j];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRowItems; ++k) {
+    const int64_t j = base + (int64_t)k * kThreads;
+    if (j < n) out[j] = x[k];
+  }
+}
+
+template <typename TG, typename TH>
+static int launch_censor_select(const void* g, const void* h, void* out, int64_t n,
+                                int transmit, void* stream) {
+  if (!row_tiles_ok(1, n)) return (int)cudaErrorInvalidValue;
+  censor_select_kernel<TG, TH><<<row_tiles(1, n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const TG*)g, (const TH*)h, (TH*)out, n, transmit);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
+
+// B12a and B12b for every (g dtype, ghat dtype) pair of f32, f64 and bf16
+#define REPRO_SINGLE_TENSOR(SG, TG, SH, TH)                                                     \
+  int censor_delta_sqnorm_##SG##_##SH(int device, const void* g, const void* h, void* part,     \
+                                      void* out, int64_t m, int64_t n, int64_t nchunks,         \
+                                      void* stream) {                                           \
+    const cudaError_t sel = cudaSetDevice(device);                                             \
+    if (sel != cudaSuccess) return (int)sel;                                                   \
+    return launch_delta_sqnorm_f32<TG, TH>(g, h, part, out, m, n, nchunks, stream);            \
+  }                                                                                            \
+  int censor_select_##SG##_##SH(int device, const void* g, const void* h, void* out, int64_t n, \
+                                int transmit, void* stream) {                                  \
+    const cudaError_t sel = cudaSetDevice(device);                                             \
+    if (sel != cudaSuccess) return (int)sel;                                                   \
+    return launch_censor_select<TG, TH>(g, h, out, n, transmit, stream);                       \
+  }
+#define REPRO_SINGLE_TENSOR_G(SG, TG)                \
+  REPRO_SINGLE_TENSOR(SG, TG, f32, float)            \
+  REPRO_SINGLE_TENSOR(SG, TG, f64, double)           \
+  REPRO_SINGLE_TENSOR(SG, TG, bf16, __nv_bfloat16)
+REPRO_SINGLE_TENSOR_G(f32, float)
+REPRO_SINGLE_TENSOR_G(f64, double)
+REPRO_SINGLE_TENSOR_G(bf16, __nv_bfloat16)
+#undef REPRO_SINGLE_TENSOR_G
+#undef REPRO_SINGLE_TENSOR
 
 int censor_delta_sqnorm_batched_f32(int device, const void* g, const void* h, void* part, void* out,
                                     int64_t m, int64_t n, int64_t nchunks, void* stream) {

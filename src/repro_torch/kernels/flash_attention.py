@@ -1,0 +1,68 @@
+"""B14: the flash-attention forward pass of serving prefill, on the card.
+
+Wraps ``csrc/flash_attention.cu`` (port of
+``repro/kernels/flash_attention.py:flash_attention_pallas``).
+``models.layers.attention`` runs it on the ``cuda`` backend, once a layer
+per prefill. CPU tensors run ``ref.flash_attention_fwd``; CUDA tensors
+launch the kernel or raise. The kernel reads q, k and v by strides, picks
+its own tiles and takes any Lq, S and head dim up to 256.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import ref
+from .build import ATTENTION_DTYPES, launch
+from .common import count_launch, on_card
+
+
+def _check(name: str, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor) -> tuple:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: want q (B, H, Lq, d) and k, v (B, K, S, "
+                         f"d), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, lq, d = q.shape
+    kh, s_len = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kh == 0 or h % kh:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k, v "
+                         f"{tuple(k.shape)} (H must be a multiple of K)")
+    if len({q.dtype, k.dtype, v.dtype}) != 1:
+        raise TypeError(f"{name}: q, k and v must share one dtype")
+    return b, h, kh, lq, s_len, d
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None, scale=None
+                    ) -> torch.Tensor:
+    """Blocked attention: q (B, H, Lq, d), k/v (B, K, S, d) with H = K*G,
+    kv head h // G, masks on absolute positions (kpos <= qpos if causal,
+    kpos > qpos - window if a window is given). Returns (B, H, Lq, d) in
+    q's dtype, computed in f32."""
+    name = "flash_attention"
+    b, h, kh, lq, s_len, d = _check(name, q, k, v)
+    if scale is None:
+        scale = d ** -0.5
+    if not on_card(name, q, k, v, contiguous=False):
+        return ref.flash_attention_fwd(q, k, v, causal=causal,
+                                       window=window, scale=scale)
+    if q.dtype not in ATTENTION_DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype} is not supported "
+                        "(float32 and bfloat16 are)")
+    if s_len == 0 or d > 256:
+        raise ValueError(f"{name}: needs at least one key and a head dim "
+                         f"up to 256, got S={s_len}, d={d}")
+    out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    dims = (ctypes.c_int64 * 21)(
+        b, h, kh, lq, s_len, d, *q.stride(), *k.stride(), *v.stride(),
+        int(bool(causal)), int(window is not None),
+        0 if window is None else int(window))
+    count_launch(name)
+    launch("flash_attention", f"{name}_{ATTENTION_DTYPES[q.dtype]}",
+           q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), ctypes.addressof(dims), float(scale))
+    return out

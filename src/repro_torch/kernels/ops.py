@@ -7,6 +7,15 @@
 
 Per-leaf (M,) partials accumulate leaf by leaf, ``acc = acc + partial``
 in f32, in tree order, exactly as the JAX dispatch does.
+
+Also the single-tensor entry points of ``repro/kernels/ops.py``
+(``censor_delta_sqnorm``, ``censor_select``, ``hb_param_update``,
+``flash_attention_fwd``) with the JAX signatures. ``use_pallas=True``
+means the card's kernel, as the spec loader reads ``"pallas"`` as
+``"cuda"``: the kernel wrapper, which runs the kernel on CUDA tensors and
+its plain version on CPU tensors. ``use_pallas=False`` runs the plain
+version from ``ref`` on either device. There is no ``jit``: PyTorch runs
+eagerly, and ``alpha``/``beta`` reach B3 as runtime arguments.
 """
 from __future__ import annotations
 
@@ -14,7 +23,8 @@ import torch
 
 from ..core.quantize import int8_scale
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
-from . import censor, fused_step, hb_update, lowrank_ef, quantize_ef, topk_pack
+from . import (censor, flash_attention, fused_step, hb_update, lowrank_ef,
+               quantize_ef, ref, topk_pack)
 
 
 def tree_delta_sqnorms(grads, bank) -> torch.Tensor:
@@ -124,3 +134,42 @@ def tree_fused_int8_step(grads, bank, err, params, prev_params, mask,
                 leaves_t, tree_leaves(prev_params), tree_leaves(scales))]
     return tuple(tree_unflatten(treedef, [o[i] for o in outs])
                  for i in range(4))
+
+
+# ---------------------------------------------- single-tensor entry points
+def censor_delta_sqnorm(g, ghat, use_pallas: bool = True):
+    """() f32 ||g - ghat||^2, both cast to f32 first (B12a)."""
+    if use_pallas:
+        return censor.censor_delta_sqnorm(g, ghat)
+    return ref.censor_delta_sqnorm(g, ghat)
+
+
+def censor_select(g, ghat, transmit, use_pallas: bool = True):
+    """ghat' = transmit ? g : ghat, in ghat's dtype (B12b)."""
+    if use_pallas:
+        return censor.censor_select(g, ghat, transmit)
+    return ref.censor_select(g, ghat, transmit)
+
+
+def hb_param_update(theta, nabla, theta_prev, alpha, beta,
+                    use_pallas: bool = True):
+    """The eq.-(4) update (B3); ``alpha``/``beta`` are runtime arguments,
+    so a hyperparameter grid builds nothing new."""
+    if use_pallas:
+        return hb_update.hb_update(theta, nabla, theta_prev, alpha, beta)
+    return ref.hb_update(theta, nabla, theta_prev, alpha, beta)
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True, window=None,
+                        q_block: int = 512, kv_block: int = 512,
+                        use_pallas: bool = True):
+    """Attention forward, q (B, H, Lq, d), k/v (B, K, S, d) (B14).
+
+    ``q_block`` and ``kv_block`` are accepted for the JAX signature and
+    unused: the CUDA kernel picks its own tiles and takes any Lq and S.
+    """
+    del q_block, kv_block
+    if use_pallas:
+        return flash_attention.flash_attention(q, k, v, causal=causal,
+                                               window=window)
+    return ref.flash_attention_fwd(q, k, v, causal=causal, window=window)

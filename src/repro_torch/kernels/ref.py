@@ -1,12 +1,16 @@
 """Plain PyTorch versions of the kernels (the correctness contract).
 
-A line-for-line port of ``repro/kernels/ref.py`` for B1-B11, in the same
-operation order and dtypes. One deliberate
+A line-for-line port of ``repro/kernels/ref.py`` for B1-B12, in the same
+operation order and dtypes, and of the attention oracles B13
+(``repro/kernels/decode_attention.py:decode_attention_ref``) and B14
+(``repro/models/flash.py:reference_attention``), with the same -1e30 mask
+value and f32 upcasts. One deliberate
 difference: the worker sum is a left fold from ``ghat'_0`` (``core.util.tree_sum_leading``), not
 ``jnp.sum(axis=0)``, because the CUDA kernels fold in that order and must
 equal these functions bit for bit on the card. The wrappers in
 ``censor.py``, ``fused_step.py``, ``hb_update.py``, ``topk_pack.py``,
-``lowrank_ef.py`` and ``quantize_ef.py`` run these on CPU tensors.
+``lowrank_ef.py``, ``quantize_ef.py``, ``flash_attention.py`` and
+``decode_attention.py`` run these on CPU tensors.
 """
 from __future__ import annotations
 
@@ -14,6 +18,25 @@ import torch
 
 from ..core.util import scalar_in, sum_leading
 from .common import compute_dtype
+
+NEG = -1e30
+
+
+def censor_delta_sqnorm(g: torch.Tensor, ghat: torch.Tensor) -> torch.Tensor:
+    """|| g - ghat ||^2 in f32 (per-tensor partial of the eq.-(8) test);
+    both are cast to f32 before the subtraction."""
+    d = g.to(torch.float32) - ghat.to(torch.float32)
+    return torch.sum(d * d)
+
+
+def censor_select(g: torch.Tensor, ghat: torch.Tensor,
+                  transmit) -> torch.Tensor:
+    """ghat' = g where transmitted else ghat (worker-side bank advance)."""
+    if isinstance(transmit, torch.Tensor):
+        flag = transmit.to(device=ghat.device, dtype=torch.bool)
+    else:   # a fill on the device, not a copy from the host (which waits)
+        flag = torch.full((), bool(transmit), device=ghat.device)
+    return torch.where(flag, g.to(ghat.dtype), ghat)
 
 
 def censor_delta_sqnorm_batched(g: torch.Tensor, ghat: torch.Tensor
@@ -130,3 +153,50 @@ def fused_int8_step(g: torch.Tensor, ghat: torch.Tensor, err: torch.Tensor,
     agg = sum_leading(new_ghat)
     return (new_ghat, new_err, agg,
             hb_update(theta, agg, theta_prev, alpha, beta))
+
+
+# ------------------------------------------------------- attention oracles
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window=None, scale=None
+                        ) -> torch.Tensor:
+    """Naive attention; q (B, H, Lq, d), k/v (B, K, S, d), H = K*G, kv head
+    h // G; masks on absolute positions (qpos = row, kpos = column)."""
+    b, h, lq, d = q.shape
+    kh, s_len = k.shape[1], k.shape[2]
+    g = h // kh
+    if scale is None:
+        scale = d ** -0.5
+    q5 = q.reshape(b, kh, g, lq, d)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q5.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    qpos = torch.arange(lq, device=q.device)[:, None]
+    kpos = torch.arange(s_len, device=q.device)[None, :]
+    m = torch.ones((lq, s_len), dtype=torch.bool, device=q.device)
+    if causal:
+        m = m & (kpos <= qpos)
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    s = torch.where(m, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    return o.reshape(b, h, lq, d).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_pos: torch.Tensor,
+                         pos, scale=None) -> torch.Tensor:
+    """Single-query attention over a ring cache; q (B, H, d), caches
+    (B, K, C, d), slot c valid iff 0 <= cache_pos[c] <= pos."""
+    b, h, d = q.shape
+    kh = k_cache.shape[1]
+    g = h // kh
+    if scale is None:
+        scale = d ** -0.5
+    q4 = q.reshape(b, kh, g, d).to(torch.float32)
+    s = torch.einsum("bkgd,bkcd->bkgc", q4,
+                     k_cache.to(torch.float32)) * scale
+    valid = (cache_pos >= 0) & (cache_pos <= pos)
+    s = torch.where(valid[None, None, None, :], s, NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgc,bkcd->bkgd", p, v_cache.to(torch.float32))
+    return o.reshape(b, h, d).to(q.dtype)

@@ -16,8 +16,9 @@ from repro_torch.core import simulator
 from repro_torch.core.quantize import int8_scale
 from repro_torch.data import edge_tasks
 from repro_torch.core.util import tree_sqnorm
-from repro_torch.kernels import (censor, common, fused_step, hb_update,
-                                 lowrank_ef, quantize_ef, ref, topk_pack)
+from repro_torch.kernels import (censor, common, decode_attention,
+                                 flash_attention, fused_step, hb_update,
+                                 lowrank_ef, ops, quantize_ef, ref, topk_pack)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,7 +114,9 @@ def test_kernels_match_plain_versions(card, m, n, dtype):
                                "residual_ef_batched": 1,
                                "censor_bank_advance": 1,
                                "absmax_batched": 1,
-                               "quantize_ef_batched": 1}
+                               "quantize_ef_batched": 1,
+                               "censor_delta_sqnorm": 0, "censor_select": 0,
+                               "flash_attention": 0, "decode_attention": 0}
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
@@ -276,3 +279,124 @@ def test_per_tensor_launches_per_leaf(card):
         assert _same(runs[0].final_params[k], runs[1].final_params[k])
     assert {k: v for k, v in common.LAUNCHES.items() if v} == \
         {name: 6 for name in ("sqnorm_batched", "bank_advance", "hb_update")}
+
+
+# ------------------------------------------------- B12a, B12b, B13, B14
+def _f64_attention(q, k, v, valid):
+    """softmax(q k^T / sqrt(d), masked to -1e30) v in f64; q (B, K, G, Lq,
+    d), k/v (B, K, S, d), valid broadcast to (Lq, S)."""
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.double(), k.double()) \
+        * q.shape[-1] ** -0.5
+    p = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
+    return torch.einsum("bkgqs,bksd->bkgqd", p, v.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,kh,lq,s,causal,window", [
+    (8, 8, 100, 100, True, None), (8, 4, 130, 130, True, 48),
+    (8, 2, 77, 333, False, None), (8, 2, 200, 150, False, 40)])
+def test_flash_attention_matches_plain_version(card, dtype, h, kh, lq, s,
+                                               causal, window):
+    """Error against f64 at most 4x the f32 plain version's, plus 1e-6."""
+    gen = torch.Generator(device=card).manual_seed(lq + s)
+    q, k, v = (torch.randn((2, n, x, 64), generator=gen, device=card)
+               .to(dtype).transpose(1, 2)
+               for n, x in ((lq, h), (s, kh), (s, kh)))
+    common.reset_launches()
+    out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    assert common.LAUNCHES["flash_attention"] == 1
+    plain = ref.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    qp = torch.arange(lq, device=card)[:, None]
+    kp = torch.arange(s, device=card)[None, :]
+    valid = torch.ones((lq, s), dtype=torch.bool, device=card)
+    if causal:
+        valid &= kp <= qp
+    if window is not None:
+        valid &= kp > qp - window
+    exact = _f64_attention(q.reshape(2, kh, h // kh, lq, 64), k, v,
+                           valid).reshape(2, h, lq, 64)
+    err_k = float((out.double() - exact).abs().max())
+    err_p = float((plain.double() - exact).abs().max())
+    assert out.dtype == dtype and err_k <= 4 * err_p + 1e-6
+    assert torch.equal(out, flash_attention.flash_attention(
+        q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("kh,c,pos", [(8, 1, 0), (4, 97, 0), (4, 97, 40),
+                                      (2, 97, 300), (2, 2081, 5000)])
+def test_decode_attention_matches_plain_version(card, kh, c, pos):
+    from repro_torch.models.kvcache import slot_positions
+    gen = torch.Generator(device=card).manual_seed(c + pos)
+    q = torch.randn((3, 8, 64), generator=gen, device=card)
+    k, v = (torch.randn((3, c, kh, 64), generator=gen, device=card)
+            .transpose(1, 2) for _ in range(2))
+    cpos = slot_positions(pos + 1, c, card)
+    common.reset_launches()
+    out = decode_attention.decode_attention(q, k, v, cpos, pos)
+    assert common.LAUNCHES["decode_attention"] == 1
+    plain = ref.decode_attention_ref(q, k, v, cpos, pos)
+    valid = ((cpos >= 0) & (cpos <= pos))[None, :]
+    exact = _f64_attention(q.reshape(3, kh, 8 // kh, 1, 64), k, v,
+                           valid).reshape(3, 8, 64)
+    err_k = float((out.double() - exact).abs().max())
+    err_p = float((plain.double() - exact).abs().max())
+    assert err_k <= 4 * err_p + 1e-6
+
+
+@pytest.mark.parametrize("dg,dh", [(torch.float32, torch.float32),
+                                   (torch.float64, torch.float64),
+                                   (torch.float64, torch.float32),
+                                   (torch.float32, torch.bfloat16)],
+                         ids=["f32", "f64", "f64-f32", "f32-bf16"])
+def test_single_tensor_kernels_match_plain_versions(card, dg, dh):
+    gen = torch.Generator(device=card).manual_seed(5)
+    g = torch.randn(70001, generator=gen, device=card, dtype=torch.float64)
+    h = (g + 0.1 * torch.randn(70001, generator=gen, device=card,
+                               dtype=torch.float64)).to(dh)
+    g = g.to(dg)
+    g[::7] = -0.0
+    common.reset_launches()
+    sq = ops.censor_delta_sqnorm(g, h)
+    torch.testing.assert_close(sq, ref.censor_delta_sqnorm(g, h), rtol=1e-5,
+                               atol=0)
+    assert _same_or_nan(sq, ops.censor_delta_sqnorm(g, h))
+    g[3] = float("nan")
+    for t in (0, 1):
+        out = ops.censor_select(g, h, t)
+        want = ref.censor_select(g, h, t)
+        assert out.dtype == dh and torch.equal(
+            out.view(torch.int16 if dh == torch.bfloat16 else
+                     torch.int32 if dh == torch.float32 else torch.int64),
+            want.view(torch.int16 if dh == torch.bfloat16 else
+                      torch.int32 if dh == torch.float32 else torch.int64))
+    assert common.LAUNCHES["censor_delta_sqnorm"] == 2
+    assert common.LAUNCHES["censor_select"] == 2
+
+
+def test_serving_launches_b14_per_layer_and_b13_per_step(card):
+    """The reduced model on the card: one B14 a layer per prefill, one B13
+    a layer per decode step; logits within 2e-4 of the reference backend's
+    (the CPU tolerance against the JAX package)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get("chb-paper-lm-124m").reduced(),
+                              num_kv_heads=2, layer_pattern="AS",
+                              sliding_window=16, qk_norm=True).validate()
+    params = model.init_params(
+        torch.Generator(device=card).manual_seed(0), cfg)
+    prompts = serve.prompts_of(cfg, 2, 24, card)
+    ref_run = serve.generate(params, cfg, prompts, 6, backend="reference",
+                             device=card)
+    common.reset_launches()
+    run = serve.generate(params, cfg, prompts, 6, feed=ref_run.tokens,
+                         device=card)
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == \
+        {"flash_attention": 2, "decode_attention": 10}
+    for a, b in zip(run.logits, ref_run.logits):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    assert not torch.backends.cuda.matmul.allow_tf32
