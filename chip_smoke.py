@@ -16,9 +16,12 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  masks that keep -0.0 entries; the int8 kernels (B5, B6,
                  B7a, B7b) also on rows salted with NaN and +-inf; and four
                  cross-kernel identities (one JSON line). Then (phase
-                 attention_kernels) B14 over GQA 1/2/4, causal, window
-                 and non-causal rectangular shapes off the tile, f32 and
-                 bf16; B13 over C in {1, 97, 2081}, empty slots, wrapped
+                 bank_advance_paths) B9's 16-byte and element-wise paths
+                 on aligned and misaligned leaves, salted with -0.0, NaN
+                 and +-inf; (phase attention_kernels) B14 over GQA 1/2/4/6,
+                 causal, window and non-causal rectangular shapes on and
+                 off its tiles, head dims 32-256, strided and misaligned
+                 views, f32 and bf16; B13 over C in {1, 97, 2081}, empty slots, wrapped
                  rings and pos 0; both against an f64 plain version
                  (ATTN_FACTOR); B12a within SQNORM_RTOL and repeatable,
                  B12b bitwise with -0.0 and NaN salted.
@@ -617,6 +620,50 @@ def phase_kernels(device, ms=(1, 4, 9),
     return max_err
 
 
+def phase_bank_advance_paths(device, ms=(1, 4, 9),
+                              dtypes=(torch.float32, torch.float64)) -> None:
+    """B9's two paths against its plain version, bit for bit: rows of
+    16-byte vectors (n a multiple of 4, leaves 16-byte aligned) and the
+    element-wise path (a leaf view one element off its storage's
+    alignment; phase 3's odd n already take it), inputs salted with -0.0,
+    NaN and +-inf, all three masks, a repeat launch and each worker's M=1
+    slice."""
+    from repro_torch.kernels import censor, ref
+    cases = 0
+    for dtype in dtypes:
+        for m in ms:
+            for n, off in ((4, 0), (128 * 257 + 4, 0), (2 ** 20, 0),
+                           (4096, 1), (2 ** 20 + 4, 1)):
+                gen = torch.Generator(device=device).manual_seed(
+                    m * 7 + n % 1009 + off)
+
+                def leaf():
+                    flat = torch.randn(off + m * n, generator=gen,
+                                       device=device, dtype=dtype)
+                    return flat[off:].view(m, n)
+
+                h, q = leaf(), leaf()
+                h[:, ::7] = -0.0
+                q[:, ::5] = -0.0
+                q[:, 3::11] = float("nan")
+                h[:, 1::13] = float("inf")
+                q[:, 2::17] = float("-inf")
+                tag = f"B9 paths {dtype} M={m} n={n} offset={off}"
+                for mname, mask in _masks(m, device).items():
+                    out = censor.bank_advance(h, q, mask)
+                    check(same_bits(out, ref.bank_advance(h, q, mask)),
+                          f"{tag} mask={mname}")
+                    check(same_bits(out, censor.bank_advance(h, q, mask)),
+                          f"{tag} mask={mname}: repeat")
+                    for w in range(m):
+                        check(same_bits(censor.bank_advance(
+                            h[w:w + 1], q[w:w + 1], mask[w:w + 1]),
+                            out[w:w + 1]), f"{tag} mask={mname}: M=1 {w}")
+                    cases += 1
+    emit({"phase": "bank_advance_paths", "cases": cases,
+          "rule": "bitwise, -0.0, NaN and inf included"})
+
+
 # ----------------------------------------------------------- phase 3b
 def _flash_f64(q, k, v, causal, window):
     """B14's function in f64 (the plain version without its f32 casts)."""
@@ -657,21 +704,36 @@ def _attn_check(kernel, plain, exact, tag) -> tuple:
     return err_k, err_p
 
 
-# (b, h, kh, lq, s, d, causal, window, dtype): GQA 1/2/4 (and 6), Lq and S
-# off the 64-row tile, causal, window, non-causal rectangular, Lq > S with
-# rows that have no valid key (they visit every tile and give the mean of
-# v), head dims 32-256, bf16, and one batch row of serve_long's prefill
+# (b, h, kh, lq, s, d, causal, window, dtype, offset): GQA 1/2/4/6, Lq and
+# S off the 128-row query tile and the 64-key tile (Lq = S in {1, 127, 128,
+# 129}), causal, windows (one whose band crosses the 128-row edge),
+# non-causal rectangular, Lq > S with rows that have no valid key (they
+# visit every tile and give the mean of v), head dims 32-256 (33: the
+# element-wise loads; 80: zero-filled up to 128), bf16, operands one
+# element off their storage's alignment (offset 1: the element-wise
+# loads), and one batch row of serve_long's prefill
 FLASH_CASES = [
-    (2, 8, 8, 100, 100, 64, True, None, torch.float32),
-    (2, 8, 4, 130, 130, 64, True, 48, torch.float32),
-    (1, 8, 2, 77, 333, 64, False, None, torch.float32),
-    (1, 8, 2, 200, 150, 32, False, 40, torch.float32),
-    (1, 12, 2, 190, 190, 64, True, 7, torch.float32),
-    (2, 4, 4, 257, 257, 128, True, None, torch.float32),
-    (1, 4, 2, 65, 65, 256, True, 16, torch.float32),
-    (2, 8, 4, 130, 130, 64, True, 48, torch.bfloat16),
-    (1, 8, 2, 77, 333, 64, False, None, torch.bfloat16),
-    (1, 12, 12, 2048, 2048, 64, True, None, torch.float32),
+    (2, 8, 8, 100, 100, 64, True, None, torch.float32, 0),
+    (2, 8, 4, 130, 130, 64, True, 48, torch.float32, 0),
+    (1, 8, 2, 77, 333, 64, False, None, torch.float32, 0),
+    (1, 8, 2, 200, 150, 32, False, 40, torch.float32, 0),
+    (1, 12, 2, 190, 190, 64, True, 7, torch.float32, 0),
+    (2, 4, 4, 257, 257, 128, True, None, torch.float32, 0),
+    (1, 4, 2, 65, 65, 256, True, 16, torch.float32, 0),
+    (2, 8, 4, 130, 130, 64, True, 48, torch.bfloat16, 0),
+    (1, 8, 2, 77, 333, 64, False, None, torch.bfloat16, 0),
+    (1, 12, 12, 2048, 2048, 64, True, None, torch.float32, 0),
+    (2, 4, 4, 1, 1, 64, True, None, torch.float32, 0),
+    (1, 8, 8, 127, 127, 64, True, None, torch.float32, 0),
+    (1, 8, 4, 128, 128, 64, True, None, torch.float32, 0),
+    (2, 4, 2, 129, 129, 64, True, None, torch.float32, 0),
+    (1, 12, 2, 300, 300, 64, True, 100, torch.float32, 0),
+    (1, 4, 2, 129, 129, 33, True, None, torch.float32, 0),
+    (1, 4, 2, 150, 150, 80, False, 70, torch.float32, 0),
+    (2, 8, 4, 130, 130, 64, True, None, torch.float32, 1),
+    (1, 4, 2, 300, 140, 64, True, 30, torch.float32, 0),
+    (2, 4, 2, 129, 129, 64, True, None, torch.bfloat16, 0),
+    (1, 4, 2, 129, 129, 33, True, 50, torch.bfloat16, 1),
 ]
 # (b, h, kh, c, d, pos, dtype; pos None: every slot empty): C 1, 97 and
 # 2081, pos 0, empty slots, wrapped rings, G 1/2/4/8/16 (two head groups),
@@ -706,13 +768,22 @@ def phase_attention_kernels(device, max_err) -> None:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
 
-    for b, h, kh, lq, s_len, d, causal, window, dtype in FLASH_CASES:
+    async_cases = 0
+    for b, h, kh, lq, s_len, d, causal, window, dtype, off in FLASH_CASES:
         tag = f"B14 b={b} h={h} kh={kh} lq={lq} s={s_len} d={d} " \
-              f"causal={causal} window={window} {dtype}"
-        # (B, H, L, d) views of (B, L, H, d), as the model passes them
-        q = randn(b, lq, h, d).to(dtype).transpose(1, 2)
-        k = randn(b, s_len, kh, d).to(dtype).transpose(1, 2)
-        v = randn(b, s_len, kh, d).to(dtype).transpose(1, 2)
+              f"causal={causal} window={window} {dtype} offset={off}"
+
+        def view(n, x):
+            """A (B, H, L, d) view of a (B, L, H, d) tensor, as the model
+            passes them, starting ``off`` elements into its storage."""
+            flat = randn(off + b * n * x * d).to(dtype)
+            return flat[off:].view(b, n, x, d).transpose(1, 2)
+
+        q, k, v = view(lq, h), view(s_len, kh), view(s_len, kh)
+        path = flash_attention.async_copy_ok(q, k, v)
+        check(path == (dtype == torch.float32 and d % 4 == 0 and off == 0),
+              f"{tag}: cp.async path {path}")
+        async_cases += path
         out = flash_attention.flash_attention(q, k, v, causal=causal,
                                               window=window)
         plain = ref.flash_attention_fwd(q, k, v, causal=causal,
@@ -775,6 +846,7 @@ def phase_attention_kernels(device, max_err) -> None:
             single += 1
     max_err["censor_select"] = 0.0
     emit({"phase": "attention_kernels", "flash_cases": len(FLASH_CASES),
+          "flash_cases_cp_async": async_cases,
           "decode_cases": len(DECODE_CASES), "single_tensor_cases": single,
           "rule": f"attention: error vs f64 <= {ATTN_FACTOR} x plain f32's "
           f"+ {ATTN_FLOOR}; B12a rel {SQNORM_RTOL}; B12b bitwise with -0.0 "
@@ -1590,6 +1662,7 @@ def main() -> None:
     phase_build()
     dev = torch.device("cuda")
     max_err = phase_kernels(dev)
+    phase_bank_advance_paths(dev)
     phase_attention_kernels(dev, max_err)
     phase_golden(dev)
     launches = phase_full()

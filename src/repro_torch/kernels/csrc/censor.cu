@@ -34,13 +34,18 @@
 // worker's chunks depend only on n, the M=1 call on one worker equals that
 // worker's slice of a batched call. B8 squares (float)x where B1 squares
 // (float)(g - ghat) with the same chunks and tree, so B8 on g - ghat equals
-// B1 on (g, ghat) bit for bit. B9 is one grid-stride pass in which each
-// thread owns a column and walks the workers, every row access coalesced.
-// B4 tiles each worker row (grid y = worker): a thread loads kRowItems
-// elements of g and ghat before it computes any, so several loads are in
-// flight per thread (see PERF.md). It advances in the arithmetic mask
-// form of B2, so its output equals B2's ghat' bit for bit (a select would
-// not: h + (g - h) != g in floating point).
+// B1 on (g, ghat) bit for bit. B4 and B9 tile each worker row (grid y =
+// worker): a thread loads kRowItems elements of both operands before it
+// computes any, so several loads are in flight per thread (see PERF.md).
+// B4 advances in the arithmetic mask form of B2, so its output equals B2's
+// ghat' bit for bit (a select would not: h + (g - h) != g in floating
+// point). B9 computes ghat + (T)mask * payload with the same rounding
+// intrinsics. Where n is a multiple of the elements in 16 bytes and ghat,
+// payload and out are 16-byte aligned (every row then is), a B9 thread
+// moves kRowItems float4s (f32) or double2s (f64) of each operand: 128
+// bytes in flight a thread, 16-byte loads and stores. Otherwise (an odd n
+// misaligns every row after the first, or a view starts off alignment) it
+// takes B4's scalar tiling. The launcher decides.
 //
 // B12a and B12b are the single-tensor entry points of one (g, ghat) pair
 // whose dtypes may differ (f32, f64 or bf16 each). B12a casts both to f32
@@ -115,17 +120,76 @@ sqnorm_partials(const T* __restrict__ x, float* __restrict__ part, int64_t n, in
   if (threadIdx.x == 0) part[w * nchunks + c] = acc;
 }
 
+// 16 bytes of one bank dtype, and B9's arithmetic on each element of it
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  __device__ __forceinline__ static float4 advance(float4 h, float mk, float4 q) {
+    return make_float4(add(h.x, mul(mk, q.x)), add(h.y, mul(mk, q.y)), add(h.z, mul(mk, q.z)),
+                       add(h.w, mul(mk, q.w)));
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  __device__ __forceinline__ static double2 advance(double2 h, double mk, double2 q) {
+    return make_double2(add(h.x, mul(mk, q.x)), add(h.y, mul(mk, q.y)));
+  }
+};
+
+// B9 on rows of n elements (one row a grid y), element by element
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bank_advance_kernel(const T* __restrict__ h, const T* __restrict__ q,
-                    const float* __restrict__ mask, T* __restrict__ out, int64_t m, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x; j < n; j += stride) {
-    for (int64_t w = 0; w < m; ++w) {
-      const int64_t o = w * n + j;
-      // the arithmetic mask form ghat + mk * payload
-      out[o] = add(h[o], mul((T)mask[w], q[o]));
+                    const float* __restrict__ mask, T* __restrict__ out, int64_t n) {
+  const int64_t w = blockIdx.y;
+  const T mk = (T)mask[w];
+  const T* hw = h + w * n;
+  const T* qw = q + w * n;
+  T* ow = out + w * n;
+  const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
+  T hv[kRowItems], qv[kRowItems];
+#pragma unroll
+  for (int k = 0; k < kRowItems; ++k) {
+    const int64_t j = base + (int64_t)k * kThreads;
+    hv[k] = j < n ? hw[j] : T(0);
+    qv[k] = j < n ? qw[j] : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < kRowItems; ++k) {
+    const int64_t j = base + (int64_t)k * kThreads;
+    // the arithmetic mask form ghat + mk * payload
+    if (j < n) ow[j] = add(hv[k], mul(mk, qv[k]));
+  }
+}
+
+// B9 on rows of nv 16-byte vectors, 16-byte aligned
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bank_advance_vec_kernel(const T* __restrict__ h, const T* __restrict__ q,
+                        const float* __restrict__ mask, T* __restrict__ out, int64_t nv) {
+  using V = typename Vec16<T>::type;
+  const int64_t w = blockIdx.y;
+  const T mk = (T)mask[w];
+  const V* hw = reinterpret_cast<const V*>(h) + w * nv;
+  const V* qw = reinterpret_cast<const V*>(q) + w * nv;
+  V* ow = reinterpret_cast<V*>(out) + w * nv;
+  const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
+  V hv[kRowItems], qv[kRowItems];
+#pragma unroll
+  for (int k = 0; k < kRowItems; ++k) {
+    const int64_t j = base + (int64_t)k * kThreads;
+    if (j < nv) {
+      hv[k] = hw[j];
+      qv[k] = qw[j];
     }
+  }
+#pragma unroll
+  for (int k = 0; k < kRowItems; ++k) {
+    const int64_t j = base + (int64_t)k * kThreads;
+    if (j < nv) ow[j] = Vec16<T>::advance(hv[k], mk, qv[k]);
   }
 }
 
@@ -170,9 +234,18 @@ static int launch_sqnorm(const void* x, void* part, void* out, int64_t m, int64_
 template <typename T>
 static int launch_bank_advance(const void* h, const void* q, const void* mask, void* out,
                                int64_t m, int64_t n, void* stream) {
-  if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  bank_advance_kernel<T><<<elementwise_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)h, (const T*)q, (const float*)mask, (T*)out, m, n);
+  if (!row_tiles_ok(m, n)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  constexpr int64_t per_vec = 16 / sizeof(T);
+  const auto aligned = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  if (n % per_vec == 0 && aligned(h) && aligned(q) && aligned(out)) {
+    const int64_t nv = n / per_vec;
+    bank_advance_vec_kernel<T><<<row_tiles(m, nv), kThreads, 0, s>>>(
+        (const T*)h, (const T*)q, (const float*)mask, (T*)out, nv);
+  } else {
+    bank_advance_kernel<T><<<row_tiles(m, n), kThreads, 0, s>>>(
+        (const T*)h, (const T*)q, (const float*)mask, (T*)out, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,9 @@ Wraps ``csrc/flash_attention.cu`` (port of
 ``models.layers.attention`` runs it on the ``cuda`` backend, once a layer
 per prefill. CPU tensors run ``ref.flash_attention_fwd``; CUDA tensors
 launch the kernel or raise. The kernel reads q, k and v by strides, picks
-its own tiles and takes any Lq, S and head dim up to 256.
+its own tiles and takes any Lq, S and head dim up to 256. Where
+:func:`async_copy_ok` holds it copies its tiles 16 bytes at a time with
+``cp.async``; otherwise it loads them element by element.
 """
 from __future__ import annotations
 
@@ -34,6 +36,20 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor,
     return b, h, kh, lq, s_len, d
 
 
+def async_copy_ok(*ts: torch.Tensor) -> bool:
+    """Whether the kernel may copy these operands into shared memory 16
+    bytes at a time (``cp.async``): float32, a unit last stride, the head
+    dim and every other stride a multiple of 4 elements, and each base
+    address 16-byte aligned. The model's (B, H, L, d) views of contiguous
+    (B, L, H, 64) tensors qualify; d = 33, a view one float off its
+    storage's alignment, a non-unit last stride or bf16 take the kernel's
+    element-by-element loads."""
+    return all(t.dtype == torch.float32 and t.stride(-1) == 1
+               and t.shape[-1] % 4 == 0
+               and all(st % 4 == 0 for st in t.stride()[:-1])
+               and t.data_ptr() % 16 == 0 for t in ts)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None, scale=None
                     ) -> torch.Tensor:
@@ -57,10 +73,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    dims = (ctypes.c_int64 * 21)(
+    dims = (ctypes.c_int64 * 22)(
         b, h, kh, lq, s_len, d, *q.stride(), *k.stride(), *v.stride(),
         int(bool(causal)), int(window is not None),
-        0 if window is None else int(window))
+        0 if window is None else int(window), int(async_copy_ok(q, k, v)))
     count_launch(name)
     launch("flash_attention", f"{name}_{ATTENTION_DTYPES[q.dtype]}",
            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -95,6 +95,68 @@ def test_flash_takes_strided_views():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("lq,d,causal,window", [
+    (1, 32, True, None), (127, 32, True, None), (128, 16, True, None),
+    (129, 32, True, None), (129, 80, False, None), (200, 16, True, 60)],
+    ids=["L1", "L127", "L128", "L129", "L129-d80-full", "L200-window60"])
+def test_flash_plain_at_the_kernel_tile_edges(lq, d, causal, window):
+    """The plain version (the CUDA kernel's oracle on the card) against the
+    Pallas kernel and JAX's oracle where the kernel's 128-row query tiles
+    and 64-key tiles end: Lq = S on either side of 128, d = 80 (zero-filled
+    up to 128 in the kernel), and a 60-key window whose band crosses the
+    query tile edge at 128."""
+    q, k, v = _qkv(1, 4, 2, lq, lq, d, seed=lq + d)
+    got = flash_attention.flash_attention(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), causal=causal,
+        window=window)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    _close(got, j_flash.flash_attention_pallas(
+        jq, jk, jv, causal=causal, window=window, interpret=True))
+    _close(got, j_ref.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                          window=window))
+
+
+def _views(b, h, lq, d, dtype=torch.float32):
+    """(B, H, L, d) views of a contiguous (B, L, H, d), as the model
+    passes them."""
+    return torch.zeros((b, lq, h, d), dtype=dtype).transpose(1, 2)
+
+
+def test_async_copy_path_for_the_models_views():
+    """serve_long's operands (transposes of contiguous (B, L, H, 64)) and
+    contiguous (B, H, L, d) tensors take the kernel's 16-byte cp.async
+    copies."""
+    qkv = [_views(8, 12, 2048, 64) for _ in range(3)]
+    assert flash_attention.async_copy_ok(*qkv)
+    assert flash_attention.async_copy_ok(torch.zeros(2, 4, 129, 80))
+
+
+@pytest.mark.parametrize("case", ["d33", "offset", "last-stride", "bf16",
+                                  "8-bytes-off"])
+def test_async_copy_path_refuses_what_it_cannot_copy(case):
+    """d = 33, a view one float (or two) off its storage's alignment, a
+    non-unit last stride and bf16 take the kernel's element-by-element
+    loads, and one such operand among three is enough."""
+    good = _views(1, 4, 16, 64)
+    if case == "d33":
+        bad = _views(1, 4, 16, 33)
+    elif case == "offset":
+        bad = torch.zeros(1 * 16 * 4 * 64 + 1)[1:].view(1, 16, 4, 64) \
+            .transpose(1, 2)
+        assert bad.storage_offset() == 1
+    elif case == "last-stride":
+        bad = torch.zeros(1, 4, 16, 128)[..., ::2]
+        assert bad.stride(-1) == 2
+    elif case == "bf16":
+        bad = _views(1, 4, 16, 64, torch.bfloat16)
+    else:
+        bad = torch.zeros(2 + 4 * 16 * 64)[2:].view(1, 4, 16, 64)
+        assert bad.is_contiguous() and bad.data_ptr() % 16 == 8
+    assert flash_attention.async_copy_ok(good)
+    assert not flash_attention.async_copy_ok(bad)
+    assert not flash_attention.async_copy_ok(good, good, bad)
+
+
 # ------------------------------------------------------------------ B13
 @pytest.mark.parametrize("h,kh", [(4, 4), (8, 2)])
 @pytest.mark.parametrize("pos", [5, 63, 200])

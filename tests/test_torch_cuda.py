@@ -120,6 +120,40 @@ def test_kernels_match_plain_versions(card, m, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("m", [1, 4, 9])
+@pytest.mark.parametrize("n,offset", [(4096, 0), (70001, 0), (4096, 1),
+                                      (4100, 1)])
+def test_bank_advance_vector_and_scalar_paths(card, dtype, m, n, offset):
+    """B9 bit for bit against ``ref.bank_advance``, -0.0, NaN and inf
+    salted: on rows of 16-byte vectors (n a multiple of 4, aligned leaves)
+    and on its scalar path (odd n misaligns every row after the first; a
+    leaf view one element off its storage's alignment); each worker's M=1
+    slice equals its row of the batched call."""
+    gen = torch.Generator(device=card).manual_seed(m * 31 + n + offset)
+
+    def leaf():
+        flat = torch.randn(offset + m * n, generator=gen, device=card,
+                           dtype=dtype)
+        return flat[offset:].view(m, n)
+
+    h, q = leaf(), leaf()
+    h[:, ::7] = -0.0
+    q[:, ::5] = -0.0
+    q[:, 3::11] = float("nan")
+    h[:, 4::13] = float("inf")
+    q[:, 6::17] = float("-inf")
+    mask = torch.tensor([float(i % 3 != 1) for i in range(m)], device=card)
+    common.reset_launches()
+    out = censor.bank_advance(h, q, mask)
+    assert common.LAUNCHES["bank_advance"] == 1
+    assert _same(out, ref.bank_advance(h, q, mask))
+    assert _same(out, censor.bank_advance(h, q, mask))
+    for w in range(m):
+        assert _same(censor.bank_advance(h[w:w + 1], q[w:w + 1],
+                                         mask[w:w + 1]), out[w:w + 1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_nan_and_inf_rows_propagate_as_in_the_plain_versions(card, dtype):
     """B5, B6, B7a and B7b keep a NaN where torch.amax and torch.clamp do:
     a NaN row gets scale 1 and a NaN payload entry, not -127*scale."""
@@ -293,16 +327,33 @@ def _f64_attention(q, k, v, valid):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("h,kh,lq,s,causal,window", [
-    (8, 8, 100, 100, True, None), (8, 4, 130, 130, True, 48),
-    (8, 2, 77, 333, False, None), (8, 2, 200, 150, False, 40)])
-def test_flash_attention_matches_plain_version(card, dtype, h, kh, lq, s,
-                                               causal, window):
+@pytest.mark.parametrize("h,kh,lq,s,d,causal,window,offset", [
+    (8, 8, 100, 100, 64, True, None, 0), (8, 4, 130, 130, 64, True, 48, 0),
+    (8, 2, 77, 333, 64, False, None, 0), (8, 2, 200, 150, 64, False, 40, 0),
+    # Lq = S at the edges of the kernel's 128-row query tiles
+    (4, 4, 1, 1, 64, True, None, 0), (4, 4, 127, 127, 64, True, None, 0),
+    (4, 4, 128, 128, 64, True, None, 0), (4, 2, 129, 129, 64, True, None, 0),
+    # GQA 12/2 under a window whose band crosses the 128-row edge
+    (12, 2, 300, 300, 64, True, 100, 0),
+    # d = 33 (element-wise loads) and d = 80 (zero-filled up to 128)
+    (4, 2, 129, 129, 33, True, None, 0), (4, 2, 150, 150, 80, False, 70, 0),
+    # q, k and v one element off their storage's alignment
+    (8, 4, 130, 130, 64, True, None, 1),
+    # Lq > S: rows 169 .. 299 have no key and give the mean of v
+    (4, 2, 300, 140, 64, True, 30, 0)])
+def test_flash_attention_matches_plain_version(card, dtype, h, kh, lq, s, d,
+                                               causal, window, offset):
     """Error against f64 at most 4x the f32 plain version's, plus 1e-6."""
-    gen = torch.Generator(device=card).manual_seed(lq + s)
-    q, k, v = (torch.randn((2, n, x, 64), generator=gen, device=card)
-               .to(dtype).transpose(1, 2)
-               for n, x in ((lq, h), (s, kh), (s, kh)))
+    gen = torch.Generator(device=card).manual_seed(lq + s + d + offset)
+
+    def view(n, x):        # a (2, x, n, d) view of a (2, n, x, d) tensor
+        flat = torch.randn(offset + 2 * n * x * d, generator=gen,
+                           device=card).to(dtype)
+        return flat[offset:].view(2, n, x, d).transpose(1, 2)
+
+    q, k, v = view(lq, h), view(s, kh), view(s, kh)
+    assert flash_attention.async_copy_ok(q, k, v) == (
+        dtype == torch.float32 and d % 4 == 0 and offset == 0)
     common.reset_launches()
     out = flash_attention.flash_attention(q, k, v, causal=causal,
                                           window=window)
@@ -315,8 +366,8 @@ def test_flash_attention_matches_plain_version(card, dtype, h, kh, lq, s,
         valid &= kp <= qp
     if window is not None:
         valid &= kp > qp - window
-    exact = _f64_attention(q.reshape(2, kh, h // kh, lq, 64), k, v,
-                           valid).reshape(2, h, lq, 64)
+    exact = _f64_attention(q.reshape(2, kh, h // kh, lq, d), k, v,
+                           valid).reshape(2, h, lq, d)
     err_k = float((out.double() - exact).abs().max())
     err_p = float((plain.double() - exact).abs().max())
     assert out.dtype == dtype and err_k <= 4 * err_p + 1e-6
