@@ -1,35 +1,52 @@
 #!/usr/bin/env python3
-"""B14 and B9 of two source trees, side by side on one card.
+"""B14, B9 and B7a of two source trees, side by side on one card, and the
+bits of their sums B1, B5 and B8.
 
     python3 benchmarks_torch/kernel_ab.py --other <dir> [<dir> ...]
-        [--only B14 B9] [--ablate] [--reps 10]
+        [--only B14 B9 B7a sums] [--ablate] [--reps 10]
 
 Each ``<dir>`` holds another checkout of this repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
-``.gitignore`` lists). The script compiles ``flash_attention.cu`` (B14)
-and ``censor.cu`` (B9) of every tree with the port's nvcc flags into
+``.gitignore`` lists). The script compiles ``flash_attention.cu`` (B14),
+``censor.cu`` (B9; B1 and B8), ``quantize_ef.cu`` (B7a) and
+``fused_step.cu`` (B5) of every tree with the port's nvcc flags into
 ``build/kernel_ab/``, prints each compiler log (``-Xptxas -v``), checks
-each tree's B9 bits and B14 against the f64 rule of ``chip_smoke.py`` on
-a few shapes (it stops if this tree's fail and reports the others'),
-then times all at the main path's shapes in turns (the others, this,
-this, the others in reverse) beside their library calls:
-B14 at serve_long's prefill (B 8, H = K 12, L 2048, d 64, causal, the
-model's strided views) against ``scaled_dot_product_attention``, B9 at
-M = 4, n = 163,597,056 f32 against ``addcmul``. One JSON line each, and
-the card's name and power limit. Needs a CUDA card and nvcc.
+each tree's B9 and B7a bits (B7a NaN where its plain version gives NaN)
+and B14 against the f64 rule of ``chip_smoke.py`` on a few shapes (it
+stops if this tree's fail and reports the others'), then times all at the
+main path's shapes in turns (the others, this, this, the others in
+reverse) beside their library calls: B14 at serve_long's prefill (B 8,
+H = K 12, L 2048, d 64, causal, the model's strided views) against
+``scaled_dot_product_attention``, B9 at M = 4, n = 163,597,056 f32
+against ``addcmul``, B7a at the same shape against
+``linalg.vector_norm(inf)``. ``sums`` checks that B1, B5 and B8 of this
+tree give every other tree's bits at M = 4, n = 163,597,056 (f32) and at
+M = 9, n = 70,001 (f32 and f64), and stops if they do not; then times the
+three at M = 4, n = 163,597,056 (B8 beside ``linalg.vecdot``). One JSON
+line each, and the card's name and power limit. Needs a CUDA card and
+nvcc.
+
+A tree's B7a partial count is ceil(n / span), with the span its own
+``kernels/build.py`` names (``ABSMAX_SPAN``; a tree without it uses one
+partial per ``REDUCE_CHUNK``).
 
 ``--ablate`` adds two B14 variants built from this tree's source, which
 say where its time goes and are wrong by design (their checks report
 ``false``): ``no_mask`` treats every key tile as inside the band (no
 per-score test), ``no_softmax`` also drops the online softmax (no max, no
 exps, no shuffles; p = the scaled scores), leaving the two products, the
-tile copies and the barriers.
+tile copies and the barriers. For B7a, and for B1, B8 and B5 under
+``sums``, it profiles each tree's call (``torch.profiler``) and prints the
+device time of each of its kernels (pass 1, pass 2) a call beside the
+call's time between CUDA events.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -40,13 +57,17 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chip_smoke import (ATTN_FACTOR, ATTN_FLOOR, FULL_D, _flash_f64,  # noqa: E402
-                        _time_ms)
+                        _time_ms, same_bits, same_or_nan)
 from repro_torch.kernels import build, flash_attention, ref  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
-SOURCES = ("flash_attention", "censor")
+# the sources each choice of --only compiles
+SOURCES = {"B14": ("flash_attention",), "B9": ("censor",),
+           "B7a": ("quantize_ef",), "sums": ("censor", "fused_step")}
 
 
 def compile_tree(tag: str, csrc: Path, names) -> dict:
@@ -200,11 +221,133 @@ def check_bank(trees, randn, dev) -> None:
                 raise SystemExit(f"kernel_ab: B9 differs at n={n} off={off}")
 
 
+def absmax_span(tree: Path) -> int:
+    """Elements of a worker row behind one B7a partial in ``tree``: its
+    ``kernels/build.py``'s ABSMAX_SPAN, else REDUCE_CHUNK."""
+    spec = importlib.util.spec_from_file_location(
+        f"kernel_ab_build_{abs(hash(str(tree)))}",
+        tree / "src/repro_torch/kernels/build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, "ABSMAX_SPAN", mod.REDUCE_CHUNK)
+
+
+def absmax(libs, span, x):
+    m, n = x.shape
+    part = torch.empty((m, -(-n // span)), dtype=x.dtype, device=x.device)
+    out = torch.empty((m,), dtype=x.dtype, device=x.device)
+    suffix = "f32" if x.dtype == torch.float32 else "f64"
+    run(libs["quantize_ef"], f"absmax_batched_{suffix}", x.device,
+        x.data_ptr(), part.data_ptr(), out.data_ptr(), m, n, part.shape[1])
+    return out
+
+
+def check_absmax(trees, spans, dev) -> None:
+    """Each tree's B7a against ``ref.absmax_batched`` on its 16-byte and
+    element-wise paths (odd n, a view one element off alignment), rows
+    salted with -0.0, NaN and +-inf."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for m, n, off in ((1, 1, 0), (4, 4096, 0), (9, 70001, 0), (4, 4100, 1),
+                      (3, 2 ** 20 + 4, 0)):
+        for dtype in (torch.float32, torch.float64):
+            x = torch.randn(off + m * n, generator=gen, device=dev,
+                            dtype=dtype)[off:].view(m, n)
+            x[:, ::7] = -0.0
+            if n > 3:
+                x[0, 2] = float("nan")
+                x[-1, n - 1] = float("-inf")
+            want = ref.absmax_batched(x)
+            ok = {tag: same_or_nan(absmax(libs, spans[tag], x), want)
+                  for tag, libs in trees.items()}
+            print(json.dumps({"check": "B7a", "m": m, "n": n, "off": off,
+                              "dtype": str(dtype), "ok": ok}), flush=True)
+            if not ok["this"]:
+                raise SystemExit(f"kernel_ab: B7a differs at M={m} n={n} "
+                                 f"off={off} {dtype}")
+
+
+def sums(libs, g, h, e, only=None):
+    """B1, B8 (on g - h) and B5 of one tree: their four (M,) results, or
+    only the kernel named ``only`` ("B1", "B8" on g, "B5 sqnorm")."""
+    m, n = g.shape
+    nch = -(-n // build.REDUCE_CHUNK)
+    suffix = "f32" if g.dtype == torch.float32 else "f64"
+    dev = g.device
+
+    def empty(dtype, *shape):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    part, b1, b8 = empty(torch.float32, m, nch), empty(torch.float32, m), \
+        empty(torch.float32, m)
+    if only in (None, "B1"):
+        run(libs["censor"], f"censor_delta_sqnorm_batched_{suffix}", dev,
+            g.data_ptr(), h.data_ptr(), part.data_ptr(), b1.data_ptr(), m, n,
+            nch)
+    if only in (None, "B8"):
+        x = g if only else g - h
+        run(libs["censor"], f"sqnorm_batched_{suffix}", dev, x.data_ptr(),
+            part.data_ptr(), b8.data_ptr(), m, n, nch)
+        del x
+    if only not in (None, "B5 sqnorm"):
+        return None
+    am_part, sq, am = empty(g.dtype, m, nch), empty(torch.float32, m), \
+        empty(g.dtype, m)
+    run(libs["fused_step"], f"int8_stats_batched_{suffix}", dev,
+        g.data_ptr(), h.data_ptr(), e.data_ptr(), part.data_ptr(),
+        am_part.data_ptr(), sq.data_ptr(), am.data_ptr(), m, n, nch)
+    return {"B1": b1, "B8": b8, "B5 sqnorm": sq, "B5 absmax": am}
+
+
+def check_sums(trees, dev) -> None:
+    """B1, B5 and B8 of this tree give every other tree's bits."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for m, n, dtype in ((4, FULL_D, torch.float32), (9, 70001, torch.float32),
+                        (9, 70001, torch.float64)):
+        g, h, e = (torch.randn((m, n), generator=gen, device=dev,
+                               dtype=dtype) for _ in range(3))
+        g[:, ::7] = -0.0
+        got = {tag: sums(libs, g, h, e * 0.01) for tag, libs in trees.items()}
+        mine = got.pop("this")
+        same = {tag: {k: same_bits(v, mine[k]) for k, v in r.items()}
+                for tag, r in got.items()}
+        print(json.dumps({"check": "sums", "m": m, "n": n,
+                          "dtype": str(dtype), "same_bits_as_this": same}),
+              flush=True)
+        if not all(all(r.values()) for r in same.values()):
+            raise SystemExit(f"kernel_ab: B1/B5/B8 bits differ between the "
+                             f"trees at M={m} n={n} {dtype}")
+        del g, h, e, got
+        torch.cuda.empty_cache()
+
+
+def _device_us(evt) -> float:
+    us = getattr(evt, "self_device_time_total", None)
+    return getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
+
+
+def split(fn, reps: int) -> dict:
+    """Device time a call of each kernel ``fn`` launches, in us
+    (``torch.profiler`` over ``reps`` calls after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {evt.key[:80]: _device_us(evt) / reps
+           for evt in prof.key_averages()
+           if evt.device_type == DeviceType.CUDA and _device_us(evt) > 0}
+    if not out:
+        raise RuntimeError("the profiler recorded no device time")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path, nargs="+")
-    ap.add_argument("--only", nargs="+", choices=("B14", "B9"),
-                    default=["B14", "B9"])
+    ap.add_argument("--only", nargs="+", choices=tuple(SOURCES),
+                    default=list(SOURCES))
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
@@ -215,8 +358,7 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda")
-    names = [n for k, n in (("B14", "flash_attention"), ("B9", "censor"))
-             if k in args.only]
+    names = sorted({n for k in args.only for n in SOURCES[k]})
     others = list(args.other)
     if args.ablate and "B14" in args.only:
         others += ablated_trees()
@@ -225,40 +367,72 @@ def main() -> None:
                                   else ["flash_attention"])
              for d in others}
     trees["this"] = compile_tree("this", build.CSRC, names)
+    spans = {d.name: absmax_span(d) for d in args.other}
+    spans["this"] = absmax_span(ROOT)
     gen = torch.Generator(device=dev).manual_seed(5)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    work = {}
+    def having(source):
+        return {t: libs for t, libs in trees.items() if source in libs}
+
+    work, splits = {}, {}
+    if "sums" in args.only:
+        check_sums(having("fused_step"), dev)
+        g, h, e = randn(4, FULL_D), randn(4, FULL_D), randn(4, FULL_D)
+        for key in ("B1", "B8", "B5 sqnorm"):
+            fns = {tag: (lambda libs=libs, key=key: sums(libs, g, h, e, key))
+                   for tag, libs in having("fused_step").items()}
+            work[key.split()[0]] = (
+                fns, (lambda: torch.linalg.vecdot(g, g)) if key == "B8"
+                else None)
+            if args.ablate:
+                splits[key.split()[0]] = {tag: split(fn, args.reps)
+                                          for tag, fn in fns.items()}
     if "B14" in args.only:
-        check_flash(trees, randn)
+        check_flash(having("flash_attention"), randn)
         b, h, l, d = 8, 12, 2048, 64
         q, k, v = (randn(b, l, h, d).transpose(1, 2) for _ in range(3))
         work["B14"] = (
             {tag: (lambda libs=libs: flash(libs, q, k, v))
-             for tag, libs in trees.items()},
+             for tag, libs in having("flash_attention").items()},
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     if "B9" in args.only:
-        trees = {t: libs for t, libs in trees.items() if "censor" in libs}
-        check_bank(trees, randn, dev)
+        check_bank(having("censor"), randn, dev)
         hh, qq = randn(4, FULL_D), randn(4, FULL_D)
         mask = torch.tensor([1.0, 0.0, 1.0, 0.0], device=dev)
         work["B9"] = (
             {tag: (lambda libs=libs: bank(libs, hh, qq, mask))
-             for tag, libs in trees.items()},
+             for tag, libs in having("censor").items()},
             lambda: torch.addcmul(hh, mask[:, None], qq))
+    if "B7a" in args.only:
+        check_absmax(having("quantize_ef"), spans, dev)
+        pend = randn(4, FULL_D)
+        fns = {tag: (lambda libs=libs, tag=tag: absmax(libs, spans[tag],
+                                                        pend))
+               for tag, libs in having("quantize_ef").items()}
+        work["B7a"] = (fns, lambda: torch.linalg.vector_norm(
+            pend, ord=math.inf, dim=1))
+        if args.ablate:
+            splits["B7a"] = {tag: split(fn, args.reps)
+                             for tag, fn in fns.items()}
     for name, (fns, lib_fn) in work.items():
         tags = [t for t in fns if t != "this"]
         order = tags + ["this", "this"] + tags[::-1]
         times = {tag: [] for tag in fns}
         for tag in order:
             times[tag].append(_time_ms(fns[tag], args.reps))
-        times["library"] = [_time_ms(lib_fn, args.reps)]
-        print(json.dumps({"kernel": name, "ms": times, "card": smi}),
-              flush=True)
+        if lib_fn is not None:
+            times["library"] = [_time_ms(lib_fn, args.reps)]
+        line = {"kernel": name, "ms": times, "card": smi}
+        if name in splits:
+            line["device_us_per_call_by_kernel"] = splits[name]
+        if name == "B7a":
+            line["partials_per_worker"] = {
+                tag: -(-FULL_D // span) for tag, span in spans.items()}
+        print(json.dumps(line), flush=True)
         torch.cuda.empty_cache()
-
 
 if __name__ == "__main__":
     main()

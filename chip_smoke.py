@@ -15,10 +15,15 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  with -0.0, one all-zero int8 pending row, top-k keep
                  masks that keep -0.0 entries; the int8 kernels (B5, B6,
                  B7a, B7b) also on rows salted with NaN and +-inf; and four
-                 cross-kernel identities (one JSON line). Then (phase
+                 cross-kernel identities (one JSON line). Then the same
+                 at M = 70,000, n = 2049 (phase kernels_large_m: past grid
+                 y's 65535 blocks, where the per-worker kernels walk the
+                 workers; M=1 calls of sampled workers). Then (phase
                  bank_advance_paths) B9's 16-byte and element-wise paths
                  on aligned and misaligned leaves, salted with -0.0, NaN
-                 and +-inf; (phase attention_kernels) B14 over GQA 1/2/4/6,
+                 and +-inf, M up to 70,000; (phase absmax_paths) B7a's
+                 two paths the same way, against its plain version and
+                 B5's abs-max; (phase attention_kernels) B14 over GQA 1/2/4/6,
                  causal, window and non-causal rectangular shapes on and
                  off its tiles, head dims 32-256, strided and misaligned
                  views, f32 and bf16; B13 over C in {1, 97, 2081}, empty slots, wrapped
@@ -40,6 +45,12 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  one leaf, per_tensor on the 12 leaves; kernel backend
                  against reference backend, staged and sharded against the
                  fused steps, the launch counts read per path.
+  many_workers -- benchmarks/fed_mesh.py's edge quadratics (d=16, f64)
+                 at its frontier M = 100,000 (fused dense and int8) and at
+                 M = 70,000 (the staged routes and top-k, whose worker sum
+                 folds in Python), 3 iterations: cuda against reference
+                 bit for bit, the launch counts read per path, each
+                 path's median step ms.
   serve       -- ``launch.serve.generate`` of chb-paper-lm-124m at full
                  width (163,597,056 f32 parameters, random weights from a
                  seeded generator), serve_default (batch 4, prompt 64, gen
@@ -99,6 +110,27 @@ FULL_M = 4
 FULL_ITERS = 20
 FULL_ALPHA = 0.5 / FULL_M
 FULL_EPS1 = 4.0
+
+# the fed-mesh scale: benchmarks/fed_mesh.py's edge quadratics (d=16,
+# seed 0, chb at alpha 0.5/M, eps1 4.0) at its frontier M = 100,000 for the
+# fused dense and int8 routes, whose worker sum runs in B2/B6; at 70,000
+# (past grid y's 65535 blocks still) for the staged routes and top-k,
+# whose worker sum, like the reference backend's, folds in Python, one
+# eager add a worker. f64, 3 iterations, both backends.
+MANY_M = 100_000
+MANY_M_PYTHON_FOLD = 70_000
+MANY_D = 16
+MANY_ITERS = 3
+MANY_PATHS = {  # path: (M, opt.make keywords)
+    "dense": (MANY_M, {}),
+    "int8": (MANY_M, {"quantize": "int8"}),
+    "dense_staged": (MANY_M_PYTHON_FOLD, {}),
+    "int8_staged": (MANY_M_PYTHON_FOLD, {"quantize": "int8"}),
+    "topk": (MANY_M_PYTHON_FOLD, {"transport": "topk",
+                                  "k": (2 * MANY_D) // 5}),
+}
+# the M of phase 3's second pass over every kernel
+LARGE_M = 70_000
 
 # chb on linreg (m=5, n_per=30, d=20, seed=0), 60 iterations. At f64 the
 # JAX package's reference and pallas backends both give these uploads and
@@ -264,6 +296,15 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def sample_workers(m: int):
+    """The workers whose M=1 calls are held against the batched row: all
+    of a small M; past grid y's 65535 blocks, the first and last worker of
+    each block's walk and one between."""
+    if m <= 16:
+        return range(m)
+    return sorted({0, 1, m // 2, 65534, 65535, m - 1} & set(range(m)))
+
+
 # ------------------------------------------------------------ phase 1
 def phase_device() -> str:
     if not torch.cuda.is_available():
@@ -377,7 +418,7 @@ def _check_staged(g, h, e, keep, pend, scale, mask, mtag, max_err) -> dict:
         again = again if isinstance(again, tuple) else (again,)
         check(all(same_bits(a, b) for a, b in zip(outs, again)),
               f"{kname} repeat {mtag}")
-        for w in range(m):
+        for w in sample_workers(m):
             one = fn(*(x[w:w + 1] for x in ops), mask[w:w + 1])
             one = one if isinstance(one, tuple) else (one,)
             check(all(same_bits(a, b[w:w + 1]) for a, b in zip(one, outs)),
@@ -434,7 +475,7 @@ def _check_rows(g, h, e, keep, tag, topk_pack, lowrank_ef) -> None:
     ones = torch.ones(m, device=g.device)
     pay, ne = topk_pack.select_pack_ef_batched(g, e, keep, ones)
     res = lowrank_ef.residual_ef_batched(g, h, e, ones)
-    for w in range(m):
+    for w in sample_workers(m):
         rp, rn = topk_pack.select_pack_ef_row(g[w], e[w], keep[w])
         check(same_bits(rp, pay[w]) and same_bits(rn, ne[w]),
               f"B10 row {w} {tag}")
@@ -449,7 +490,8 @@ def _rel_err(k: torch.Tensor, p: torch.Tensor) -> float:
 
 def phase_kernels(device, ms=(1, 4, 9),
                   ns=(1, 127, 128 * 257 + 3, 2 ** 20 + 17),
-                  dtypes=(torch.float32, torch.float64)) -> dict:
+                  dtypes=(torch.float32, torch.float64),
+                  phase="kernels") -> dict:
     """Every kernel against its plain version; returns max abs errors."""
     from repro_torch.core.quantize import int8_scale
     from repro_torch.kernels import (censor, fused_step, hb_update,
@@ -477,7 +519,7 @@ def phase_kernels(device, ms=(1, 4, 9),
                     float((k - pl).abs().max()))
                 check(same_bits(k, censor.censor_delta_sqnorm_batched(g, h)),
                       f"B1 repeat {tag}")
-                for w in range(m):
+                for w in sample_workers(m):
                     check(same_bits(k[w:w + 1],
                                     censor.censor_delta_sqnorm_batched(
                                         g[w:w + 1], h[w:w + 1])),
@@ -493,7 +535,7 @@ def phase_kernels(device, ms=(1, 4, 9),
                                                 float((k8 - pl).abs().max()))
                 check(same_bits(k8, censor.sqnorm_batched(x)),
                       f"B8 repeat {tag}")
-                for w in range(m):
+                for w in sample_workers(m):
                     check(same_bits(k8[w:w + 1],
                                     censor.sqnorm_batched(x[w:w + 1])),
                           f"B8 M=1 slice {w} {tag}")
@@ -523,7 +565,7 @@ def phase_kernels(device, ms=(1, 4, 9),
                 sq2, am2 = fused_step.int8_stats_batched(g, h, e)
                 check(same_bits(sq, sq2) and same_bits(am, am2),
                       f"B5 repeat {tag}")
-                for w in range(m):
+                for w in sample_workers(m):
                     sq1, am1 = fused_step.int8_stats_batched(
                         g[w:w + 1], h[w:w + 1], e[w:w + 1])
                     check(same_bits(sq[w:w + 1], sq1)
@@ -543,7 +585,7 @@ def phase_kernels(device, ms=(1, 4, 9),
                     max_diff(am7, ref.absmax_batched(pend)))
                 check(same_bits(am7, quantize_ef.absmax_batched(pend)),
                       f"B7a repeat {tag}")
-                for w in range(m):
+                for w in sample_workers(m):
                     check(same_bits(am7[w:w + 1],
                                     quantize_ef.absmax_batched(
                                         pend[w:w + 1])),
@@ -572,7 +614,7 @@ def phase_kernels(device, ms=(1, 4, 9),
                     check(all(same_bits(a, b) for a, b in zip(out, again)),
                           f"B2 repeat {mtag}")
                     dense_ghat = out[0]
-                    for w in range(m):
+                    for w in sample_workers(m):
                         one = fused_step.fused_dense_step(
                             g[w:w + 1], h[w:w + 1], t, p, mask[w:w + 1],
                             alpha, beta)
@@ -590,7 +632,7 @@ def phase_kernels(device, ms=(1, 4, 9),
                                                        scale, alpha, beta)
                     check(all(same_bits(a, b) for a, b in zip(out, again)),
                           f"B6 repeat {mtag}")
-                    for w in range(m):
+                    for w in sample_workers(m):
                         one = fused_step.fused_int8_step(
                             g[w:w + 1], h[w:w + 1], e[w:w + 1], t, p,
                             mask[w:w + 1], scale[w:w + 1], alpha, beta)
@@ -612,56 +654,118 @@ def phase_kernels(device, ms=(1, 4, 9),
                     _check_nonfinite(g, h, e, t, p, tag)
                     nonfinite += 1
                 del pend
-    emit({"phase": "kernels", "cases": cases, "nonfinite_cases": nonfinite,
+    emit({"phase": phase, "ms": list(ms), "ns": list(ns),
+          "cases": cases, "nonfinite_cases": nonfinite,
           "max_abs_err": max_err, "sqnorm_rtol": SQNORM_RTOL,
           "elementwise": "bitwise, including the sign of zero; NaN where "
           "the plain version gives NaN"})
-    emit({"phase": "identities", "cases_held_bitwise": ident})
+    emit({"phase": f"identities ({phase})", "cases_held_bitwise": ident})
     return max_err
 
 
-def phase_bank_advance_paths(device, ms=(1, 4, 9),
-                              dtypes=(torch.float32, torch.float64)) -> None:
-    """B9's two paths against its plain version, bit for bit: rows of
-    16-byte vectors (n a multiple of 4, leaves 16-byte aligned) and the
-    element-wise path (a leaf view one element off its storage's
-    alignment; phase 3's odd n already take it), inputs salted with -0.0,
-    NaN and +-inf, all three masks, a repeat launch and each worker's M=1
-    slice."""
+# (m, n, storage offset) of B9's path cases: aligned rows of 16-byte
+# vectors and the element-wise path (a leaf view one element off its
+# storage's alignment; phase 3's odd n already take it) at M = 1, 4, 9,
+# and both at M = 70000, past grid y's 65535 blocks
+BANK_PATH_CASES = [(m, n, off) for m in (1, 4, 9)
+                   for n, off in ((4, 0), (128 * 257 + 4, 0), (2 ** 20, 0),
+                                  (4096, 1), (2 ** 20 + 4, 1))] \
+    + [(70000, 36, 0), (70000, 36, 1)]
+# B7a's path cases: the 16-byte path (n a multiple of the elements in 16
+# bytes, an aligned leaf), the element-wise path (odd n, or a view one
+# element off alignment), one and several 32,768-element spans, M up to
+# 70000 (tests/test_torch_cuda.py::test_absmax_vector_and_scalar_paths)
+ABSMAX_PATH_CASES = [
+    (1, 4096, 0), (4, 4096, 0), (9, 4096, 0), (4, 4099, 0), (9, 70001, 0),
+    (4, 4096, 1), (9, 4100, 1), (4, 2 ** 17 + 4, 0), (1, 1, 0), (1, 3, 1),
+    (70000, 36, 0), (70000, 33, 0), (70000, 36, 1)]
+
+
+def _offset_leaf(m, n, off, dtype, device, gen) -> torch.Tensor:
+    """An (M, n) leaf of normal draws starting ``off`` elements into its
+    storage."""
+    flat = torch.randn(off + m * n, generator=gen, device=device,
+                       dtype=dtype)
+    return flat[off:].view(m, n)
+
+
+def phase_bank_advance_paths(device,
+                             dtypes=(torch.float32, torch.float64)) -> None:
+    """B9's two paths against its plain version, bit for bit, on the
+    BANK_PATH_CASES, inputs salted with -0.0, NaN and +-inf, all three
+    masks, a repeat launch and the M=1 calls of sample_workers."""
     from repro_torch.kernels import censor, ref
     cases = 0
     for dtype in dtypes:
-        for m in ms:
-            for n, off in ((4, 0), (128 * 257 + 4, 0), (2 ** 20, 0),
-                           (4096, 1), (2 ** 20 + 4, 1)):
-                gen = torch.Generator(device=device).manual_seed(
-                    m * 7 + n % 1009 + off)
-
-                def leaf():
-                    flat = torch.randn(off + m * n, generator=gen,
-                                       device=device, dtype=dtype)
-                    return flat[off:].view(m, n)
-
-                h, q = leaf(), leaf()
-                h[:, ::7] = -0.0
-                q[:, ::5] = -0.0
-                q[:, 3::11] = float("nan")
-                h[:, 1::13] = float("inf")
-                q[:, 2::17] = float("-inf")
-                tag = f"B9 paths {dtype} M={m} n={n} offset={off}"
-                for mname, mask in _masks(m, device).items():
-                    out = censor.bank_advance(h, q, mask)
-                    check(same_bits(out, ref.bank_advance(h, q, mask)),
-                          f"{tag} mask={mname}")
-                    check(same_bits(out, censor.bank_advance(h, q, mask)),
-                          f"{tag} mask={mname}: repeat")
-                    for w in range(m):
-                        check(same_bits(censor.bank_advance(
-                            h[w:w + 1], q[w:w + 1], mask[w:w + 1]),
-                            out[w:w + 1]), f"{tag} mask={mname}: M=1 {w}")
-                    cases += 1
+        for m, n, off in BANK_PATH_CASES:
+            gen = torch.Generator(device=device).manual_seed(
+                m * 7 + n % 1009 + off)
+            h = _offset_leaf(m, n, off, dtype, device, gen)
+            q = _offset_leaf(m, n, off, dtype, device, gen)
+            h[:, ::7] = -0.0
+            q[:, ::5] = -0.0
+            q[:, 3::11] = float("nan")
+            h[:, 1::13] = float("inf")
+            q[:, 2::17] = float("-inf")
+            tag = f"B9 paths {dtype} M={m} n={n} offset={off}"
+            for mname, mask in _masks(m, device).items():
+                out = censor.bank_advance(h, q, mask)
+                check(same_bits(out, ref.bank_advance(h, q, mask)),
+                      f"{tag} mask={mname}")
+                check(same_bits(out, censor.bank_advance(h, q, mask)),
+                      f"{tag} mask={mname}: repeat")
+                for w in sample_workers(m):
+                    check(same_bits(censor.bank_advance(
+                        h[w:w + 1], q[w:w + 1], mask[w:w + 1]),
+                        out[w:w + 1]), f"{tag} mask={mname}: M=1 {w}")
+                cases += 1
     emit({"phase": "bank_advance_paths", "cases": cases,
           "rule": "bitwise, -0.0, NaN and inf included"})
+
+
+def phase_absmax_paths(device,
+                       dtypes=(torch.float32, torch.float64)) -> None:
+    """B7a's 16-byte and element-wise paths on the ABSMAX_PATH_CASES, rows
+    salted with -0.0, NaN and +-inf and one row all -0.0: rows without a
+    NaN bitwise equal to the plain version (+0 for the -0.0 row), NaN rows
+    NaN, every row equal to B5's abs-max of the same pending, a repeat
+    launch and the M=1 calls of sample_workers."""
+    from repro_torch.kernels import fused_step, quantize_ef, ref
+    cases = 0
+    for dtype in dtypes:
+        for m, n, off in ABSMAX_PATH_CASES:
+            tag = f"B7a paths {dtype} M={m} n={n} offset={off}"
+            gen = torch.Generator(device=device).manual_seed(m * 13 + n + off)
+            g, h, e = (_offset_leaf(m, n, 0, dtype, device, gen)
+                       for _ in range(3))
+            g[:, ::5], h[:, ::5], e[:, ::5] = -0.0, 0.0, -0.0
+            g[1::4, 0] = float("inf")
+            g[1::4, n - 1] = float("-inf")
+            g[2::4, n // 2] = float("nan")
+            if m > 3:
+                g[3], h[3], e[3] = -0.0, 0.0, -0.0
+            pend = (g - h) + e
+            x = _offset_leaf(m, n, off, dtype, device, gen)
+            x.copy_(pend)
+            am = quantize_ef.absmax_batched(x)
+            check(same_or_nan(am, ref.absmax_batched(pend)), tag)
+            check(torch.equal(torch.isnan(am), torch.isnan(pend).any(dim=1)),
+                  f"{tag}: NaN rows")
+            if m > 3:
+                check(int(bits(am[3:4])[0]) == 0,
+                      f"{tag}: the -0.0 row gives {float(am[3])}, not +0")
+            check(same_or_nan(am, fused_step.int8_stats_batched(g, h, e)[1]),
+                  f"{tag}: B7a != B5 amax")
+            check(same_or_nan(am, quantize_ef.absmax_batched(x)),
+                  f"{tag}: repeat")
+            for w in sample_workers(m):
+                check(same_or_nan(quantize_ef.absmax_batched(x[w:w + 1]),
+                                  am[w:w + 1]), f"{tag}: M=1 {w}")
+            cases += 1
+            del g, h, e, pend, x
+    emit({"phase": "absmax_paths", "cases": cases,
+          "rule": "bitwise where no NaN, NaN rows NaN, equal to B5's "
+          "abs-max; -0.0, NaN and inf salted"})
 
 
 # ----------------------------------------------------------- phase 3b
@@ -1282,6 +1386,68 @@ def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
     return launches
 
 
+# ------------------------------------------------- phase many_workers
+def phase_many_workers() -> dict:
+    """The MANY_PATHS at the fed-mesh scale on both backends: masks,
+    counts, uplink bytes, objective and final theta bit for bit, and each
+    path's kernels launched once a step. Returns each path's launch counts
+    (keys ``many_<path>``)."""
+    from repro_torch import opt
+    from repro_torch.core import simulator
+    from repro_torch.data import edge_tasks
+    from repro_torch.kernels import common, fused_step
+    t0 = time.perf_counter()
+    tasks = {m: edge_tasks.make_edge_quadratics(m=m, d=MANY_D, seed=0)
+             for m in sorted({m for m, _ in MANY_PATHS.values()})}
+    setup_s = time.perf_counter() - t0
+    summary, launches = {}, {}
+    for kind, (m, kw) in MANY_PATHS.items():
+        runs = {}
+        for backend in ("cuda", "reference"):
+            rec = StepRecorder(opt.make("chb", 0.5 / m, m, eps1=FULL_EPS1,
+                                        backend=backend, **kw))
+            route = fused_step.force_staged() if kind.endswith("_staged") \
+                else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            common.reset_launches()
+            t = time.perf_counter()
+            with route:
+                hist = simulator.run(rec, tasks[m], MANY_ITERS)
+            torch.cuda.synchronize()
+            runs[backend] = (hist, rec, time.perf_counter() - t,
+                             dict(common.LAUNCHES))
+        (hk, rk, sk, lk), (hr, rr, sr, lr) = runs["cuda"], runs["reference"]
+        want = {name: MANY_ITERS if name in PATH_KERNELS[kind] else 0
+                for name in common.KERNELS}
+        check(lk == want, f"many_workers {kind}: launches {lk}, want {want}")
+        check(not any(lr.values()),
+              f"many_workers {kind}: the reference backend launched a kernel")
+        check(tuple(hk.mask.shape) == (MANY_ITERS, m),
+              f"many_workers {kind}: masks of shape {tuple(hk.mask.shape)}")
+        check(same_run(hk, hr), f"many_workers {kind}: the cuda backend's "
+              "masks, counts, bytes or theta differ from the reference's")
+        check(bool(torch.isfinite(hk.objective).all()),
+              f"many_workers {kind}: objective is not finite")
+        launches[f"many_{kind}"] = lk
+        summary[kind] = {
+            "m": m, "uploads": int(hk.comm_cum[-1]),
+            "uplink_bytes": hk.final_state.comm.uplink_bytes_exact(),
+            "min_eq8_margin": rr.min_margin(FULL_EPS1),
+            "step_ms_cuda": rk.median_ms(),
+            "step_ms_reference": rr.median_ms(),
+            "wall_s_cuda": sk, "wall_s_reference": sr,
+            "launches": {n: c for n, c in lk.items() if c}}
+        del runs, hk, hr
+        torch.cuda.empty_cache()
+    del tasks
+    torch.cuda.empty_cache()
+    emit({"phase": "many_workers", "d": MANY_D, "iters": MANY_ITERS,
+          "dtype": "float64", "bitwise": "masks, comm_cum, uplink counts "
+          "and bytes, objective, final theta", "setup_s": setup_s,
+          **summary, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 # ------------------------------------------------------- phase serve
 def _gap(logits: torch.Tensor) -> torch.Tensor:
     """Each row's top-2 gap."""
@@ -1662,10 +1828,16 @@ def main() -> None:
     phase_build()
     dev = torch.device("cuda")
     max_err = phase_kernels(dev)
+    # past grid y's 65535 blocks: the seven kernels walk the workers
+    large = phase_kernels(dev, ms=(LARGE_M,), ns=(2049,),
+                          phase="kernels_large_m")
+    max_err = {k: max(v, large[k]) for k, v in max_err.items()}
     phase_bank_advance_paths(dev)
+    phase_absmax_paths(dev)
     phase_attention_kernels(dev, max_err)
     phase_golden(dev)
     launches = phase_full()
+    launches.update(phase_many_workers())
     launches.update(phase_serve(dev))
     phase_pin(dev)
     launches["ops"] = phase_ops(dev)

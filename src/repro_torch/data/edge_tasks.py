@@ -2,8 +2,10 @@
 
 ``f_m(theta) = 0.5 * a_m * ||theta - c_m||^2`` with O(M*d) memory and a
 closed-form optimum. The centers and curvatures are the JAX builder's
-numpy draws; ``dtype`` casts them on the way to the device one worker row
-at a time, so a full-width f32 task never holds an f64 copy on the card.
+numpy draws; ``dtype`` casts the centers on the way to the device in
+blocks of rows of at most 64 MB of f64, so a full-width f32 task never
+holds an f64 copy of the center bank on the card, and 10^5 clients take
+a few copies, not one a row.
 """
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ import torch
 
 from ..core.simulator import FedTask
 from ..device import resolve_device
+
+#: f64 bytes of the centers copied to the device at a time
+COPY_BLOCK_BYTES = 64 << 20
 
 
 def _quad_loss(theta, data):
@@ -43,8 +48,9 @@ def make_edge_quadratics(m: int, d: int = 16, seed: int = 0,
     centers = rng.normal(size=(m, d)).astype(np.float64)
     curv = np.exp(rng.uniform(0.0, np.log(max(hetero, 1.0)), size=(m,)))
     c = torch.empty((m, d), dtype=dtype, device=dev)
-    for i in range(m):
-        c[i].copy_(torch.from_numpy(centers[i]))
+    rows = max(1, COPY_BLOCK_BYTES // (8 * max(d, 1)))
+    for i in range(0, m, rows):
+        c[i:i + rows].copy_(torch.from_numpy(centers[i:i + rows]))
     return FedTask(init_params=torch.zeros((d,), dtype=dtype, device=dev),
                    grad_fn=_quad_grad, loss_fn=_quad_loss,
                    worker_data=(torch.as_tensor(curv, dtype=dtype,

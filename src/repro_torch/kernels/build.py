@@ -29,6 +29,16 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: elements of one worker row that one reduction block sums (kChunk in
 #: csrc/reduce.cuh); the launchers reject a partial buffer of another size
 REDUCE_CHUNK = 2048
+#: elements of one worker row behind one B7a partial (kAbsmaxSpan in
+#: csrc/quantize_ef.cu: 16 chunks); its launcher rejects another count
+ABSMAX_SPAN = 16 * REDUCE_CHUNK
+#: elements of one worker row that one block of a row-tiled pass (B4, B7b,
+#: B9, B12b) covers (kRowTile in csrc/reduce.cuh)
+ROW_TILE = 1024
+#: blocks one launch holds on grid x (kMaxGridX in csrc/reduce.cuh); the
+#: per-worker kernels put the worker on grid y and walk any M with a
+#: stride, and pass 2 of a reduction runs one block per worker on grid x
+GRID_X_MAX = 2 ** 31 - 1
 #: cache slots of one partial of the decode-attention kernel (kDecodeSlots
 #: in csrc/decode_attention.cu); its launcher rejects partial buffers of
 #: another length

@@ -12,18 +12,19 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .build import REDUCE_CHUNK, SINGLE_DTYPES, launch
-from .common import check_leaves, check_worker_vector, count_launch, on_card
+from .build import REDUCE_CHUNK, ROW_TILE, SINGLE_DTYPES, launch
+from .common import (check_leaves, check_worker_vector, count_launch,
+                     grid_chunks, on_card)
 
 
 def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def _sqnorm_launch(name: str, lib_fn: str, device, ptrs, m: int, n: int
-                   ) -> torch.Tensor:
+def _sqnorm_launch(name: str, lib_fn: str, device, ptrs, shape, m: int,
+                   n: int) -> torch.Tensor:
     """Run one two-pass reduction; returns its (M,) f32 result."""
-    nchunks = -(-n // REDUCE_CHUNK)
+    nchunks = grid_chunks(name, shape, n, REDUCE_CHUNK, m)
     part = torch.empty((m, nchunks), dtype=torch.float32, device=device)
     out = torch.empty((m,), dtype=torch.float32, device=device)
     count_launch(name)
@@ -48,7 +49,7 @@ def censor_delta_sqnorm_batched(g: torch.Tensor, ghat: torch.Tensor
     if not on_card(name, g, ghat):
         return ref.censor_delta_sqnorm_batched(g, ghat)
     return _sqnorm_launch(name, f"{name}_{suffix}", g.device,
-                          (_ptr(g), _ptr(ghat)), m, n)
+                          (_ptr(g), _ptr(ghat)), g.shape, m, n)
 
 
 def sqnorm_batched(x: torch.Tensor) -> torch.Tensor:
@@ -66,7 +67,7 @@ def sqnorm_batched(x: torch.Tensor) -> torch.Tensor:
     if not on_card(name, x):
         return ref.sqnorm_batched(x)
     return _sqnorm_launch(name, f"{name}_{suffix}", x.device, (_ptr(x),),
-                          m, n)
+                          x.shape, m, n)
 
 
 def bank_advance(ghat: torch.Tensor, payload: torch.Tensor,
@@ -80,6 +81,7 @@ def bank_advance(ghat: torch.Tensor, payload: torch.Tensor,
         return ghat
     if not on_card(name, ghat, payload, mask):
         return ref.bank_advance(ghat, payload, mask)
+    grid_chunks(name, ghat.shape, n, ROW_TILE)
     out = torch.empty_like(ghat)
     count_launch(name)
     launch("censor", f"{name}_{suffix}", ghat.device, _ptr(ghat),
@@ -102,6 +104,7 @@ def censor_bank_advance(g: torch.Tensor, ghat: torch.Tensor,
         return ghat
     if not on_card(name, g, ghat, mask):
         return ref.censor_bank_advance(g, ghat, mask)
+    grid_chunks(name, ghat.shape, n, ROW_TILE)
     out = torch.empty_like(ghat)
     count_launch(name)
     launch("censor", f"{name}_{suffix}", ghat.device, _ptr(g), _ptr(ghat),
@@ -138,7 +141,7 @@ def censor_delta_sqnorm(g: torch.Tensor, ghat: torch.Tensor) -> torch.Tensor:
     if not on_card(name, g, ghat):
         return ref.censor_delta_sqnorm(g, ghat)
     return _sqnorm_launch(name, f"{name}_{suffix}", g.device,
-                          (_ptr(g), _ptr(ghat)), 1, n).reshape(())
+                          (_ptr(g), _ptr(ghat)), g.shape, 1, n).reshape(())
 
 
 def _flag(name: str, transmit) -> int:
@@ -166,6 +169,7 @@ def censor_select(g: torch.Tensor, ghat: torch.Tensor,
         return ghat
     if not on_card(name, g, ghat):
         return ref.censor_select(g, ghat, flag)
+    grid_chunks(name, ghat.shape, n, ROW_TILE)
     out = torch.empty_like(ghat)
     count_launch(name)
     launch("censor", f"{name}_{suffix}", ghat.device, _ptr(g), _ptr(ghat),

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .build import GRID_X_MAX
+
 KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
            "int8_stats_batched", "fused_int8_step", "sqnorm_batched",
            "bank_advance", "hb_update", "select_pack_ef_batched",
@@ -88,3 +90,18 @@ def check_worker_vector(name: str, what: str, v: torch.Tensor,
     if v.dtype != torch.float32 or tuple(v.shape) != (m,):
         raise ValueError(f"{name}: {what} must be ({m},) float32, got "
                          f"{tuple(v.shape)} {v.dtype}")
+
+
+def grid_chunks(name: str, shape, n: int, span: int, m: int = 1) -> int:
+    """Blocks of ``span`` elements in a worker row of ``n``: grid x of a
+    reduction's pass 1 (whose pass 2 runs one block per worker, ``m``, on
+    grid x too) or of a row-tiled pass. Raises, naming the limit and the
+    shape, where one launch cannot hold them (the launcher would refuse
+    with a bare ``invalid argument``)."""
+    chunks = -(-n // span)
+    if max(chunks, m) > GRID_X_MAX:
+        raise ValueError(
+            f"{name}: shape {tuple(shape)} needs {max(chunks, m)} blocks on "
+            f"grid x ({chunks} of {span} elements a worker row, {m} "
+            f"workers); a launch holds at most 2^31 - 1 = {GRID_X_MAX}")
+    return chunks

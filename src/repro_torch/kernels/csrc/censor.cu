@@ -34,9 +34,11 @@
 // worker's chunks depend only on n, the M=1 call on one worker equals that
 // worker's slice of a batched call. B8 squares (float)x where B1 squares
 // (float)(g - ghat) with the same chunks and tree, so B8 on g - ghat equals
-// B1 on (g, ghat) bit for bit. B4 and B9 tile each worker row (grid y =
-// worker): a thread loads kRowItems elements of both operands before it
-// computes any, so several loads are in flight per thread (see PERF.md).
+// B1 on (g, ghat) bit for bit. B4 and B9 tile each worker row: a thread
+// loads kRowItems elements of both operands before it computes any, so
+// several loads are in flight per thread (see PERF.md). All four put the
+// worker on grid y and walk any M with a stride of gridDim.y (reduce.cuh),
+// so a worker's output does not depend on M.
 // B4 advances in the arithmetic mask form of B2, so its output equals B2's
 // ghat' bit for bit (a select would not: h + (g - h) != g in floating
 // point). B9 computes ghat + (T)mask * payload with the same rounding
@@ -65,24 +67,27 @@ using namespace repro;
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 delta_sqnorm_partials(const T* __restrict__ g, const T* __restrict__ h,
-                      float* __restrict__ part, int64_t n, int64_t nchunks) {
+                      float* __restrict__ part, int64_t m, int64_t n, int64_t nchunks) {
   __shared__ float scratch[kThreads / 32];
-  const int64_t w = blockIdx.y;
   const int64_t c = blockIdx.x;
-  const T* gw = g + w * n;
-  const T* hw = h + w * n;
   const int64_t base = c * kChunk + threadIdx.x;
-  float acc = 0.0f;
+  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
+    // the last worker's block_reduce is done with scratch
+    if (w != blockIdx.y) __syncthreads();
+    const T* gw = g + w * n;
+    const T* hw = h + w * n;
+    float acc = 0.0f;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    if (j < n) {
-      const float d = (float)sub(gw[j], hw[j]);
-      acc = add(acc, mul(d, d));
+    for (int k = 0; k < kItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      if (j < n) {
+        const float d = (float)sub(gw[j], hw[j]);
+        acc = add(acc, mul(d, d));
+      }
     }
+    acc = block_reduce(acc, 0.0f, SumOp(), scratch);
+    if (threadIdx.x == 0) part[w * nchunks + c] = acc;
   }
-  acc = block_reduce(acc, 0.0f, SumOp(), scratch);
-  if (threadIdx.x == 0) part[w * nchunks + c] = acc;
 }
 
 template <typename T>
@@ -90,8 +95,8 @@ static int launch_delta_sqnorm(const void* g, const void* h, void* part, void* o
                                int64_t m, int64_t n, int64_t nchunks, void* stream) {
   if (!reduction_shape_ok(m, n, nchunks)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  delta_sqnorm_partials<T><<<dim3((unsigned)nchunks, (unsigned)m), kThreads, 0, s>>>(
-      (const T*)g, (const T*)h, (float*)part, n, nchunks);
+  delta_sqnorm_partials<T><<<dim3((unsigned)nchunks, worker_blocks(m)), kThreads, 0, s>>>(
+      (const T*)g, (const T*)h, (float*)part, m, n, nchunks);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   finish_partials<float, SumOp><<<(unsigned)m, kThreads, 0, s>>>(
@@ -101,67 +106,60 @@ static int launch_delta_sqnorm(const void* g, const void* h, void* part, void* o
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-sqnorm_partials(const T* __restrict__ x, float* __restrict__ part, int64_t n, int64_t nchunks) {
+sqnorm_partials(const T* __restrict__ x, float* __restrict__ part, int64_t m, int64_t n,
+                int64_t nchunks) {
   __shared__ float scratch[kThreads / 32];
-  const int64_t w = blockIdx.y;
   const int64_t c = blockIdx.x;
-  const T* xw = x + w * n;
   const int64_t base = c * kChunk + threadIdx.x;
-  float acc = 0.0f;
+  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
+    // the last worker's block_reduce is done with scratch
+    if (w != blockIdx.y) __syncthreads();
+    const T* xw = x + w * n;
+    // all kItems loads in flight before the first add (in the walk the
+    // compiler no longer hoists them itself); the adds keep their order
+    T v[kItems];
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    if (j < n) {
-      const float d = (float)xw[j];
-      acc = add(acc, mul(d, d));
+    for (int k = 0; k < kItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      v[k] = j < n ? xw[j] : T(0);
     }
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (base + (int64_t)k * kThreads < n) {
+        const float d = (float)v[k];
+        acc = add(acc, mul(d, d));
+      }
+    }
+    acc = block_reduce(acc, 0.0f, SumOp(), scratch);
+    if (threadIdx.x == 0) part[w * nchunks + c] = acc;
   }
-  acc = block_reduce(acc, 0.0f, SumOp(), scratch);
-  if (threadIdx.x == 0) part[w * nchunks + c] = acc;
 }
-
-// 16 bytes of one bank dtype, and B9's arithmetic on each element of it
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  using type = float4;
-  __device__ __forceinline__ static float4 advance(float4 h, float mk, float4 q) {
-    return make_float4(add(h.x, mul(mk, q.x)), add(h.y, mul(mk, q.y)), add(h.z, mul(mk, q.z)),
-                       add(h.w, mul(mk, q.w)));
-  }
-};
-template <>
-struct Vec16<double> {
-  using type = double2;
-  __device__ __forceinline__ static double2 advance(double2 h, double mk, double2 q) {
-    return make_double2(add(h.x, mul(mk, q.x)), add(h.y, mul(mk, q.y)));
-  }
-};
 
 // B9 on rows of n elements (one row a grid y), element by element
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bank_advance_kernel(const T* __restrict__ h, const T* __restrict__ q,
-                    const float* __restrict__ mask, T* __restrict__ out, int64_t n) {
-  const int64_t w = blockIdx.y;
-  const T mk = (T)mask[w];
-  const T* hw = h + w * n;
-  const T* qw = q + w * n;
-  T* ow = out + w * n;
+                    const float* __restrict__ mask, T* __restrict__ out, int64_t m, int64_t n) {
   const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
-  T hv[kRowItems], qv[kRowItems];
+  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
+    const T mk = (T)mask[w];
+    const T* hw = h + w * n;
+    const T* qw = q + w * n;
+    T* ow = out + w * n;
+    T hv[kRowItems], qv[kRowItems];
 #pragma unroll
-  for (int k = 0; k < kRowItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    hv[k] = j < n ? hw[j] : T(0);
-    qv[k] = j < n ? qw[j] : T(0);
-  }
+    for (int k = 0; k < kRowItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      hv[k] = j < n ? hw[j] : T(0);
+      qv[k] = j < n ? qw[j] : T(0);
+    }
 #pragma unroll
-  for (int k = 0; k < kRowItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    // the arithmetic mask form ghat + mk * payload
-    if (j < n) ow[j] = add(hv[k], mul(mk, qv[k]));
+    for (int k = 0; k < kRowItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      // the arithmetic mask form ghat + mk * payload
+      if (j < n) ow[j] = add(hv[k], mul(mk, qv[k]));
+    }
   }
 }
 
@@ -169,51 +167,55 @@ bank_advance_kernel(const T* __restrict__ h, const T* __restrict__ q,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bank_advance_vec_kernel(const T* __restrict__ h, const T* __restrict__ q,
-                        const float* __restrict__ mask, T* __restrict__ out, int64_t nv) {
+                        const float* __restrict__ mask, T* __restrict__ out, int64_t m,
+                        int64_t nv) {
   using V = typename Vec16<T>::type;
-  const int64_t w = blockIdx.y;
-  const T mk = (T)mask[w];
-  const V* hw = reinterpret_cast<const V*>(h) + w * nv;
-  const V* qw = reinterpret_cast<const V*>(q) + w * nv;
-  V* ow = reinterpret_cast<V*>(out) + w * nv;
   const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
-  V hv[kRowItems], qv[kRowItems];
+  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
+    const T mk = (T)mask[w];
+    const V* hw = reinterpret_cast<const V*>(h) + w * nv;
+    const V* qw = reinterpret_cast<const V*>(q) + w * nv;
+    V* ow = reinterpret_cast<V*>(out) + w * nv;
+    V hv[kRowItems], qv[kRowItems];
 #pragma unroll
-  for (int k = 0; k < kRowItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    if (j < nv) {
-      hv[k] = hw[j];
-      qv[k] = qw[j];
+    for (int k = 0; k < kRowItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      if (j < nv) {
+        hv[k] = hw[j];
+        qv[k] = qw[j];
+      }
     }
-  }
 #pragma unroll
-  for (int k = 0; k < kRowItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    if (j < nv) ow[j] = Vec16<T>::advance(hv[k], mk, qv[k]);
+    for (int k = 0; k < kRowItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      if (j < nv) ow[j] = Vec16<T>::advance(hv[k], mk, qv[k]);
+    }
   }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 censor_bank_advance_kernel(const T* __restrict__ g, const T* __restrict__ h,
-                           const float* __restrict__ mask, T* __restrict__ out, int64_t n) {
-  const int64_t w = blockIdx.y;
-  const T mk = (T)mask[w];
-  const T* gw = g + w * n;
-  const T* hw = h + w * n;
-  T* ow = out + w * n;
+                           const float* __restrict__ mask, T* __restrict__ out, int64_t m,
+                           int64_t n) {
   const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
-  T gv[kRowItems], hv[kRowItems];
+  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
+    const T mk = (T)mask[w];
+    const T* gw = g + w * n;
+    const T* hw = h + w * n;
+    T* ow = out + w * n;
+    T gv[kRowItems], hv[kRowItems];
 #pragma unroll
-  for (int k = 0; k < kRowItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    gv[k] = j < n ? gw[j] : T(0);
-    hv[k] = j < n ? hw[j] : T(0);
-  }
+    for (int k = 0; k < kRowItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      gv[k] = j < n ? gw[j] : T(0);
+      hv[k] = j < n ? hw[j] : T(0);
+    }
 #pragma unroll
-  for (int k = 0; k < kRowItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    if (j < n) ow[j] = add(hv[k], mul(mk, sub(gv[k], hv[k])));
+    for (int k = 0; k < kRowItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      if (j < n) ow[j] = add(hv[k], mul(mk, sub(gv[k], hv[k])));
+    }
   }
 }
 
@@ -222,8 +224,8 @@ static int launch_sqnorm(const void* x, void* part, void* out, int64_t m, int64_
                          int64_t nchunks, void* stream) {
   if (!reduction_shape_ok(m, n, nchunks)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  sqnorm_partials<T><<<dim3((unsigned)nchunks, (unsigned)m), kThreads, 0, s>>>(
-      (const T*)x, (float*)part, n, nchunks);
+  sqnorm_partials<T><<<dim3((unsigned)nchunks, worker_blocks(m)), kThreads, 0, s>>>(
+      (const T*)x, (float*)part, m, n, nchunks);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   finish_partials<float, SumOp><<<(unsigned)m, kThreads, 0, s>>>(
@@ -237,14 +239,13 @@ static int launch_bank_advance(const void* h, const void* q, const void* mask, v
   if (!row_tiles_ok(m, n)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   constexpr int64_t per_vec = 16 / sizeof(T);
-  const auto aligned = [](const void* p) { return (uintptr_t)p % 16 == 0; };
-  if (n % per_vec == 0 && aligned(h) && aligned(q) && aligned(out)) {
+  if (n % per_vec == 0 && aligned16(h) && aligned16(q) && aligned16(out)) {
     const int64_t nv = n / per_vec;
     bank_advance_vec_kernel<T><<<row_tiles(m, nv), kThreads, 0, s>>>(
-        (const T*)h, (const T*)q, (const float*)mask, (T*)out, nv);
+        (const T*)h, (const T*)q, (const float*)mask, (T*)out, m, nv);
   } else {
     bank_advance_kernel<T><<<row_tiles(m, n), kThreads, 0, s>>>(
-        (const T*)h, (const T*)q, (const float*)mask, (T*)out, n);
+        (const T*)h, (const T*)q, (const float*)mask, (T*)out, m, n);
   }
   return (int)cudaGetLastError();
 }
@@ -254,7 +255,7 @@ static int launch_censor_bank_advance(const void* g, const void* h, const void* 
                                       int64_t m, int64_t n, void* stream) {
   if (!row_tiles_ok(m, n)) return (int)cudaErrorInvalidValue;
   censor_bank_advance_kernel<T><<<row_tiles(m, n), kThreads, 0, (cudaStream_t)stream>>>(
-          (const T*)g, (const T*)h, (const float*)mask, (T*)out, n);
+      (const T*)g, (const T*)h, (const float*)mask, (T*)out, m, n);
   return (int)cudaGetLastError();
 }
 

@@ -21,7 +21,9 @@
 // live only in registers. alpha and beta are runtime arguments, so one
 // build serves any hyperparameters. B5 is a two-pass reduction shaped like
 // B1 (censor.cu): fixed order, no atomics, the M=1 call bitwise equal to a
-// batched slice. Offsets are 64-bit: M*n passes 2^31 one model size up.
+// batched slice, any M (its blocks walk the workers with a stride of
+// gridDim.y, reduce.cuh). Offsets are 64-bit: M*n passes 2^31 one model
+// size up.
 #include "reduce.cuh"
 
 using namespace repro;
@@ -54,30 +56,33 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 int8_stats_partials(const T* __restrict__ g, const T* __restrict__ h,
                     const T* __restrict__ e, float* __restrict__ sq_part,
-                    T* __restrict__ am_part, int64_t n, int64_t nchunks) {
+                    T* __restrict__ am_part, int64_t m, int64_t n, int64_t nchunks) {
   __shared__ float sq_scratch[kThreads / 32];
   __shared__ T am_scratch[kThreads / 32];
-  const int64_t w = blockIdx.y;
   const int64_t c = blockIdx.x;
-  const int64_t off = w * n;
   const int64_t base = c * kChunk + threadIdx.x;
-  float acc = 0.0f;
-  T am = T(0);
+  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
+    // the last worker's two block_reduces are done with their scratch
+    if (w != blockIdx.y) __syncthreads();
+    const int64_t off = w * n;
+    float acc = 0.0f;
+    T am = T(0);
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    if (j < n) {
-      const T p = add(sub(g[off + j], h[off + j]), e[off + j]);
-      const float x = (float)p;
-      acc = add(acc, mul(x, x));
-      am = maxval(am, absval(p));
+    for (int k = 0; k < kItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      if (j < n) {
+        const T p = add(sub(g[off + j], h[off + j]), e[off + j]);
+        const float x = (float)p;
+        acc = add(acc, mul(x, x));
+        am = maxval(am, absval(p));
+      }
     }
-  }
-  acc = block_reduce(acc, 0.0f, SumOp(), sq_scratch);
-  am = block_reduce(am, T(0), MaxOp(), am_scratch);
-  if (threadIdx.x == 0) {
-    sq_part[w * nchunks + c] = acc;
-    am_part[w * nchunks + c] = am;
+    acc = block_reduce(acc, 0.0f, SumOp(), sq_scratch);
+    am = block_reduce(am, T(0), MaxOp(), am_scratch);
+    if (threadIdx.x == 0) {
+      sq_part[w * nchunks + c] = acc;
+      am_part[w * nchunks + c] = am;
+    }
   }
 }
 
@@ -131,8 +136,8 @@ static int launch_int8_stats(const void* g, const void* h, const void* e, void* 
                              int64_t nchunks, void* stream) {
   if (!reduction_shape_ok(m, n, nchunks)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  int8_stats_partials<T><<<dim3((unsigned)nchunks, (unsigned)m), kThreads, 0, s>>>(
-      (const T*)g, (const T*)h, (const T*)e, (float*)sq_part, (T*)am_part, n, nchunks);
+  int8_stats_partials<T><<<dim3((unsigned)nchunks, worker_blocks(m)), kThreads, 0, s>>>(
+      (const T*)g, (const T*)h, (const T*)e, (float*)sq_part, (T*)am_part, m, n, nchunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   finish_partials<float, SumOp><<<(unsigned)m, kThreads, 0, s>>>(

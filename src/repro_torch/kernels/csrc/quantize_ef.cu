@@ -17,83 +17,177 @@
 //   B7a reads M*n elements and writes M values:    2.62 GB, >= 0.78 ms;
 //   B7b reads 2*M*n elements and writes 2*M*n:    10.47 GB, >= 3.13 ms.
 //
-// Design: B7a is the two-pass reduction of B1/B5 (reduce.cuh): one partial
-// per (chunk, worker), folded in a fixed order, no atomics. Its max keeps
-// a NaN (maxval), so it equals torch.amax and B5's abs-max on the same
-// pending, NaN rows included. A thread loads its kItems elements before
-// it folds any, so they are all in flight at once: folded one by one as
-// they came, each waited on the last (see PERF.md). B7b is B6's int8
-// round trip and EF blend (fused_step.cu) without the bank advance, tiled
-// per worker row (grid y = worker): a thread loads kRowItems elements of
-// pending and err before it computes, for the same reason. It uses the
-// same intrinsics in the same order and a clip that keeps a NaN
-// (clampval), so its err' equals B6's bit for bit.
+// Design: B7a is a two-pass reduction without atomics. Max is exact and
+// does not depend on order, so unlike the sums of B1/B5/B8 its
+// partitioning is free: pass 1 gives each (span, worker) block a span of
+// kAbsmaxSpan = 32,768 elements (16 chunks, 128 KB at f32) and stores one
+// partial, so the block reduction, its barrier and the store come once
+// a span, not once per 8 KB chunk (4,993 partials a worker at
+// chb-paper-lm-124m's width, not 79,882). Where n is a multiple of the
+// elements in 16 bytes and x is 16-byte aligned (every row then is), a
+// thread loads float4s (f32) or double2s (f64), kAbsmaxBatch of them
+// before it folds any (128 bytes in flight a thread); otherwise it loads
+// kAbsmaxBatch elements at a time. The launcher decides, as B9's does.
+// Pass 2 runs one block a worker, each thread issuing kFinishItems loads
+// before it folds, so a worker's partials are in flight at once rather
+// than one a thread. Its max keeps a NaN (maxval), so it equals torch.amax
+// and B5's abs-max on the same pending, NaN rows included (which NaN
+// payload a NaN row returns may differ); |-0.0| is +0, and a row of zeros
+// gives +0. B7b is B6's int8 round trip and EF blend (fused_step.cu)
+// without the bank advance, tiled per worker row: a thread loads kRowItems
+// elements of pending and err before it computes, so several loads are in
+// flight per thread. It uses the same intrinsics in the same order and a
+// clip that keeps a NaN (clampval), so its err' equals B6's bit for bit.
+// Both put the worker on grid y and walk any M (reduce.cuh).
 #include "reduce.cuh"
 
 using namespace repro;
 
+// Elements of a worker row behind one B7a partial. It depends on nothing
+// but itself, so the partial count ceil(n / kAbsmaxSpan) is a function of
+// the shape (build.ABSMAX_SPAN mirrors it; the launcher rejects another
+// count).
+constexpr int64_t kAbsmaxSpan = 16 * kChunk;
+constexpr int kAbsmaxBatch = 8;    // loads a thread issues before it folds
+// partials a pass-2 thread loads before it folds: 20 covers the 4,993 of
+// chb-paper-lm-124m's width in one round
+constexpr int kFinishItems = 20;
+
+inline int64_t num_spans(int64_t n) { return (n + kAbsmaxSpan - 1) / kAbsmaxSpan; }
+
+// pass 1 on rows of nv 16-byte vectors (float4 / double2), 16-byte aligned
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-absmax_partials(const T* __restrict__ x, T* __restrict__ part, int64_t n, int64_t nchunks) {
+absmax_vec_partials(const T* __restrict__ x, T* __restrict__ part, int64_t m, int64_t nv,
+                    int64_t nspans) {
+  using V = typename Vec16<T>::type;
+  constexpr int64_t kSpanV = kAbsmaxSpan / (16 / sizeof(T));
+  constexpr int kRounds = (int)(kSpanV / (kThreads * kAbsmaxBatch));
   __shared__ T scratch[kThreads / 32];
-  const int64_t w = blockIdx.y;
   const int64_t c = blockIdx.x;
-  const T* xw = x + w * n;
-  const int64_t base = c * kChunk + threadIdx.x;
-  T v[kItems];
+  const int64_t base = c * kSpanV + threadIdx.x;
+  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
+    // the last worker's block_reduce is done with scratch
+    if (w != blockIdx.y) __syncthreads();
+    const V* xw = reinterpret_cast<const V*>(x) + w * nv;
+    T am = T(0);
+#pragma unroll 1
+    for (int r = 0; r < kRounds; ++r) {
+      V v[kAbsmaxBatch];
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    v[k] = j < n ? absval(xw[j]) : T(0);
+      for (int k = 0; k < kAbsmaxBatch; ++k) {
+        const int64_t j = base + (int64_t)(r * kAbsmaxBatch + k) * kThreads;
+        v[k] = j < nv ? xw[j] : Vec16<T>::zero();
+      }
+#pragma unroll
+      for (int k = 0; k < kAbsmaxBatch; ++k) am = Vec16<T>::absmax(am, v[k]);
+    }
+    am = block_reduce(am, T(0), MaxOp(), scratch);
+    if (threadIdx.x == 0) part[w * nspans + c] = am;
   }
-  T am = T(0);
+}
+
+// pass 1 element by element (n not a multiple of the vector, or x off
+// 16-byte alignment)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+absmax_partials(const T* __restrict__ x, T* __restrict__ part, int64_t m, int64_t n,
+                int64_t nspans) {
+  constexpr int kRounds = (int)(kAbsmaxSpan / (kThreads * kAbsmaxBatch));
+  __shared__ T scratch[kThreads / 32];
+  const int64_t c = blockIdx.x;
+  const int64_t base = c * kAbsmaxSpan + threadIdx.x;
+  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
+    // the last worker's block_reduce is done with scratch
+    if (w != blockIdx.y) __syncthreads();
+    const T* xw = x + w * n;
+    T am = T(0);
+#pragma unroll 1
+    for (int r = 0; r < kRounds; ++r) {
+      T v[kAbsmaxBatch];
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) am = maxval(am, v[k]);
+      for (int k = 0; k < kAbsmaxBatch; ++k) {
+        const int64_t j = base + (int64_t)(r * kAbsmaxBatch + k) * kThreads;
+        v[k] = j < n ? xw[j] : T(0);
+      }
+#pragma unroll
+      for (int k = 0; k < kAbsmaxBatch; ++k) am = maxval(am, absval(v[k]));
+    }
+    am = block_reduce(am, T(0), MaxOp(), scratch);
+    if (threadIdx.x == 0) part[w * nspans + c] = am;
+  }
+}
+
+// pass 2: one block a worker (grid x) folds its nspans partials, each
+// thread kFinishItems loads at a time, all issued before it folds
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+absmax_finish(const T* __restrict__ part, T* __restrict__ out, int64_t nspans) {
+  __shared__ T scratch[kThreads / 32];
+  const T* p = part + (int64_t)blockIdx.x * nspans;
+  T am = T(0);
+  for (int64_t i0 = threadIdx.x; i0 < nspans; i0 += (int64_t)kThreads * kFinishItems) {
+    T v[kFinishItems];
+#pragma unroll
+    for (int k = 0; k < kFinishItems; ++k) {
+      const int64_t i = i0 + (int64_t)k * kThreads;
+      v[k] = i < nspans ? p[i] : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < kFinishItems; ++k) am = maxval(am, v[k]);
+  }
   am = block_reduce(am, T(0), MaxOp(), scratch);
-  if (threadIdx.x == 0) part[w * nchunks + c] = am;
+  if (threadIdx.x == 0) out[blockIdx.x] = am;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 quantize_ef_kernel(const T* __restrict__ p, const T* __restrict__ e,
                    const float* __restrict__ mask, const float* __restrict__ scale,
-                   T* __restrict__ payload, T* __restrict__ new_e, int64_t n) {
-  const int64_t w = blockIdx.y;
-  const float sc = scale[w];
-  const T mk = (T)mask[w];
-  const T keep = sub(T(1), mk);
-  const int64_t off = w * n;
+                   T* __restrict__ payload, T* __restrict__ new_e, int64_t m, int64_t n) {
   const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
-  T pv[kRowItems], ev[kRowItems];
+  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
+    const float sc = scale[w];
+    const T mk = (T)mask[w];
+    const T keep = sub(T(1), mk);
+    const int64_t off = w * n;
+    T pv[kRowItems], ev[kRowItems];
 #pragma unroll
-  for (int k = 0; k < kRowItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    pv[k] = j < n ? p[off + j] : T(0);
-    ev[k] = j < n ? e[off + j] : T(0);
-  }
+    for (int k = 0; k < kRowItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      pv[k] = j < n ? p[off + j] : T(0);
+      ev[k] = j < n ? e[off + j] : T(0);
+    }
 #pragma unroll
-  for (int k = 0; k < kRowItems; ++k) {
-    const int64_t j = base + (int64_t)k * kThreads;
-    if (j >= n) continue;
-    // int8 round trip in f32: rintf rounds half to even, like torch.round
-    const float q = clampval(rintf(__fdiv_rn((float)pv[k], sc)), -127.0f, 127.0f);
-    const T pay = (T)__fmul_rn(q, sc);
-    payload[off + j] = pay;
-    new_e[off + j] = add(mul(mk, sub(pv[k], pay)), mul(keep, ev[k]));
+    for (int k = 0; k < kRowItems; ++k) {
+      const int64_t j = base + (int64_t)k * kThreads;
+      if (j >= n) continue;
+      // int8 round trip in f32: rintf rounds half to even, like torch.round
+      const float q = clampval(rintf(__fdiv_rn((float)pv[k], sc)), -127.0f, 127.0f);
+      const T pay = (T)__fmul_rn(q, sc);
+      payload[off + j] = pay;
+      new_e[off + j] = add(mul(mk, sub(pv[k], pay)), mul(keep, ev[k]));
+    }
   }
 }
 
 template <typename T>
 static int launch_absmax(const void* x, void* part, void* out, int64_t m, int64_t n,
-                         int64_t nchunks, void* stream) {
-  if (!reduction_shape_ok(m, n, nchunks)) return (int)cudaErrorInvalidValue;
+                         int64_t nspans, void* stream) {
+  if (m < 1 || m > kMaxGridX || n < 1 || nspans != num_spans(n) || nspans > kMaxGridX)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  absmax_partials<T><<<dim3((unsigned)nchunks, (unsigned)m), kThreads, 0, s>>>(
-      (const T*)x, (T*)part, n, nchunks);
+  const dim3 grid((unsigned)nspans, worker_blocks(m));
+  constexpr int64_t per_vec = 16 / sizeof(T);
+  if (n % per_vec == 0 && aligned16(x)) {
+    absmax_vec_partials<T><<<grid, kThreads, 0, s>>>((const T*)x, (T*)part, m, n / per_vec,
+                                                    nspans);
+  } else {
+    absmax_partials<T><<<grid, kThreads, 0, s>>>((const T*)x, (T*)part, m, n, nspans);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  finish_partials<T, MaxOp><<<(unsigned)m, kThreads, 0, s>>>((const T*)part, (T*)out, nchunks,
-                                                             T(0));
+  absmax_finish<T><<<(unsigned)m, kThreads, 0, s>>>((const T*)part, (T*)out, nspans);
   return (int)cudaGetLastError();
 }
 
@@ -102,8 +196,8 @@ static int launch_quantize_ef(const void* p, const void* e, const void* mask, co
                               void* payload, void* new_e, int64_t m, int64_t n, void* stream) {
   if (!row_tiles_ok(m, n)) return (int)cudaErrorInvalidValue;
   quantize_ef_kernel<T><<<row_tiles(m, n), kThreads, 0, (cudaStream_t)stream>>>(
-          (const T*)p, (const T*)e, (const float*)mask, (const float*)scale, (T*)payload,
-          (T*)new_e, n);
+      (const T*)p, (const T*)e, (const float*)mask, (const float*)scale, (T*)payload,
+      (T*)new_e, m, n);
   return (int)cudaGetLastError();
 }
 

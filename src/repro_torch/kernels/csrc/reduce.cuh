@@ -6,6 +6,15 @@
 // (the build also passes -fmad=false). Block reductions run in a fixed
 // order: a shuffle tree inside each warp, then the warp results in warp
 // order. Nothing here uses atomics, so a launch is deterministic.
+//
+// Workers: the per-worker kernels put the worker on grid y, which holds at
+// most 65535 blocks. Their grid y is min(M, 65535) (worker_blocks), and a
+// block walks the workers w = blockIdx.y, blockIdx.y + gridDim.y, ...: a
+// worker's output comes from the same elements in the same order at any
+// M, so the bits do not depend on M, and any M runs. A reduction block
+// passes a barrier before its second worker (block_reduce's scratch is
+// reused), never after its last: a block that has one worker, as every
+// block has for M <= 65535, runs what it ran before the walk.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,16 +92,57 @@ finish_partials(const T* __restrict__ part, T* __restrict__ out, int64_t nchunks
 
 inline int64_t num_chunks(int64_t n) { return (n + kChunk - 1) / kChunk; }
 
-// The grid of a reduction: x walks the chunks, y the workers.
+constexpr int64_t kMaxGridX = 0x7fffffff;  // blocks of grid x
+constexpr int64_t kMaxGridY = 65535;       // blocks of grid y
+
+// Grid y of a per-worker kernel: its blocks walk the workers with a stride
+// of gridDim.y.
+inline unsigned worker_blocks(int64_t m) { return (unsigned)(m < kMaxGridY ? m : kMaxGridY); }
+
+// The grid of a reduction: x walks the chunks, y the workers; pass 2
+// (finish_partials) runs one block per worker on grid x.
 inline bool reduction_shape_ok(int64_t m, int64_t n, int64_t nchunks) {
-  return m >= 1 && m <= 65535 && n >= 1 && nchunks == num_chunks(n) && nchunks <= 0x7fffffff;
+  return m >= 1 && m <= kMaxGridX && n >= 1 && nchunks == num_chunks(n) && nchunks <= kMaxGridX;
 }
+
+inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// 16 bytes of one bank dtype, B9's arithmetic on each element of it, and
+// B7a's fold of their magnitudes
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  __device__ __forceinline__ static float4 zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ __forceinline__ static float4 advance(float4 h, float mk, float4 q) {
+    return make_float4(add(h.x, mul(mk, q.x)), add(h.y, mul(mk, q.y)), add(h.z, mul(mk, q.z)),
+                       add(h.w, mul(mk, q.w)));
+  }
+  __device__ __forceinline__ static float absmax(float am, float4 v) {
+    am = maxval(am, absval(v.x));
+    am = maxval(am, absval(v.y));
+    am = maxval(am, absval(v.z));
+    return maxval(am, absval(v.w));
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  __device__ __forceinline__ static double2 zero() { return make_double2(0.0, 0.0); }
+  __device__ __forceinline__ static double2 advance(double2 h, double mk, double2 q) {
+    return make_double2(add(h.x, mul(mk, q.x)), add(h.y, mul(mk, q.y)));
+  }
+  __device__ __forceinline__ static double absmax(double am, double2 v) {
+    return maxval(maxval(am, absval(v.x)), absval(v.y));
+  }
+};
 
 // Blocks of an elementwise pass: one thread per column, capped so the
 // grid stays inside gridDim.x (the kernels walk on with a grid stride).
 inline unsigned elementwise_blocks(int64_t n) {
   const int64_t b = (n + kThreads - 1) / kThreads;
-  return (unsigned)(b < 0x7fffffff ? b : 0x7fffffff);
+  return (unsigned)(b < kMaxGridX ? b : kMaxGridX);
 }
 
 // Elements of one worker row that one thread of a row-tiled elementwise
@@ -101,12 +151,13 @@ inline unsigned elementwise_blocks(int64_t n) {
 constexpr int kRowItems = 4;
 constexpr int64_t kRowTile = (int64_t)kThreads * kRowItems;
 
-// The grid of a row-tiled pass: x walks the tiles of a row, y the workers.
+// The grid of a row-tiled pass: x walks the tiles of a row, y the workers
+// (with a stride of gridDim.y).
 inline bool row_tiles_ok(int64_t m, int64_t n) {
-  return m >= 1 && m <= 65535 && n >= 1 && (n + kRowTile - 1) / kRowTile <= 0x7fffffff;
+  return m >= 1 && n >= 1 && (n + kRowTile - 1) / kRowTile <= kMaxGridX;
 }
 inline dim3 row_tiles(int64_t m, int64_t n) {
-  return dim3((unsigned)((n + kRowTile - 1) / kRowTile), (unsigned)m);
+  return dim3((unsigned)((n + kRowTile - 1) / kRowTile), worker_blocks(m));
 }
 
 }  // namespace repro

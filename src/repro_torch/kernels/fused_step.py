@@ -23,7 +23,7 @@ from . import ref
 from .build import REDUCE_CHUNK, launch
 from .censor import _ptr
 from .common import (check_bank, check_worker_vector, count_launch,
-                     on_card)
+                     grid_chunks, on_card)
 
 
 _FUSION_ENABLED = True
@@ -110,7 +110,7 @@ def int8_stats_batched(g: torch.Tensor, ghat: torch.Tensor,
                 torch.zeros((m,), dtype=ghat.dtype, device=g.device))
     if not on_card(name, g, ghat, err):
         return ref.int8_stats_batched(g, ghat, err)
-    nchunks = -(-n // REDUCE_CHUNK)
+    nchunks = grid_chunks(name, g.shape, n, REDUCE_CHUNK, m)
     sq_part = torch.empty((m, nchunks), dtype=torch.float32, device=g.device)
     am_part = torch.empty((m, nchunks), dtype=ghat.dtype, device=g.device)
     sq = torch.empty((m,), dtype=torch.float32, device=g.device)

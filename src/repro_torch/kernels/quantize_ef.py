@@ -13,16 +13,18 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .build import REDUCE_CHUNK, launch
+from .build import ABSMAX_SPAN, ROW_TILE, launch
 from .censor import _ptr
-from .common import check_leaves, check_worker_vector, count_launch, on_card
+from .common import (check_leaves, check_worker_vector, count_launch,
+                     grid_chunks, on_card)
 
 
 def absmax_batched(x: torch.Tensor) -> torch.Tensor:
     """(M,) ``max_j |x[m, j]|`` of one (M, ...) leaf, in ``x.dtype``.
 
     A NaN in a worker's row gives NaN, as ``torch.amax`` does; on the
-    same pending it equals B5's abs-max.
+    same pending it equals B5's abs-max. On the card, one partial per
+    ``ABSMAX_SPAN`` elements of a row, then one fold a worker.
     """
     name = "absmax_batched"
     suffix = check_leaves(name, x)
@@ -31,12 +33,12 @@ def absmax_batched(x: torch.Tensor) -> torch.Tensor:
         return torch.zeros((m,), dtype=x.dtype, device=x.device)
     if not on_card(name, x):
         return ref.absmax_batched(x)
-    nchunks = -(-n // REDUCE_CHUNK)
-    part = torch.empty((m, nchunks), dtype=x.dtype, device=x.device)
+    nspans = grid_chunks(name, x.shape, n, ABSMAX_SPAN, m)
+    part = torch.empty((m, nspans), dtype=x.dtype, device=x.device)
     out = torch.empty((m,), dtype=x.dtype, device=x.device)
     count_launch(name)
     launch("quantize_ef", f"{name}_{suffix}", x.device, _ptr(x), _ptr(part),
-           _ptr(out), m, n, nchunks)
+           _ptr(out), m, n, nspans)
     return out
 
 
@@ -61,6 +63,7 @@ def quantize_ef_batched(pending: torch.Tensor, err: torch.Tensor,
         return pending, torch.zeros_like(pending)
     if not on_card(name, pending, err, mask, scale):
         return ref.quantize_ef_batched(pending, err, mask, scale)
+    grid_chunks(name, pending.shape, n, ROW_TILE)
     payload = torch.empty_like(pending)
     new_err = torch.empty_like(pending)
     count_launch(name)

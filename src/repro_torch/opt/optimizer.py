@@ -237,11 +237,13 @@ class ComposedOptimizer:
             del pending
             agg = tree_sum_leading(new_ghat)
             new_params = self.apply_server(params, state.prev_params, agg)
-        if fused:
-            # the diagnostic is recomputed from the bank, as the JAX fused
-            # route does (the kernel's agg is the same left fold, bit for
-            # bit); the staged route's agg already is that fold
-            agg = tree_sum_leading(new_ghat)
+        # the fused routes keep the kernels' agg. The JAX fused route
+        # recomputes agg from the bank for its agg_grad_sqnorm diagnostic:
+        # XLA would fuse the sqnorm into the sliced kernel output and group
+        # its sum otherwise than over the host fold. Eager PyTorch runs one
+        # torch.sum on whichever buffer holds the values, and B2/B6 fold
+        # the workers left to right from ghat'_0, tree_sum_leading's fold
+        # bit for bit, so a recompute would only add M - 1 launches a leaf
         return self._finish(state, params, mask, dsq, ssq, new_ghat,
                             new_err, new_censor, agg, new_params)
 

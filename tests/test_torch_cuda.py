@@ -59,7 +59,8 @@ def _inputs(m, n, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
-@pytest.mark.parametrize("m,n", [(1, 1), (4, 4099), (9, 70001)])
+@pytest.mark.parametrize("m,n", [(1, 1), (4, 4099), (9, 70001), (65535, 33),
+                                 (65536, 2049), (70000, 2049)])
 def test_kernels_match_plain_versions(card, m, n, dtype):
     g, h, e, t, p, mask = _inputs(m, n, dtype, card)
     common.reset_launches()
@@ -151,6 +152,77 @@ def test_bank_advance_vector_and_scalar_paths(card, dtype, m, n, offset):
     for w in range(m):
         assert _same(censor.bank_advance(h[w:w + 1], q[w:w + 1],
                                          mask[w:w + 1]), out[w:w + 1])
+
+
+def _sample_workers(m):
+    """Every worker of a small M; past grid y's 65535 blocks, the first
+    and last worker of each block's walk and one between."""
+    if m <= 16:
+        return range(m)
+    return sorted({0, 1, m // 2, 65534, 65535, m - 1} & set(range(m)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("n,offset", [(36, 0), (33, 1)])
+def test_bank_advance_walks_any_m(card, dtype, n, offset):
+    """B9 past grid y's 65535 blocks (M = 70000) on its 16-byte path (n a
+    multiple of 4, aligned) and its element-wise path (a view one element
+    off alignment): bit for bit against ``ref.bank_advance``, and a
+    worker's M=1 call equals its row of the batched call."""
+    m = 70000
+    gen = torch.Generator(device=card).manual_seed(n + offset)
+    flat = torch.randn(2 * (offset + m * n), generator=gen, device=card,
+                       dtype=dtype)
+    h = flat[offset:offset + m * n].view(m, n)
+    q = flat[2 * offset + m * n:].view(m, n)
+    h[:, ::7] = -0.0
+    q[:, 3::11] = float("nan")
+    mask = torch.tensor([float(i % 3 != 1) for i in range(m)], device=card)
+    out = censor.bank_advance(h, q, mask)
+    assert _same(out, ref.bank_advance(h, q, mask))
+    for w in _sample_workers(m):
+        assert _same(censor.bank_advance(h[w:w + 1], q[w:w + 1],
+                                         mask[w:w + 1]), out[w:w + 1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n,offset", [
+    (1, 4096, 0), (4, 4096, 0), (9, 4096, 0), (4, 4099, 0), (9, 70001, 0),
+    (4, 4096, 1), (9, 4100, 1), (4, 2 ** 17 + 4, 0), (1, 1, 0), (1, 3, 1),
+    (70000, 36, 0), (70000, 33, 0), (70000, 36, 1)])
+def test_absmax_vector_and_scalar_paths(card, dtype, m, n, offset):
+    """B7a on its 16-byte path (n a multiple of the elements in 16 bytes,
+    an aligned leaf) and its element-wise path (odd n, or a view one
+    element off its storage's alignment), at M up to 70000 (past grid y's
+    65535 blocks), rows salted with -0.0, NaN and +-inf, one row all -0.0:
+    rows without a NaN bitwise equal to ``ref.absmax_batched`` (+0 for
+    the -0.0 row), NaN rows NaN, every row equal to B5's abs-max of the
+    same pending, and a worker's M=1 call equal to its batched entry."""
+    g, h, e, _, _, _ = _inputs(m, n, dtype, card)
+    g[:, ::5] = -0.0
+    h[:, ::5] = 0.0
+    e[:, ::5] = -0.0
+    g[1::4, 0] = float("inf")
+    g[1::4, n - 1] = float("-inf")
+    g[2::4, n // 2] = float("nan")
+    if m > 3:
+        g[3], h[3], e[3] = -0.0, 0.0, -0.0
+    pend = (g - h) + e
+    flat = torch.empty(offset + m * n, dtype=dtype, device=card)
+    x = flat[offset:].view(m, n)
+    x.copy_(pend)
+    common.reset_launches()
+    am = quantize_ef.absmax_batched(x)
+    assert common.LAUNCHES["absmax_batched"] == 1
+    want = ref.absmax_batched(pend)
+    assert _same_or_nan(am, want)
+    assert torch.equal(torch.isnan(am), torch.isnan(pend).any(dim=1))
+    if m > 3:
+        assert _bits(am[3]).item() == 0            # +0, not -0
+    assert _same_or_nan(am, fused_step.int8_stats_batched(g, h, e)[1])
+    for w in _sample_workers(m):
+        assert _same_or_nan(quantize_ef.absmax_batched(x[w:w + 1]),
+                            am[w:w + 1])
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])

@@ -43,8 +43,9 @@ from repro.kernels import lowrank_ef as j_lowrank
 from repro.kernels import ref as j_ref
 from repro.kernels import topk_pack as j_topk
 from repro_torch.core.quantize import int8_scale
-from repro_torch.kernels import (censor, common, fused_step, hb_update,
-                                 lowrank_ef, quantize_ef, topk_pack)
+from repro_torch.kernels import (build, censor, common, fused_step,
+                                 hb_update, lowrank_ef, quantize_ef,
+                                 topk_pack)
 from repro_torch.opt import GradientDescent, HeavyBall
 
 LEAVES = [(20,), (3, 50), (300, 129)]
@@ -342,3 +343,29 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="one dtype"):
         quantize_ef.quantize_ef_batched(g, e.double(), mask,
                                         torch.ones(2))
+
+
+@pytest.mark.parametrize("shape,span,m,blocks", [
+    ((4, 163_597_056), build.REDUCE_CHUNK, 4, 79_882),
+    ((4, 163_597_056), build.ABSMAX_SPAN, 4, 4_993),
+    ((100_000, 16), build.REDUCE_CHUNK, 100_000, 1),
+    ((10 ** 6, 16), build.ROW_TILE, 1, 1)])
+def test_grid_chunks_of_the_main_shapes(shape, span, m, blocks):
+    """Grid x of the seven per-worker kernels at chb-paper-lm-124m's width
+    and at the fed-mesh's client counts (the worker walks grid y)."""
+    assert common.grid_chunks("k", shape, shape[1], span, m) == blocks
+
+
+@pytest.mark.parametrize("shape,span,m", [
+    ((2, 2 ** 31 * build.REDUCE_CHUNK), build.REDUCE_CHUNK, 2),
+    ((2 ** 31, 16), build.REDUCE_CHUNK, 2 ** 31),
+    ((3, 2 ** 31 * build.ROW_TILE + 1), build.ROW_TILE, 1)])
+def test_grid_chunks_name_the_limit_and_the_shape(shape, span, m):
+    """What one launch cannot hold raises in the wrapper, naming the
+    limit and the shape, before the launcher's bare ``invalid
+    argument``: more than 2^31 - 1 blocks of a row, or more workers than
+    pass 2's one block each."""
+    with pytest.raises(ValueError, match=r"2\^31 - 1") as err:
+        common.grid_chunks("sqnorm_batched", shape, shape[1], span, m)
+    assert f"{tuple(shape)}" in str(err.value)
+    assert "sqnorm_batched" in str(err.value)
