@@ -6,6 +6,8 @@ card.
         [--transport dense int8 topk lowrank dense_staged int8_staged
          per_tensor]
     python3 benchmarks_torch/step_profile.py --serve default long [--iters 5]
+    python3 benchmarks_torch/step_profile.py --edge chb chb_int8 csgd \
+        [--iters 5]
 
 Builds the full-width task of ``chip_smoke.py``'s phase 5 (edge quadratics
 at the parameter count of ``chb-paper-lm-124m``, M=4, f32, chb with
@@ -20,11 +22,16 @@ kernel name, the window's wall time (CUDA events), the device's busy time
 (the sum of its kernels and copies) and its idle share (1 - busy / wall).
 With ``--serve``, it profiles chb-paper-lm-124m at full width instead,
 at ``chip_smoke.py``'s serving shapes (default: batch 4, prompt 64; long:
-batch 8, prompt 2048), with random weights from a seeded generator: after
+batch 8, prompt 2048), with the JAX package's PRNGKey(0) weights: after
 a warm-up prefill and step, one traced prefill, then ``--iters`` traced
 decode steps, each window on the cuda and the reference backend, one JSON
 line each (idle share and top device ops: whether B13, the LM head or the
 weight reads set a decode step's pace).
+With ``--edge``, it profiles ``fed.run_edge`` at phase 5's width on the
+paths of ``chip_smoke.py``'s phase edge: after a warm-up run of 2 rounds,
+``--iters`` traced rounds under ``sync_config(m)`` and under the phase's
+deployment scenario, each on the cuda and the reference backend, one
+JSON line each.
 Needs a CUDA card and fails without one; it fails too if the trace shows
 no device time.
 """
@@ -50,7 +57,8 @@ from repro_torch.data import edge_tasks  # noqa: E402
 from repro_torch.kernels import fused_step  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
-from chip_smoke import FULL_RANK, LM_ARCH, SERVE_RUNS, lm_tree_task  # noqa: E402
+from chip_smoke import (EDGE_PATHS, FULL_ALPHA, FULL_RANK, LM_ARCH,  # noqa: E402
+                        SERVE_RUNS, edge_scenario, lm_tree_task)
 
 TRANSPORTS = ("dense", "int8", "topk", "lowrank", "dense_staged",
               "int8_staged", "per_tensor")
@@ -124,13 +132,13 @@ def profile_serve(kind: str, iters: int) -> list:
     from repro_torch.configs import get
     from repro_torch.launch.serve import full_f32, prompts_of
     from repro_torch.models import model
+    from repro_torch.random import PRNGKey
     full_f32()
     shape = SERVE_RUNS[f"serve_{kind}"]
     b, l = shape["batch"], shape["prompt"]
     cache_len = l + max(shape["gen"], iters + 2) + 1
     cfg = get(LM_ARCH)
-    params = model.init_params(
-        torch.Generator(device="cuda").manual_seed(0), cfg)
+    params = model.init_params(PRNGKey(0, device="cuda"), cfg)
     prompts = prompts_of(cfg, b, l, "cuda")
     out = []
     for backend in ("cuda", "reference"):
@@ -165,6 +173,37 @@ def profile_serve(kind: str, iters: int) -> list:
     return out
 
 
+def profile_edge(task, path: str, iters: int) -> list:
+    """``iters`` traced rounds of ``fed.run_edge`` on one EDGE_PATHS path,
+    under ``sync_config`` and the deployment scenario, on each backend."""
+    from repro_torch import fed
+    algo, kw = EDGE_PATHS[path]
+    m = task.worker_data[0].shape[0]
+    out = []
+    for scenario, edge in (("sync", fed.sync_config(m)),
+                           ("deployment", edge_scenario())):
+        for backend in ("cuda", "reference"):
+            o = opt.make(algo, FULL_ALPHA, m, backend=backend, **kw)
+            fed.run_edge(o, task, edge, 2)                 # warm-up
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                start.record()
+                hist = fed.run_edge(o, task, edge, iters)
+                end.record()
+                torch.cuda.synchronize()
+            d = hist.stats.as_dict()
+            out.append(_summary(prof, start.elapsed_time(end), iters,
+                                edge=path, scenario=scenario,
+                                backend=backend,
+                                client_evals=d["uplinks"] + d["censored"]))
+            del hist
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--d", type=int, default=163_597_056)
@@ -177,6 +216,8 @@ def main() -> None:
                     "--d")
     ap.add_argument("--serve", nargs="+", choices=("default", "long"),
                     help="profile serving chb-paper-lm-124m instead")
+    ap.add_argument("--edge", nargs="+", choices=tuple(EDGE_PATHS),
+                    help="profile fed.run_edge's rounds instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: needs a CUDA card")
@@ -191,6 +232,11 @@ def main() -> None:
                                            dtype=torch.float32)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "d": args.d, "m": args.m}), flush=True)
+    if args.edge:
+        for path in args.edge:
+            for row in profile_edge(task, path, args.iters):
+                print(json.dumps(row), flush=True)
+        return
     for transport in args.transport:
         run_task = lm_tree_task(task) if transport in TREE_PATHS else task
         for backend in ("cuda", "reference"):

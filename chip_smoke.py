@@ -35,8 +35,10 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  int8, top-k (k=8) and low-rank (rank 2), f64 and f32,
                  kernel backend against reference backend, f64 uploads
                  against the JAX package's; at f64 also dense and int8
-                 under ``force_staged()`` (against the fused route), and
-                 per_tensor granularity and the adaptive censor for 80.
+                 under ``force_staged()`` (against the fused route),
+                 per_tensor granularity and the adaptive censor for 80,
+                 and csgd, whose uploads, masks and objective are the JAX
+                 package's (GOLDEN_CSGD).
   5. full     -- each path at the width of ``chb-paper-lm-124m``
                  (163,597,056 f32 parameters, M=4 workers), 20 iterations:
                  dense, int8 and top-k on one leaf, low-rank on the model's
@@ -51,9 +53,20 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  folds in Python), 3 iterations: cuda against reference
                  bit for bit, the launch counts read per path, each
                  path's median step ms.
+  edge        -- ``fed.run_edge`` at phase 5's width (M = 4, one leaf of
+                 163,597,056 f32), chb dense and int8 and csgd, 10 rounds
+                 each: (a) under ``sync_config(4)`` it equals
+                 ``simulator.run`` on the card bit for bit; (b) a
+                 deployment (one 12x straggler, availability 0.8, 15%
+                 loss, quorum 3/4) gives the same masks, counters, wall
+                 clock, energy and theta on both backends; (c) B8's M = 1
+                 row equals the batched slice; (d) B8 launches once per
+                 client evaluation, B3 once per round, nothing else. Also
+                 the JAX PRNG's draws on the card against the CPU's. Ms a
+                 round and client evaluations a second.
   serve       -- ``launch.serve.generate`` of chb-paper-lm-124m at full
-                 width (163,597,056 f32 parameters, random weights from a
-                 seeded generator), serve_default (batch 4, prompt 64, gen
+                 width (163,597,056 f32 parameters, the JAX package's
+                 ``init_params(PRNGKey(0))`` weights), serve_default (batch 4, prompt 64, gen
                  32) and serve_long (batch 8, prompt 2048, gen 32): the
                  cuda backend teacher-forced with the reference backend's
                  tokens, logits within SERVE_LOGIT_TOL and argmax equal
@@ -87,12 +100,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import repro_torch  # noqa: E402,F401  (fails at once outside a checkout)
 from repro_torch.configs import get as get_config  # noqa: E402
 from repro_torch.convert import named_leaves  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.random import PRNGKey  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 LM_ARCH = "chb-paper-lm-124m"
@@ -100,7 +115,7 @@ LM_ARCH = "chb-paper-lm-124m"
 # init_params on the meta device (shapes only): the tree the low-rank and
 # per_tensor paths run on, and the width of the full-width phase
 LM_LEAVES = {name: tuple(x.shape) for name, x in named_leaves(init_params(
-    torch.Generator(), get_config(LM_ARCH), device="meta")).items()}
+    PRNGKey(0, device="cpu"), get_config(LM_ARCH), device="meta")).items()}
 
 # full-width configuration: the parameter count of configs/chb_paper_lm.py
 # (chb-paper-lm-124m), M = TrainConfig.num_workers' default, and the
@@ -156,6 +171,34 @@ GOLDEN_KW = {"dense": {}, "int8": {"quantize": "int8"},
 # with the hb server (tests/test_opt.py's pre-redesign pins)
 GOLDEN_F64_80 = {"per_tensor": 339, "adaptive": 83}
 GOLDEN_ADAPTIVE = 0.25
+# csgd (tau0 0.05, decay 0.99, seed 0) on the same task, 60 iterations at
+# f64: the JAX package's uploads, each iteration's mask as a bit row (bit w
+# = worker w transmitted) and final objective. Every decision clears its
+# threshold u * tau_k by more than CSGD_MIN_MARGIN of it (the uniforms are
+# the JAX PRNG's, bit for bit). tests/test_torch_fed.py recomputes them
+# with the JAX package:
+#   PYTHONPATH=src python -m pytest -q tests/test_torch_fed.py -k pins
+GOLDEN_CSGD_TAU0 = 0.05
+GOLDEN_CSGD = (59, [31, 31, 28, 31, 28, 16, 13, 16, 14, 0, 1, 24, 0, 0, 6,
+                    8, 0, 0, 0, 0, 2, 9, 0, 4, 0, 0, 16, 0, 4, 16, 0, 0, 0,
+                    0, 16, 8, 0, 16, 0, 8, 0, 0, 20, 0, 24, 2, 0, 0, 24, 0,
+                    16, 4, 0, 0, 16, 0, 0, 16, 16, 4],
+               float.fromhex("0x1.107b06c911d37p+6"))
+CSGD_MIN_MARGIN = 1e-3
+
+# phase edge: fed.run_edge at the full width of phase 5 (M = 4 clients,
+# one f32 leaf of 163,597,056), chb dense and int8 at phase 5's alpha and
+# eps1, and csgd (tau0 5 per parameter: a mix of sends and skips on this
+# task), EDGE_ROUNDS server rounds each. The deployment scenario is
+# examples/edge_deployment.py's cut to 4 clients: one 12x straggler,
+# availability 0.8, 15% loss at 1 Mbps, a quorum of 3 of 4, seed 0.
+EDGE_ROUNDS = 10
+# the ulps by which the port's normal draws may differ from JAX's on the
+# CPU (tests/test_torch_random.py)
+NORMAL_MAX_ULP = 3
+EDGE_PATHS = {"chb": ("chb", {"eps1": 4.0}),
+              "chb_int8": ("chb", {"eps1": 4.0, "quantize": "int8"}),
+              "csgd": ("csgd", {"tau0": 5.0 * 163_597_056})}
 
 # top-k keeps 40% of the entries: the repo's density rule (2*d)//5 of
 # benchmarks/common.py's task-scaled top-k curve
@@ -250,7 +293,8 @@ ATTN_FACTOR = 4.0
 ATTN_FLOOR = 1e-6
 
 # serving at full width: chb-paper-lm-124m (12 layers, d 768, 12/12 heads,
-# hd 64, vocab 32,768), weights from init_params with a seeded generator.
+# hd 64, vocab 32,768), weights from init_params(PRNGKey(0)), the JAX
+# package's launch.serve weights.
 # serve_default is launch/serve.py's defaults; serve_long a 2048-token
 # prompt, whose decode steps read 12 x 102 MB of KV cache through B13 (more
 # than the 0.65 GB of weights). The cache holds prompt + gen + 1 slots.
@@ -1133,7 +1177,45 @@ def phase_golden(device) -> None:
         out[kind] = {"f64_comm_cum": sent,
                      "uplink_bytes": hk.final_state.comm.uplink_bytes_exact(),
                      "f64_objective": float(hk.objective[-1])}
+    out["csgd"] = golden_csgd(device, task64, bundle.alpha_paper)
     emit({"phase": "golden", **out})
+
+
+def golden_csgd(device, task64, alpha) -> dict:
+    """csgd on the golden task at f64 on both backends: the JAX package's
+    uploads, masks and objective (GOLDEN_CSGD)."""
+    from repro_torch import opt
+    from repro_torch.core import simulator
+    hk, hr = (simulator.run(opt.make("csgd", alpha, 5, tau0=GOLDEN_CSGD_TAU0,
+                                     backend=b), task64, 60, device=device)
+              for b in ("cuda", "reference"))
+    check(same_run(hk, hr), "golden csgd f64: backends differ")
+    sent, rows, obj = GOLDEN_CSGD
+    got_rows = [int(sum(int(v) << w for w, v in enumerate(r)))
+                for r in hk.mask.cpu().tolist()]
+    check(int(hk.comm_cum[-1]) == sent and got_rows == rows,
+          f"golden csgd f64: {int(hk.comm_cum[-1])} uploads, masks "
+          f"{got_rows}; the JAX package gives {sent}, {rows}")
+    check(abs(float(hk.objective[-1]) - obj) <= 1e-9 * obj,
+          f"golden csgd f64: objective {float(hk.objective[-1])!r}")
+    return {"f64_comm_cum": sent, "masks_equal_jax": True,
+            "f64_objective": float(hk.objective[-1])}
+
+
+def same_edge_anchor(edge, hist) -> bool:
+    """``run_edge(sync_config)`` against ``simulator.run``: objective,
+    comm_cum, masks, theta and the bank, bit for bit."""
+    return (torch.equal(torch.from_numpy(edge.objective),
+                        hist.objective.cpu().to(torch.float64))
+            and torch.equal(torch.from_numpy(edge.comm_cum),
+                            hist.comm_cum.cpu().to(torch.int64))
+            and torch.equal(torch.from_numpy(edge.mask).to(torch.float32),
+                            hist.mask.cpu())
+            and all(same_bits(a, b) for a, b in zip(
+                tree_leaves(edge.final_params), tree_leaves(hist.final_params)))
+            and all(same_bits(a, b) for a, b in zip(
+                tree_leaves(edge.final_bank),
+                tree_leaves(hist.final_state.ghat))))
 
 
 # ------------------------------------------------------------ phase 5
@@ -1448,6 +1530,180 @@ def phase_many_workers() -> dict:
     return launches
 
 
+# --------------------------------------------------------- phase edge
+class RoundClock:
+    """Wraps a task's loss_fn, which ``run_edge`` and ``simulator.run``
+    call once a round (the objective), to time the rounds on the host
+    clock after a synchronize. The wrapper closes over the stamps, not
+    the clock: a bound method in ``self.task`` would be a reference cycle
+    holding the task's tensors on the card until the cyclic collector
+    ran."""
+
+    def __init__(self, task):
+        stamps = self.stamps = []
+        loss = task.loss_fn
+
+        def loss_fn(params, data):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return loss(params, data)
+        self.task = task._replace(loss_fn=loss_fn)
+
+    def median_ms(self) -> float:
+        """The median round after the first (which builds and warms)."""
+        gaps = [b - a for a, b in zip(self.stamps[1:], self.stamps[2:])]
+        return statistics.median(gaps) * 1e3
+
+
+def edge_scenario():
+    """examples/edge_deployment.py's deployment cut to FULL_M clients."""
+    from repro_torch import fed
+    return fed.EdgeConfig(
+        population=fed.straggler_population(
+            FULL_M, compute_mean_s=1.0, straggler_frac=1 / FULL_M,
+            straggler_slowdown=12.0, jitter="exp", availability="bernoulli",
+            avail_p=0.8, seed=0),
+        channel=fed.ChannelConfig.lossy(0.15, uplink_rate_bps=1e6),
+        quorum=3 / FULL_M, seed=0)
+
+
+def _edge_run(o, task, edge, device):
+    """One timed ``run_edge`` with its launch counts."""
+    from repro_torch import fed
+    from repro_torch.kernels import common
+    clock = RoundClock(task)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t = time.perf_counter()
+    hist = fed.run_edge(o, clock.task, edge, EDGE_ROUNDS, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    d = hist.stats.as_dict()
+    evals = d["uplinks"] + d["censored"]
+    return hist, {"ms_per_round": clock.median_ms(), "wall_s": wall,
+                  "client_evals": evals, "evals_per_s": evals / wall,
+                  "launches": dict(common.LAUNCHES)}
+
+
+def _want_edge_launches(evals: int, leaves: int) -> dict:
+    """B8 once per leaf per client evaluation, B3 once per leaf per round,
+    nothing else (the row transports are plain PyTorch)."""
+    from repro_torch.kernels import common
+    return {name: {"sqnorm_batched": leaves * evals,
+                   "hb_update": leaves * EDGE_ROUNDS}.get(name, 0)
+            for name in common.KERNELS}
+
+
+def _prng_on_card(device) -> dict:
+    """The JAX PRNG's draws on the card against the same draws on the CPU:
+    uniforms bit for bit; normals within 2 * NORMAL_MAX_ULP (the CPU port's
+    bound against XLA; the card's f64 log may differ from the CPU's in the
+    last bit as PyTorch's CPU one does from XLA's)."""
+    from repro_torch import random as jrandom
+    out = {}
+    for dtype, itype in ((torch.float32, torch.int32),
+                         (torch.float64, torch.int64)):
+        name = str(dtype).removeprefix("torch.")
+        for draw in ("uniform", "normal"):
+            fn = getattr(jrandom, draw)
+            k, c = (fn(jrandom.PRNGKey(3, device=dev), (1 << 20,), dtype)
+                    for dev in (device, "cpu"))
+            ulp = (k.cpu().view(itype).to(torch.int64)
+                   - c.view(itype).to(torch.int64)).abs()
+            limit = 0 if draw == "uniform" else 2 * NORMAL_MAX_ULP
+            check(int(ulp.max()) <= limit, f"edge prng: {draw} {name} on "
+                  f"the card is {int(ulp.max())} ulps from the CPU's")
+            out[f"{draw}_{name}_differ"] = int((ulp > 0).sum())
+            out[f"{draw}_{name}_max_ulp"] = int(ulp.max())
+    return out
+
+
+def phase_edge(device) -> dict:
+    """``fed.run_edge`` at full width (EDGE_PATHS): (a) the sync anchor
+    against ``simulator.run`` on cuda, bit for bit; (b) the deployment
+    scenario on cuda against reference, bit for bit; (c) B8's M = 1 row
+    against the batched slice; (d) the launch counts. Returns each cuda
+    ``run_edge``'s launch counts (keys ``edge_*``)."""
+    from repro_torch import fed, opt
+    from repro_torch.core import simulator
+    from repro_torch.data import edge_tasks
+    from repro_torch.kernels import censor
+    t0 = time.perf_counter()
+    # (c) first: its launches are comparisons, not the path's
+    gen = torch.Generator(device=device).manual_seed(23)
+    x = torch.randn((FULL_M, FULL_D), generator=gen, device=device)
+    batched = censor.sqnorm_batched(x)
+    for i in range(FULL_M):
+        check(same_bits(censor.sqnorm_batched(x[i][None]), batched[i:i + 1]),
+              f"edge: B8's row of worker {i} differs from the batched slice")
+    del x, batched
+    prng = _prng_on_card(device)
+    task = edge_tasks.make_edge_quadratics(m=FULL_M, d=FULL_D, seed=0,
+                                           dtype=torch.float32, device=device)
+    leaves = len(tree_leaves(task.init_params))
+    summary, launches = {"prng": prng}, {}
+    for path, (algo, kw) in EDGE_PATHS.items():
+        mk = {b: opt.make(algo, FULL_ALPHA, FULL_M, backend=b, **kw)
+              for b in ("cuda", "reference")}
+        # (a) the sync anchor on the card
+        sim_clock = RoundClock(task)
+        sim = simulator.run(mk["cuda"], sim_clock.task, EDGE_ROUNDS,
+                            device=device)
+        sync, sync_t = _edge_run(mk["cuda"], task, fed.sync_config(FULL_M),
+                                 device)
+        check(same_edge_anchor(sync, sim), f"edge {path}: run_edge("
+              "sync_config) differs from simulator.run on the card")
+        check(sync_t["launches"] == _want_edge_launches(
+            sync_t["client_evals"], leaves),
+            f"edge {path} sync: launches {sync_t['launches']}")
+        del sim, sync
+        torch.cuda.empty_cache()
+        # (b) the deployment on both backends
+        runs = {b: _edge_run(mk[b], task, edge_scenario(), device)
+                for b in ("cuda", "reference")}
+        (hk, tk), (hr, tr) = runs["cuda"], runs["reference"]
+        for f in ("mask", "comm_cum", "bytes_cum", "energy_cum",
+                  "wall_clock"):
+            check(np.array_equal(getattr(hk, f), getattr(hr, f)),
+                  f"edge {path}: {f} differs between backends")
+        check(hk.stats.as_dict() == hr.stats.as_dict(),
+              f"edge {path}: the deployment accounting differs")
+        check(all(same_bits(a, b) for a, b in zip(
+            tree_leaves(hk.final_params), tree_leaves(hr.final_params))),
+            f"edge {path}: final theta differs between backends")
+        check(bool(np.isfinite(hk.objective).all()),
+              f"edge {path}: objective is not finite")
+        check(tk["launches"] == _want_edge_launches(tk["client_evals"],
+                                                    leaves),
+              f"edge {path}: launches {tk['launches']}")
+        check(not any(tr["launches"].values()),
+              f"edge {path}: the reference backend launched a kernel")
+        check(int(hk.comm_cum[-1]) > 0, f"edge {path}: no uploads")
+        launches[f"edge_sync_{path}"] = sync_t.pop("launches")
+        launches[f"edge_{path}"] = tk.pop("launches")
+        tr.pop("launches")
+        d = hk.stats.as_dict()
+        summary[path] = {
+            "sync": {"ms_per_round_cuda": sync_t["ms_per_round"],
+                     "simulator_ms_per_iter_cuda": sim_clock.median_ms(),
+                     "evals_per_s_cuda": sync_t["evals_per_s"],
+                     "bitwise": True},
+            "deployment": {"cuda": tk, "reference": tr,
+                           "uploads": d["uplinks"], "dropped": d["dropped"],
+                           "censored": d["censored"],
+                           "stale_folds": d["stale_folds"],
+                           "wall_clock_s": d["wall_clock_s"],
+                           "bitwise": True}}
+        del runs, hk, hr
+        torch.cuda.empty_cache()
+    del task
+    torch.cuda.empty_cache()
+    emit({"phase": "edge", "d": FULL_D, "m": FULL_M, "rounds": EDGE_ROUNDS,
+          "dtype": "float32", **summary,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 # ------------------------------------------------------- phase serve
 def _gap(logits: torch.Tensor) -> torch.Tensor:
     """Each row's top-2 gap."""
@@ -1463,7 +1719,8 @@ def phase_serve(device) -> dict:
     from repro_torch.kernels import common
     from repro_torch.launch import serve
     cfg = get_config(LM_ARCH)
-    params = init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    # the JAX package's launch.serve weights: init_params(PRNGKey(0), cfg)
+    params = init_params(PRNGKey(0, device=device), cfg)
     n_params = sum(x.numel() for x in tree_leaves(params))
     check(n_params == FULL_D == 163_597_056,
           f"serve: {n_params} parameters")
@@ -1838,6 +2095,7 @@ def main() -> None:
     phase_golden(dev)
     launches = phase_full()
     launches.update(phase_many_workers())
+    launches.update(phase_edge(dev))
     launches.update(phase_serve(dev))
     phase_pin(dev)
     launches["ops"] = phase_ops(dev)

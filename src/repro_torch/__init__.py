@@ -1,10 +1,13 @@
 """repro_torch: the CHB federated-optimization core in PyTorch, for CUDA.
 
 The package mirrors ``repro``'s layout (``core/``, ``data/``, ``opt/``,
-``kernels/``) so every module has a counterpart of the same name. It runs
-Algorithm 1 (``core.simulator.run`` -> ``opt.ComposedOptimizer.step``) on
-an NVIDIA Hopper card through hand-written CUDA kernels
-(``kernels/csrc/``), with a plain PyTorch version beside each kernel.
+``fed/``, ``kernels/``, ``models/``, ...) so every module has a
+counterpart of the same name; ``random`` is the part of ``jax.random``
+the package draws from, bit for bit. It runs Algorithm 1
+(``core.simulator.run`` -> ``opt.ComposedOptimizer.step``) and the
+event-driven edge runtime (``fed.run_edge``) on an NVIDIA Hopper card
+through hand-written CUDA kernels (``kernels/csrc/``), with a plain
+PyTorch version beside each kernel.
 
 Device rule: every entry point takes ``device=None``, which resolves to
 ``cuda`` and raises ``RuntimeError`` when no card is present (see

@@ -3,7 +3,9 @@
 The JAX package's parameters and ``OptState``, given as numpy arrays (for
 example ``jax.tree_util.tree_map(np.asarray, state)``), become this
 package's tensors on a given device, so both packages can step from one
-state. :func:`to_numpy` goes the other way for comparisons.
+state. :func:`to_numpy` goes the other way for comparisons;
+:func:`prng_key` carries a JAX PRNG key across and :func:`edge_history`
+takes an ``EdgeHistory`` of either package to numpy.
 :func:`model_params` carries a JAX model's weights across, checked against
 this package's parameter tree, and :func:`numpy_model_params` makes one
 set of weights from a numpy seed that both packages can load.
@@ -42,6 +44,25 @@ def opt_state(state, device) -> OptState:
                     censor=params(state.censor, device))
 
 
+def prng_key(key_data, device) -> torch.Tensor:
+    """A JAX key's ``key_data`` (a (..., 2) uint32 array) as this package's
+    key (``repro_torch.random``): the same words in int64."""
+    return torch.tensor(np.asarray(key_data).astype(np.int64), device=device)
+
+
+def edge_history(hist) -> dict:
+    """The numpy fields of an ``EdgeHistory`` (either package's), theta as
+    numpy, and ``stats.as_dict()``: what two runs are compared on."""
+    out = {f: np.asarray(getattr(hist, f))
+           for f in ("objective", "comm_cum", "mask", "agg_grad_sqnorm",
+                     "wall_clock", "energy_cum", "bytes_cum")}
+    out["final_params"] = tree_map(
+        lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+        else np.asarray(t), hist.final_params)
+    out["stats"] = hist.stats.as_dict()
+    return out
+
+
 def to_numpy(tree):
     """A tree of tensors as numpy arrays on the host."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
@@ -59,7 +80,9 @@ def named_leaves(tree, prefix: str = "") -> dict:
 
 def _model_shapes(cfg) -> dict:
     from .models.model import init_params
-    return named_leaves(init_params(torch.Generator(), cfg, device="meta"))
+    from .random import PRNGKey
+    return named_leaves(init_params(PRNGKey(0, device="cpu"), cfg,
+                                    device="meta"))
 
 
 def model_params(tree, cfg, device) -> dict:

@@ -41,6 +41,12 @@ def quantize_roundtrip(x: torch.Tensor) -> torch.Tensor:
     return dequantize_int8(q, s, x.dtype)
 
 
+def tree_quantize_roundtrip(tree):
+    """Int8 round trip of each leaf with its own scale (one worker's row:
+    the row form of :func:`tree_quantize_roundtrip_per_worker`)."""
+    return tree_map(quantize_roundtrip, tree)
+
+
 def _roundtrip_per_worker(x: torch.Tensor) -> torch.Tensor:
     """Int8 round trip of each worker slice of a leading-M leaf, with one
     scale per worker (the batched form of ``quantize_roundtrip``)."""

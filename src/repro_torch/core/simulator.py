@@ -17,7 +17,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..device import resolve_device
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map
 
 
 class FedTask(NamedTuple):
@@ -102,6 +102,24 @@ def run(opt, task: FedTask, num_iters: int, device=None) -> History:
     if num_iters < 1:
         raise ValueError("num_iters must be >= 1")
     return trajectory(opt, task_to(task, dev), num_iters)
+
+
+def estimate_fstar(task: FedTask, alpha: float, num_iters: int = 20000,
+                   beta: float = 0.9, device=None) -> torch.Tensor:
+    """Estimate f(theta^*) by running uncensored heavy ball to convergence:
+    the min of the recorded objective and the final loss (a 0-d tensor)."""
+    from ..opt.censor import NeverCensor
+    from ..opt.optimizer import ComposedOptimizer
+    from ..opt.server import HeavyBall
+    from ..opt.transport import DenseTransport
+    m = tree_leaves(task.worker_data)[0].shape[0]
+    opt = ComposedOptimizer(censor=NeverCensor(), transport=DenseTransport(),
+                            server=HeavyBall(alpha, beta), num_workers=m)
+    dev = resolve_device(device)
+    task = task_to(task, dev)
+    hist = trajectory(opt, task, num_iters)
+    return torch.minimum(torch.min(hist.objective),
+                         global_loss(task, hist.final_params))
 
 
 def iterations_to_accuracy(history: History, fstar, tol: float) -> int:

@@ -1,5 +1,6 @@
 """Tree-level dispatch onto the kernels (port of ``repro/kernels/ops.py``'s
-``tree_delta_sqnorms``, ``tree_sqnorms``, ``tree_censor_bank_advance``,
+``tree_delta_sqnorms``, ``tree_sqnorms``, ``tree_sqnorm_row``,
+``tree_censor_bank_advance``,
 ``tree_bank_advance``, ``tree_int8_roundtrip_ef``, ``tree_topk_pack_ef``,
 ``tree_residual_ef``, ``tree_fused_dense_step``, ``tree_int8_stats``,
 ``tree_fused_int8_step`` and ``tree_hb_update``): what the
@@ -47,6 +48,19 @@ def tree_sqnorms(pending) -> torch.Tensor:
     for x in leaves:
         acc = acc + censor.sqnorm_batched(x)
     return acc
+
+
+def tree_sqnorm_row(pending_row) -> torch.Tensor:
+    """One worker's () f32 ||x||^2 (the ``fed.runner`` entry point): B8 at
+    M = 1 per leaf, summed leaf by leaf in tree order. A worker's B8 output
+    comes from the same elements in the same order at any M, so the row
+    equals the batched step's slice bit for bit, and so does the censor
+    decision."""
+    leaves = tree_leaves(pending_row)
+    acc = torch.zeros((1,), dtype=torch.float32, device=leaves[0].device)
+    for x in leaves:
+        acc = acc + censor.sqnorm_batched(x[None])
+    return acc[0]
 
 
 def tree_censor_bank_advance(grads, bank, mask):

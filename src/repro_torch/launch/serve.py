@@ -9,10 +9,9 @@ A port of ``repro/launch/serve.py``: the same flags, plus ``--device``
 CPU) and ``--seed``. Decoding is greedy argmax, as in the JAX package,
 which reads ``--temperature`` and ignores it; so does this one. The
 prompts are the JAX package's (``MarkovLM(vocab, seed=0)`` sampled with
-``numpy.random.default_rng(0)``), but the weights come from
-``models.model.init_params`` with a torch generator seeded by ``--seed``,
-so they are not the JAX package's ``PRNGKey(0)`` weights and the generated
-text differs; the same text waits for the JAX PRNG (ROADMAP.md A5).
+``numpy.random.default_rng(0)``) and the weights are its
+``init_params(PRNGKey(0), cfg)`` weights (``--seed`` picks another key),
+drawn through the port of the JAX PRNG (``repro_torch.random``).
 
 On the card, prefill runs each layer's attention through B14 and every
 decode step through B13; f32 matmuls run in full f32, never TF32.
@@ -26,6 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import random as jrandom
 from ..configs import get
 from ..data.lm_data import MarkovLM
 from ..device import resolve_device
@@ -112,7 +112,7 @@ def main(argv=None) -> Generation:
                     help="read and ignored, as in the JAX package: decoding "
                     "is greedy argmax")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the torch generator of the weights")
+                    help="the weights' PRNGKey seed (the JAX package's 0)")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one)")
     args = ap.parse_args(argv)
@@ -125,8 +125,8 @@ def main(argv=None) -> Generation:
     if device.type == "cuda":       # compile the kernels before the clock
         for name in ("flash_attention", "decode_attention"):
             build.library(name)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init_params(gen, cfg)
+    params = model.init_params(jrandom.PRNGKey(args.seed, device=device),
+                               cfg)
     prompts = prompts_of(cfg, args.batch, args.prompt_len, device)
     out = generate(params, cfg, prompts, args.gen, device=device)
     wall = (out.prefill_ms + sum(out.step_ms)) / 1e3

@@ -3,8 +3,9 @@
 A port of ``repro/models/layers.py`` without its cross-attention (which
 waits for the frontends, ROADMAP.md A13) and without the sharding hints of
 ``models/tuning.py``, which are off by default and add no arithmetic.
-``init_*`` build a parameter dict from an explicit ``torch.Generator`` (on
-the device the tensors go to), the other functions apply one. Parameters
+``init_*`` build a parameter dict from a JAX PRNG key
+(``repro_torch.random``), splitting it as the JAX package does, so the
+weights are the JAX package's; the other functions apply one. Parameters
 and activations stay in the config's dtype; softmax and norm statistics
 run in f32.
 
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import random as jrandom
 from ..configs.base import ModelConfig
 from ..kernels import decode_attention as decode_kernel
 from ..kernels import ops, ref
@@ -34,13 +36,14 @@ def check_backend(backend: str) -> None:
                          f"{backend!r}")
 
 
-def init_normal(gen: torch.Generator, shape, std: float, dtype, device
-            ) -> torch.Tensor:
-    """``normal(shape) * std`` drawn in f32, cast to ``dtype``; on the meta
-    device only the shape."""
+def init_normal(key: torch.Tensor, shape, std: float, dtype, device
+                ) -> torch.Tensor:
+    """``(normal(key, shape) * std).astype(dtype)`` as the JAX package's
+    ``launch.serve`` draws it (without x64: f32 normals), on ``device``;
+    on the meta device only the shape."""
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    x = jrandom.normal(key.to(device), shape, torch.float32)
     return (x * std).to(dtype)
 
 
@@ -73,17 +76,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # -------------------------------------------------------------- attention
-def init_attention(gen: torch.Generator, cfg: ModelConfig,
+def init_attention(key: torch.Tensor, cfg: ModelConfig,
                    device=None) -> dict:
-    device = gen.device if device is None else device
+    device = key.device if device is None else device
     d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = cfg.torch_dtype
     std = d ** -0.5
+    ks = jrandom.split(key, 4)
     p = {
-        "wq": init_normal(gen, (d, h * hd), std, dt, device),
-        "wk": init_normal(gen, (d, kh * hd), std, dt, device),
-        "wv": init_normal(gen, (d, kh * hd), std, dt, device),
-        "wo": init_normal(gen, (h * hd, d), (h * hd) ** -0.5, dt, device),
+        "wq": init_normal(ks[0], (d, h * hd), std, dt, device),
+        "wk": init_normal(ks[1], (d, kh * hd), std, dt, device),
+        "wv": init_normal(ks[2], (d, kh * hd), std, dt, device),
+        "wo": init_normal(ks[3], (h * hd, d), (h * hd) ** -0.5, dt, device),
     }
     if cfg.qk_norm:
         p["q_norm"] = init_rmsnorm(hd, dt, device)
@@ -165,19 +169,19 @@ def compute_kv(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 # -------------------------------------------------------------------- MLP
-def init_mlp(gen: torch.Generator, cfg: ModelConfig,
+def init_mlp(key: torch.Tensor, cfg: ModelConfig,
              d_ff: Optional[int] = None, device=None) -> dict:
-    device = gen.device if device is None else device
+    device = key.device if device is None else device
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     dt = cfg.torch_dtype
     std_in, std_out = d ** -0.5, f ** -0.5
+    ks = jrandom.split(key, 3)
+    p = {"wi": init_normal(ks[0], (d, f), std_in, dt, device)}
     if cfg.activation == "swiglu":
-        return {"wi": init_normal(gen, (d, f), std_in, dt, device),
-                "wg": init_normal(gen, (d, f), std_in, dt, device),
-                "wo": init_normal(gen, (f, d), std_out, dt, device)}
-    return {"wi": init_normal(gen, (d, f), std_in, dt, device),
-            "wo": init_normal(gen, (f, d), std_out, dt, device)}
+        p["wg"] = init_normal(ks[1], (d, f), std_in, dt, device)
+    p["wo"] = init_normal(ks[2], (f, d), std_out, dt, device)
+    return p
 
 
 def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

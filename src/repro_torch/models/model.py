@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from .. import random as jrandom
 from ..configs.base import ModelConfig
 from ..tree import tree_leaves, tree_map
 from . import kvcache, layers
@@ -46,44 +47,52 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ------------------------------------------------------------------- init
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+def _init_layer(key: torch.Tensor, cfg: ModelConfig, device) -> dict:
     dt = cfg.torch_dtype
+    k1, k2 = jrandom.split(key)
     p = {"norm1": layers.init_rmsnorm(cfg.d_model, dt, device),
          "norm2": layers.init_rmsnorm(cfg.d_model, dt, device),
-         "mixer": layers.init_attention(gen, cfg, device)}
+         "mixer": layers.init_attention(k1, cfg, device)}
     if cfg.d_ff > 0:
-        p["ffn"] = layers.init_mlp(gen, cfg, device=device)
+        p["ffn"] = layers.init_mlp(k2, cfg, device=device)
     else:
         del p["norm2"]
     return p
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
-    """Random weights drawn from ``gen``, on ``device`` (default the
-    generator's; ``"meta"`` gives the shapes alone). Normal draws scaled by
-    fan-in^-0.5 as in the JAX package, whose ``PRNGKey`` weights these are
-    not: the same weights wait for the JAX PRNG (ROADMAP.md A5)."""
+def init_params(key: torch.Tensor, cfg: ModelConfig, device=None) -> dict:
+    """The JAX package's ``init_params(key, cfg)`` weights from a port PRNG
+    key (``repro_torch.random.PRNGKey``), split in the JAX package's order,
+    on ``device`` (default the key's; ``"meta"`` gives the shapes alone).
+
+    The normals are f32, JAX's default float without x64, as the JAX
+    package's ``launch.serve`` draws them. A large matrix is drawn in
+    chunks (``random.CHUNK``), so its int64 temporaries stay small."""
     check_supported(cfg)
-    device = gen.device if device is None else torch.device(device)
+    device = key.device if device is None else torch.device(device)
     dt = cfg.torch_dtype
     std = cfg.d_model ** -0.5
+    keys = jrandom.split(key, cfg.num_superblocks + 3)
     params = {
-        "embed": layers.init_normal(gen, (cfg.vocab_size, cfg.d_model), std,
-                                    dt, device),
+        "embed": layers.init_normal(keys[0], (cfg.vocab_size, cfg.d_model),
+                                    std, dt, device),
         "final_norm": layers.init_rmsnorm(cfg.d_model, dt, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.init_normal(
-            gen, (cfg.d_model, cfg.vocab_size), std, dt, device)
-    blocks = [{f"l{i}": _init_layer(gen, cfg, device)
-               for i in range(cfg.scan_period)}
-              for _ in range(cfg.num_superblocks)]
+            keys[1], (cfg.d_model, cfg.vocab_size), std, dt, device)
+    blocks = []
+    for s in range(cfg.num_superblocks):
+        ks = jrandom.split(keys[3 + s], cfg.scan_period)
+        blocks.append({f"l{i}": _init_layer(ks[i], cfg, device)
+                       for i in range(cfg.scan_period)})
     params["blocks"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
     return params
 
 
 def param_count(cfg: ModelConfig) -> int:
-    shapes = init_params(torch.Generator(), cfg, device="meta")
+    shapes = init_params(jrandom.PRNGKey(0, device="cpu"), cfg,
+                         device="meta")
     return sum(math.prod(x.shape) for x in tree_leaves(shapes))
 
 

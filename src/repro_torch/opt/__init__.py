@@ -5,7 +5,8 @@
     hist = simulator.run(o, task, 1000)
 """
 from .api import OptState, ShardStepStats, StepStats, static_pos
-from .censor import AdaptiveCensor, Eq8Censor, NeverCensor
+from .censor import (AdaptiveCensor, Eq8Censor, NeverCensor,
+                     StochasticCensor)
 from .optimizer import BACKENDS, ComposedOptimizer
 from .registry import (BACKEND_ALIASES, CENSOR_KINDS, SERVER_KINDS,
                        TRANSPORT_KINDS, from_spec, make, make_transport,
@@ -16,7 +17,7 @@ from .transport import (DenseTransport, Int8Transport, LowRankTransport,
 
 __all__ = [
     "OptState", "StepStats", "ShardStepStats", "static_pos",
-    "NeverCensor", "Eq8Censor", "AdaptiveCensor",
+    "NeverCensor", "Eq8Censor", "AdaptiveCensor", "StochasticCensor",
     "DenseTransport", "Int8Transport", "TopKTransport", "LowRankTransport",
     "tree_topk_keep",
     "GradientDescent", "HeavyBall",

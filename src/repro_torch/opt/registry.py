@@ -8,9 +8,10 @@
 The spec schema is the JAX package's, so a JAX ``opt.to_spec(...)`` dict
 loads unchanged. Backend mapping: the JAX kernel backend ``"pallas"`` loads
 as this package's kernel backend ``"cuda"``; ``"reference"`` stays
-``"reference"``. Registered here: gd, hb, lag, chb, with the censor kinds
-never/eq8/adaptive, the transport kinds dense/int8/topk/lowrank, the server
-kinds gd/hb and the granularities global/per_tensor.
+``"reference"``. Registered here: gd, hb, lag, chb, csgd, with the censor
+kinds never/eq8/adaptive/stochastic, the transport kinds
+dense/int8/topk/lowrank, the server kinds gd/hb and the granularities
+global/per_tensor.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from typing import Callable, Optional
 import torch
 
 from ..core.censoring import paper_eps1
-from .censor import AdaptiveCensor, Eq8Censor, NeverCensor
+from .censor import (AdaptiveCensor, Eq8Censor, NeverCensor,
+                     StochasticCensor)
 from .optimizer import ComposedOptimizer
 from .server import GradientDescent, HeavyBall
 from .transport import (DenseTransport, Int8Transport, LowRankTransport,
@@ -31,7 +33,8 @@ Builder = Callable[..., ComposedOptimizer]
 _ALGORITHMS: dict[str, Builder] = {}
 
 CENSOR_KINDS: dict[str, type] = {"never": NeverCensor, "eq8": Eq8Censor,
-                                 "adaptive": AdaptiveCensor}
+                                 "adaptive": AdaptiveCensor,
+                                 "stochastic": StochasticCensor}
 TRANSPORT_KINDS: dict[str, type] = {"dense": DenseTransport,
                                     "int8": Int8Transport,
                                     "topk": TopKTransport,
@@ -155,6 +158,22 @@ def _chb(alpha, num_workers, *, beta=0.4, eps1=None, eps1_scale=0.1,
     return _compose(Eq8Censor(eps1), HeavyBall(alpha, beta), num_workers,
                     quantize, transport, k, rank, granularity, bank_dtype,
                     backend)
+
+
+@register("csgd")
+def _csgd(alpha, num_workers, *, tau0=None, decay=0.99, eps1=None, seed=0,
+          quantize=None, transport=None, k=None, rank=None,
+          granularity="global", bank_dtype=None, backend="reference"):
+    """CSGD-style stochastically censored GD (Li et al., arXiv:1909.03631).
+
+    ``tau0`` is the initial squared-norm threshold (``eps1`` is its
+    alias); ``tau0 = 0`` transmits unless a delta is exactly zero.
+    """
+    if tau0 is None:
+        tau0 = eps1 if eps1 is not None else 0.0
+    return _compose(StochasticCensor(tau0=tau0, decay=decay, seed=seed),
+                    GradientDescent(alpha), num_workers, quantize, transport,
+                    k, rank, granularity, bank_dtype, backend)
 
 
 # --------------------------------------------------------- spec round-trip

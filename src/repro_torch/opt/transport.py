@@ -9,12 +9,21 @@
   * :class:`LowRankTransport` -- PowerSGD-style rank-r power iteration
     with warm-started factors beside the error-feedback bank.
 
-The per-client row entry points are not ported yet (they wait for the
-fed runtime). Stage anatomy of one batched step:
+Stage anatomy of one batched step:
 
     pending = prepare(delta, err)
     payload, aux = encode(pending, err)
     new_err = feedback(mask, pending, payload, aux, err)
+
+Each stage also has a row form for one worker's slice, which the event
+runtime (``fed.runner``) calls as a client finishes:
+``prepare_row(delta, err_row)``, ``encode_row(pending, err_row)`` and
+``feedback_row(pending, payload, aux, err_row)``, the last applied only
+when the upload arrives. A row entry runs the per-slice math of the
+batched one, so it equals the batched entry's worker slice at mask 1 bit
+for bit. The row entries are plain PyTorch on either backend, as in the
+JAX package. ``stateful`` says whether transport state (the EF bank, and
+any warm-started factors) exists.
 
 A stateful transport runs the staged steps of the ``cuda`` backend through
 ``encode_feedback_cuda(pending, err, mask) -> (payload, new_err)``, which
@@ -34,6 +43,7 @@ from typing import ClassVar, Optional
 import torch
 
 from ..core.quantize import (payload_bytes_dense, payload_bytes_int8,
+                             tree_quantize_roundtrip,
                              tree_quantize_roundtrip_per_worker)
 from ..core.util import tree_stack_zeros
 from ..kernels import ops as kernel_ops
@@ -77,6 +87,15 @@ class DenseTransport:
     def feedback(self, mask, pending, payload, aux, err):
         return err
 
+    def prepare_row(self, delta, err_row):
+        return delta
+
+    def encode_row(self, pending, err_row):
+        return pending, ()
+
+    def feedback_row(self, pending, payload, aux, err_row):
+        return err_row
+
     def payload_bytes(self, params) -> int:
         return payload_bytes_dense(params)
 
@@ -109,6 +128,15 @@ class Int8Transport:
         """The staged kernel route: one abs-max reduction (B7a), then one
         pass emitting the payload and the new EF bank together (B7b)."""
         return kernel_ops.tree_int8_roundtrip_ef(pending, err, mask)
+
+    def prepare_row(self, delta, err_row):
+        return _add_err(delta, err_row)
+
+    def encode_row(self, pending, err_row):
+        return tree_quantize_roundtrip(pending), ()
+
+    def feedback_row(self, pending, payload, aux, err_row):
+        return tree_map(torch.sub, pending, payload)
 
     def payload_bytes(self, params) -> int:
         return payload_bytes_int8(params)
@@ -172,6 +200,19 @@ def tree_topk_keep(pending, k: int):
     return tree_map(lambda x: _keep_mask(x, k), pending)
 
 
+def tree_topk_keep_row(pending_row, k: int):
+    """One worker's keep masks (the ``fed.runner`` entry point): the
+    batched selection at M = 1."""
+    return tree_map(lambda x: _keep_mask(x[None], k)[0], pending_row)
+
+
+def _select_kept(pending, keep):
+    # a select, not a multiply: x * 0 would turn -0.0 into +0.0
+    return tree_map(
+        lambda p, kp: torch.where(kp != 0, p, torch.zeros_like(p)),
+        pending, keep)
+
+
 @dataclasses.dataclass(frozen=True)
 class TopKTransport:
     """Top-k sparsified uplinks with error feedback (index+value packing).
@@ -194,12 +235,7 @@ class TopKTransport:
         return _add_err(delta, err)
 
     def encode(self, pending, err):
-        keep = tree_topk_keep(pending, self.k)
-        # a select, not a multiply: x * 0 would turn -0.0 into +0.0
-        payload = tree_map(
-            lambda p, kp: torch.where(kp != 0, p, torch.zeros_like(p)),
-            pending, keep)
-        return payload, ()
+        return _select_kept(pending, tree_topk_keep(pending, self.k)), ()
 
     def feedback(self, mask, pending, payload, aux, err):
         return _ef_blend(mask, pending, payload, err)
@@ -209,6 +245,16 @@ class TopKTransport:
         select/pack + EF pass per leaf (B10)."""
         keep = tree_topk_keep(pending, self.k)
         return kernel_ops.tree_topk_pack_ef(pending, err, keep, mask)
+
+    def prepare_row(self, delta, err_row):
+        return _add_err(delta, err_row)
+
+    def encode_row(self, pending, err_row):
+        return _select_kept(pending,
+                            tree_topk_keep_row(pending, self.k)), ()
+
+    def feedback_row(self, pending, payload, aux, err_row):
+        return tree_map(torch.sub, pending, payload)
 
     def payload_bytes(self, params) -> int:
         # min(k, size) kept entries per leaf, each a 4-byte index plus one
@@ -323,6 +369,19 @@ class LowRankTransport:
                                               mask)
         return payload, {"err": new_err,
                          "q": _blend_q(mask, q_new, err["q"])}
+
+    def prepare_row(self, delta, err_row):
+        return _add_err(delta, err_row["err"])
+
+    def encode_row(self, pending, err_row):
+        leaves_p, treedef = tree_flatten(pending)
+        outs = [self._encode_slice(p, q)
+                for p, q in zip(leaves_p, tree_leaves(err_row["q"]))]
+        return (tree_unflatten(treedef, [o[0] for o in outs]),
+                tree_unflatten(treedef, [o[1] for o in outs]))
+
+    def feedback_row(self, pending, payload, aux, err_row):
+        return {"err": tree_map(torch.sub, pending, payload), "q": aux}
 
     def payload_bytes(self, params) -> int:
         # matrix leaves ship the two factors; vector leaves ship dense

@@ -507,11 +507,11 @@ def test_serving_launches_b14_per_layer_and_b13_per_step(card):
     from repro_torch.configs import get
     from repro_torch.launch import serve
     from repro_torch.models import model
+    from repro_torch.random import PRNGKey
     cfg = dataclasses.replace(get("chb-paper-lm-124m").reduced(),
                               num_kv_heads=2, layer_pattern="AS",
                               sliding_window=16, qk_norm=True).validate()
-    params = model.init_params(
-        torch.Generator(device=card).manual_seed(0), cfg)
+    params = model.init_params(PRNGKey(0, device=card), cfg)
     prompts = serve.prompts_of(cfg, 2, 24, card)
     ref_run = serve.generate(params, cfg, prompts, 6, backend="reference",
                              device=card)
@@ -523,3 +523,49 @@ def test_serving_launches_b14_per_layer_and_b13_per_step(card):
     for a, b in zip(run.logits, ref_run.logits):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# ------------------------------------------------- the edge runtime (fed)
+@pytest.mark.parametrize("m,n", [(4, 1), (4, 4099), (9, 2 ** 20 + 17)])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_sqnorm_row_equals_the_batched_slice(card, m, n, dtype):
+    gen = torch.Generator(device=card).manual_seed(m + n)
+    x = torch.randn((m, n), generator=gen, dtype=dtype, device=card)
+    y = x[:, : n // 2 + 1].contiguous()
+    batched = ops.tree_sqnorms({"a": x, "b": y})
+    for i in range(m):
+        # a worker's row, fresh as the event runtime's pending tree is
+        row = ops.tree_sqnorm_row({"a": x[i].clone(), "b": y[i].clone()})
+        assert _same(row, batched[i])
+
+
+@pytest.mark.parametrize("algo,kw", [("chb", {}),
+                                     ("csgd", {"tau0": 5.0 * 4099}),
+                                     ("chb", {"quantize": "int8"})],
+                         ids=["chb", "csgd", "chb-int8"])
+def test_run_edge_sync_anchor_on_the_card(card, algo, kw):
+    from repro_torch import fed
+    # the quadratics' gradient is elementwise: one worker's equals its row
+    task = edge_tasks.make_edge_quadratics(m=5, d=4099, seed=0, device=card)
+    o = opt.make(algo, 0.1, 5, backend="cuda", **kw)
+    ref_run = simulator.run(o, task, 60, device=card)
+    common.reset_launches()
+    hist = fed.run_edge(o, task, fed.sync_config(5), 60, device=card)
+    evals = hist.stats.as_dict()["uplinks"] + hist.stats.as_dict()["censored"]
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == \
+        {"sqnorm_batched": evals, "hb_update": 60}
+    assert (hist.mask == ref_run.mask.cpu().numpy()).all()
+    assert (hist.comm_cum == ref_run.comm_cum.cpu().numpy()).all()
+    assert _same(hist.final_params, ref_run.final_params)
+
+
+def test_prng_draws_on_the_card_equal_the_cpu(card):
+    from repro_torch import random as jrandom
+    for dtype in DTYPES:
+        u = [jrandom.uniform(jrandom.PRNGKey(5, device=d), (4099,), dtype)
+             for d in (card, "cpu")]
+        assert _same(u[0].cpu(), u[1])
+    keys = jrandom.fold_in(jrandom.PRNGKey(1, device=card),
+                           torch.arange(9, device=card))
+    assert torch.equal(keys.cpu(), jrandom.fold_in(
+        jrandom.PRNGKey(1, device="cpu"), torch.arange(9)))

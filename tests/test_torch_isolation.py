@@ -12,7 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch import opt
+from repro_torch import fed, opt
+from repro_torch import random as jrandom
 from repro_torch.core import simulator
 from repro_torch.data import edge_tasks, paper_tasks
 from repro_torch.device import resolve_device
@@ -63,3 +64,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                          device="cpu")
     assert hist.final_params.device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_edge_runtime_entry_points_default_to_cuda(no_cuda):
+    for build in (paper_tasks.make_logistic_regression,
+                  paper_tasks.make_lasso, paper_tasks.make_neural_network):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(m=2, n_per=3, d=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paper_tasks.make_standin("housing", "lasso")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        edge_tasks.make_edge_linreg(2, d=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        jrandom.PRNGKey(0)
+    task = edge_tasks.make_edge_linreg(2, d=2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulator.estimate_fstar(task, 0.1, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed.run_edge(opt.make("chb", 0.1, 2), task, fed.sync_config(2), 1)
+    hist = fed.run_edge(opt.make("chb", 0.1, 2, backend="cuda"), task,
+                        fed.sync_config(2), 1, device="cpu")
+    assert hist.final_params.device.type == "cpu"

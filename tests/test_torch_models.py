@@ -37,6 +37,7 @@ from repro.models import kvcache as j_kvcache
 from repro.models import layers as j_layers
 from repro.models import model as j_model
 from repro_torch import convert
+from repro_torch import random as jrandom
 from repro_torch.configs import ARCHS, get
 from repro_torch.data.lm_data import MarkovLM
 from repro_torch.kernels import common
@@ -118,7 +119,8 @@ def test_param_count_and_tree_match_jax(name):
     assert model.param_count(cfg) == j_model.param_count(jc)
     shapes = jax.eval_shape(lambda k: j_model.init_params(k, jc),
                             jax.random.PRNGKey(0))
-    ours = model.init_params(torch.Generator(), cfg, device="meta")
+    ours = model.init_params(jrandom.PRNGKey(0, device="cpu"), cfg,
+                             device="meta")
     assert jax.tree_util.tree_structure(shapes) == \
         jax.tree_util.tree_structure(ours)
     for a, b in zip(jax.tree_util.tree_leaves(shapes),
@@ -240,6 +242,24 @@ def _gap(logits: np.ndarray) -> float:
     return float((top[..., -1] - top[..., -2]).min())
 
 
+def _jax_greedy(jc, jp, prompts):
+    """The JAX package's greedy run: (logit rows, tokens, final cache)."""
+    logits, cache = jax.jit(lambda p, t: j_model.prefill(
+        p, jc, t, cache_len=CACHE))(jp, jnp.asarray(prompts.numpy(),
+                                                    jnp.int32))
+    step = jax.jit(lambda p, c, t, pos: j_model.serve_step(p, jc, c, t, pos))
+    rows = [np.asarray(logits)]
+    toks = [np.argmax(rows[-1], -1)]
+    for i in range(GEN - 1):
+        logits, cache = step(jp, cache,
+                             jnp.asarray(toks[-1][:, None], jnp.int32),
+                             jnp.asarray(PROMPT + i))
+        rows.append(np.asarray(logits))
+        toks.append(np.argmax(rows[-1], -1))
+    return (np.stack(rows), np.stack(toks, axis=1),
+            jax.tree_util.tree_map(np.asarray, cache))
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
     """The JAX package's greedy run of each variant: prompt 24, gen 16."""
@@ -247,21 +267,7 @@ def jax_runs():
     for name, jc in J_CFGS.items():
         _, jp = _weights(name)
         prompts = serve.prompts_of(CFGS[name], BATCH, PROMPT, "cpu")
-        logits, cache = jax.jit(lambda p, t, jc=jc: j_model.prefill(
-            p, jc, t, cache_len=CACHE))(jp, jnp.asarray(prompts.numpy(),
-                                                        jnp.int32))
-        step = jax.jit(lambda p, c, t, pos, jc=jc: j_model.serve_step(
-            p, jc, c, t, pos))
-        rows = [np.asarray(logits)]
-        toks = [np.argmax(rows[-1], -1)]
-        for i in range(GEN - 1):
-            logits, cache = step(jp, cache,
-                                 jnp.asarray(toks[-1][:, None], jnp.int32),
-                                 jnp.asarray(PROMPT + i))
-            rows.append(np.asarray(logits))
-            toks.append(np.argmax(rows[-1], -1))
-        out[name] = (prompts, np.stack(rows), np.stack(toks, axis=1),
-                     jax.tree_util.tree_map(np.asarray, cache))
+        out[name] = (prompts,) + _jax_greedy(jc, jp, prompts)
     return out
 
 
@@ -317,6 +323,34 @@ def test_generate_feeds_and_times(jax_runs):
     assert out.prefill_ms > 0 and min(out.step_ms) > 0
 
 
+@pytest.mark.parametrize("name", ["reduced", "gqa"])
+def test_init_params_from_a_key_are_the_jax_package_s(name):
+    """``init_params(PRNGKey(0), cfg)``: the JAX package's weights as its
+    ``launch.serve`` draws them (x64 off, f32 normals), each within the
+    ``normal`` ulp bound of ``tests/test_torch_random.py`` (a weight is
+    the normal times a scale, so one ulp more), and the same greedy
+    tokens."""
+    cfg, jc = CFGS[name], J_CFGS[name]
+    with jax.enable_x64(False):
+        jp = j_model.init_params(jax.random.PRNGKey(0), jc)
+    tp = model.init_params(jrandom.PRNGKey(0, device="cpu"), cfg)
+    got, want = convert.named_leaves(tp), convert.named_leaves(jp)
+    assert set(got) == set(want)
+    differ = 0
+    for k, w in want.items():
+        a = got[k].numpy().view(np.int32).astype(np.int64)
+        b = np.asarray(w).view(np.int32).astype(np.int64)
+        assert np.abs(a - b).max() <= 4, k
+        differ += np.count_nonzero(a != b)
+    assert differ <= 1e-4 * model.param_count(cfg)
+    prompts = serve.prompts_of(cfg, BATCH, PROMPT, "cpu")
+    jlogits, jtoks, _ = _jax_greedy(jc, jp, prompts)
+    assert _gap(jlogits) > 1e-3
+    out = serve.generate(tp, cfg, prompts, GEN, cache_len=CACHE,
+                         device="cpu")
+    assert np.array_equal(out.tokens.numpy(), jtoks)
+
+
 # ------------------------------------------------------------ entry point
 def test_serve_main_runs_on_the_cpu(capsys):
     common.reset_launches()
@@ -347,7 +381,8 @@ def test_unported_configs_raise_naming_the_roadmap(arch):
     frontends and MoE."""
     cfg = get(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-        model.init_params(torch.Generator(), cfg, device="meta")
+        model.init_params(jrandom.PRNGKey(0, device="cpu"), cfg,
+                          device="meta")
     small = cfg.reduced()
     if set(small.layer_pattern) - {"A", "S"} or small.num_experts \
             or small.frontend:

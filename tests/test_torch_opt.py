@@ -163,8 +163,13 @@ def test_jax_spec_loads_with_pallas_as_cuda():
         assert opt.from_spec(j_opt.to_spec(j)) == opt.make(name, 0.1, M)
     o = opt.make("chb", 0.1, M, bank_dtype=torch.float64)
     assert opt.from_spec(opt.to_spec(o)).bank_dtype is torch.float64
+    # csgd loads since the JAX PRNG is ported; a kind outside the
+    # vocabulary still raises
+    assert opt.from_spec(j_opt.to_spec(j_opt.make("csgd", 0.1, M))) == \
+        opt.make("csgd", 0.1, M)
+    spec = j_opt.to_spec(j_opt.make("chb", 0.1, M))
     with pytest.raises(ValueError, match="unknown or unported"):
-        opt.from_spec(j_opt.to_spec(j_opt.make("csgd", 0.1, M)))
+        opt.from_spec(dict(spec, censor={"kind": "oracle"}))
     with pytest.raises(ValueError, match="unknown backend"):
         opt.from_spec(dict(j_opt.to_spec(j_opt.make("gd", 0.1, M)),
                            backend="tpu"))
@@ -220,9 +225,10 @@ def test_apply_server_on_cuda_is_server_apply(name):
 
 
 def test_unported_routes_raise():
-    # the stochastic (CSGD) censor waits for the ported PRNG
-    with pytest.raises(ValueError, match="censor kind 'stochastic'"):
-        opt.from_spec(j_opt.to_spec(j_opt.make("csgd", 0.1, M)))
+    # a censor kind the registry does not hold
+    spec = j_opt.to_spec(j_opt.make("chb", 0.1, M))
+    with pytest.raises(ValueError, match="censor kind 'oracle'"):
+        opt.from_spec(dict(spec, censor={"kind": "oracle"}))
     params = tree.tree_map(torch.from_numpy, _params(np.float32))
     grads = convert.params(_grads(0, np.float32), "cpu")
     for backend in ("reference", "cuda"):
