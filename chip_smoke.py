@@ -64,6 +64,20 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  client evaluation, B3 once per round, nothing else. Also
                  the JAX PRNG's draws on the card against the CPU's. Ms a
                  round and client evaluations a second.
+  sweep       -- the sweep engine: (a) ``sweep.run_sweep`` of a 6-point
+                 grid (eps1 in {0, 4, 8} x {dense, int8}, 2 partitions)
+                 at phase 5's width, 10 iterations, each point equal to
+                 ``simulator.run`` bit for bit (masks, comm_cum, bytes,
+                 objective, theta), the launches the per-point runs' sum,
+                 a ``collect_metrics`` rerun with the same bits and
+                 launches; (b) the paper's Fig. 11 setting cut (linreg M =
+                 9, f64, 4 eps1 scales x 2 seeds, 300 iterations) on both
+                 backends, each point equal to its ``simulator.run``, the
+                 masks equal between backends; (c) ``sweep.run_fed_sweep``
+                 on (a)'s task, 4 scenarios, 10 rounds: the ideal one equal
+                 to ``simulator.run``, all equal on both backends, B8, B9
+                 and B3 once a round a scenario. Ms a point-iteration,
+                 peak device memory.
   serve       -- ``launch.serve.generate`` of chb-paper-lm-124m at full
                  width (163,597,056 f32 parameters, the JAX package's
                  ``init_params(PRNGKey(0))`` weights), serve_default (batch 4, prompt 64, gen
@@ -1318,18 +1332,26 @@ def lowrank_payload_bytes(rank: int) -> int:
     return total
 
 
-def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
-    """Each path at full width on both backends; returns each path's
-    launch counts."""
+def full_task(device):
+    """Phase 5's task, ``make_edge_quadratics(m=FULL_M, d=FULL_D, seed=0)``
+    in f32 on the card, built once for phases full, edge and sweep; and
+    the seconds it took."""
+    from repro_torch.data import edge_tasks
+    t0 = time.perf_counter()
+    task = edge_tasks.make_edge_quadratics(m=FULL_M, d=FULL_D, seed=0,
+                                           dtype=torch.float32, device=device)
+    return task, time.perf_counter() - t0
+
+
+def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
+               iters=FULL_ITERS) -> dict:
+    """Each path at full width (on ``flat``, phase 5's task) on both
+    backends; returns each path's launch counts."""
     from repro_torch import opt
     from repro_torch.core import simulator
     from repro_torch.data import edge_tasks
     from repro_torch.kernels import common, fused_step
-    t0 = time.perf_counter()
-    flat = edge_tasks.make_edge_quadratics(m=m, d=d, seed=0,
-                                           dtype=torch.float32)
     fstar = edge_tasks.edge_quadratics_fstar(flat)
-    setup_s = time.perf_counter() - t0
     tree = lm_tree_task(flat)
     int8 = {"quantize": "int8"}
     paths = {  # path: (opt.make keywords, task, bytes of one transmission)
@@ -1460,7 +1482,7 @@ def phase_full(d=FULL_D, m=FULL_M, iters=FULL_ITERS) -> dict:
             fused[kind] = k
         del k, r
         torch.cuda.empty_cache()
-    del paths, tree, flat, fused
+    del paths, tree, fused
     torch.cuda.empty_cache()
     emit({"phase": "full", "d": d, "m": m, "iters": iters,
           "topk_k": FULL_TOPK_K, "lowrank_rank": FULL_RANK,
@@ -1618,7 +1640,7 @@ def _prng_on_card(device) -> dict:
     return out
 
 
-def phase_edge(device) -> dict:
+def phase_edge(device, task) -> dict:
     """``fed.run_edge`` at full width (EDGE_PATHS): (a) the sync anchor
     against ``simulator.run`` on cuda, bit for bit; (b) the deployment
     scenario on cuda against reference, bit for bit; (c) B8's M = 1 row
@@ -1626,7 +1648,6 @@ def phase_edge(device) -> dict:
     ``run_edge``'s launch counts (keys ``edge_*``)."""
     from repro_torch import fed, opt
     from repro_torch.core import simulator
-    from repro_torch.data import edge_tasks
     from repro_torch.kernels import censor
     t0 = time.perf_counter()
     # (c) first: its launches are comparisons, not the path's
@@ -1638,8 +1659,6 @@ def phase_edge(device) -> dict:
               f"edge: B8's row of worker {i} differs from the batched slice")
     del x, batched
     prng = _prng_on_card(device)
-    task = edge_tasks.make_edge_quadratics(m=FULL_M, d=FULL_D, seed=0,
-                                           dtype=torch.float32, device=device)
     leaves = len(tree_leaves(task.init_params))
     summary, launches = {"prng": prng}, {}
     for path, (algo, kw) in EDGE_PATHS.items():
@@ -1696,10 +1715,262 @@ def phase_edge(device) -> dict:
                            "bitwise": True}}
         del runs, hk, hr
         torch.cuda.empty_cache()
-    del task
-    torch.cuda.empty_cache()
     emit({"phase": "edge", "d": FULL_D, "m": FULL_M, "rounds": EDGE_ROUNDS,
           "dtype": "float32", **summary,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# -------------------------------------------------------- phase sweep
+SWEEP_ITERS = 10
+SWEEP_FIG11_SCALES = tuple(float(x) for x in np.logspace(-2.0, 0.0, 4))
+SWEEP_FIG11_SEEDS = (0, 1)
+SWEEP_FIG11_ITERS = 300
+SWEEP_FIG11_M = 9
+SWEEP_FED_GRID = {"loss_prob": (0.0, 0.15), "participation": (1.0, 0.75),
+                  "quorum": (1.0,), "seed": (0,)}
+
+
+def _fingerprint(h) -> dict:
+    """What a sweep point is held to: masks, comm_cum, uplink bytes and
+    theta (on the card), objective and the agg sqnorm series."""
+    return {"mask": h.mask.cpu(), "comm_cum": h.comm_cum.cpu(),
+            "objective": h.objective.cpu(),
+            "agg_grad_sqnorm": h.agg_grad_sqnorm.cpu(),
+            "uplink_bytes": h.final_state.comm.uplink_bytes_exact(),
+            "theta": tree_leaves(h.final_params)}
+
+
+def _same_fingerprint(a: dict, b: dict) -> bool:
+    return (all(torch.equal(a[k], b[k]) for k in
+                ("mask", "comm_cum", "objective", "agg_grad_sqnorm"))
+            and a["uplink_bytes"] == b["uplink_bytes"]
+            and all(same_bits(x, y) for x, y in zip(a["theta"],
+                                                    b["theta"])))
+
+
+def _timed_sweep(grid, task, iters, base, device, **kw):
+    """One ``run_sweep`` with its launch counts, wall seconds and peak
+    device memory."""
+    from repro_torch import sweep
+    from repro_torch.kernels import common
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t = time.perf_counter()
+    res = sweep.run_sweep(grid, task, num_iters=iters, base_cfg=base,
+                          device=device, **kw)
+    torch.cuda.synchronize()
+    return res, {"wall_s": time.perf_counter() - t,
+                 "elapsed_s": res.elapsed_s,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "launches": dict(common.LAUNCHES)}
+
+
+def _per_point_runs(points, specs, task_of, iters, device) -> tuple:
+    """``simulator.run`` of each point's optimizer (rebuilt from its spec):
+    the fingerprints and the summed launch counts."""
+    from repro_torch import opt
+    from repro_torch.core import simulator
+    from repro_torch.kernels import common
+    prints, total = [], {name: 0 for name in common.KERNELS}
+    for p, spec in zip(points, specs):
+        common.reset_launches()
+        h = simulator.run(opt.from_spec(spec), task_of(p), iters,
+                          device=device)
+        for name, c in common.LAUNCHES.items():
+            total[name] += c
+        prints.append(_fingerprint(h))
+        del h
+    return prints, total
+
+
+def phase_sweep(device, task) -> dict:
+    """The sweep engine on the card. (a) full width: a 6-point grid (eps1
+    x {dense, int8}, 2 partitions) on phase 5's task, each point equal to
+    ``simulator.run`` bit for bit, the launches the sum of the per-point
+    runs', and a ``collect_metrics`` rerun with the same bits and launches;
+    (b) the paper's Fig. 11 setting cut to 4 eps1 scales x 2 seeds, 300
+    iterations, f64, on both backends: every point equal to its
+    ``simulator.run``, the two backends' masks equal; (c) ``run_fed_sweep``
+    on (a)'s task, 4 scenarios: the ideal one equal to ``simulator.run``,
+    every scenario equal on both backends, B8, B9 and B3 once a round a
+    scenario. Returns the sweeps' launch counts (keys ``sweep_*``)."""
+    from repro_torch import opt, sweep
+    from repro_torch.core import simulator
+    from repro_torch.data import paper_tasks
+    from repro_torch.kernels import common
+    t0 = time.perf_counter()
+    launches, summary = {}, {}
+    leaves = len(tree_leaves(task.init_params))
+
+    # (a) full width
+    grid = sweep.ConfigGrid(alpha=(FULL_ALPHA,),
+                            eps1=(0.0, FULL_EPS1, 2 * FULL_EPS1),
+                            quantize=(None, "int8"))
+    base = opt.make("chb", FULL_ALPHA, FULL_M, eps1=FULL_EPS1,
+                    backend="cuda")
+    res, run_a = _timed_sweep(grid, task, SWEEP_ITERS, base, device)
+    check(res.num_programs == 2 and len(res) == 6,
+          f"sweep (a): {len(res)} points in {res.num_programs} partitions")
+    got = [_fingerprint(h) for h in res.histories]
+    points, specs = res.points, res.specs
+    del res
+    torch.cuda.empty_cache()
+    prints, per_point = _per_point_runs(points, specs, lambda p: task,
+                                        SWEEP_ITERS, device)
+    for i, (g, r) in enumerate(zip(got, prints)):
+        check(_same_fingerprint(g, r), f"sweep (a): point {i} "
+              f"{points[i]} differs from simulator.run")
+        check(bool(torch.isfinite(g["objective"]).all()),
+              f"sweep (a): point {i} objective is not finite")
+    del prints
+    check(run_a["launches"] == per_point, f"sweep (a): launches "
+          f"{run_a['launches']} != the per-point runs' {per_point}")
+    dense = sum(p.quantize is None for p in points)
+    want = {name: 0 for name in common.KERNELS}
+    for name in PATH_KERNELS["dense"]:
+        want[name] = dense * SWEEP_ITERS * leaves
+    for name in PATH_KERNELS["int8"]:
+        want[name] = (len(points) - dense) * SWEEP_ITERS * leaves
+    check(run_a["launches"] == want,
+          f"sweep (a): launches {run_a['launches']}, want {want}")
+    res_m, run_m = _timed_sweep(grid, task, SWEEP_ITERS, base, device,
+                                collect_metrics=True)
+    for i, h in enumerate(res_m.histories):
+        check(_same_fingerprint(_fingerprint(h), got[i]),
+              f"sweep (a): point {i} with metrics differs")
+        check(h.metrics["censor_rate"].shape == (SWEEP_ITERS,),
+              f"sweep (a): point {i} has no metric series")
+    check(run_m["launches"] == run_a["launches"],
+          f"sweep (a): collect_metrics launched {run_m['launches']}")
+    launches["sweep_full"] = run_a.pop("launches")
+    run_m.pop("launches")
+    summary["full"] = {
+        "points": len(points), "partitions": 2, "iters": SWEEP_ITERS,
+        "uploads": [int(g["comm_cum"][-1]) for g in got],
+        "uplink_bytes": [g["uplink_bytes"] for g in got],
+        "ms_per_point_iteration": run_a["elapsed_s"] * 1e3
+        / (len(points) * SWEEP_ITERS),
+        "ms_per_point_iteration_metrics": run_m["elapsed_s"] * 1e3
+        / (len(points) * SWEEP_ITERS),
+        "peak_gib": run_a["peak_gib"], "peak_gib_metrics": run_m["peak_gib"],
+        "wall_s": run_a["wall_s"], "bitwise": True}
+    del res_m, got
+    torch.cuda.empty_cache()
+
+    # (c) run_fed_sweep on (a)'s task
+    fgrid = sweep.FedScenarioGrid(**SWEEP_FED_GRID)
+    fed_runs = {}
+    for b in ("cuda", "reference"):
+        o = opt.make("chb", FULL_ALPHA, FULL_M, eps1=FULL_EPS1, backend=b)
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t = time.perf_counter()
+        fr = sweep.run_fed_sweep(o, task, fgrid, SWEEP_ITERS, device=device)
+        torch.cuda.synchronize()
+        fed_runs[b] = (fr, time.perf_counter() - t, dict(common.LAUNCHES))
+    (fk, wk, lk), (fref, wr, lr) = fed_runs["cuda"], fed_runs["reference"]
+    for f in ("objective", "agg_grad_sqnorm", "transmit_mask",
+              "delivered_mask", "participate_mask", "quorum_met",
+              "comm_cum", "delivered_cum", "bytes_cum", "energy_cum"):
+        check(np.array_equal(getattr(fk, f), getattr(fref, f)),
+              f"sweep (c): {f} differs between backends")
+    rounds = len(fk) * SWEEP_ITERS * leaves
+    want = {name: rounds if name in ("sqnorm_batched", "bank_advance",
+                                     "hb_update") else 0
+            for name in common.KERNELS}
+    check(lk == want, f"sweep (c): launches {lk}, want {want}")
+    check(not any(lr.values()),
+          "sweep (c): the reference backend launched a kernel")
+    ideal = fk.points.index(sweep.FedScenarioPoint(0.0, 1.0, 1.0, 0))
+    o = opt.make("chb", FULL_ALPHA, FULL_M, eps1=FULL_EPS1, backend="cuda")
+    ref = simulator.run(o, task, SWEEP_ITERS, device=device)
+    check(np.array_equal(fk.objective[ideal], ref.objective.cpu().numpy())
+          and np.array_equal(fk.agg_grad_sqnorm[ideal],
+                             ref.agg_grad_sqnorm.cpu().numpy())
+          and np.array_equal(fk.comm_cum[ideal], ref.comm_cum.cpu().numpy())
+          and np.array_equal(fk.transmit_mask[ideal],
+                             ref.mask.cpu().numpy().astype(np.int8))
+          and bool(fk.quorum_met[ideal].all()),
+          "sweep (c): the ideal scenario differs from simulator.run")
+    check((fk.delivered_cum[:, -1] <= fk.comm_cum[:, -1]).all()
+          and fk.participate_mask.mean() < 1,
+          "sweep (c): the scenarios drew no partial cohort")
+    launches["sweep_fed"] = lk
+    summary["fed"] = {
+        "scenarios": len(fk), "rounds": SWEEP_ITERS,
+        "uploads": fk.comm_cum[:, -1].tolist(),
+        "delivered": fk.delivered_cum[:, -1].tolist(),
+        "quorum_met": fk.quorum_met.sum(axis=1).tolist(),
+        "ms_per_round_cuda": wk * 1e3 / (len(fk) * SWEEP_ITERS),
+        "ms_per_round_reference": wr * 1e3 / (len(fref) * SWEEP_ITERS),
+        "bitwise": True}
+    del ref, fed_runs, fk, fref, fr
+    torch.cuda.empty_cache()
+
+    # (b) the paper's Fig. 11 setting, cut
+    def factory(seed, m):
+        return paper_tasks.make_linear_regression(m=m, seed=seed,
+                                                  device=device).task
+    alpha = paper_tasks.make_linear_regression(device="cpu").alpha_paper
+    tasks = {s: factory(s, SWEEP_FIG11_M) for s in SWEEP_FIG11_SEEDS}
+    fgrid = sweep.ConfigGrid(alpha=(alpha,), beta=(0.4,),
+                             eps1_scale=SWEEP_FIG11_SCALES,
+                             seed=SWEEP_FIG11_SEEDS,
+                             num_workers=(SWEEP_FIG11_M,))
+    fig11 = {}
+    for b in ("cuda", "reference"):
+        fbase = opt.make("chb", alpha, SWEEP_FIG11_M, backend=b)
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t = time.perf_counter()
+        res = sweep.run_sweep(fgrid, task_factory=factory,
+                              num_iters=SWEEP_FIG11_ITERS, base_cfg=fbase,
+                              device=device)
+        torch.cuda.synchronize()
+        wall, lb = time.perf_counter() - t, dict(common.LAUNCHES)
+        got = [_fingerprint(h) for h in res.histories]
+        prints, per_point = _per_point_runs(
+            res.points, res.specs, lambda p: tasks[p.seed],
+            SWEEP_FIG11_ITERS, device)
+        for i, (g, r) in enumerate(zip(got, prints)):
+            check(_same_fingerprint(g, r), f"sweep (b) {b}: point {i} "
+                  f"{res.points[i]} differs from simulator.run")
+        check(lb == per_point, f"sweep (b) {b}: launches {lb} != the "
+              f"per-point runs' {per_point}")
+        fig11[b] = (res, got, wall, lb)
+    (rk, gk, wk, lk), (rr, gr, wr, lr) = fig11["cuda"], fig11["reference"]
+    for i, (a, b) in enumerate(zip(gk, gr)):
+        check(torch.equal(a["mask"], b["mask"])
+              and torch.equal(a["comm_cum"], b["comm_cum"])
+              and a["uplink_bytes"] == b["uplink_bytes"],
+              f"sweep (b): point {i} masks differ between backends")
+    n_pts = len(rk)
+    want = {name: (n_pts * SWEEP_FIG11_ITERS
+                   if name in PATH_KERNELS["dense"] else 0)
+            for name in common.KERNELS}
+    check(lk == want, f"sweep (b): launches {lk}, want {want}")
+    check(not any(lr.values()),
+          "sweep (b): the reference backend launched a kernel")
+    launches["sweep_fig11"] = lk
+    theta_rel = max(float((a["theta"][0] - b["theta"][0]).abs().max()
+                          / b["theta"][0].abs().max())
+                    for a, b in zip(gk, gr))
+    summary["fig11"] = {
+        "points": n_pts, "partitions": rk.num_programs,
+        "iters": SWEEP_FIG11_ITERS,
+        "uploads": [int(g["comm_cum"][-1]) for g in gk],
+        "point_iterations_per_s_cuda": n_pts * SWEEP_FIG11_ITERS
+        / rk.elapsed_s,
+        "point_iterations_per_s_reference": n_pts * SWEEP_FIG11_ITERS
+        / rr.elapsed_s,
+        "wall_s_cuda": wk, "wall_s_reference": wr,
+        "theta_max_rel_diff_between_backends": theta_rel,
+        "bitwise": True}
+    del fig11, rk, rr, gk, gr, tasks
+    torch.cuda.empty_cache()
+    emit({"phase": "sweep", "d": FULL_D, "m": FULL_M, **summary,
           "seconds": time.perf_counter() - t0})
     return launches
 
@@ -2093,9 +2364,13 @@ def main() -> None:
     phase_absmax_paths(dev)
     phase_attention_kernels(dev, max_err)
     phase_golden(dev)
-    launches = phase_full()
+    flat, setup_s = full_task(dev)
+    launches = phase_full(flat, setup_s)
     launches.update(phase_many_workers())
-    launches.update(phase_edge(dev))
+    launches.update(phase_edge(dev, flat))
+    launches.update(phase_sweep(dev, flat))
+    del flat
+    torch.cuda.empty_cache()
     launches.update(phase_serve(dev))
     phase_pin(dev)
     launches["ops"] = phase_ops(dev)

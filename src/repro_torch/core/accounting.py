@@ -88,6 +88,16 @@ class CommStats(NamedTuple):
     def total_uplinks(self) -> torch.Tensor:
         return torch.sum(self.uplink_count)
 
+    def metrics(self) -> dict:
+        """The counters as a flat ``repro_torch.obs`` MetricBag fragment:
+        the exact cumulative uplink bytes (f64) and the raw counts."""
+        return {
+            "comm/uplink_total": self.total_uplinks,
+            "comm/uplink_bytes": self.uplink_bytes,
+            "comm/downlink_count": self.downlink_count,
+            "comm/iterations": self.iterations,
+        }
+
     def savings_vs_dense(self) -> torch.Tensor:
         """Fraction of uplinks censored vs. transmit-every-iteration."""
         m = self.uplink_count.shape[0]

@@ -43,7 +43,12 @@ class History(NamedTuple):
       final_params: theta^K.
       final_state: the ``opt.OptState`` after iteration K (its
         ``CommStats`` holds the exact uplink counts and bytes).
-      metrics: always ``()`` (metric collection is not ported yet).
+      metrics: ``()`` unless the run collected metrics
+        (``collect_metrics=True``), else the ``repro_torch.obs`` MetricBag
+        series ``{name: (K,) tensor}`` (censor rate, exact uplink bytes,
+        bank and gradient norms, stage-hook observables). Collection is
+        read-only: every other field is bit-identical to a metrics-off
+        run.
     """
     objective: torch.Tensor
     comm_cum: torch.Tensor
@@ -70,25 +75,46 @@ def global_loss(task: FedTask, params) -> torch.Tensor:
     return torch.sum(task.loss_fn(params, task.worker_data))
 
 
-def trajectory(opt, task: FedTask, num_iters: int) -> History:
-    """Run ``num_iters`` iterations of Algorithm 1 on the task's device."""
+def trajectory(opt, task: FedTask, num_iters: int,
+               collect_metrics: bool = False) -> History:
+    """Run ``num_iters`` iterations of Algorithm 1 on the task's device.
+
+    ``collect_metrics`` also records each iteration's MetricBag
+    (``opt.metrics(state, stats)``, else ``obs.metrics.step_metrics``)
+    into ``History.metrics``; the bag is computed after the step from what
+    it returned, so the run itself is unchanged. Each call ticks
+    ``obs.compile_log``'s ``simulator/trajectory`` once.
+    """
+    from ..obs import compile_log
+    compile_log.record("simulator", "trajectory")
+    bag_fn = None
+    if collect_metrics:
+        from ..obs.metrics import step_metrics
+        bag_fn = getattr(opt, "metrics", None) or \
+            (lambda st, sc: step_metrics(opt, st, sc))
     params = task.init_params
     state = opt.init(params)
-    objs, comms, masks, gsqs = [], [], [], []
+    objs, comms, masks, gsqs, bags = [], [], [], [], []
     for _ in range(num_iters):
         grads = task.grad_fn(params, task.worker_data)
         objs.append(global_loss(task, params))
         state, params, info = opt.step(state, params, grads)
+        del grads
         comms.append(state.comm.total_uplinks)
         masks.append(info.mask)
         gsqs.append(info.agg_grad_sqnorm)
+        if bag_fn is not None:
+            bags.append(bag_fn(state, info))
+    metrics = {k: torch.stack([b[k] for b in bags]) for k in bags[0]} \
+        if bags else ()
     return History(objective=torch.stack(objs), comm_cum=torch.stack(comms),
                    mask=torch.stack(masks),
                    agg_grad_sqnorm=torch.stack(gsqs),
-                   final_params=params, final_state=state)
+                   final_params=params, final_state=state, metrics=metrics)
 
 
-def run(opt, task: FedTask, num_iters: int, device=None) -> History:
+def run(opt, task: FedTask, num_iters: int, device=None,
+        collect_metrics: bool = False) -> History:
     """Run Algorithm 1 for ``num_iters`` iterations on one configuration.
 
     Args:
@@ -97,11 +123,14 @@ def run(opt, task: FedTask, num_iters: int, device=None) -> History:
       num_iters: number of server iterations K.
       device: ``None`` runs on CUDA and raises without it; ``"cpu"`` is
         the explicit CPU opt-in.
+      collect_metrics: record a per-round MetricBag in ``History.metrics``
+        (see ``trajectory``); no other field changes.
     """
     dev = resolve_device(device)
     if num_iters < 1:
         raise ValueError("num_iters must be >= 1")
-    return trajectory(opt, task_to(task, dev), num_iters)
+    return trajectory(opt, task_to(task, dev), num_iters,
+                      collect_metrics=collect_metrics)
 
 
 def estimate_fstar(task: FedTask, alpha: float, num_iters: int = 20000,

@@ -55,6 +55,7 @@ from ..core.simulator import FedTask, global_loss, task_to
 from ..core.util import tree_sqnorm, tree_sum_leading, tree_worker_slice
 from ..device import resolve_device
 from ..kernels import ops as kernel_ops
+from ..obs import compile_log
 from ..tree import tree_leaves, tree_map
 from .channel import ChannelConfig
 from .clients import Population, uniform_population
@@ -139,10 +140,13 @@ class _Event(NamedTuple):
 
 def _stages(opt, task: FedTask):
     """The per-client and server stages, mirroring the composed
-    ``opt.step`` stage for stage (the JAX runner's ``_compile``)."""
+    ``opt.step`` stage for stage (the JAX runner's ``_compile``). Each
+    call ticks ``obs.compile_log``'s ``fed/client_eval`` or
+    ``fed/server_update`` (the JAX package ticks once a trace)."""
     kernels = opt.backend == "cuda"
 
     def client_eval(params, i, ghat_row, err_row, ssq, rnd):
+        compile_log.record("fed", "client_eval")     # one tick a call
         data_i = tree_map(lambda x: x[i:i + 1], task.worker_data)
         g = tree_map(lambda x: x[0], task.grad_fn(params, data_i))
         delta = tree_map(lambda x, h: x.to(h.dtype) - h, g, ghat_row)
@@ -161,6 +165,7 @@ def _stages(opt, task: FedTask):
             h[i] += q.to(h.dtype)
 
     def server_update(params, prev_params, ghat):
+        compile_log.record("fed", "server_update")   # one tick a round
         agg = tree_sum_leading(ghat)
         new_params = opt.apply_server(params, prev_params, agg)
         # ||theta^{k+1} - theta^k||^2: the next cohort's eq.-(8) test runs
@@ -206,20 +211,19 @@ def run_edge(opt, task: FedTask, edge: EdgeConfig, num_rounds: int, *,
       collect_metrics: record per-round series in ``EdgeHistory.metrics``
         (host accounting only: trajectories are identical with it on or
         off).
-      runlog: the JAX package's ``RunLog`` hook; not ported yet.
+      runlog: optional ``repro_torch.obs.RunLog``; when given, one
+        ``"round"`` event (the round's metrics, as ``collect_metrics``
+        records them, and ``cohort_size``) is appended per server update
+        as it completes.
       device: ``None`` runs on CUDA and raises without it; ``"cpu"`` is
         the explicit CPU opt-in.
     Returns:
       An ``EdgeHistory``.
     Raises:
-      NotImplementedError: for per-tensor granularity, censor policies
-        without a per-client rule (adaptive), and a ``runlog``.
+      NotImplementedError: for per-tensor granularity and censor policies
+        without a per-client rule (adaptive).
       ValueError: if ``opt.num_workers`` mismatches the population.
     """
-    if runlog is not None:
-        raise NotImplementedError(
-            "run_edge(runlog=...): repro.obs is not ported yet "
-            "(ROADMAP.md A11)")
     m = edge.population.num_clients
     _check(opt, m)
     task = task_to(task, resolve_device(device))
@@ -357,9 +361,9 @@ def run_edge(opt, task: FedTask, edge: EdgeConfig, num_rounds: int, *,
         wall.append(t)
         energy_cum.append(stats.total_energy_j)
         bytes_cum.append(stats.total_uplink_bytes)
-        if collect_metrics:
+        if collect_metrics or runlog is not None:
             decided = rc["transmit"] + rc["censor"]
-            bag_hist.append({
+            bag = {
                 "censor_rate": rc["censor"] / max(1, decided),
                 "transmit_rate": rc["transmit"] / max(1, decided),
                 "drops": float(rc["drop"]),
@@ -372,7 +376,11 @@ def run_edge(opt, task: FedTask, edge: EdgeConfig, num_rounds: int, *,
                 "wall_clock_s": float(t),
                 **{k: float(v) for k, v in rc.items()
                    if k.startswith("staleness/")},
-            })
+            }
+            if collect_metrics:
+                bag_hist.append(bag)
+            if runlog is not None:
+                runlog.write_round(round_, bag, cohort_size=len(cohort))
         for k in rc:
             rc[k] = 0
         arrived_from.pop(round_, None)

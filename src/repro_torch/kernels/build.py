@@ -18,6 +18,8 @@ from pathlib import Path
 
 import torch
 
+from ..obs import compile_log
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("censor", "fused_step", "hb_update", "topk_pack", "lowrank_ef",
@@ -153,6 +155,7 @@ def build(names=SOURCES) -> dict[str, str]:
                           f"{logs[name]}")
         else:
             os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+            compile_log.record("build", name)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs

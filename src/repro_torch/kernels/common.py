@@ -6,12 +6,14 @@ hand-written kernel or raises. Nothing falls back from one to the other.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made in this
 process: each wrapper adds one where it calls into the compiled library
-and nowhere else, so a run can show that it went through the kernels.
+and nowhere else, so a run can show that it went through the kernels. It
+is the live ``"kernels"`` namespace of ``obs.compile_log``.
 """
 from __future__ import annotations
 
 import torch
 
+from ..obs import compile_log
 from .build import GRID_X_MAX
 
 KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
@@ -21,7 +23,7 @@ KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
            "quantize_ef_batched", "censor_delta_sqnorm", "censor_select",
            "flash_attention", "decode_attention")
 
-LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: dict[str, int] = compile_log.namespace("kernels", KERNELS)
 
 #: bank dtypes the kernels are built for (sub-f32 banks are not ported)
 KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -29,8 +31,7 @@ KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 def reset_launches() -> None:
     """Zero every launch count."""
-    for name in KERNELS:
-        LAUNCHES[name] = 0
+    compile_log.reset("kernels")
 
 
 def count_launch(name: str) -> None:

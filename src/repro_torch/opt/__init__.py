@@ -9,8 +9,9 @@ from .censor import (AdaptiveCensor, Eq8Censor, NeverCensor,
                      StochasticCensor)
 from .optimizer import BACKENDS, ComposedOptimizer
 from .registry import (BACKEND_ALIASES, CENSOR_KINDS, SERVER_KINDS,
-                       TRANSPORT_KINDS, from_spec, make, make_transport,
-                       names, register, to_spec)
+                       TRANSPORT_KINDS, from_spec, make, make_for_point,
+                       make_transport, names, register, to_spec,
+                       transport_names)
 from .server import GradientDescent, HeavyBall
 from .transport import (DenseTransport, Int8Transport, LowRankTransport,
                         TopKTransport, tree_topk_keep)
@@ -22,6 +23,7 @@ __all__ = [
     "tree_topk_keep",
     "GradientDescent", "HeavyBall",
     "ComposedOptimizer", "BACKENDS", "BACKEND_ALIASES",
-    "register", "make", "names", "to_spec", "from_spec", "make_transport",
+    "register", "make", "make_for_point", "names", "to_spec", "from_spec",
+    "make_transport", "transport_names",
     "CENSOR_KINDS", "TRANSPORT_KINDS", "SERVER_KINDS",
 ]

@@ -18,6 +18,8 @@ the policies that can decide per client set ``supports_event_runtime``
 and decide there as ``decide`` does in a synchronous round, draw for
 draw. Decisions are evaluated in the norms' f32 precision for
 host-scalar and tensor eps1 alike (``core.censoring._eps_cast``).
+``metrics(state)`` is each policy's read-only ``repro_torch.obs`` hook,
+namespaced ``censor/<kind>/<key>`` in the MetricBag.
 """
 from __future__ import annotations
 
@@ -50,6 +52,9 @@ class NeverCensor:
 
     def decide_ids(self, state, delta_sq, step_sq, worker_ids):
         return self.decide(state, delta_sq, step_sq)
+
+    def metrics(self, state) -> dict:
+        return {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +95,10 @@ class Eq8Censor:
         # eq. (8) reads only the norms; the shard's ids are irrelevant
         return self.decide(state, delta_sq, step_sq)
 
+    def metrics(self, state) -> dict:
+        # the threshold itself, so a sweep's bags name each point's eps1
+        return {"eps1": torch.as_tensor(self.eps1).to(torch.float32)}
+
 
 @dataclasses.dataclass(frozen=True)
 class AdaptiveCensor:
@@ -128,6 +137,9 @@ class AdaptiveCensor:
         raise NotImplementedError(
             "adaptive censoring needs the whole cohort's deltas; it cannot "
             "run in the event-driven fed runtime")
+
+    def metrics(self, ema) -> dict:
+        return {"ema_mean": torch.mean(ema), "ema_max": torch.max(ema)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,3 +203,8 @@ class StochasticCensor:
         u = self._uniform(kk, torch.as_tensor(worker_ids, device=dev), dev)
         mask = (delta_sq > u * self._tau(kk).to(dev)).to(torch.float32)
         return mask, k + 1
+
+    def metrics(self, k) -> dict:
+        # k is the post-step round counter: tau is the threshold the next
+        # round tests against
+        return {"tau": self._tau(int(k)), "round": k}

@@ -41,7 +41,7 @@ from ..kernels import fused_step as kernel_fused
 from ..kernels import ops as kernel_ops
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .api import OptState, ShardStepStats, StepStats, static_pos
-from .censor import Eq8Censor
+from .censor import Eq8Censor, NeverCensor
 from .server import GradientDescent, HeavyBall
 from .transport import DenseTransport, Int8Transport, _bcast
 
@@ -143,6 +143,43 @@ class ComposedOptimizer:
         if ep:
             return "lag"
         return "hb" if bp else "gd"
+
+    def with_hparams(self, *, alpha=None, beta=None,
+                     eps1=None) -> "ComposedOptimizer":
+        """Rebind the scalar hyperparameters (the sweep engine's hook).
+
+        * ``beta`` rebinds a momentum server; ``GradientDescent`` is
+          promoted to ``HeavyBall(alpha, beta)``, which is bit-identical
+          at beta = 0.
+        * ``eps1`` retargets an eq.-(8) censor, or upgrades a
+          ``NeverCensor`` to one (``Eq8Censor(0.0)`` transmits always, as
+          ``NeverCensor`` does). Any other policy keeps its own
+          thresholds.
+
+        Pass host floats: a tensor scalar takes the stages' branch-free
+        forms (``static_pos``), which are not ``opt.make``'s code.
+        """
+        server = self.server
+        if alpha is not None:
+            server = dataclasses.replace(server, alpha=alpha)
+        if beta is not None:
+            if hasattr(server, "beta"):
+                server = dataclasses.replace(server, beta=beta)
+            else:
+                server = HeavyBall(server.alpha, beta)
+        censor = self.censor
+        if eps1 is not None:
+            if isinstance(censor, Eq8Censor):
+                censor = dataclasses.replace(censor, eps1=eps1)
+            elif isinstance(censor, NeverCensor):
+                censor = Eq8Censor(eps1)
+        return dataclasses.replace(self, censor=censor, server=server)
+
+    def metrics(self, state: OptState, stats: StepStats) -> dict:
+        """The per-round ``repro_torch.obs`` MetricBag of a finished step
+        (read-only: see ``obs.metrics.step_metrics``)."""
+        from ..obs import metrics as obs_metrics
+        return obs_metrics.step_metrics(self, state, stats)
 
     # ----------------------------------------------------------- protocol
     def init(self, params) -> OptState:

@@ -16,6 +16,7 @@ global/per_tensor.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Optional
 
 import torch
@@ -67,6 +68,32 @@ def make(name: str, alpha, num_workers: int, **hyper) -> ComposedOptimizer:
     return _ALGORITHMS[name](alpha, num_workers, **hyper)
 
 
+def make_for_point(name: str, alpha, num_workers: int, **hyper
+                   ) -> ComposedOptimizer:
+    """``make`` with ``hyper`` filtered by the builder's signature.
+
+    The sweep engine calls every named point with its full keyword set
+    (beta, eps1, quantize, seed); a builder receives only the ones it
+    declares, so ``gd`` never sees ``beta``.
+    """
+    if name not in _ALGORITHMS:
+        raise ValueError(f"unknown algorithm {name!r}; valid names: "
+                         f"{', '.join(names())}")
+    fn = _ALGORITHMS[name]
+    params = inspect.signature(fn).parameters
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+        kw = hyper
+    else:
+        kw = {k: v for k, v in hyper.items() if k in params}
+    return fn(alpha, num_workers, **kw)
+
+
+def transport_names() -> tuple[str, ...]:
+    """The registered transport kinds, sorted (the ``quantize`` vocabulary
+    of grids and builders)."""
+    return tuple(sorted(TRANSPORT_KINDS))
+
+
 def make_transport(kind: Optional[str], **hyper):
     """Build a transport by kind (``None`` is the dense passthrough).
 
@@ -76,7 +103,7 @@ def make_transport(kind: Optional[str], **hyper):
     kind = "dense" if kind is None else kind
     if kind not in TRANSPORT_KINDS:
         raise ValueError(f"unknown quantize mode {kind!r} (expected None "
-                         f"or one of {sorted(TRANSPORT_KINDS)})")
+                         f"or one of {transport_names()})")
     return TRANSPORT_KINDS[kind](**hyper)
 
 

@@ -6,6 +6,9 @@
     expression so GD and HB(beta=0) are bit-identical.
 
 Each scalar is cast to the parameter leaf's dtype before it multiplies.
+The ``metrics()`` hook reports the step scalars in f32 (``repro_torch.obs``
+namespaces them ``server/<kind>/<key>``), so a sweep's metric series
+names each point's hyperparameters.
 """
 from __future__ import annotations
 
@@ -21,6 +24,11 @@ from ..tree import tree_map
 def scal(s, leaf: torch.Tensor):
     """A config scalar rounded to the leaf's dtype (``core.util.scalar_in``)."""
     return scalar_in(s, leaf.dtype, leaf.device)
+
+
+def f32(s) -> torch.Tensor:
+    """A hyperparameter as a 0-d f32 tensor (a metric value)."""
+    return torch.as_tensor(s).to(torch.float32)
 
 
 def hb_expr(t, g, tp, alpha, beta):
@@ -42,6 +50,9 @@ class HeavyBall:
                                      scal(self.beta, t)).to(t.dtype),
             params, agg, prev_params)
 
+    def metrics(self) -> dict:
+        return {"alpha": f32(self.alpha), "beta": f32(self.beta)}
+
 
 @dataclasses.dataclass(frozen=True)
 class GradientDescent:
@@ -51,3 +62,6 @@ class GradientDescent:
 
     def apply(self, params, prev_params, agg):
         return HeavyBall(self.alpha, 0.0).apply(params, prev_params, agg)
+
+    def metrics(self) -> dict:
+        return {"alpha": f32(self.alpha)}

@@ -25,6 +25,10 @@ for bit. The row entries are plain PyTorch on either backend, as in the
 JAX package. ``stateful`` says whether transport state (the EF bank, and
 any warm-started factors) exists.
 
+Each stage has a ``metrics(err) -> dict`` hook for ``repro_torch.obs``:
+read-only stage-local scalars (the EF bank's squared norm for the
+stateful ones), namespaced ``transport/<kind>/<key>`` in the MetricBag.
+
 A stateful transport runs the staged steps of the ``cuda`` backend through
 ``encode_feedback_cuda(pending, err, mask) -> (payload, new_err)``, which
 hands its elementwise tail to kernels (B7a + B7b for int8, B10 for top-k,
@@ -45,7 +49,7 @@ import torch
 from ..core.quantize import (payload_bytes_dense, payload_bytes_int8,
                              tree_quantize_roundtrip,
                              tree_quantize_roundtrip_per_worker)
-from ..core.util import tree_stack_zeros
+from ..core.util import tree_sqnorm, tree_stack_zeros
 from ..kernels import ops as kernel_ops
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -102,6 +106,9 @@ class DenseTransport:
     def ef_bank(self, err):
         return None
 
+    def metrics(self, err) -> dict:
+        return {}
+
 
 @dataclasses.dataclass(frozen=True)
 class Int8Transport:
@@ -143,6 +150,10 @@ class Int8Transport:
 
     def ef_bank(self, err):
         return err
+
+    def metrics(self, err) -> dict:
+        # ||EF bank||^2: the quantization residual the cohort carries
+        return {"ef_residual_sqnorm": tree_sqnorm(err)}
 
 
 def _add_err(delta, err):
@@ -264,6 +275,9 @@ class TopKTransport:
 
     def ef_bank(self, err):
         return err
+
+    def metrics(self, err) -> dict:
+        return {"ef_residual_sqnorm": tree_sqnorm(err)}
 
 
 # ---------------------------------------------------------------- low-rank
@@ -396,3 +410,7 @@ class LowRankTransport:
 
     def ef_bank(self, err):
         return err["err"]
+
+    def metrics(self, err) -> dict:
+        return {"ef_residual_sqnorm": tree_sqnorm(err["err"]),
+                "factor_sqnorm": tree_sqnorm(err["q"])}

@@ -569,3 +569,61 @@ def test_prng_draws_on_the_card_equal_the_cpu(card):
                            torch.arange(9, device=card))
     assert torch.equal(keys.cpu(), jrandom.fold_in(
         jrandom.PRNGKey(1, device="cpu"), torch.arange(9)))
+
+
+def _launched():
+    return {k: v for k, v in common.LAUNCHES.items() if v}
+
+
+def test_sweep_points_equal_run_on_the_card(card):
+    """Every point of a dense/int8 grid equals ``simulator.run`` of its
+    optimizer bit for bit on the card; each partition launches exactly its
+    points' step kernels, and metrics add no launch."""
+    from repro_torch import sweep
+    task = edge_tasks.make_edge_quadratics(m=4, d=70001, seed=0,
+                                           dtype=torch.float32, device=card)
+    base = opt.make("chb", 0.125, 4, eps1=4.0, backend="cuda")
+    grid = sweep.ConfigGrid(alpha=(0.125,), beta=(0.0, 0.4),
+                            eps1=(0.0, 4.0), quantize=(None, "int8"))
+    for metrics in (False, True):
+        common.reset_launches()
+        res = sweep.run_sweep(grid, task, num_iters=8, base_cfg=base,
+                              device=card, collect_metrics=metrics)
+        assert res.num_programs == 2
+        assert _launched() == {"censor_delta_sqnorm_batched": 4 * 8,
+                               "fused_dense_step": 4 * 8,
+                               "int8_stats_batched": 4 * 8,
+                               "fused_int8_step": 4 * 8}
+    for spec, h in zip(res.specs, res.histories):
+        ref_run = simulator.run(opt.from_spec(spec), task, 8, device=card)
+        for f in ("objective", "comm_cum", "mask", "agg_grad_sqnorm"):
+            assert torch.equal(getattr(h, f), getattr(ref_run, f)), f
+        assert _same(h.final_params, ref_run.final_params)
+        assert _same(h.final_state.ghat, ref_run.final_state.ghat)
+
+
+def test_fed_sweep_on_the_card(card):
+    """The ideal scenario equals ``simulator.run``; every scenario is the
+    same on both backends; B8, B9 and B3 launch once a round a scenario."""
+    from repro_torch import sweep
+    task = edge_tasks.make_edge_quadratics(m=5, d=4099, seed=0, device=card)
+    grid = sweep.FedScenarioGrid(loss_prob=(0.0, 0.3),
+                                 participation=(1.0, 0.6), quorum=(1.0, 0.5))
+    res, launched = {}, {}
+    for b in ("cuda", "reference"):
+        common.reset_launches()
+        res[b] = sweep.run_fed_sweep(opt.make("chb", 0.1, 5, backend=b),
+                                     task, grid, 30, device=card)
+        launched[b] = _launched()
+    assert launched["cuda"] == {"sqnorm_batched": 8 * 30,
+                                "bank_advance": 8 * 30, "hb_update": 8 * 30}
+    assert launched["reference"] == {}
+    for f in ("objective", "agg_grad_sqnorm", "transmit_mask",
+              "delivered_mask", "participate_mask", "quorum_met"):
+        assert (getattr(res["cuda"], f) == getattr(res["reference"], f)).all()
+    ref_run = simulator.run(opt.make("chb", 0.1, 5, backend="cuda"), task,
+                            30, device=card)
+    assert (res["cuda"].objective[0] == ref_run.objective.cpu().numpy()).all()
+    assert (res["cuda"].transmit_mask[0]
+            == ref_run.mask.cpu().numpy()).all()
+    assert not res["cuda"].quorum_met.all()

@@ -37,7 +37,7 @@ from repro import fed as j_fed
 from repro import opt as j_opt
 from repro.core import simulator as j_simulator
 from repro.data import paper_tasks as j_paper
-from repro_torch import convert, fed, opt
+from repro_torch import convert, fed, obs, opt
 from repro_torch.core import simulator
 from repro_torch.data import paper_tasks
 from repro_torch.kernels import ops as kernel_ops
@@ -302,9 +302,11 @@ def test_rejections(linreg):
     with pytest.raises(ValueError):
         fed.run_edge(opt.make("chb", 0.1, M + 1), linreg.task, edge, 2,
                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        fed.run_edge(opt.make("chb", 0.1, M), linreg.task, edge, 2,
-                     runlog=object(), device="cpu")
+    # a runlog is taken since repro_torch.obs: one event a round
+    log = obs.RunLog(run="edge")
+    fed.run_edge(opt.make("chb", 0.1, M), linreg.task, edge, 2,
+                 runlog=log, device="cpu")
+    assert len(log.lines) == 2
     with pytest.raises(TypeError):
         fed.run_edge(object(), linreg.task, edge, 2, device="cpu")
     with pytest.raises(ValueError):
