@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""B14, B9 and B7a of two source trees, side by side on one card, and the
-bits of their sums B1, B5 and B8.
+"""B14, B9, B7a, B2 and B6 of two source trees, side by side on one card,
+and the bits of their sums B1, B5 and B8.
 
     python3 benchmarks_torch/kernel_ab.py --other <dir> [<dir> ...]
-        [--only B14 B9 B7a sums] [--ablate] [--reps 10]
+        [--only B14 B9 B7a sums fused] [--ablate] [--reps 10]
 
 Each ``<dir>`` holds another checkout of this repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -22,29 +22,42 @@ against ``addcmul``, B7a at the same shape against
 ``linalg.vector_norm(inf)``. ``sums`` checks that B1, B5 and B8 of this
 tree give every other tree's bits at M = 4, n = 163,597,056 (f32) and at
 M = 9, n = 70,001 (f32 and f64), and stops if they do not; then times the
-three at M = 4, n = 163,597,056 (B8 beside ``linalg.vecdot``). One JSON
-line each, and the card's name and power limit. Needs a CUDA card and
-nvcc.
+three at M = 4, n = 163,597,056 (B8 beside ``linalg.vecdot``). ``fused``
+checks that B2 and B6 of every tree give this tree's bits, and this
+tree's the plain version's, at M = 4, n = 163,597,056 (f32), at the
+fed-mesh shape M = 100,000, n = 16 (f64) and at M = 70,000, n = 2049
+(f64, where the tall design's fold is fed by cp.async), and stops if they
+do not; then times both at these shapes beside the floor of an exact
+fold at the fed-mesh shape (one thread's M - 1 dependent adds,
+``benchmarks_torch/chain_floor.py``). This tree runs the design its
+wrapper picks (``kernels/common.py:fold_path``); another tree runs its
+tall launchers where it has them and this tree picks the tall design,
+else its one design. One JSON line each, and the card's name and power
+limit. Needs a CUDA card and nvcc.
 
 A tree's B7a partial count is ceil(n / span), with the span its own
 ``kernels/build.py`` names (``ABSMAX_SPAN``; a tree without it uses one
-partial per ``REDUCE_CHUNK``).
+partial per ``REDUCE_CHUNK``), read from the file's constants without
+importing it.
 
 ``--ablate`` adds two B14 variants built from this tree's source, which
 say where its time goes and are wrong by design (their checks report
 ``false``): ``no_mask`` treats every key tile as inside the band (no
 per-score test), ``no_softmax`` also drops the online softmax (no max, no
 exps, no shuffles; p = the scaled scores), leaving the two products, the
-tile copies and the barriers. For B7a, and for B1, B8 and B5 under
-``sums``, it profiles each tree's call (``torch.profiler``) and prints the
-device time of each of its kernels (pass 1, pass 2) a call beside the
-call's time between CUDA events.
+tile copies and the barriers. Under ``fused`` it adds ``fold_no_copy``,
+this tree's B2/B6 whose narrow-bank fold copies nothing into its stages
+(the chain of adds and the stage handovers alone, on whatever the shared
+memory holds). For B7a, for B1, B8 and B5 under ``sums``, and for B2 and
+B6 under ``fused``, it profiles each tree's call (``torch.profiler``) and
+prints the device time of each of its kernels (pass 1, pass 2) a call
+beside the call's time between CUDA events.
 """
 from __future__ import annotations
 
 import argparse
+import ast
 import ctypes
-import importlib.util
 import json
 import math
 import subprocess
@@ -60,14 +73,17 @@ import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import (ATTN_FACTOR, ATTN_FLOOR, FULL_D, _flash_f64,  # noqa: E402
-                        _time_ms, same_bits, same_or_nan)
-from repro_torch.kernels import build, flash_attention, ref  # noqa: E402
+from benchmarks_torch.chain_floor import chain_floor_ms  # noqa: E402
+from chip_smoke import (ATTN_FACTOR, ATTN_FLOOR, FULL_D, LARGE_M,  # noqa: E402
+                        MANY_D, MANY_M, _flash_f64, _time_ms, same_bits, same_or_nan)
+from repro_torch.core.quantize import int8_scale  # noqa: E402
+from repro_torch.kernels import build, common, flash_attention, ref  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
 # the sources each choice of --only compiles
 SOURCES = {"B14": ("flash_attention",), "B9": ("censor",),
-           "B7a": ("quantize_ef",), "sums": ("censor", "fused_step")}
+           "B7a": ("quantize_ef",), "sums": ("censor", "fused_step"),
+           "fused": ("fused_step",)}
 
 
 def compile_tree(tag: str, csrc: Path, names) -> dict:
@@ -90,18 +106,19 @@ def compile_tree(tag: str, csrc: Path, names) -> dict:
         print(f"--- nvcc {tag} {name}.cu\n{log}", file=sys.stderr)
         cdll = ctypes.CDLL(str(lib))
         for fn, argtypes in build.SIGNATURES[name].items():
-            f = getattr(cdll, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
+            f = getattr(cdll, fn, None)      # an older tree may lack one
+            if f is not None:
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
         libs[name] = cdll
     return libs
 
 
-# (variant, [(text of this tree's flash_attention.cu, its replacement)])
+# (variant, source, [(text of this tree's source, its replacement)])
 ABLATIONS = (
-    ("no_mask", [("    const bool inside = k0 + kBK <= a.s",
+    ("no_mask", "flash_attention", [("    const bool inside = k0 + kBK <= a.s",
                   "    const bool inside = true || k0 + kBK <= a.s")]),
-    ("no_softmax", [
+    ("no_softmax", "flash_attention", [
         ("    const bool inside = k0 + kBK <= a.s",
          "    const bool inside = true || k0 + kBK <= a.s"),
         ("""    const float mn = maxval(m[i], mx);
@@ -121,23 +138,31 @@ ABLATIONS = (
     for (int off = kTX / 2; off > 0; off >>= 1)
       mx = maxval(mx, __shfl_xor_sync(0xffffffffu, mx, off));
 """, "")]),
+    ("fold_no_copy", "fused_step", [
+        ("  mbar_expect(bar, bytes);\n  if (bytes) bulk_copy(buf, src, bytes, bar);",
+         "  mbar_expect(bar, 0);")]),
 )
+# the source each choice of --only ablates
+ABLATED = {"B14": "flash_attention", "fused": "fused_step"}
 
 
-def ablated_trees() -> list[Path]:
-    """This tree's B14 with each ablation applied, one directory each."""
+def ablated_trees(source: str) -> list[Path]:
+    """This tree's ``source`` with each of its ablations applied, one
+    directory each."""
     dirs = []
-    text = (build.CSRC / "flash_attention.cu").read_text()
-    for name, edits in ABLATIONS:
+    text = (build.CSRC / f"{source}.cu").read_text()
+    for name, src_name, edits in ABLATIONS:
+        if src_name != source:
+            continue
         src = text
         for old, new in edits:
             if old not in src:
                 raise SystemExit(f"kernel_ab: ablation {name} no longer "
-                                 "applies to flash_attention.cu")
+                                 f"applies to {source}.cu")
             src = src.replace(old, new)
         csrc = OUT / "ablate" / name / "src/repro_torch/kernels/csrc"
         csrc.mkdir(parents=True, exist_ok=True)
-        (csrc / "flash_attention.cu").write_text(src)
+        (csrc / f"{source}.cu").write_text(src)
         (csrc / "reduce.cuh").write_text(
             (build.CSRC / "reduce.cuh").read_text())
         dirs.append(OUT / "ablate" / name)
@@ -223,13 +248,21 @@ def check_bank(trees, randn, dev) -> None:
 
 def absmax_span(tree: Path) -> int:
     """Elements of a worker row behind one B7a partial in ``tree``: its
-    ``kernels/build.py``'s ABSMAX_SPAN, else REDUCE_CHUNK."""
-    spec = importlib.util.spec_from_file_location(
-        f"kernel_ab_build_{abs(hash(str(tree)))}",
-        tree / "src/repro_torch/kernels/build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return getattr(mod, "ABSMAX_SPAN", mod.REDUCE_CHUNK)
+    ``kernels/build.py``'s ABSMAX_SPAN, else REDUCE_CHUNK. Read from the
+    file's top-level integer constants (the module's package imports would
+    pull in the other tree)."""
+    consts = {}
+    src = (tree / "src/repro_torch/kernels/build.py").read_text()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            try:
+                consts[node.targets[0].id] = eval(     # noqa: S307
+                    compile(ast.Expression(node.value), "build.py", "eval"),
+                    {"__builtins__": {}}, dict(consts))
+            except Exception:   # not a constant expression of constants
+                continue
+    return consts.get("ABSMAX_SPAN", consts["REDUCE_CHUNK"])
 
 
 def absmax(libs, span, x):
@@ -320,6 +353,77 @@ def check_sums(trees, dev) -> None:
         torch.cuda.empty_cache()
 
 
+FUSED_SHAPES = ((4, FULL_D, torch.float32), (MANY_M, MANY_D, torch.float64),
+                (LARGE_M, 2049, torch.float64))
+
+
+def fused(libs, kind, tall, g, h, e, t, p, mask, scale):
+    """B2 (``kind`` "B2") or B6 ("B6") of one tree: its outputs. ``tall``
+    runs the tree's tall launcher where it has one."""
+    lib = libs["fused_step"]
+    m, n = g.shape
+    suffix = "f32" if g.dtype == torch.float32 else "f64"
+    name = "fused_dense_step" if kind == "B2" else "fused_int8_step"
+    fn = f"{name}_tall_{suffix}"
+    if not (tall and hasattr(lib, fn)):
+        fn = f"{name}_{suffix}"
+    new_h, agg, new_t = (torch.empty_like(x) for x in (h, t, t))
+    if kind == "B2":
+        run(lib, fn, g.device, g.data_ptr(), h.data_ptr(), t.data_ptr(),
+            p.data_ptr(), mask.data_ptr(), new_h.data_ptr(), agg.data_ptr(),
+            new_t.data_ptr(), m, n, 0.1, 0.4)
+        return new_h, agg, new_t
+    new_e = torch.empty_like(e)
+    run(lib, fn, g.device, g.data_ptr(), h.data_ptr(), e.data_ptr(),
+        t.data_ptr(), p.data_ptr(), mask.data_ptr(), scale.data_ptr(),
+        new_h.data_ptr(), new_e.data_ptr(), agg.data_ptr(), new_t.data_ptr(),
+        m, n, 0.1, 0.4)
+    return new_h, new_e, agg, new_t
+
+
+def fused_inputs(m, n, dtype, dev):
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    g, h, e = (torch.randn((m, n), generator=gen, device=dev, dtype=dtype)
+               for _ in range(3))
+    e *= 0.01
+    g[:, ::7] = -0.0
+    t, p = (torch.randn(n, generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    mask = torch.tensor([float(i % 3 != 1) for i in range(m)], device=dev)
+    scale = int8_scale(ref.absmax_batched((g - h) + e))
+    return g, h, e, t, p, mask, scale
+
+
+def check_fused(trees, dev) -> None:
+    """B2 and B6 of every tree give this tree's bits, and this tree's
+    the plain version's, at the FUSED_SHAPES."""
+    sms = common.sm_count(dev.index or 0)
+    for m, n, dtype in FUSED_SHAPES:
+        args = fused_inputs(m, n, dtype, dev)
+        g, h, e, t, p, mask, scale = args
+        tall = common.fold_path(m, n, sms) == "tall"
+        for kind in ("B2", "B6"):
+            plain = (ref.fused_dense_step(g, h, t, p, mask, 0.1, 0.4)
+                     if kind == "B2" else
+                     ref.fused_int8_step(g, h, e, t, p, mask, scale, 0.1,
+                                         0.4))
+            got = {tag: fused(libs, kind, tall, *args)
+                   for tag, libs in trees.items()}
+            same = {tag: all(same_bits(a, b) for a, b in zip(r, got["this"]))
+                    for tag, r in got.items() if tag != "this"}
+            ok = all(same_bits(a, b) for a, b in zip(got["this"], plain))
+            print(json.dumps({"check": kind, "m": m, "n": n,
+                              "dtype": str(dtype), "tall": tall,
+                              "this_equals_plain": ok,
+                              "same_bits_as_this": same}), flush=True)
+            if not (ok and all(same.values())):
+                raise SystemExit(f"kernel_ab: {kind} bits differ at M={m} "
+                                 f"n={n} {dtype}")
+            del plain, got
+        del args, g, h, e, t, p, mask, scale
+        torch.cuda.empty_cache()
+
+
 def _device_us(evt) -> float:
     us = getattr(evt, "self_device_time_total", None)
     return getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
@@ -359,13 +463,12 @@ def main() -> None:
     print(smi, flush=True)
     dev = torch.device("cuda")
     names = sorted({n for k in args.only for n in SOURCES[k]})
-    others = list(args.other)
-    if args.ablate and "B14" in args.only:
-        others += ablated_trees()
+    ablated = {d: source for k, source in ABLATED.items()
+               if args.ablate and k in args.only
+               for d in ablated_trees(source)}
     trees = {d.name: compile_tree(d.name, d / "src/repro_torch/kernels/csrc",
-                                  names if d in args.other
-                                  else ["flash_attention"])
-             for d in others}
+                                  [ablated[d]] if d in ablated else names)
+             for d in [*args.other, *ablated]}
     trees["this"] = compile_tree("this", build.CSRC, names)
     spans = {d.name: absmax_span(d) for d in args.other}
     spans["this"] = absmax_span(ROOT)
@@ -417,6 +520,28 @@ def main() -> None:
         if args.ablate:
             splits["B7a"] = {tag: split(fn, args.reps)
                              for tag, fn in fns.items()}
+    if "fused" in args.only:
+        check_fused({t: libs for t, libs in having("fused_step").items()
+                     if t not in {d.name for d in ablated}}, dev)
+        sms = common.sm_count(dev.index or 0)
+        for m, n, dtype in FUSED_SHAPES:
+            fargs = fused_inputs(m, n, dtype, dev)
+            tall = common.fold_path(m, n, sms) == "tall"
+            for kind in ("B2", "B6"):
+                key = f"{kind} M={m} n={n} {str(dtype)[6:]}"
+                fns = {tag: (lambda libs=libs, kind=kind, tall=tall,
+                             fargs=fargs: fused(libs, kind, tall, *fargs))
+                       for tag, libs in having("fused_step").items()}
+                work[key] = (fns, None)
+                if args.ablate:
+                    splits[key] = {tag: split(fn, args.reps)
+                                   for tag, fn in fns.items()}
+        floor = chain_floor_ms(MANY_M, args.reps)
+        print(json.dumps({"chain_floor": {"m": MANY_M, "ms": floor,
+                                          "ns_per_add": {
+                                              k: v * 1e6 / (MANY_M - 1)
+                                              for k, v in floor.items()}},
+                          "card": smi}), flush=True)
     for name, (fns, lib_fn) in work.items():
         tags = [t for t in fns if t != "this"]
         order = tags + ["this", "this"] + tags[::-1]

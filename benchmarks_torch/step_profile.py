@@ -4,7 +4,7 @@ card.
 
     python3 benchmarks_torch/step_profile.py [--d 163597056] [--m 4] [--iters 5]
         [--transport dense int8 topk lowrank dense_staged int8_staged
-         per_tensor]
+         per_tensor] [--backend cuda reference]
     python3 benchmarks_torch/step_profile.py --serve default long [--iters 5]
     python3 benchmarks_torch/step_profile.py --edge chb chb_int8 csgd \
         [--iters 5]
@@ -17,7 +17,9 @@ paths run dense and int8 under ``force_staged()``), warms each
 configuration up with one
 ``simulator.run``, then traces ``--iters`` iterations of another with
 ``torch.profiler`` (CPU and CUDA activities). For each transport, on the
-kernel and the reference backend, it prints one JSON line: device time by
+kernel and the reference backend (or those ``--backend`` names: at
+``--m 100000`` the reference backend's worker sum is 10^5 eager adds an
+iteration), it prints one JSON line: device time by
 kernel name, the window's wall time (CUDA events), the device's busy time
 (the sum of its kernels and copies) and its idle share (1 - busy / wall).
 With ``--serve``, it profiles chb-paper-lm-124m at full width instead,
@@ -214,6 +216,8 @@ def main() -> None:
                     help="low-rank and per_tensor view the task as "
                     "chb-paper-lm-124m's leaves, so they need the default "
                     "--d")
+    ap.add_argument("--backend", nargs="+", choices=("cuda", "reference"),
+                    default=["cuda", "reference"])
     ap.add_argument("--serve", nargs="+", choices=("default", "long"),
                     help="profile serving chb-paper-lm-124m instead")
     ap.add_argument("--edge", nargs="+", choices=tuple(EDGE_PATHS),
@@ -239,7 +243,7 @@ def main() -> None:
         return
     for transport in args.transport:
         run_task = lm_tree_task(task) if transport in TREE_PATHS else task
-        for backend in ("cuda", "reference"):
+        for backend in args.backend:
             print(json.dumps(profile_run(run_task, transport, backend,
                                          args.iters)), flush=True)
             torch.cuda.empty_cache()

@@ -23,7 +23,11 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  on aligned and misaligned leaves, salted with -0.0, NaN
                  and +-inf, M up to 70,000; (phase absmax_paths) B7a's
                  two paths the same way, against its plain version and
-                 B5's abs-max; (phase attention_kernels) B14 over GQA 1/2/4/6,
+                 B5's abs-max; (phase fused_fold_paths) B2 and B6 on the
+                 shape their wrappers dispatch (common.fold_path) and on
+                 the other design, at M up to 100,000 and on each side of
+                 the threshold, salted with -0.0, NaN and +-inf;
+                 (phase attention_kernels) B14 over GQA 1/2/4/6,
                  causal, window and non-causal rectangular shapes on and
                  off its tiles, head dims 32-256, strided and misaligned
                  views, f32 and bf16; B13 over C in {1, 97, 2081}, empty slots, wrapped
@@ -93,8 +97,11 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  (B12a, B12b, B3 at n = 163,597,056 f32, B14) against their
                  plain versions.
   6. timing   -- each kernel, its plain version, its library call where
-                 one exists and its bound at the main path's shape; then
-                 the ``{"kernels": [...]}`` line of all 16 kernels.
+                 one exists and its bound at the main path's shape (B2 and
+                 B6 also at the fed-mesh shape, on both designs, beside
+                 the measured floor of an exact fold there:
+                 benchmarks_torch/chain_floor.py); then the
+                 ``{"kernels": [...]}`` line of all 16 kernels.
 
 The last line is ``{"ok": true, "device": {...}}``. Every failed check
 raises, so the script exits non-zero and prints no last line; without
@@ -824,6 +831,108 @@ def phase_absmax_paths(device,
     emit({"phase": "absmax_paths", "cases": cases,
           "rule": "bitwise where no NaN, NaN rows NaN, equal to B5's "
           "abs-max; -0.0, NaN and inf salted"})
+
+
+def fold_path_cases(sms: int) -> list:
+    """(M, n) of B2/B6's design cases: the fed-mesh frontier, phase
+    kernels_large_m's shape, one column past grid y's 65535 blocks, a short
+    tall bank, and each side of ``common.fold_path``'s threshold (M at
+    ONE_PASS_MAX_WORKERS and one above; n one short of a column for every
+    thread the card holds, and at it)."""
+    from repro_torch.kernels.common import (ONE_PASS_MAX_WORKERS,
+                                            THREADS_PER_SM)
+    mo, wide = ONE_PASS_MAX_WORKERS, sms * THREADS_PER_SM
+    return [(MANY_M, MANY_D), (LARGE_M, 2049), (65536, 1), (300, 16),
+            (mo, 16), (mo + 1, 16), (mo + 1, wide - 1), (mo + 1, wide)]
+
+
+def _fold_inputs(m, n, dtype, device, seed):
+    """B2/B6 operands salted with -0.0 (column 0 all -0.0; column 1 a
+    ghat' of -0.0 in every row under the all-zeros mask) and, where n >= 3,
+    NaN and +-inf in the last columns."""
+    g, h, e, t, p = _inputs(m, n, dtype, seed, device)
+    g[:, 0], h[:, 0], e[:, 0] = -0.0, -0.0, -0.0
+    if n > 1:
+        g[:, 1], h[:, 1] = -1.0, -0.0
+    if n >= 3:
+        g[m // 2, n - 1] = float("nan")
+        h[m - 1, n - 2] = float("inf")
+        g[0, n - 1] = float("-inf")
+    return g, h, e, t, p
+
+
+def phase_fused_fold_paths(device,
+                           dtypes=(torch.float32, torch.float64)) -> None:
+    """B2 and B6 on the fold_path_cases: the design their wrapper picks
+    against the plain version (NaN where it gives NaN, the same bits
+    elsewhere), the other design against the first, a repeat launch and
+    the M=1 calls of sample_workers, all three masks."""
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import common, fused_step, ref
+    sms = common.sm_count(device.index or 0)
+    alpha, beta = 0.0123, 0.4
+    cases, paths = 0, {}
+    for dtype in dtypes:
+        for m, n in fold_path_cases(sms):
+            g, h, e, t, p = _fold_inputs(m, n, dtype, device, m + n)
+            path = common.fold_path(m, n, sms)
+            other = "one_pass" if path == "tall" else "tall"
+            paths[f"M={m} n={n}"] = path
+            scale = int8_scale(fused_step.int8_stats_batched(g, h, e)[1])
+            for mname, mask in _masks(m, device).items():
+                tag = f"{dtype} M={m} n={n} mask={mname} ({path})"
+                out = fused_step.fused_dense_step(g, h, t, p, mask, alpha,
+                                                  beta)
+                plain = ref.fused_dense_step(g, h, t, p, mask, alpha, beta)
+                alt = fused_step.dense_on_card(g, h, t, p, mask, alpha, beta,
+                                               other)
+                again = fused_step.fused_dense_step(g, h, t, p, mask, alpha,
+                                                    beta)
+                for a, b, c, d, what in zip(out, plain, alt, again,
+                                            ("ghat'", "agg", "theta'")):
+                    check(same_or_nan(a, b), f"B2 {what} {tag}")
+                    check(same_or_nan(c, a), f"B2 {what} {other} {tag}")
+                    check(same_bits(d, a), f"B2 {what} repeat {tag}")
+                if mname == "zeros" and n > 1:
+                    check(bool((bits(out[1][1:2]) == bits(
+                        torch.tensor([-0.0], dtype=dtype, device=device))
+                    ).all()), f"B2 -0.0 column's agg {tag}")
+                for w in sample_workers(m):
+                    one = fused_step.fused_dense_step(
+                        g[w:w + 1], h[w:w + 1], t, p, mask[w:w + 1], alpha,
+                        beta)
+                    check(same_or_nan(one[0], out[0][w:w + 1]),
+                          f"B2 M=1 slice {w} {tag}")
+                out = fused_step.fused_int8_step(g, h, e, t, p, mask, scale,
+                                                 alpha, beta)
+                plain = ref.fused_int8_step(g, h, e, t, p, mask, scale, alpha,
+                                            beta)
+                alt = fused_step.int8_on_card(g, h, e, t, p, mask, scale,
+                                              alpha, beta, other)
+                again = fused_step.fused_int8_step(g, h, e, t, p, mask, scale,
+                                                   alpha, beta)
+                for a, b, c, d, what in zip(out, plain, alt, again,
+                                            ("ghat'", "err'", "agg",
+                                             "theta'")):
+                    check(same_or_nan(a, b), f"B6 {what} {tag}")
+                    check(same_or_nan(c, a), f"B6 {what} {other} {tag}")
+                    check(same_bits(d, a), f"B6 {what} repeat {tag}")
+                for w in sample_workers(m):
+                    one = fused_step.fused_int8_step(
+                        g[w:w + 1], h[w:w + 1], e[w:w + 1], t, p,
+                        mask[w:w + 1], scale[w:w + 1], alpha, beta)
+                    check(same_or_nan(one[0], out[0][w:w + 1])
+                          and same_or_nan(one[1], out[1][w:w + 1]),
+                          f"B6 M=1 slice {w} {tag}")
+                del out, plain, alt, again
+                cases += 1
+            del g, h, e, t, p
+            torch.cuda.empty_cache()
+    emit({"phase": "fused_fold_paths", "cases": cases, "sms": sms,
+          "path_by_shape": paths,
+          "rule": "the picked design against the plain version and the "
+          "other design: NaN where it gives NaN, the same bits elsewhere "
+          "(-0.0 included); repeat and M=1 slices bitwise"})
 
 
 # ----------------------------------------------------------- phase 3b
@@ -2164,6 +2273,54 @@ def _time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
+    """B2 and B6 at the fed-mesh shape (M = 100,000, n = 16, f64): the
+    design the wrapper picks and the one-pass design, the shape's byte
+    bound, and the floor of an exact fold there (one thread's M - 1
+    dependent f64 adds, ``benchmarks_torch/chain_floor.py``)."""
+    from benchmarks_torch.chain_floor import chain_floor_ms
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import common, fused_step, ref
+    floor = chain_floor_ms(m)
+    gen = torch.Generator(device=device).manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float64)
+
+    g, h, e = randn(m, n), randn(m, n), randn(m, n) * 0.01
+    t, p = randn(n), randn(n)
+    mask = torch.tensor([1.0, 0.0] * (m // 2) + [1.0] * (m % 2),
+                        device=device)
+    scale = int8_scale(ref.absmax_batched((g - h) + e))
+    el = 8                                              # f64 bytes
+    work = {   # name: (run by design, bytes moved)
+        "fused_dense_step": (
+            lambda path: fused_step.dense_on_card(g, h, t, p, mask, 0.1, 0.4,
+                                                  path),
+            (3 * m * n + 4 * n) * el + 4 * m),
+        "fused_int8_step": (
+            lambda path: fused_step.int8_on_card(g, h, e, t, p, mask, scale,
+                                                 0.1, 0.4, path),
+            (5 * m * n + 4 * n) * el + 8 * m),
+    }
+    path = common.fold_path(m, n, common.sm_count(device.index or 0))
+    out = {}
+    for name, (run, nbytes) in work.items():
+        ms = _time_ms(lambda: run(path), 10)
+        one_pass_ms = _time_ms(lambda: run("one_pass"), 3)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"shape": f"M={m} n={n} float64", "path": path,
+                     "ms": ms, "one_pass_ms": one_pass_ms,
+                     "bytes": nbytes, "bound_ms": bound_ms,
+                     "chain_floor_ms": floor["f64"],
+                     "ms_over_chain_floor": ms / floor["f64"]}
+    del g, h, e, t, p
+    torch.cuda.empty_cache()
+    emit({"phase": "fed_mesh_timing", "chain_floor_ms": floor, **out})
+    return out
+
+
 def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
     """Each kernel at the full-width shape (B3 at n, the rest at M x n):
     its time, its plain version's, one PyTorch call's where one computes
@@ -2244,6 +2401,7 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
             lambda: ref.quantize_ef_batched(pend, e, mask, scale), None,
             4 * m * d * el + 8 * m, 9 * m * d),
     }
+    fed = fed_mesh_timing(device)
     rows = []
     for name, (kfn, pfn, lfn, nbytes, ops) in work.items():
         ms = _time_ms(kfn, 10)
@@ -2263,7 +2421,8 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
             "library_ms": library_ms, "launches_by_path": by_path,
             "bytes": nbytes,
             "shape": (f"n={d} float32" if name == "hb_update"
-                      else f"M={m} n={d} float32")})
+                      else f"M={m} n={d} float32"),
+            **({"fed_mesh": fed[name]} if name in fed else {})})
         torch.cuda.empty_cache()
     del g, h, e, t, p, keep, pend, nab
     torch.cuda.empty_cache()
@@ -2362,6 +2521,7 @@ def main() -> None:
     max_err = {k: max(v, large[k]) for k, v in max_err.items()}
     phase_bank_advance_paths(dev)
     phase_absmax_paths(dev)
+    phase_fused_fold_paths(dev)
     phase_attention_kernels(dev, max_err)
     phase_golden(dev)
     flat, setup_s = full_task(dev)

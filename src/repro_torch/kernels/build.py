@@ -92,8 +92,10 @@ SIGNATURES = {
                **_pairs("censor_delta_sqnorm", _REDUCE_ARGS),
                **_pairs("censor_select", _SELECT_ARGS)},
     "fused_step": {**_both("fused_dense_step", _DENSE_ARGS),
+                   **_both("fused_dense_step_tall", _DENSE_ARGS),
                    **_both("int8_stats_batched", _STATS_ARGS),
-                   **_both("fused_int8_step", _INT8_ARGS)},
+                   **_both("fused_int8_step", _INT8_ARGS),
+                   **_both("fused_int8_step_tall", _INT8_ARGS)},
     "hb_update": _both("hb_update", _HB_ARGS),
     "topk_pack": _both("select_pack_ef_batched", _PACK_ARGS),
     "lowrank_ef": _both("residual_ef_batched", _RESIDUAL_ARGS),

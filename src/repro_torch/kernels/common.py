@@ -11,6 +11,8 @@ is the live ``"kernels"`` namespace of ``obs.compile_log``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..obs import compile_log
@@ -106,3 +108,30 @@ def grid_chunks(name: str, shape, n: int, span: int, m: int = 1) -> int:
             f"grid x ({chunks} of {span} elements a worker row, {m} "
             f"workers); a launch holds at most 2^31 - 1 = {GRID_X_MAX}")
     return chunks
+
+
+#: workers up to which B2 and B6 keep their one-pass design on any bank:
+#: a thread's walk of M rows costs about what the tall design's second
+#: launch does
+ONE_PASS_MAX_WORKERS = 64
+#: threads one SM holds (Hopper): the one-pass design fills the card once
+#: it has a column for each
+THREADS_PER_SM = 2048
+
+
+def fold_path(m: int, n: int, sms: int) -> str:
+    """Which design B2 and B6 run on an (M, n) bank, on a card of ``sms``
+    SMs. ``"one_pass"``: a thread a column walks the M workers (the
+    columns fill the card, or M is small). ``"tall"``: the per-element
+    work on the whole card, then the worker fold per column tile from
+    shared memory (few columns, each a long chain). Both give the same
+    bits."""
+    if m <= ONE_PASS_MAX_WORKERS or n >= sms * THREADS_PER_SM:
+        return "one_pass"
+    return "tall"
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

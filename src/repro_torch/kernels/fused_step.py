@@ -7,6 +7,12 @@ fused pass (:func:`fused_dense_step` / :func:`fused_int8_step`) for the
 bank advance, the eq.-(5) worker sum and the eq.-(4) update. CPU tensors
 run ``ref``'s plain versions; CUDA tensors launch the kernels.
 
+B2 and B6 have two designs, picked by the bank's shape
+(``common.fold_path``): one pass, a thread a column walking the workers,
+where the columns fill the card or M is small; and for tall banks (M >> n)
+the per-element work on the whole card, then the worker fold per column
+tile from shared memory (two launches, one count). Both give the same bits.
+
 ``alpha``/``beta`` reach the kernels as runtime arguments, so no
 hyperparameter value is compiled into a kernel. Inside
 :func:`force_staged` the optimizer runs the staged kernels instead (B1, B4
@@ -22,8 +28,10 @@ import torch
 from . import ref
 from .build import REDUCE_CHUNK, launch
 from .censor import _ptr
-from .common import (check_bank, check_worker_vector, count_launch,
-                     grid_chunks, on_card)
+from .common import (KERNEL_DTYPES, check_bank, check_worker_vector,
+                     count_launch, fold_path, grid_chunks, on_card, sm_count)
+
+FOLD_PATHS = ("one_pass", "tall")
 
 
 _FUSION_ENABLED = True
@@ -67,13 +75,13 @@ def _check_step(name, g, ghat, theta, theta_prev, *banks):
 def fused_dense_step(g: torch.Tensor, ghat: torch.Tensor,
                      theta: torch.Tensor, theta_prev: torch.Tensor,
                      mask: torch.Tensor, alpha, beta):
-    """Everything after the censor decision for one dense leaf, one pass.
+    """Everything after the censor decision for one dense leaf.
 
     Returns ``(new_ghat, agg, new_theta)``: ``ghat + mask*(g - ghat)``,
     its left-fold worker sum, and ``(t - alpha*agg) + beta*(t - t_prev)``.
     """
     name = "fused_dense_step"
-    suffix = _check_step(name, g, ghat, theta, theta_prev)
+    _check_step(name, g, ghat, theta, theta_prev)
     m, n = g.shape[0], theta.numel()
     check_worker_vector(name, "mask", mask, m)
     if n == 0:
@@ -81,13 +89,37 @@ def fused_dense_step(g: torch.Tensor, ghat: torch.Tensor,
     if not on_card(name, g, ghat, theta, theta_prev, mask):
         return ref.fused_dense_step(g, ghat, theta, theta_prev, mask,
                                     alpha, beta)
+    return dense_on_card(g, ghat, theta, theta_prev, mask, alpha, beta,
+                         _path(g, m, n))
+
+
+def _path(g: torch.Tensor, m: int, n: int) -> str:
+    return fold_path(m, n, sm_count(g.device.index))
+
+
+def _launcher(name: str, path: str, dtype: torch.dtype) -> str:
+    if path not in FOLD_PATHS:
+        raise ValueError(f"{name}: path must be one of {FOLD_PATHS}, got "
+                         f"{path!r}")
+    tall = "_tall" if path == "tall" else ""
+    return f"{name}{tall}_{KERNEL_DTYPES[dtype]}"
+
+
+def dense_on_card(g, ghat, theta, theta_prev, mask, alpha, beta,
+                  path: str):
+    """B2 on checked CUDA operands by ``path`` (one of ``FOLD_PATHS``).
+    :func:`fused_dense_step` takes the path ``common.fold_path`` picks;
+    the card's checks call both on one input."""
+    name = "fused_dense_step"
+    m, n = g.shape[0], theta.numel()
     new_ghat = torch.empty_like(ghat)
     agg = torch.empty_like(theta)
     new_theta = torch.empty_like(theta)
+    fn = _launcher(name, path, g.dtype)
     count_launch(name)
-    launch("fused_step", f"{name}_{suffix}", g.device, _ptr(g), _ptr(ghat),
-           _ptr(theta), _ptr(theta_prev), _ptr(mask), _ptr(new_ghat),
-           _ptr(agg), _ptr(new_theta), m, n, float(alpha), float(beta))
+    launch("fused_step", fn, g.device, _ptr(g), _ptr(ghat), _ptr(theta),
+           _ptr(theta_prev), _ptr(mask), _ptr(new_ghat), _ptr(agg),
+           _ptr(new_theta), m, n, float(alpha), float(beta))
     return new_ghat, agg, new_theta
 
 
@@ -125,14 +157,14 @@ def int8_stats_batched(g: torch.Tensor, ghat: torch.Tensor,
 def fused_int8_step(g: torch.Tensor, ghat: torch.Tensor, err: torch.Tensor,
                     theta: torch.Tensor, theta_prev: torch.Tensor,
                     mask: torch.Tensor, scale: torch.Tensor, alpha, beta):
-    """Everything after the censor decision for one int8+EF leaf, one pass.
+    """Everything after the censor decision for one int8+EF leaf.
 
     ``scale`` is the (M,) f32 per-worker scale from
     :func:`int8_stats_batched`'s abs-max (``core.quantize.int8_scale``).
     Returns ``(new_ghat, new_err, agg, new_theta)``.
     """
     name = "fused_int8_step"
-    suffix = _check_step(name, g, ghat, theta, theta_prev, err)
+    _check_step(name, g, ghat, theta, theta_prev, err)
     m, n = g.shape[0], theta.numel()
     check_worker_vector(name, "mask", mask, m)
     check_worker_vector(name, "scale", scale, m)
@@ -141,13 +173,23 @@ def fused_int8_step(g: torch.Tensor, ghat: torch.Tensor, err: torch.Tensor,
     if not on_card(name, g, ghat, err, theta, theta_prev, mask, scale):
         return ref.fused_int8_step(g, ghat, err, theta, theta_prev, mask,
                                    scale, alpha, beta)
+    return int8_on_card(g, ghat, err, theta, theta_prev, mask, scale, alpha,
+                        beta, _path(g, m, n))
+
+
+def int8_on_card(g, ghat, err, theta, theta_prev, mask, scale, alpha, beta,
+                 path: str):
+    """B6 on checked CUDA operands by ``path``, as :func:`dense_on_card`."""
+    name = "fused_int8_step"
+    m, n = g.shape[0], theta.numel()
     new_ghat = torch.empty_like(ghat)
     new_err = torch.empty_like(err)
     agg = torch.empty_like(theta)
     new_theta = torch.empty_like(theta)
+    fn = _launcher(name, path, g.dtype)
     count_launch(name)
-    launch("fused_step", f"{name}_{suffix}", g.device, _ptr(g), _ptr(ghat),
-           _ptr(err), _ptr(theta), _ptr(theta_prev), _ptr(mask),
-           _ptr(scale), _ptr(new_ghat), _ptr(new_err), _ptr(agg),
-           _ptr(new_theta), m, n, float(alpha), float(beta))
+    launch("fused_step", fn, g.device, _ptr(g), _ptr(ghat), _ptr(err),
+           _ptr(theta), _ptr(theta_prev), _ptr(mask), _ptr(scale),
+           _ptr(new_ghat), _ptr(new_err), _ptr(agg), _ptr(new_theta), m, n,
+           float(alpha), float(beta))
     return new_ghat, new_err, agg, new_theta

@@ -627,3 +627,80 @@ def test_fed_sweep_on_the_card(card):
     assert (res["cuda"].transmit_mask[0]
             == ref_run.mask.cpu().numpy()).all()
     assert not res["cuda"].quorum_met.all()
+
+
+# (M, n) of B2/B6's two designs (kernels/common.py:fold_path): the fed-mesh
+# frontier, chip_smoke's kernels_large_m, one column past grid y's limit, a
+# short tall bank, and each side of the threshold (M at ONE_PASS_MAX_WORKERS
+# and one above; n one short of a column for each thread the card holds,
+# and at it: "wide-1" and "wide", resolved on the card)
+FOLD_SHAPES = [(100000, 16), (70000, 2049), (65536, 1), (300, 16),
+               (common.ONE_PASS_MAX_WORKERS, 16),
+               (common.ONE_PASS_MAX_WORKERS + 1, 16),
+               (common.ONE_PASS_MAX_WORKERS + 1, "wide-1"),
+               (common.ONE_PASS_MAX_WORKERS + 1, "wide")]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", FOLD_SHAPES)
+def test_fused_steps_on_both_designs(card, m, n, dtype):
+    """B2 and B6 by the design their wrapper picks, bit for bit against
+    the plain versions (NaN where they give NaN), the other design against
+    the first, a repeat launch and the M=1 calls of _sample_workers; all
+    three masks; inputs salted with -0.0 (one column all -0.0, one whose
+    ghat' is -0.0 in every row under the all-zeros mask), NaN and +-inf."""
+    if isinstance(n, str):
+        wide = common.sm_count(card.index or 0) * common.THREADS_PER_SM
+        n = wide - 1 if n == "wide-1" else wide
+    g, h, e, t, p, _ = _inputs(m, n, dtype, card)
+    g[:, 0], h[:, 0], e[:, 0] = -0.0, -0.0, -0.0
+    if n > 1:
+        g[:, 1], h[:, 1] = -1.0, -0.0
+    if n >= 3:
+        g[m // 2, n - 1] = float("nan")
+        h[m - 1, n - 2] = float("inf")
+        g[0, n - 1] = float("-inf")
+    path = common.fold_path(m, n, common.sm_count(card.index or 0))
+    other = "one_pass" if path == "tall" else "tall"
+    scale = int8_scale(fused_step.int8_stats_batched(g, h, e)[1])
+    masks = {"ones": torch.ones(m, device=card),
+             "zeros": torch.zeros(m, device=card),
+             "alternating": torch.tensor([float(i % 2 == 0)
+                                          for i in range(m)], device=card)}
+    for name, mask in masks.items():
+        common.reset_launches()
+        out = fused_step.fused_dense_step(g, h, t, p, mask, 0.1, 0.4)
+        assert common.LAUNCHES["fused_dense_step"] == 1
+        for a, b in zip(out, ref.fused_dense_step(g, h, t, p, mask, 0.1,
+                                                  0.4)):
+            assert _same_or_nan(a, b), (name, path)
+        for a, b in zip(fused_step.dense_on_card(g, h, t, p, mask, 0.1, 0.4,
+                                                 other), out):
+            assert _same_or_nan(a, b), (name, other)
+        for a, b in zip(fused_step.fused_dense_step(g, h, t, p, mask, 0.1,
+                                                    0.4), out):
+            assert _same_or_nan(a, b), (name, "repeat")
+        if name == "zeros" and n > 1:
+            assert _bits(out[1][1]).item() == _bits(
+                torch.tensor(-0.0, dtype=dtype)).item()
+        for w in _sample_workers(m):
+            one = fused_step.fused_dense_step(g[w:w + 1], h[w:w + 1], t, p,
+                                              mask[w:w + 1], 0.1, 0.4)
+            assert _same_or_nan(one[0], out[0][w:w + 1]), (name, w)
+        out = fused_step.fused_int8_step(g, h, e, t, p, mask, scale, 0.1,
+                                         0.4)
+        for a, b in zip(out, ref.fused_int8_step(g, h, e, t, p, mask, scale,
+                                                 0.1, 0.4)):
+            assert _same_or_nan(a, b), (name, path)
+        for a, b in zip(fused_step.int8_on_card(g, h, e, t, p, mask, scale,
+                                                0.1, 0.4, other), out):
+            assert _same_or_nan(a, b), (name, other)
+        for a, b in zip(fused_step.fused_int8_step(g, h, e, t, p, mask, scale,
+                                                   0.1, 0.4), out):
+            assert _same_or_nan(a, b), (name, "repeat")
+        for w in _sample_workers(m):
+            one = fused_step.fused_int8_step(
+                g[w:w + 1], h[w:w + 1], e[w:w + 1], t, p, mask[w:w + 1],
+                scale[w:w + 1], 0.1, 0.4)
+            assert _same_or_nan(one[0], out[0][w:w + 1]) \
+                and _same_or_nan(one[1], out[1][w:w + 1]), (name, w)
