@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -36,8 +37,10 @@ OUT = ROOT / "build" / "chain_floor"
 SLEEP_CYCLES = 20_000_000
 
 
+@functools.cache
 def compile_chain() -> ctypes.CDLL:
-    """The chain library, built with the port's flags and reduce.cuh."""
+    """The chain library, built with the port's flags and reduce.cuh (once
+    a process)."""
     OUT.mkdir(parents=True, exist_ok=True)
     lib = OUT / "chain_add.so"
     proc = subprocess.run(

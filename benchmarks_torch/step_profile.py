@@ -8,6 +8,8 @@ card.
     python3 benchmarks_torch/step_profile.py --serve default long [--iters 5]
     python3 benchmarks_torch/step_profile.py --edge chb chb_int8 csgd \
         [--iters 5]
+    python3 benchmarks_torch/step_profile.py --mesh ideal lossy partial \
+        harsh [--m 100000] [--d 16] [--iters 5]
 
 Builds the full-width task of ``chip_smoke.py``'s phase 5 (edge quadratics
 at the parameter count of ``chb-paper-lm-124m``, M=4, f32, chb with
@@ -34,6 +36,13 @@ paths of ``chip_smoke.py``'s phase edge: after a warm-up run of 2 rounds,
 ``--iters`` traced rounds under ``sync_config(m)`` and under the phase's
 deployment scenario, each on the cuda and the reference backend, one
 JSON line each.
+With ``--mesh``, it profiles ``fed.run_mesh`` rounds on the edge
+quadratics at ``--m`` clients and ``--d`` (f64, one shard on the card, chb
+dense on the cuda backend, ``chip_smoke.py``'s MESH_SCENARIOS): after a
+warm-up run of 2 rounds, ``--iters`` traced rounds, one JSON line a
+scenario with the host time of the runtime's spans (``fed.mesh/draws``:
+the PRNG's threefry hashes; ``fed.mesh/shard_step``;
+``fed.mesh/fold_server``) and their share of the window.
 Needs a CUDA card and fails without one; it fails too if the trace shows
 no device time.
 """
@@ -60,7 +69,8 @@ from repro_torch.kernels import fused_step  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 from chip_smoke import (EDGE_PATHS, FULL_ALPHA, FULL_RANK, LM_ARCH,  # noqa: E402
-                        SERVE_RUNS, edge_scenario, lm_tree_task)
+                        MESH_SCENARIOS, MESH_SEED, SERVE_RUNS, edge_scenario,
+                        lm_tree_task)
 
 TRANSPORTS = ("dense", "int8", "topk", "lowrank", "dense_staged",
               "int8_staged", "per_tensor")
@@ -107,15 +117,17 @@ def profile_run(task, transport, backend, iters: int) -> dict:
                     transport=transport, backend=backend)
 
 
-def _summary(prof, wall: float, iters: int, **meta) -> dict:
+def _summary(prof, wall: float, iters: int, spans=(), **meta) -> dict:
     """Device time by kernel name, busy time and idle share of a window of
-    ``wall`` ms (CUDA events) holding ``iters`` iterations."""
+    ``wall`` ms (CUDA events) holding ``iters`` iterations. ``spans`` names
+    the profiler spans of the window, whose device-side rows cover their
+    kernels' time and are left out of the busy time."""
     # device-side events only (kernels, copies): the CPU-side operator
     # events carry their kernels' device time too and would count it twice
     rows = sorted(((evt.key, _device_ms(evt), evt.count)
                    for evt in prof.key_averages()
                    if evt.device_type == DeviceType.CUDA
-                   and _device_ms(evt) > 0),
+                   and evt.key not in spans and _device_ms(evt) > 0),
                   key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in rows)
     if busy <= 0:
@@ -206,6 +218,41 @@ def profile_edge(task, path: str, iters: int) -> list:
     return out
 
 
+MESH_SPANS = ("fed.mesh/draws", "fed.mesh/shard_step", "fed.mesh/fold_server")
+
+
+def profile_mesh(m: int, d: int, scenario: str, iters: int) -> dict:
+    """``iters`` traced rounds of ``fed.run_mesh`` over one shard on the
+    card, chb dense on the cuda backend."""
+    from repro_torch import fed
+    from repro_torch.launch.mesh import make_client_mesh
+    task = edge_tasks.make_edge_quadratics(m=m, d=d, seed=0)
+    part, loss, quo = MESH_SCENARIOS[scenario]
+    sc = fed.MeshScenario(participation=part, loss_prob=loss, quorum=quo,
+                          seed=MESH_SEED)
+    o = opt.make("chb", 0.5 / m, m, eps1=4.0, backend="cuda")
+    mesh = make_client_mesh(1)
+    fed.run_mesh(o, task, 2, mesh=mesh, scenario=sc)          # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fed.run_mesh(o, task, iters, mesh=mesh, scenario=sc,
+                     collect_mask=False)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    spans = {evt.key: evt.cpu_time_total / 1e3
+             for evt in prof.key_averages()
+             if evt.key in MESH_SPANS and evt.device_type == DeviceType.CPU}
+    return {**_summary(prof, wall, iters, spans=MESH_SPANS, mesh=scenario,
+                       m=m, d=d, shards=1),
+            "span_host_ms": spans,
+            "span_share": {k: v / wall for k, v in spans.items()}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--d", type=int, default=163_597_056)
@@ -222,9 +269,20 @@ def main() -> None:
                     help="profile serving chb-paper-lm-124m instead")
     ap.add_argument("--edge", nargs="+", choices=tuple(EDGE_PATHS),
                     help="profile fed.run_edge's rounds instead")
+    ap.add_argument("--mesh", nargs="+", choices=tuple(MESH_SCENARIOS),
+                    help="profile fed.run_mesh's rounds instead (at --m "
+                    "clients and --d)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: needs a CUDA card")
+    if args.mesh:
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "d": args.d, "m": args.m}), flush=True)
+        for scenario in args.mesh:
+            print(json.dumps(profile_mesh(args.m, args.d, scenario,
+                                          args.iters)), flush=True)
+            torch.cuda.empty_cache()
+        return
     if args.serve:
         print(json.dumps({"device": torch.cuda.get_device_name(0)}),
               flush=True)

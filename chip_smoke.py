@@ -23,10 +23,11 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  on aligned and misaligned leaves, salted with -0.0, NaN
                  and +-inf, M up to 70,000; (phase absmax_paths) B7a's
                  two paths the same way, against its plain version and
-                 B5's abs-max; (phase fused_fold_paths) B2 and B6 on the
-                 shape their wrappers dispatch (common.fold_path) and on
-                 the other design, at M up to 100,000 and on each side of
-                 the threshold, salted with -0.0, NaN and +-inf;
+                 B5's abs-max; (phase fused_fold_paths) B2, B6 and the
+                 worker fold (fold_workers) on the shape their wrappers
+                 dispatch (common.fold_path) and on the other design, at M
+                 up to 100,000 and on each side of the threshold, salted
+                 with -0.0, NaN and +-inf;
                  (phase attention_kernels) B14 over GQA 1/2/4/6,
                  causal, window and non-causal rectangular shapes on and
                  off its tiles, head dims 32-256, strided and misaligned
@@ -54,9 +55,19 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
   many_workers -- benchmarks/fed_mesh.py's edge quadratics (d=16, f64)
                  at its frontier M = 100,000 (fused dense and int8) and at
                  M = 70,000 (the staged routes and top-k, whose worker sum
-                 folds in Python), 3 iterations: cuda against reference
-                 bit for bit, the launch counts read per path, each
-                 path's median step ms.
+                 runs in fold_workers; the reference backend's folds in
+                 Python), 3 iterations: cuda against reference bit for
+                 bit, the launch counts read per path, each path's median
+                 step ms.
+  mesh        -- ``fed.run_mesh`` on the same task at M = 100,000, chb
+                 dense, benchmarks/fed_mesh.py's 4 frontier scenarios
+                 (ideal, lossy, partial, harsh), MESH_ROUNDS rounds each
+                 over K in {1, 2, 8} shards on the one card: masks, cohort,
+                 attempted, delivered, quorum and bytes bit-equal across
+                 K; the ideal scenario at K = 1 equal to ``simulator.run``
+                 bit for bit; the harsh one equal on both backends over
+                 MESH_REF_ROUNDS rounds; B1, B4 and fold_workers once a
+                 shard a round, B3 once a round. Ms a round.
   edge        -- ``fed.run_edge`` at phase 5's width (M = 4, one leaf of
                  163,597,056 f32), chb dense and int8 and csgd, 10 rounds
                  each: (a) under ``sync_config(4)`` it equals
@@ -100,8 +111,10 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  one exists and its bound at the main path's shape (B2 and
                  B6 also at the fed-mesh shape, on both designs, beside
                  the measured floor of an exact fold there:
-                 benchmarks_torch/chain_floor.py); then the
-                 ``{"kernels": [...]}`` line of all 16 kernels.
+                 benchmarks_torch/chain_floor.py; fold_workers there and
+                 at 10^6; B10 and B11 at M = 70,000 and 100,000, n = 16);
+                 then the ``{"kernels": [...]}`` line of all 17 kernels
+                 (16 ported, and fold_workers, which only the port has).
 
 The last line is ``{"ok": true, "device": {...}}``. Every failed check
 raises, so the script exits non-zero and prints no last line; without
@@ -151,20 +164,31 @@ FULL_EPS1 = 4.0
 # seed 0, chb at alpha 0.5/M, eps1 4.0) at its frontier M = 100,000 for the
 # fused dense and int8 routes, whose worker sum runs in B2/B6; at 70,000
 # (past grid y's 65535 blocks still) for the staged routes and top-k,
-# whose worker sum, like the reference backend's, folds in Python, one
-# eager add a worker. f64, 3 iterations, both backends.
+# whose worker sum runs in fold_workers, and on the reference backend
+# folds in Python, one eager add a worker. f64, 3 iterations, both
+# backends.
 MANY_M = 100_000
-MANY_M_PYTHON_FOLD = 70_000
+MANY_M_STAGED = 70_000
 MANY_D = 16
 MANY_ITERS = 3
 MANY_PATHS = {  # path: (M, opt.make keywords)
     "dense": (MANY_M, {}),
     "int8": (MANY_M, {"quantize": "int8"}),
-    "dense_staged": (MANY_M_PYTHON_FOLD, {}),
-    "int8_staged": (MANY_M_PYTHON_FOLD, {"quantize": "int8"}),
-    "topk": (MANY_M_PYTHON_FOLD, {"transport": "topk",
-                                  "k": (2 * MANY_D) // 5}),
+    "dense_staged": (MANY_M_STAGED, {}),
+    "int8_staged": (MANY_M_STAGED, {"quantize": "int8"}),
+    "topk": (MANY_M_STAGED, {"transport": "topk", "k": (2 * MANY_D) // 5}),
 }
+# phase mesh: fed.run_mesh at MANY_M clients on MANY_D, chb dense at
+# alpha 0.5/M, eps1 4.0, benchmarks/fed_mesh.py's frontier scenarios
+# (participation, loss, quorum; seed 3), over each of MESH_SHARDS shard
+# counts on the one card; the reference backend's Python fold (10^5
+# eager adds a round) only for MESH_REF_ROUNDS rounds of one scenario
+MESH_SCENARIOS = {"ideal": (1.0, 0.0, 1.0), "lossy": (1.0, 0.2, 0.7),
+                  "partial": (0.5, 0.0, 0.5), "harsh": (0.5, 0.3, 0.5)}
+MESH_SEED = 3
+MESH_SHARDS = (1, 2, 8)
+MESH_ROUNDS = 10
+MESH_REF_ROUNDS = 3
 # the M of phase 3's second pass over every kernel
 LARGE_M = 70_000
 
@@ -301,7 +325,12 @@ KERNEL_META = {
                          "src/repro/kernels/decode_attention.py:60"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:71"),
+    # port-only: the JAX package sums the bank with XLA, no Pallas kernel
+    "fold_workers": ("src/repro_torch/kernels/csrc/fused_step.cu",
+                     "none (port-only; the JAX package's worker sum is "
+                     "XLA's jnp.sum, src/repro/core/util.py:52)"),
 }
+PORT_ONLY = ("fold_workers",)
 
 # B13/B14 against their plain versions: the kernel's max abs error against
 # an f64 plain version on the card (the same function without the f32
@@ -636,6 +665,15 @@ def phase_kernels(device, ms=(1, 4, 9),
                     check(same_bits(sq[w:w + 1], sq1)
                           and same_bits(am[w:w + 1], am1),
                           f"B5 M=1 slice {w} {tag}")
+                # the worker fold: sum_leading's bits (-0.0 columns too)
+                for x in (g, h):
+                    fw = fused_step.fold_workers(x)
+                    plain = ref.fold_workers(x)
+                    check(same_bits(fw, plain), f"fold_workers {tag}")
+                    max_err["fold_workers"] = max(max_err["fold_workers"],
+                                                  max_diff(fw, plain))
+                    check(same_bits(fw, fused_step.fold_workers(x)),
+                          f"fold_workers repeat {tag}")
                 scale = int8_scale(am)
                 if m > 1 or n == 1:
                     check(float(scale[-1]) == 1.0, f"B5 zero row scale {tag}")
@@ -863,10 +901,11 @@ def _fold_inputs(m, n, dtype, device, seed):
 
 def phase_fused_fold_paths(device,
                            dtypes=(torch.float32, torch.float64)) -> None:
-    """B2 and B6 on the fold_path_cases: the design their wrapper picks
-    against the plain version (NaN where it gives NaN, the same bits
-    elsewhere), the other design against the first, a repeat launch and
-    the M=1 calls of sample_workers, all three masks."""
+    """B2, B6 and fold_workers on the fold_path_cases: the design their
+    wrapper picks against the plain version (NaN where it gives NaN, the
+    same bits elsewhere), the other design against the first, a repeat
+    launch and (B2, B6) the M=1 calls of sample_workers, all three masks;
+    fold_workers on B2's advanced bank, equal to B2's agg."""
     from repro_torch.core.quantize import int8_scale
     from repro_torch.kernels import common, fused_step, ref
     sms = common.sm_count(device.index or 0)
@@ -903,6 +942,16 @@ def phase_fused_fold_paths(device,
                         beta)
                     check(same_or_nan(one[0], out[0][w:w + 1]),
                           f"B2 M=1 slice {w} {tag}")
+                # the worker fold of the advanced bank: B2's agg
+                fw = fused_step.fold_workers(out[0])
+                check(same_or_nan(fw, ref.fold_workers(out[0])),
+                      f"fold_workers {tag}")
+                check(same_or_nan(fused_step.fold_on_card(out[0], other),
+                                  fw), f"fold_workers {other} {tag}")
+                check(same_bits(fused_step.fold_workers(out[0]), fw),
+                      f"fold_workers repeat {tag}")
+                check(same_or_nan(fw, out[1]), f"fold_workers != B2 agg {tag}")
+                del fw
                 out = fused_step.fused_int8_step(g, h, e, t, p, mask, scale,
                                                  alpha, beta)
                 plain = ref.fused_int8_step(g, h, e, t, p, mask, scale, alpha,
@@ -929,10 +978,13 @@ def phase_fused_fold_paths(device,
             del g, h, e, t, p
             torch.cuda.empty_cache()
     emit({"phase": "fused_fold_paths", "cases": cases, "sms": sms,
-          "path_by_shape": paths,
+          "path_by_shape": paths, "kernels": ["fused_dense_step",
+                                              "fused_int8_step",
+                                              "fold_workers"],
           "rule": "the picked design against the plain version and the "
           "other design: NaN where it gives NaN, the same bits elsewhere "
-          "(-0.0 included); repeat and M=1 slices bitwise"})
+          "(-0.0 included); repeat and M=1 slices bitwise; fold_workers "
+          "of B2's ghat' equal to B2's agg"})
 
 
 # ----------------------------------------------------------- phase 3b
@@ -1348,19 +1400,20 @@ PATH_KERNELS = {
     "dense": ("censor_delta_sqnorm_batched", "fused_dense_step"),
     "int8": ("int8_stats_batched", "fused_int8_step"),
     "topk": ("sqnorm_batched", "select_pack_ef_batched", "bank_advance",
-             "hb_update"),
+             "fold_workers", "hb_update"),
     "lowrank": ("sqnorm_batched", "residual_ef_batched", "bank_advance",
-                "hb_update"),
+                "fold_workers", "hb_update"),
     "dense_staged": ("censor_delta_sqnorm_batched", "censor_bank_advance",
-                     "hb_update"),
+                     "fold_workers", "hb_update"),
     "int8_staged": ("sqnorm_batched", "absmax_batched", "quantize_ef_batched",
-                    "bank_advance", "hb_update"),
-    "per_tensor": ("sqnorm_batched", "bank_advance", "hb_update"),
+                    "bank_advance", "fold_workers", "hb_update"),
+    "per_tensor": ("sqnorm_batched", "bank_advance", "fold_workers",
+                   "hb_update"),
     # B3 through apply_server, after the (one-shard) fold
     "shard_dense": ("censor_delta_sqnorm_batched", "censor_bank_advance",
-                    "hb_update"),
+                    "fold_workers", "hb_update"),
     "shard_int8": ("sqnorm_batched", "absmax_batched", "quantize_ef_batched",
-                   "bank_advance", "hb_update"),
+                   "bank_advance", "fold_workers", "hb_update"),
 }
 # the path each staged or sharded path must equal bit for bit
 SAME_AS = {"dense_staged": "dense", "int8_staged": "int8",
@@ -1658,6 +1711,133 @@ def phase_many_workers() -> dict:
           "dtype": "float64", "bitwise": "masks, comm_cum, uplink counts "
           "and bytes, objective, final theta", "setup_s": setup_s,
           **summary, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# ------------------------------------------------------------ phase mesh
+MESH_EXACT = ("mask", "participated", "attempted", "delivered",
+              "quorum_met", "comm_cum", "delivered_cum", "bytes_cum")
+# a dense chb shard's kernels, once a shard a round (B3 once a round)
+MESH_SHARD_KERNELS = ("censor_delta_sqnorm_batched", "censor_bank_advance",
+                      "fold_workers")
+
+
+def _mesh_run(o, task, scenario, shards, rounds, device):
+    """One timed ``fed.run_mesh`` over ``shards`` shards on ``device``;
+    returns the history, its launch counts and its ms a round."""
+    from repro_torch import fed
+    from repro_torch.kernels import common
+    from repro_torch.launch.mesh import make_client_mesh
+    mesh = make_client_mesh(shards, [device] * shards)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t = time.perf_counter()
+    hist = fed.run_mesh(o, task, rounds, mesh=mesh, scenario=scenario)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / rounds
+    return hist, dict(common.LAUNCHES), ms
+
+
+def phase_mesh(device) -> dict:
+    """``fed.run_mesh`` at the fed mesh's 10^5 clients on the one card:
+    every MESH_SCENARIOS scenario over each of MESH_SHARDS shard counts,
+    the integer records bit-equal across K and the floats within the K-way
+    fold's ulps; the ideal scenario at K = 1 equal to ``simulator.run`` bit
+    for bit; the harsh scenario equal on both backends; the kernels
+    launched once a shard a round (B3 once a round). Returns the launch
+    counts of the K = 1 runs (keys ``mesh_<scenario>``)."""
+    from repro_torch import fed, opt
+    from repro_torch.core import simulator
+    from repro_torch.data import edge_tasks
+    from repro_torch.kernels import common
+    t0 = time.perf_counter()
+    m = MANY_M
+    task = edge_tasks.make_edge_quadratics(m=m, d=MANY_D, seed=0,
+                                           device=device)
+
+    def make(backend):
+        return opt.make("chb", 0.5 / m, m, eps1=FULL_EPS1, backend=backend)
+
+    summary, launches = {}, {}
+    for name, (part, loss, quo) in MESH_SCENARIOS.items():
+        sc = fed.MeshScenario(participation=part, loss_prob=loss,
+                              quorum=quo, seed=MESH_SEED)
+        runs = {k: _mesh_run(make("cuda"), task, sc, k, MESH_ROUNDS,
+                             device) for k in MESH_SHARDS}
+        base = runs[1][0]
+        for k, (h, lk, _) in runs.items():
+            want = {n: (k * MESH_ROUNDS if n in MESH_SHARD_KERNELS else
+                        MESH_ROUNDS if n == "hb_update" else 0)
+                    for n in common.KERNELS}
+            check(lk == want, f"mesh {name} K={k}: launches {lk}, want "
+                  f"{want}")
+            for f in MESH_EXACT:
+                check(np.array_equal(getattr(h, f), getattr(base, f)),
+                      f"mesh {name} K={k}: {f} differs from K=1's")
+            rel = float(np.max(np.abs(h.objective - base.objective)
+                               / np.abs(base.objective)))
+            check(rel < 1e-12 and bool(np.isfinite(h.objective).all()),
+                  f"mesh {name} K={k}: objective {rel} from K=1's")
+        check(tuple(base.mask.shape) == (MESH_ROUNDS, m),
+              f"mesh {name}: masks of shape {base.mask.shape}")
+        if part < 1.0 or loss > 0.0:
+            check(0 < base.participated.min() and
+                  base.participated.max() <= m and
+                  (base.delivered <= base.attempted).all(),
+                  f"mesh {name}: cohort records out of range")
+        launches[f"mesh_{name}"] = runs[1][1]
+        summary[name] = {
+            "uploads": int(base.comm_cum[-1]),
+            "delivered": int(base.delivered_cum[-1]),
+            "uplink_bytes": int(base.bytes_cum[-1]),
+            "quorum_met": int(base.quorum_met.sum()),
+            "objective_first": float(base.objective[0]),
+            "objective_last": float(base.objective[-1]),
+            "ms_per_round": {f"K={k}": r[2] for k, r in runs.items()},
+            "launches_k1": {n: c for n, c in runs[1][1].items() if c}}
+        del runs, base
+    # (a) the sync anchor on the card
+    ideal = fed.MeshScenario()
+    h, _, _ = _mesh_run(make("cuda"), task, ideal, 1, MESH_ROUNDS, device)
+    ref = simulator.run(make("cuda"), task, MESH_ROUNDS, device=device)
+    check(np.array_equal(h.objective, ref.objective.cpu().numpy())
+          and np.array_equal(h.agg_grad_sqnorm,
+                             ref.agg_grad_sqnorm.cpu().numpy())
+          and np.array_equal(h.comm_cum, ref.comm_cum.cpu().numpy())
+          and np.array_equal(h.mask, ref.mask.cpu().numpy().astype(np.int8))
+          and same_bits(h.final_params, ref.final_params),
+          "mesh: the ideal scenario at K=1 differs from simulator.run")
+    del h, ref
+    # both backends, MESH_REF_ROUNDS rounds of the harsh scenario at K = 2
+    part, loss, quo = MESH_SCENARIOS["harsh"]
+    sc = fed.MeshScenario(participation=part, loss_prob=loss, quorum=quo,
+                          seed=MESH_SEED)
+    by_backend = {b: _mesh_run(make(b), task, sc, 2, MESH_REF_ROUNDS, device)
+                  for b in ("cuda", "reference")}
+    (hk, _, msk), (hr, lr, msr) = by_backend["cuda"], by_backend["reference"]
+    check(not any(lr.values()),
+          "mesh: the reference backend launched a kernel")
+    check(all(np.array_equal(getattr(hk, f), getattr(hr, f))
+              for f in MESH_EXACT + ("objective", "agg_grad_sqnorm",
+                                     "energy_cum", "wall_clock"))
+          and same_bits(hk.final_params, hr.final_params),
+          "mesh: the harsh scenario differs between backends")
+    del by_backend, hk, hr, task
+    torch.cuda.empty_cache()
+    line = ", ".join(f"{n} {r['ms_per_round']['K=1']:.3f}"
+                     for n, r in summary.items())
+    print(f"mesh: ms a round at M={m}, one shard on the card: {line}",
+          flush=True)
+    emit({"phase": "mesh", "m": m, "d": MANY_D, "dtype": "float64",
+          "rounds": MESH_ROUNDS, "shards": list(MESH_SHARDS),
+          "scenarios": summary,
+          "backends_equal": {"scenario": "harsh", "shards": 2,
+                             "rounds": MESH_REF_ROUNDS,
+                             "ms_per_round_cuda": msk,
+                             "ms_per_round_reference": msr},
+          "bitwise": "across K: masks, cohort, attempted, delivered, "
+          "quorum, comm and bytes; K=1 ideal == simulator.run; cuda == "
+          "reference", "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -1987,7 +2167,7 @@ def phase_sweep(device, task) -> dict:
               f"sweep (c): {f} differs between backends")
     rounds = len(fk) * SWEEP_ITERS * leaves
     want = {name: rounds if name in ("sqnorm_batched", "bank_advance",
-                                     "hb_update") else 0
+                                     "fold_workers", "hb_update") else 0
             for name in common.KERNELS}
     check(lk == want, f"sweep (c): launches {lk}, want {want}")
     check(not any(lr.values()),
@@ -2273,25 +2453,41 @@ def _time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+# the fed mesh's shapes of phase 6: M of B10 and B11 (n = MANY_D, f64),
+# and of fold_workers, up to the ladder's 10^6 clients
+TALL_MS = (MANY_M_STAGED, MANY_M)
+FOLD_MS = (MANY_M, 1_000_000)
+
+
 def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
-    """B2 and B6 at the fed-mesh shape (M = 100,000, n = 16, f64): the
-    design the wrapper picks and the one-pass design, the shape's byte
-    bound, and the floor of an exact fold there (one thread's M - 1
-    dependent f64 adds, ``benchmarks_torch/chain_floor.py``)."""
+    """The fed mesh's shapes (n = 16, f64): B2 and B6 at M = 100,000, the
+    design the wrapper picks and the one-pass design, with the shape's
+    byte bound and the floor of an exact fold there (one thread's M - 1
+    dependent f64 adds, ``benchmarks_torch/chain_floor.py``);
+    fold_workers at M in FOLD_MS on both designs, its plain version
+    (``sum_leading``, M - 1 eager adds) and ``torch.sum``, against the
+    same floor; B10 and B11, which walk the M workers a thread a column,
+    at M in TALL_MS. Returns ``{kernel: {...}}``."""
     from benchmarks_torch.chain_floor import chain_floor_ms
     from repro_torch.core.quantize import int8_scale
-    from repro_torch.kernels import common, fused_step, ref
-    floor = chain_floor_ms(m)
+    from repro_torch.kernels import (common, fused_step, lowrank_ef, ref,
+                                     topk_pack)
+    floors = {mm: chain_floor_ms(mm) for mm in sorted({m, *FOLD_MS})}
+    floor = floors[m]
     gen = torch.Generator(device=device).manual_seed(23)
+    sms = common.sm_count(device.index or 0)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device,
                            dtype=torch.float64)
 
+    def alternating(mm):
+        return torch.tensor([1.0, 0.0] * (mm // 2) + [1.0] * (mm % 2),
+                            device=device)
+
     g, h, e = randn(m, n), randn(m, n), randn(m, n) * 0.01
     t, p = randn(n), randn(n)
-    mask = torch.tensor([1.0, 0.0] * (m // 2) + [1.0] * (m % 2),
-                        device=device)
+    mask = alternating(m)
     scale = int8_scale(ref.absmax_batched((g - h) + e))
     el = 8                                              # f64 bytes
     work = {   # name: (run by design, bytes moved)
@@ -2304,7 +2500,7 @@ def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
                                                  0.1, 0.4, path),
             (5 * m * n + 4 * n) * el + 8 * m),
     }
-    path = common.fold_path(m, n, common.sm_count(device.index or 0))
+    path = common.fold_path(m, n, sms)
     out = {}
     for name, (run, nbytes) in work.items():
         ms = _time_ms(lambda: run(path), 10)
@@ -2317,7 +2513,54 @@ def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
                      "ms_over_chain_floor": ms / floor["f64"]}
     del g, h, e, t, p
     torch.cuda.empty_cache()
-    emit({"phase": "fed_mesh_timing", "chain_floor_ms": floor, **out})
+
+    out["fold_workers"] = {}
+    for mm in FOLD_MS:
+        x = randn(mm, n)
+        fpath = common.fold_path(mm, n, sms)
+        check(same_bits(fused_step.fold_workers(x), ref.fold_workers(x)),
+              f"fold_workers M={mm} n={n}")
+        ms = _time_ms(lambda: fused_step.fold_on_card(x, fpath), 10)
+        nbytes = (mm + 1) * n * el
+        chain = floors[mm]["f64"]
+        out["fold_workers"][f"M={mm}"] = {
+            "shape": f"M={mm} n={n} float64", "path": fpath, "ms": ms,
+            "one_pass_ms": _time_ms(
+                lambda: fused_step.fold_on_card(x, "one_pass"), 3),
+            # M - 1 eager adds: about 10 s a call at 10^6, timed at 10^5
+            "plain_ms": (_time_ms(lambda: ref.fold_workers(x), 1)
+                         if mm <= MANY_M else None),
+            "library_ms": _time_ms(lambda: torch.sum(x, dim=0), 10),
+            "bytes": nbytes, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "chain_floor_ms": chain, "bound_ms": max(
+                nbytes / HBM_BYTES_PER_S * 1e3, chain),
+            "ms_over_bound": ms / max(nbytes / HBM_BYTES_PER_S * 1e3,
+                                      chain)}
+        del x
+    # B10 and B11 at the tall shapes: a thread a column walks all M rows
+    for name in ("select_pack_ef_batched", "residual_ef_batched"):
+        out[name] = {}
+    for mm in TALL_MS:
+        pend, q, err = randn(mm, n), randn(mm, n), randn(mm, n) * 0.01
+        keep = (randn(mm, n) > 0.2533).to(torch.float64)
+        msk = alternating(mm)
+        for name, run, nbytes in (
+                ("select_pack_ef_batched",
+                 lambda: topk_pack.select_pack_ef_batched(pend, err, keep,
+                                                          msk),
+                 5 * mm * n * el + 4 * mm),
+                ("residual_ef_batched",
+                 lambda: lowrank_ef.residual_ef_batched(pend, q, err, msk),
+                 4 * mm * n * el + 4 * mm)):
+            out[name][f"M={mm}"] = {
+                "shape": f"M={mm} n={n} float64",
+                "ms": _time_ms(run, 10), "bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        del pend, q, err, keep, msk
+    torch.cuda.empty_cache()
+    emit({"phase": "fed_mesh_timing",
+          "chain_floor_ms": {f"M={mm}": f for mm, f in floors.items()},
+          **out})
     return out
 
 
@@ -2400,6 +2643,12 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
             lambda: quantize_ef.quantize_ef_batched(pend, e, mask, scale),
             lambda: ref.quantize_ef_batched(pend, e, mask, scale), None,
             4 * m * d * el + 8 * m, 9 * m * d),
+        # torch.sum groups the workers otherwise (not its bits): a time
+        "fold_workers": (
+            lambda: fused_step.fold_workers(g),
+            lambda: ref.fold_workers(g),
+            lambda: torch.sum(g, dim=0),
+            (m + 1) * d * el, (m - 1) * d),
     }
     fed = fed_mesh_timing(device)
     rows = []
@@ -2422,6 +2671,7 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
             "bytes": nbytes,
             "shape": (f"n={d} float32" if name == "hb_update"
                       else f"M={m} n={d} float32"),
+            **({"port_only": True} if name in PORT_ONLY else {}),
             **({"fed_mesh": fed[name]} if name in fed else {})})
         torch.cuda.empty_cache()
     del g, h, e, t, p, keep, pend, nab
@@ -2527,6 +2777,7 @@ def main() -> None:
     flat, setup_s = full_task(dev)
     launches = phase_full(flat, setup_s)
     launches.update(phase_many_workers())
+    launches.update(phase_mesh(dev))
     launches.update(phase_edge(dev, flat))
     launches.update(phase_sweep(dev, flat))
     del flat
@@ -2535,7 +2786,7 @@ def main() -> None:
     phase_pin(dev)
     launches["ops"] = phase_ops(dev)
     rows = phase_timing(dev, launches, max_err)
-    check(len(rows) == len(KERNEL_META) == 16, f"{len(rows)} kernel rows")
+    check(len(rows) == len(KERNEL_META) == 17, f"{len(rows)} kernel rows")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

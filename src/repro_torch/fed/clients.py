@@ -101,8 +101,7 @@ class Population:
         return len(self.profiles)
 
     def as_vector(self) -> "VectorPopulation":
-        """Columnar view for the mesh runtime (``fed.mesh`` in the JAX
-        package; its port is ROADMAP.md A10).
+        """Columnar view for the mesh runtime (``fed.mesh``).
 
         Keeps the mean compute latency and power per client; jitter and
         availability laws are event-runtime concepts and are dropped (the

@@ -55,6 +55,7 @@ _REDUCE_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _I64, _I64, _P)
 _DENSE_ARGS = (_DEV,) + (_P,) * 8 + (_I64, _I64, _F64, _F64, _P)
 _STATS_ARGS = (_DEV,) + (_P,) * 7 + (_I64, _I64, _I64, _P)
 _INT8_ARGS = (_DEV,) + (_P,) * 11 + (_I64, _I64, _F64, _F64, _P)
+_FOLD_ARGS = (_DEV,) + (_P,) * 2 + (_I64, _I64, _P)
 _SQNORM_ARGS = (_DEV,) + (_P,) * 3 + (_I64, _I64, _I64, _P)
 _BANK_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _I64, _P)
 _HB_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _F64, _F64, _P)
@@ -95,7 +96,9 @@ SIGNATURES = {
                    **_both("fused_dense_step_tall", _DENSE_ARGS),
                    **_both("int8_stats_batched", _STATS_ARGS),
                    **_both("fused_int8_step", _INT8_ARGS),
-                   **_both("fused_int8_step_tall", _INT8_ARGS)},
+                   **_both("fused_int8_step_tall", _INT8_ARGS),
+                   **_both("fold_workers", _FOLD_ARGS),
+                   **_both("fold_workers_tall", _FOLD_ARGS)},
     "hb_update": _both("hb_update", _HB_ARGS),
     "topk_pack": _both("select_pack_ef_batched", _PACK_ARGS),
     "lowrank_ef": _both("residual_ef_batched", _RESIDUAL_ARGS),

@@ -23,7 +23,7 @@ KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
            "bank_advance", "hb_update", "select_pack_ef_batched",
            "residual_ef_batched", "censor_bank_advance", "absmax_batched",
            "quantize_ef_batched", "censor_delta_sqnorm", "censor_select",
-           "flash_attention", "decode_attention")
+           "flash_attention", "decode_attention", "fold_workers")
 
 LAUNCHES: dict[str, int] = compile_log.namespace("kernels", KERNELS)
 
@@ -120,12 +120,12 @@ THREADS_PER_SM = 2048
 
 
 def fold_path(m: int, n: int, sms: int) -> str:
-    """Which design B2 and B6 run on an (M, n) bank, on a card of ``sms``
-    SMs. ``"one_pass"``: a thread a column walks the M workers (the
-    columns fill the card, or M is small). ``"tall"``: the per-element
-    work on the whole card, then the worker fold per column tile from
-    shared memory (few columns, each a long chain). Both give the same
-    bits."""
+    """Which design B2, B6 and ``fold_workers`` run on an (M, n) bank, on
+    a card of ``sms`` SMs. ``"one_pass"``: a thread a column walks the M
+    workers (the columns fill the card, or M is small). ``"tall"``: the
+    per-element work on the whole card, then the worker fold per column
+    tile from shared memory (few columns, each a long chain). Both give
+    the same bits."""
     if m <= ONE_PASS_MAX_WORKERS or n >= sms * THREADS_PER_SM:
         return "one_pass"
     return "tall"

@@ -1,9 +1,11 @@
 // The fused CHB step on Hopper: everything after the censor decision, plus
-// the int8 statistics pass before it.
+// the int8 statistics pass before it, and the exact worker fold alone.
 //
 //   B2 fused_dense_step   replaces src/repro/kernels/fused_step.py:fused_dense_step
 //   B5 int8_stats_batched replaces src/repro/kernels/fused_step.py:int8_stats_batched
 //   B6 fused_int8_step    replaces src/repro/kernels/fused_step.py:fused_int8_step
+//   fold_workers          the worker sum alone (a port-only kernel: the JAX
+//                         package sums the staged bank with XLA's jnp.sum)
 //
 // Bound: bytes, for all three (a handful of flops an element). At M=4,
 // n=163,597,056 in f32 on an H100 SXM (3.35 TB/s):
@@ -39,6 +41,13 @@
 // block barrier hands each stage over. The fold starts from -0.0, not
 // from ghat'_0: -0.0 + x is x for every x (+0.0 and -0.0 included), so
 // the sum has the bits of the fold from ghat'_0.
+//
+// fold_workers is the worker sum of a bank the staged routes have already
+// advanced, as a launch of its own, by the same two designs: on a one-pass
+// shape (fold_path) a thread a column walks the M rows from -0.0 (B2's
+// one-pass loop without its bank advance); on a tall one the tiled fold of
+// pass 2, instantiated without its eq.-(4) epilogue. Either way the sum has
+// the bits of core.util's sum_leading.
 //
 // Both designs share the per-element arithmetic (dense_advance,
 // int8_advance) and the eq.-(4) epilogue (hb_step). alpha and beta are
@@ -152,6 +161,19 @@ fused_int8_step_kernel(const T* __restrict__ g, const T* __restrict__ h,
     }
     agg_out[j] = agg;
     theta_out[j] = hb_step(theta[j], prev[j], agg, alpha, beta);
+  }
+}
+
+// fold_workers on a one-pass shape: each thread folds one column over the
+// M workers in index order, from -0.0, so a column of -0.0 stays -0.0
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fold_workers_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t m, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x; j < n; j += stride) {
+    T acc = T(-0.0);
+    for (int64_t w = 0; w < m; ++w) acc = add(acc, x[w * n + j]);
+    out[j] = acc;
   }
 }
 
@@ -349,14 +371,16 @@ __device__ __forceinline__ T fold_stage(T acc, const T* p, int rows, int runtime
 }
 
 // Pass 2: the left fold of x (M, n) over the workers, a tile of columns a
-// block, and the eq.-(4) epilogue on it. Warp 0 folds, from a ring of
-// kFoldStages stages in shared memory. On a narrow bank (f.bulk) thread 32
+// block, and (kEpilogue: B2 and B6) the eq.-(4) epilogue on it; without
+// it (fold_workers) theta, prev and theta_out are unused. Warp 0 folds,
+// from a ring of kFoldStages stages in shared memory. On a narrow bank
+// (f.bulk) thread 32
 // fills each stage with one TMA bulk copy and two mbarriers a stage hand
 // it over: `full` ends when the copy lands, `empty` when warp 0 has folded
 // it, so the folding warp never waits at a block barrier. Otherwise warps
 // 1-7 copy a tile's strided rows with cp.async, kFoldStages - 1 stages
 // ahead, and one block barrier a stage hands it over.
-template <typename T, int kPitch>
+template <typename T, int kPitch, bool kEpilogue>
 __global__ void __launch_bounds__(kThreads)
 fold_columns_kernel(const T* __restrict__ x, const T* __restrict__ theta,
                     const T* __restrict__ prev, T* __restrict__ agg_out,
@@ -424,7 +448,7 @@ fold_columns_kernel(const T* __restrict__ x, const T* __restrict__ theta,
   if (folder && (int)threadIdx.x < cols) {
     const int64_t j = c0 + threadIdx.x;
     agg_out[j] = acc;
-    theta_out[j] = hb_step(theta[j], prev[j], acc, alpha, beta);
+    if constexpr (kEpilogue) theta_out[j] = hb_step(theta[j], prev[j], acc, alpha, beta);
   }
 }
 
@@ -435,15 +459,16 @@ inline int pow2_shift(int64_t n, int cap) {
   return s;
 }
 
-template <typename T, int kPitch>
+template <typename T, int kPitch, bool kEpilogue>
 static int launch_fold_tiles(const void* x, const void* theta, const void* prev, void* agg,
                              void* theta_out, const FoldTile& f, int64_t tiles, double alpha,
                              double beta, cudaStream_t s) {
   const int smem = kFoldStages * f.stage_elems * (int)sizeof(T);
   const cudaError_t attr = cudaFuncSetAttribute(
-      fold_columns_kernel<T, kPitch>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fold_columns_kernel<T, kPitch, kEpilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (attr != cudaSuccess) return (int)attr;
-  fold_columns_kernel<T, kPitch><<<(unsigned)tiles, kThreads, smem, s>>>(
+  fold_columns_kernel<T, kPitch, kEpilogue><<<(unsigned)tiles, kThreads, smem, s>>>(
       (const T*)x, (const T*)theta, (const T*)prev, (T*)agg, (T*)theta_out, f, (T)alpha,
       (T)beta);
   return (int)cudaGetLastError();
@@ -452,7 +477,7 @@ static int launch_fold_tiles(const void* x, const void* theta, const void* prev,
 // The fold of x (M, n): tiles of min(n, 32) columns; the pitch is a
 // compile-time constant where it is a power of two (every bank wider than
 // 32 columns, and the narrow ones of 1-32 columns by powers of two).
-template <typename T>
+template <typename T, bool kEpilogue>
 static int launch_fold(const void* x, const void* theta, const void* prev, void* agg,
                        void* theta_out, int64_t m, int64_t n, double alpha, double beta,
                        cudaStream_t s) {
@@ -466,13 +491,13 @@ static int launch_fold(const void* x, const void* theta, const void* prev, void*
   const int64_t tiles = (n + f.pitch - 1) / f.pitch;
   if (tiles > kMaxGridX) return (int)cudaErrorInvalidValue;
   switch (f.pitch) {
-    case 32: return launch_fold_tiles<T, 32>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
-    case 16: return launch_fold_tiles<T, 16>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
-    case 8: return launch_fold_tiles<T, 8>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
-    case 4: return launch_fold_tiles<T, 4>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
-    case 2: return launch_fold_tiles<T, 2>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
-    case 1: return launch_fold_tiles<T, 1>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
-    default: return launch_fold_tiles<T, 0>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
+    case 32: return launch_fold_tiles<T, 32, kEpilogue>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
+    case 16: return launch_fold_tiles<T, 16, kEpilogue>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
+    case 8: return launch_fold_tiles<T, 8, kEpilogue>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
+    case 4: return launch_fold_tiles<T, 4, kEpilogue>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
+    case 2: return launch_fold_tiles<T, 2, kEpilogue>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
+    case 1: return launch_fold_tiles<T, 1, kEpilogue>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
+    default: return launch_fold_tiles<T, 0, kEpilogue>(x, theta, prev, agg, theta_out, f, tiles, alpha, beta, s);
   }
 }
 
@@ -498,7 +523,7 @@ static int launch_fused_dense_tall(const void* g, const void* h, const void* the
       shift);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_fold<T>(new_h, theta, prev, agg, theta_out, m, n, alpha, beta, s);
+  return launch_fold<T, true>(new_h, theta, prev, agg, theta_out, m, n, alpha, beta, s);
 }
 
 template <typename T>
@@ -515,7 +540,7 @@ static int launch_fused_int8_tall(const void* g, const void* h, const void* e,
       (T*)new_h, (T*)new_e, m, n, shift);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_fold<T>(new_h, theta, prev, agg, theta_out, m, n, alpha, beta, s);
+  return launch_fold<T, true>(new_h, theta, prev, agg, theta_out, m, n, alpha, beta, s);
 }
 
 template <typename T>
@@ -560,6 +585,22 @@ static int launch_fused_int8(const void* g, const void* h, const void* e, const 
       (const float*)mask, (const float*)scale, (T*)new_h, (T*)new_e, (T*)agg,
       (T*)theta_out, m, n, (T)alpha, (T)beta);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_fold_workers(const void* x, void* out, int64_t m, int64_t n, void* stream) {
+  if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  fold_workers_kernel<T><<<elementwise_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (T*)out, m, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_fold_workers_tall(const void* x, void* out, int64_t m, int64_t n,
+                                    void* stream) {
+  if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  return launch_fold<T, false>(x, nullptr, nullptr, out, nullptr, m, n, 0.0, 0.0,
+                               (cudaStream_t)stream);
 }
 
 extern "C" {
@@ -658,6 +699,32 @@ int fused_int8_step_tall_f64(int device, const void* g, const void* h, const voi
   if (sel != cudaSuccess) return (int)sel;
   return launch_fused_int8_tall<double>(g, h, e, theta, prev, mask, scale, new_h, new_e, agg,
                                         theta_out, m, n, alpha, beta, stream);
+}
+
+int fold_workers_f32(int device, const void* x, void* out, int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_fold_workers<float>(x, out, m, n, stream);
+}
+
+int fold_workers_f64(int device, const void* x, void* out, int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_fold_workers<double>(x, out, m, n, stream);
+}
+
+int fold_workers_tall_f32(int device, const void* x, void* out, int64_t m, int64_t n,
+                          void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_fold_workers_tall<float>(x, out, m, n, stream);
+}
+
+int fold_workers_tall_f64(int device, const void* x, void* out, int64_t m, int64_t n,
+                          void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_fold_workers_tall<double>(x, out, m, n, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""B2, B5, B6: the fused CHB step on the card.
+"""B2, B5, B6: the fused CHB step on the card; and the worker fold alone.
 
 Wraps ``csrc/fused_step.cu`` (port of ``repro/kernels/fused_step.py``). A
 composed step is two sweeps per leaf: a reduction feeding the censor
@@ -12,6 +12,13 @@ B2 and B6 have two designs, picked by the bank's shape
 where the columns fill the card or M is small; and for tall banks (M >> n)
 the per-element work on the whole card, then the worker fold per column
 tile from shared memory (two launches, one count). Both give the same bits.
+
+:func:`fold_workers` is that worker fold as a launch of its own, for the
+routes whose bank advance runs in other kernels (the staged steps,
+``shard_step``, ``per_tensor``, the fed sweep): the same two designs,
+without the eq.-(4) epilogue. It has no Pallas counterpart (the JAX
+package sums the bank with XLA); its plain version is
+``core.util.sum_leading``, which it equals bit for bit.
 
 ``alpha``/``beta`` reach the kernels as runtime arguments, so no
 hyperparameter value is compiled into a kernel. Inside
@@ -193,3 +200,34 @@ def int8_on_card(g, ghat, err, theta, theta_prev, mask, scale, alpha, beta,
            _ptr(new_ghat), _ptr(new_err), _ptr(agg), _ptr(new_theta), m, n,
            float(alpha), float(beta))
     return new_ghat, new_err, agg, new_theta
+
+
+def fold_workers(x: torch.Tensor) -> torch.Tensor:
+    """The worker sum of a bank ``x`` (M, ...): the left fold over the
+    leading axis in index order, ``((x_0 + x_1) + x_2) + ...``, in x's
+    dtype. Its bits are ``ref.fold_workers``'s (``core.util.sum_leading``):
+    the kernel folds from -0.0, and -0.0 + v is v for every v, so a column
+    of -0.0 stays -0.0 and a NaN or inf propagates as in the plain fold."""
+    name = "fold_workers"
+    if x.dim() < 1 or x.shape[0] < 1:
+        raise ValueError(f"{name}: x must be (M, ...) with M >= 1, got "
+                         f"{tuple(x.shape)}")
+    check_bank(name, x)
+    m, n = x.shape[0], x[0].numel()
+    if n == 0:
+        return x[0].clone()
+    if not on_card(name, x):
+        return ref.fold_workers(x)
+    return fold_on_card(x, _path(x, m, n))
+
+
+def fold_on_card(x: torch.Tensor, path: str) -> torch.Tensor:
+    """:func:`fold_workers` on a checked CUDA bank by ``path`` (one of
+    ``FOLD_PATHS``), as :func:`dense_on_card`."""
+    name = "fold_workers"
+    m, n = x.shape[0], x[0].numel()
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    fn = _launcher(name, path, x.dtype)
+    count_launch(name)
+    launch("fused_step", fn, x.device, _ptr(x), _ptr(out), m, n)
+    return out

@@ -3,8 +3,8 @@
 ``tree_censor_bank_advance``,
 ``tree_bank_advance``, ``tree_int8_roundtrip_ef``, ``tree_topk_pack_ef``,
 ``tree_residual_ef``, ``tree_fused_dense_step``, ``tree_int8_stats``,
-``tree_fused_int8_step`` and ``tree_hb_update``): what the
-``backend="cuda"`` optimizer runs.
+``tree_fused_int8_step`` and ``tree_hb_update``), and the port's own
+``tree_fold_workers``: what the ``backend="cuda"`` optimizer runs.
 
 Per-leaf (M,) partials accumulate leaf by leaf, ``acc = acc + partial``
 in f32, in tree order, exactly as the JAX dispatch does.
@@ -109,6 +109,12 @@ def tree_hb_update(params, prev_params, agg, alpha, beta):
     return tree_map(lambda t, tp, g: hb_update.hb_update(t, g, tp, alpha,
                                                          beta),
                     params, prev_params, agg)
+
+
+def tree_fold_workers(bank):
+    """The worker sum ``sum_m ghat_m`` per leaf, as ``tree_sum_leading``'s
+    left fold bit for bit (``fold_workers``)."""
+    return tree_map(fused_step.fold_workers, bank)
 
 
 def tree_fused_dense_step(grads, bank, params, prev_params, mask, alpha,

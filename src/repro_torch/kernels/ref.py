@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the kernels (the correctness contract).
 
 A line-for-line port of ``repro/kernels/ref.py`` for B1-B12, in the same
-operation order and dtypes, and of the attention oracles B13
+operation order and dtypes, of the attention oracles B13
 (``repro/kernels/decode_attention.py:decode_attention_ref``) and B14
 (``repro/models/flash.py:reference_attention``), with the same -1e30 mask
-value and f32 upcasts. One deliberate
+value and f32 upcasts, and the port-only ``fold_workers``. One deliberate
 difference: the worker sum is a left fold from ``ghat'_0`` (``core.util.tree_sum_leading``), not
 ``jnp.sum(axis=0)``, because the CUDA kernels fold in that order and must
 equal these functions bit for bit on the card. The wrappers in
@@ -153,6 +153,11 @@ def fused_int8_step(g: torch.Tensor, ghat: torch.Tensor, err: torch.Tensor,
     agg = sum_leading(new_ghat)
     return (new_ghat, new_err, agg,
             hb_update(theta, agg, theta_prev, alpha, beta))
+
+
+def fold_workers(x: torch.Tensor) -> torch.Tensor:
+    """The worker sum of a bank: ``sum_leading``'s left fold from x_0."""
+    return sum_leading(x)
 
 
 # ------------------------------------------------------- attention oracles

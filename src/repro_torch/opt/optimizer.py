@@ -12,18 +12,21 @@ Two backends:
     the workers and applies eq. (4). Inside ``fused_step.force_staged()``
     they take the staged route instead, as top-k, low-rank and any other
     stateful transport with ``encode_feedback_cuda`` always do: dense runs
-    B1, the bank advance B4, the worker sum and ``apply_server`` (B3); a
-    stateful transport runs the pending tree in plain torch, its norms
-    (B8), the transport's encode + EF tail (B7a + B7b for int8, B10 for
-    top-k, B11 for low-rank), the bank advance (B9), the worker sum and
-    B3. Both routes give the same bits. On CPU tensors the kernel
+    B1, the bank advance B4, the worker fold (``fold_workers``) and
+    ``apply_server`` (B3); a stateful transport runs the pending tree in
+    plain torch, its norms (B8), the transport's encode + EF tail (B7a +
+    B7b for int8, B10 for top-k, B11 for low-rank), the bank advance (B9),
+    the worker fold and B3. Both routes give the same bits. On CPU tensors the kernel
     wrappers run their plain versions, so this backend also runs, and is
     tested, on the CPU.
 
 ``shard_step`` is the client half of a sharded round (the staged kernels
 on ``cuda``, since the server half runs after the cross-shard fold), and
 ``granularity="per_tensor"`` runs the eq.-(8) test per parameter tensor
-(B8 and B9 per leaf on ``cuda``).
+(B8, B9 and the worker fold per leaf on ``cuda``). The ``reference``
+backend sums the workers with ``core.util.tree_sum_leading``, one eager add
+a worker; ``fold_workers`` folds in the same order, so both give the same
+bits.
 """
 from __future__ import annotations
 
@@ -272,7 +275,7 @@ class ComposedOptimizer:
             new_ghat, new_err = self._advance_kernels(
                 state, worker_grads, pending, mask)
             del pending
-            agg = tree_sum_leading(new_ghat)
+            agg = kernel_ops.tree_fold_workers(new_ghat)
             new_params = self.apply_server(params, state.prev_params, agg)
         # the fused routes keep the kernels' agg. The JAX fused route
         # recomputes agg from the bank for its agg_grad_sqnorm diagnostic:
@@ -378,7 +381,7 @@ class ComposedOptimizer:
                 lambda h, q: h + _bcast(delivered, h) * q.to(h.dtype),
                 state.ghat, payload)
         del pending
-        partial = tree_sum_leading(new_ghat)
+        partial = self._worker_sum(new_ghat)
 
         stats = ShardStepStats(mask=mask, attempted=attempted,
                                delivered=delivered, delta_sq=dsq,
@@ -397,6 +400,13 @@ class ComposedOptimizer:
         if worker_ids is None:
             return self.censor.decide(censor_state, dsq, ssq)
         return self.censor.decide_ids(censor_state, dsq, ssq, worker_ids)
+
+    def _worker_sum(self, bank):
+        """``sum_m ghat_m`` per leaf: the fold kernel on ``cuda``, the
+        Python left fold on ``reference``; the same bits."""
+        if self.backend == "cuda":
+            return kernel_ops.tree_fold_workers(bank)
+        return tree_sum_leading(bank)
 
     def apply_server(self, params, prev_params, agg):
         """The backend-dispatched server update (the fed runtime's hook).
@@ -461,7 +471,7 @@ class ComposedOptimizer:
                 new_ghat.append(h + _bcast(mask_t, h) * d.to(h.dtype))
         new_ghat = tree_unflatten(treedef, new_ghat)
 
-        agg = tree_sum_leading(new_ghat)
+        agg = self._worker_sum(new_ghat)
         new_params = self.apply_server(params, state.prev_params, agg)
         comm = CommStats(
             uplink_count=state.comm.uplink_count + any_mask.to(torch.int32),

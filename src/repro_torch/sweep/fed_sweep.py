@@ -27,11 +27,15 @@ participation, transmit, delivered and quorum records equal the JAX
 package's.
 
 Kernels: with a ``backend="cuda"`` optimizer each round runs B8 on the
-per-worker ``g - ghat`` (the eq.-(8) norms), B9 for the delivered fold and
-B3 for the server update, with the worker sum as ``tree_sum_leading``'s
-left fold: the staged route's arithmetic, so the bits equal the
-``reference`` backend's. Correctness anchor: the ideal scenario (loss 0,
-participation 1, quorum 1) equals ``simulator.run`` bit for bit.
+per-worker ``g - ghat`` (the eq.-(8) norms), B9 for the delivered fold,
+``fold_workers`` for the worker sum (``tree_sum_leading``'s left fold) and
+B3 for the server update: the staged route's arithmetic, so the bits
+equal the ``reference`` backend's. Correctness anchor: the ideal scenario
+(loss 0, participation 1, quorum 1) equals ``simulator.run`` bit for bit.
+
+``mesh=`` (a ``launch.mesh.ClientMesh`` of K shards) splits the scenarios
+into K contiguous blocks, block i run on shard i's device; scenarios are
+independent, so the result is the unsharded sweep's bit for bit.
 """
 from __future__ import annotations
 
@@ -120,7 +124,9 @@ def run_fed_sweep(opt, task: FedTask, grid, num_rounds: int, *,
       energy: radio/compute energy model (``fed.EnergyModel()`` default).
       vectorize: not ported; raises ``NotImplementedError`` (ROADMAP.md
         A8b).
-      mesh: not ported; raises ``NotImplementedError`` (ROADMAP.md A10).
+      mesh: optional ``launch.mesh.ClientMesh``: scenario block i (of K
+        contiguous blocks; the point count must divide by K) runs on
+        ``mesh.devices[i]``, and ``device`` is then not used.
       device: ``None`` runs on CUDA and raises without it; ``"cpu"`` is
         the explicit CPU opt-in.
     Returns:
@@ -138,10 +144,6 @@ def run_fed_sweep(opt, task: FedTask, grid, num_rounds: int, *,
         raise NotImplementedError("fed sweep supports granularity='global'")
     if isinstance(opt.censor, AdaptiveCensor):
         raise NotImplementedError("fed sweep does not cover adaptive mode")
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_fed_sweep(mesh=...) is not ported (ROADMAP.md A10, the "
-            "mesh)")
     if vectorize:
         raise NotImplementedError(
             "run_fed_sweep(vectorize=True) is not ported (ROADMAP.md A8b)")
@@ -151,13 +153,26 @@ def run_fed_sweep(opt, task: FedTask, grid, num_rounds: int, *,
     if opt.num_workers != m:
         raise ValueError(f"cfg.num_workers={opt.num_workers} != task M={m}")
     energy = energy if energy is not None else EnergyModel()
-    dev = resolve_device(device)
-    task = task_to(task, dev)
+    if mesh is None:
+        shard_devices = [resolve_device(device)]
+    else:
+        # scenarios are independent, so sharding the grid is a partition:
+        # no fold, each device runs its own contiguous block
+        shard_devices = list(mesh.devices)
+        if len(points) % len(shard_devices):
+            raise ValueError(
+                f"grid has {len(points)} points; a {len(shard_devices)}"
+                "-shard mesh needs the point count divisible by the shard "
+                "count; pad the grid or drop mesh=")
+    block = len(points) // len(shard_devices)
     kernels = opt.backend == "cuda"
 
     draws = {s: _draws(s, m, num_rounds) for s in {p.seed for p in points}}
-    recs = [_scenario(opt, task, p, draws[p.seed], kernels, dev)
-            for p in points]
+    recs = []
+    for i, dev in enumerate(shard_devices):
+        task_dev = task_to(task, dev)
+        recs += [_scenario(opt, task_dev, p, draws[p.seed], kernels, dev)
+                 for p in points[i * block:(i + 1) * block]]
     obj, gsq, transmit, delivered, participate, met = (
         np.stack([r[j] for r in recs]) for j in range(6))
 
@@ -218,7 +233,8 @@ def _scenario(opt, task: FedTask, point: FedScenarioPoint, draws,
                 lambda h, q: h + _bcast(delivered, h) * q.to(h.dtype),
                 ghat, delta)
         del delta
-        agg = tree_sum_leading(new_ghat)
+        agg = kernel_ops.tree_fold_workers(new_ghat) if kernels \
+            else tree_sum_leading(new_ghat)
         upd = opt.apply_server(params, prev, agg)
         arrived = participate - dropped      # beacons count, drops do not
         cohort = torch.sum(participate)

@@ -117,7 +117,8 @@ def test_kernels_match_plain_versions(card, m, n, dtype):
                                "absmax_batched": 1,
                                "quantize_ef_batched": 1,
                                "censor_delta_sqnorm": 0, "censor_select": 0,
-                               "flash_attention": 0, "decode_attention": 0}
+                               "flash_attention": 0, "decode_attention": 0,
+                               "fold_workers": 0}
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
@@ -262,7 +263,8 @@ def test_nan_and_inf_rows_propagate_as_in_the_plain_versions(card, dtype):
     ({"quantize": "int8"}, ("int8_stats_batched", "fused_int8_step")),
     ({"transport": "topk", "k": 4_000}, ("sqnorm_batched",
                                          "select_pack_ef_batched",
-                                         "bank_advance", "hb_update")),
+                                         "bank_advance", "fold_workers",
+                                         "hb_update")),
 ], ids=["dense", "int8", "topk"])
 def test_main_path_launches_each_kernel_once_per_step(card, kw, names):
     task = edge_tasks.make_edge_quadratics(m=4, d=10_000, seed=0,
@@ -278,7 +280,7 @@ def test_main_path_launches_each_kernel_once_per_step(card, kw, names):
 
 
 def test_lowrank_path_launches_per_leaf(card):
-    """Low-rank on a two-matrix tree: four kernels per leaf per step."""
+    """Low-rank on a two-matrix tree: five kernels per leaf per step."""
     flat = edge_tasks.make_edge_quadratics(m=4, d=60 * 70 + 30 * 8, seed=0,
                                            dtype=torch.float32)
     a, c = flat.worker_data
@@ -300,7 +302,7 @@ def test_lowrank_path_launches_per_leaf(card):
         assert _same(runs[0].final_params[k], runs[1].final_params[k])
     assert {k: v for k, v in common.LAUNCHES.items() if v} == \
         {name: 6 for name in ("sqnorm_batched", "residual_ef_batched",
-                              "bank_advance", "hb_update")}
+                              "bank_advance", "fold_workers", "hb_update")}
 
 
 @pytest.mark.parametrize("k", [1, 700, 3799, 4099, 5000])
@@ -317,10 +319,10 @@ def test_topk_keep_on_the_card_equals_the_cpu(card, k):
 
 @pytest.mark.parametrize("kw,names", [
     ({}, ("censor_delta_sqnorm_batched", "censor_bank_advance",
-          "hb_update")),
+          "fold_workers", "hb_update")),
     ({"quantize": "int8"}, ("sqnorm_batched", "absmax_batched",
                             "quantize_ef_batched", "bank_advance",
-                            "hb_update")),
+                            "fold_workers", "hb_update")),
 ], ids=["dense", "int8"])
 def test_staged_route_equals_the_fused_route(card, kw, names):
     task = edge_tasks.make_edge_quadratics(m=4, d=10_000, seed=0,
@@ -361,7 +363,8 @@ def test_shard_step_plus_apply_server_is_step(card, kw):
 
 
 def test_per_tensor_launches_per_leaf(card):
-    """per_tensor on a two-leaf tree: B8, B9 and B3 once a leaf a step."""
+    """per_tensor on a two-leaf tree: B8, B9, the worker fold and B3
+    once a leaf a step."""
     flat = edge_tasks.make_edge_quadratics(m=4, d=60 * 70 + 30 * 8, seed=0,
                                            dtype=torch.float32)
     a, c = flat.worker_data
@@ -384,7 +387,8 @@ def test_per_tensor_launches_per_leaf(card):
     for k in ("u", "v"):
         assert _same(runs[0].final_params[k], runs[1].final_params[k])
     assert {k: v for k, v in common.LAUNCHES.items() if v} == \
-        {name: 6 for name in ("sqnorm_batched", "bank_advance", "hb_update")}
+        {name: 6 for name in ("sqnorm_batched", "bank_advance",
+                              "fold_workers", "hb_update")}
 
 
 # ------------------------------------------------- B12a, B12b, B13, B14
@@ -604,7 +608,8 @@ def test_sweep_points_equal_run_on_the_card(card):
 
 def test_fed_sweep_on_the_card(card):
     """The ideal scenario equals ``simulator.run``; every scenario is the
-    same on both backends; B8, B9 and B3 launch once a round a scenario."""
+    same on both backends; B8, B9, the worker fold and B3 launch once a
+    round a scenario."""
     from repro_torch import sweep
     task = edge_tasks.make_edge_quadratics(m=5, d=4099, seed=0, device=card)
     grid = sweep.FedScenarioGrid(loss_prob=(0.0, 0.3),
@@ -616,7 +621,8 @@ def test_fed_sweep_on_the_card(card):
                                      task, grid, 30, device=card)
         launched[b] = _launched()
     assert launched["cuda"] == {"sqnorm_batched": 8 * 30,
-                                "bank_advance": 8 * 30, "hb_update": 8 * 30}
+                                "bank_advance": 8 * 30,
+                                "fold_workers": 8 * 30, "hb_update": 8 * 30}
     assert launched["reference"] == {}
     for f in ("objective", "agg_grad_sqnorm", "transmit_mask",
               "delivered_mask", "participate_mask", "quorum_met"):
@@ -704,3 +710,80 @@ def test_fused_steps_on_both_designs(card, m, n, dtype):
                 scale[w:w + 1], 0.1, 0.4)
             assert _same_or_nan(one[0], out[0][w:w + 1]) \
                 and _same_or_nan(one[1], out[1][w:w + 1]), (name, w)
+
+
+# (M, n) of fold_workers: both designs on each side of common.fold_path's
+# threshold (M at ONE_PASS_MAX_WORKERS and one above; n one short of a
+# column for each thread the card holds, and at it), and the fed mesh's
+# tall banks up to 10^5 rows
+FOLD_WORKER_SHAPES = [(1, 7), (4, 4099), (common.ONE_PASS_MAX_WORKERS, 16),
+                      (common.ONE_PASS_MAX_WORKERS + 1, 16), (300, 33),
+                      (65536, 1), (100000, 16), (70000, 2049),
+                      (common.ONE_PASS_MAX_WORKERS + 1, "wide-1"),
+                      (common.ONE_PASS_MAX_WORKERS + 1, "wide")]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", FOLD_WORKER_SHAPES)
+def test_fold_workers_on_both_designs(card, m, n, dtype):
+    """The worker fold by the design its wrapper picks, bit for bit
+    against ``sum_leading`` (NaN where it gives NaN), the other design
+    against the first, one launch a call; a column of -0.0 stays -0.0."""
+    if isinstance(n, str):
+        wide = common.sm_count(card.index or 0) * common.THREADS_PER_SM
+        n = wide - 1 if n == "wide-1" else wide
+    gen = torch.Generator(device=card).manual_seed(m * 31 + n)
+    x = torch.randn((m, n), generator=gen, device=card, dtype=dtype)
+    x[:, 0] = -0.0
+    if n >= 3:
+        x[m // 2, n - 1] = float("nan")
+        x[m - 1, n - 2] = float("inf")
+    path = common.fold_path(m, n, common.sm_count(card.index or 0))
+    other = "one_pass" if path == "tall" else "tall"
+    common.reset_launches()
+    got = fused_step.fold_workers(x)
+    assert _launched() == {"fold_workers": 1}
+    assert _same_or_nan(got, ref.fold_workers(x)), path
+    assert _same_or_nan(fused_step.fold_on_card(x, other), got), other
+    assert _bits(got[0]).item() == _bits(
+        torch.tensor(-0.0, dtype=dtype)).item()
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8])
+def test_run_mesh_on_the_card(card, shards):
+    """``fed.run_mesh`` over shards on the one card equals the reference
+    backend (masks, counts, objective, theta); B1, B4 and the worker fold
+    launch once a shard a round, B3 once a round; at one shard the ideal
+    scenario is ``simulator.run``."""
+    import numpy as np
+
+    from repro_torch import fed
+    from repro_torch.launch.mesh import make_client_mesh
+    m, rounds = 4000, 6
+    task = edge_tasks.make_edge_quadratics(m=m, d=16, seed=0, device=card)
+    mesh = make_client_mesh(shards, [card] * shards)
+    sc = fed.MeshScenario(participation=0.5, loss_prob=0.3, quorum=0.5,
+                          seed=3)
+    runs, launched = {}, {}
+    for b in ("cuda", "reference"):
+        common.reset_launches()
+        runs[b] = fed.run_mesh(opt.make("chb", 0.5 / m, m, eps1=4.0,
+                                        backend=b), task, rounds,
+                               mesh=mesh, scenario=sc)
+        launched[b] = _launched()
+    assert launched["cuda"] == {"censor_delta_sqnorm_batched": shards * 6,
+                                "censor_bank_advance": shards * 6,
+                                "fold_workers": shards * 6, "hb_update": 6}
+    assert launched["reference"] == {}
+    for f in ("mask", "participated", "attempted", "delivered",
+              "quorum_met", "objective", "agg_grad_sqnorm"):
+        assert np.array_equal(getattr(runs["cuda"], f),
+                              getattr(runs["reference"], f)), f
+    assert _same(runs["cuda"].final_params, runs["reference"].final_params)
+    if shards == 1:
+        o = opt.make("chb", 0.5 / m, m, eps1=4.0, backend="cuda")
+        mh = fed.run_mesh(o, task, rounds, mesh=mesh)
+        h = simulator.run(o, task, rounds, device=card)
+        assert np.array_equal(mh.objective, h.objective.cpu().numpy())
+        assert np.array_equal(mh.mask, h.mask.cpu().numpy().astype(np.int8))
+        assert _same(mh.final_params, h.final_params)

@@ -85,3 +85,17 @@ def test_edge_runtime_entry_points_default_to_cuda(no_cuda):
     hist = fed.run_edge(opt.make("chb", 0.1, 2, backend="cuda"), task,
                         fed.sync_config(2), 1, device="cpu")
     assert hist.final_params.device.type == "cpu"
+
+
+def test_mesh_entry_points_default_to_cuda(no_cuda):
+    """The mesh runtime's default mesh is the first CUDA card: without one
+    it raises, and a CPU mesh is the explicit ``devices=`` opt-in."""
+    from repro_torch.launch.mesh import make_client_mesh
+    task = edge_tasks.make_edge_quadratics(m=4, d=2, device="cpu")
+    o = opt.make("chb", 0.1, 4, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        make_client_mesh(1)
+    with pytest.raises(ValueError, match="CUDA"):
+        fed.run_mesh(o, task, 1)
+    hist = fed.run_mesh(o, task, 1, mesh=make_client_mesh(2, ["cpu"] * 2))
+    assert hist.final_params.device.type == "cpu"

@@ -38,6 +38,7 @@ from repro_torch import opt, sweep
 from repro_torch.core import simulator
 from repro_torch.core.censoring import paper_eps1
 from repro_torch.data import paper_tasks
+from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.obs import compile_log
 from repro_torch.tree import tree_leaves
 
@@ -377,9 +378,11 @@ def test_fed_sweep_rejections(linreg):
         with pytest.raises(NotImplementedError):
             sweep.run_fed_sweep(o, linreg.task, grid, 2, device="cpu")
     o = opt.make("chb", a, M)
-    with pytest.raises(NotImplementedError, match="A10"):
-        sweep.run_fed_sweep(o, linreg.task, grid, 2, mesh=object(),
-                            device="cpu")
+    # the mesh splits the scenarios into equal blocks, one a shard
+    with pytest.raises(ValueError, match="divisible"):
+        sweep.run_fed_sweep(o, linreg.task,
+                            sweep.FedScenarioGrid(seed=(0, 1, 2)), 2,
+                            mesh=make_client_mesh(2, ["cpu"] * 2))
     with pytest.raises(NotImplementedError, match="A8b"):
         sweep.run_fed_sweep(o, linreg.task, grid, 2, vectorize=True,
                             device="cpu")
