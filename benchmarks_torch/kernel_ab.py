@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""B14, B9, B7a, B2 and B6 of two source trees, side by side on one card,
-and the bits of their sums B1, B5 and B8.
+"""B14, B9, B7a, B2, B6 and B10 of two source trees, side by side on one
+card, and the bits of their sums B1, B5 and B8.
 
     python3 benchmarks_torch/kernel_ab.py --other <dir> [<dir> ...]
-        [--only B14 B9 B7a sums fused] [--ablate] [--reps 10]
+        [--only B14 B9 B7a sums fused B10] [--ablate] [--reps 10]
 
 Each ``<dir>`` holds another checkout of this repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -32,8 +32,11 @@ fold at the fed-mesh shape (one thread's M - 1 dependent adds,
 ``benchmarks_torch/chain_floor.py``). This tree runs the design its
 wrapper picks (``kernels/common.py:fold_path``); another tree runs its
 tall launchers where it has them and this tree picks the tall design,
-else its one design. One JSON line each, and the card's name and power
-limit. Needs a CUDA card and nvcc.
+else its one design. ``B10`` checks that B10 of every tree gives the
+plain version's bits at M = 4, n = 163,597,056 (f32), at the fed mesh's
+M = 70,000 and 100,000, n = 16 (f64) and on a few short banks, and stops
+if it does not; then times it at the first three. One JSON line each,
+and the card's name and power limit. Needs a CUDA card and nvcc.
 
 A tree's B7a partial count is ceil(n / span), with the span its own
 ``kernels/build.py`` names (``ABSMAX_SPAN``; a tree without it uses one
@@ -75,7 +78,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from benchmarks_torch.chain_floor import chain_floor_ms  # noqa: E402
 from chip_smoke import (ATTN_FACTOR, ATTN_FLOOR, FULL_D, LARGE_M,  # noqa: E402
-                        MANY_D, MANY_M, _flash_f64, _time_ms, same_bits, same_or_nan)
+                        MANY_D, MANY_M, MANY_M_STAGED, _flash_f64, _time_ms, same_bits,
+                        same_or_nan)
 from repro_torch.core.quantize import int8_scale  # noqa: E402
 from repro_torch.kernels import build, common, flash_attention, ref  # noqa: E402
 
@@ -83,7 +87,7 @@ OUT = ROOT / "build" / "kernel_ab"
 # the sources each choice of --only compiles
 SOURCES = {"B14": ("flash_attention",), "B9": ("censor",),
            "B7a": ("quantize_ef",), "sums": ("censor", "fused_step"),
-           "fused": ("fused_step",)}
+           "fused": ("fused_step",), "B10": ("topk_pack",)}
 
 
 def compile_tree(tag: str, csrc: Path, names) -> dict:
@@ -424,6 +428,59 @@ def check_fused(trees, dev) -> None:
         torch.cuda.empty_cache()
 
 
+# B10's shapes: full width, and the fed mesh's tall banks (the top-k step
+# of phase many_workers runs at MANY_M_STAGED)
+PACK_SHAPES = ((4, FULL_D, torch.float32),
+               (MANY_M_STAGED, MANY_D, torch.float64),
+               (MANY_M, MANY_D, torch.float64))
+
+
+def pack(libs, p, e, keep, mask):
+    """B10 of one tree: ``(payload, new_err)``."""
+    m, n = p.shape
+    payload, new_e = torch.empty_like(p), torch.empty_like(p)
+    suffix = "f32" if p.dtype == torch.float32 else "f64"
+    run(libs["topk_pack"], f"select_pack_ef_batched_{suffix}", p.device,
+        p.data_ptr(), e.data_ptr(), keep.data_ptr(), mask.data_ptr(),
+        payload.data_ptr(), new_e.data_ptr(), m, n)
+    return payload, new_e
+
+
+def pack_inputs(m, n, dtype, dev):
+    """pending salted with -0.0 every 7th column, about 40% kept (a kept
+    and a dropped -0.0, and -0.0 in the mask itself), every third worker
+    not transmitting."""
+    gen = torch.Generator(device=dev).manual_seed(m + n + 1)
+    p, e = (torch.randn((m, n), generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    p[:, ::7] = -0.0
+    keep = (torch.rand((m, n), generator=gen, device=dev) < 0.4).to(dtype)
+    keep[:, ::7] = 1.0
+    keep[:, ::14] = 0.0
+    keep[:, 3::29] = -0.0
+    mask = torch.tensor([float(i % 3 != 1) for i in range(m)], device=dev)
+    return p, e * 0.01, keep, mask
+
+
+def check_pack(trees, dev) -> None:
+    """B10 of every tree gives the plain version's bits at the PACK_SHAPES
+    and a few short ones."""
+    for m, n, dtype in ((1, 1, torch.float64), (65, 33, torch.float32),
+                        (66, 2049, torch.float64), *PACK_SHAPES):
+        args = pack_inputs(m, n, dtype, dev)
+        want = ref.select_pack_ef_batched(*args)
+        ok = {tag: all(same_bits(a, b) for a, b in zip(pack(libs, *args),
+                                                        want))
+              for tag, libs in trees.items()}
+        print(json.dumps({"check": "B10", "m": m, "n": n,
+                          "dtype": str(dtype), "ok": ok}), flush=True)
+        if not all(ok.values()):
+            raise SystemExit(f"kernel_ab: B10 differs at M={m} n={n} "
+                             f"{dtype}")
+        del args, want
+        torch.cuda.empty_cache()
+
+
 def _device_us(evt) -> float:
     us = getattr(evt, "self_device_time_total", None)
     return getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
@@ -542,6 +599,13 @@ def main() -> None:
                                               k: v * 1e6 / (MANY_M - 1)
                                               for k, v in floor.items()}},
                           "card": smi}), flush=True)
+    if "B10" in args.only:
+        check_pack(having("topk_pack"), dev)
+        for m, n, dtype in PACK_SHAPES:
+            pargs = pack_inputs(m, n, dtype, dev)
+            work[f"B10 M={m} n={n} {str(dtype)[6:]}"] = (
+                {tag: (lambda libs=libs, pargs=pargs: pack(libs, *pargs))
+                 for tag, libs in having("topk_pack").items()}, None)
     for name, (fns, lib_fn) in work.items():
         tags = [t for t in fns if t != "this"]
         order = tags + ["this", "this"] + tags[::-1]

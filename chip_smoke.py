@@ -27,7 +27,13 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  worker fold (fold_workers) on the shape their wrappers
                  dispatch (common.fold_path) and on the other design, at M
                  up to 100,000 and on each side of the threshold, salted
-                 with -0.0, NaN and +-inf;
+                 with -0.0, NaN and +-inf; (phase tall_paths) B10 and B1
+                 on tall banks (M from 65 to 100,000 and on each side of
+                 B1's worker threshold, n in {1, 16, 33, 2049}, f32 and
+                 f64, salted the same way): B10 against its plain version
+                 bit for bit, B1's two designs (common.sqnorm_path)
+                 against each other, B8 on g - ghat and their M=1 calls
+                 bit for bit;
                  (phase attention_kernels) B14 over GQA 1/2/4/6,
                  causal, window and non-causal rectangular shapes on and
                  off its tiles, head dims 32-256, strided and misaligned
@@ -111,8 +117,10 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  one exists and its bound at the main path's shape (B2 and
                  B6 also at the fed-mesh shape, on both designs, beside
                  the measured floor of an exact fold there:
-                 benchmarks_torch/chain_floor.py; fold_workers there and
-                 at 10^6; B10 and B11 at M = 70,000 and 100,000, n = 16);
+                 benchmarks_torch/chain_floor.py; fold_workers and B1's
+                 two designs there and at 10^6, B1 also on each side of
+                 its worker threshold; B10 and B11 at M = 70,000 and
+                 100,000, n = 16);
                  then the ``{"kernels": [...]}`` line of all 17 kernels
                  (16 ported, and fold_workers, which only the port has).
 
@@ -985,6 +993,90 @@ def phase_fused_fold_paths(device,
           "other design: NaN where it gives NaN, the same bits elsewhere "
           "(-0.0 included); repeat and M=1 slices bitwise; fold_workers "
           "of B2's ghat' equal to B2's agg"})
+
+
+def tall_path_cases(sms: int) -> list:
+    """(M, n) of B10 and B1's tall-bank cases: M at 65 and 66, a short
+    tall bank, each side of ``common.sqnorm_path``'s worker threshold,
+    phase kernels_large_m's M (past grid y's 65535 blocks) and the
+    fed-mesh frontier, each with n in {1, 16, 33, 2049} (2049: a row of
+    two reduction chunks, where B1 runs its two-pass design only)."""
+    from repro_torch.kernels.common import warp_rows_min_workers
+    t = warp_rows_min_workers(sms)
+    return [(m, n) for m in sorted({65, 66, 300, t, t + 1, LARGE_M, MANY_M})
+            for n in (1, 16, 33, 2049)]
+
+
+def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
+    """B10 and B1 on the tall_path_cases, inputs salted with -0.0 (column
+    0 all -0.0; a kept and a dropped -0.0 in every 7th column), NaN and
+    +-inf. B10 under all three masks: bitwise (NaN where NaN) against the
+    plain version, a repeat launch bitwise, and the M=1 row calls of
+    sample_workers against the batched call under the all-ones mask. B1
+    on both designs where both run (n <= 2048): each against the other,
+    against B8 on g - ghat and against its M=1 calls, NaN where NaN and
+    the same bits elsewhere; a repeat launch bitwise; the design picked
+    against the plain version within SQNORM_RTOL (NaN where NaN)."""
+    from repro_torch.kernels import censor, common, ref, topk_pack
+    from repro_torch.kernels.build import REDUCE_CHUNK
+    sms = common.sm_count(device.index or 0)
+    cases, paths = 0, {}
+    for dtype in dtypes:
+        for m, n in tall_path_cases(sms):
+            g, h, e, _, _ = _fold_inputs(m, n, dtype, device, 3 * m + n)
+            keep = _keep(g, m + n)
+            path = common.sqnorm_path(m, n, sms)
+            paths[f"M={m} n={n}"] = path
+            tag = f"{dtype} M={m} n={n}"
+            out = censor.censor_delta_sqnorm_batched(g, h)
+            plain = ref.censor_delta_sqnorm_batched(g, h)
+            nan = torch.isnan(plain)
+            check(torch.equal(torch.isnan(out), nan) and torch.allclose(
+                out[~nan], plain[~nan], rtol=SQNORM_RTOL, atol=0),
+                f"B1 {tag} ({path}) against the plain version")
+            check(same_bits(censor.censor_delta_sqnorm_batched(g, h), out),
+                  f"B1 repeat {tag}")
+            b8 = censor.sqnorm_batched(g - h)
+            designs = censor.SQNORM_PATHS if n <= REDUCE_CHUNK \
+                else ("two_pass",)
+            for design in designs:
+                got = censor.delta_sqnorm_on_card(g, h, design)
+                check(same_or_nan(got, out), f"B1 {design} {tag}")
+                check(same_or_nan(got, b8), f"B1 {design} != B8 {tag}")
+                for w in sample_workers(m):
+                    one = censor.delta_sqnorm_on_card(g[w:w + 1], h[w:w + 1],
+                                                      design)
+                    check(same_or_nan(one, out[w:w + 1]),
+                          f"B1 {design} M=1 slice {w} {tag}")
+            del out, plain, b8
+            for mname, mask in _masks(m, device).items():
+                mtag = f"{tag} mask={mname}"
+                got = topk_pack.select_pack_ef_batched(g, e, keep, mask)
+                plain = ref.select_pack_ef_batched(g, e, keep, mask)
+                again = topk_pack.select_pack_ef_batched(g, e, keep, mask)
+                for a, b, c, what in zip(got, plain, again,
+                                         ("payload", "err'")):
+                    check(same_or_nan(a, b), f"B10 {what} {mtag}")
+                    check(same_bits(c, a), f"B10 {what} repeat {mtag}")
+                if mname == "ones":
+                    for w in sample_workers(m):
+                        row = topk_pack.select_pack_ef_row(g[w], e[w],
+                                                           keep[w])
+                        check(same_or_nan(row[0], got[0][w])
+                              and same_or_nan(row[1], got[1][w]),
+                              f"B10 M=1 row {w} {mtag}")
+                del got, plain, again
+                cases += 1
+            del g, h, e, keep
+            torch.cuda.empty_cache()
+    emit({"phase": "tall_paths", "cases": cases, "sms": sms,
+          "b1_path_by_shape": paths,
+          "kernels": ["select_pack_ef_batched", "censor_delta_sqnorm_batched"],
+          "rule": "B10 against the plain version NaN where it gives NaN, "
+          "the same bits elsewhere (-0.0 included), repeat and M=1 rows "
+          "bitwise; B1's two designs against each other, B8 on g - ghat and "
+          "their M=1 calls NaN where NaN and bitwise elsewhere, against the "
+          "plain version within SQNORM_RTOL"})
 
 
 # ----------------------------------------------------------- phase 3b
@@ -2454,7 +2546,7 @@ def _time_ms(fn, reps: int) -> float:
 
 
 # the fed mesh's shapes of phase 6: M of B10 and B11 (n = MANY_D, f64),
-# and of fold_workers, up to the ladder's 10^6 clients
+# and of fold_workers and B1, up to the ladder's 10^6 clients
 TALL_MS = (MANY_M_STAGED, MANY_M)
 FOLD_MS = (MANY_M, 1_000_000)
 
@@ -2466,12 +2558,16 @@ def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
     dependent f64 adds, ``benchmarks_torch/chain_floor.py``);
     fold_workers at M in FOLD_MS on both designs, its plain version
     (``sum_leading``, M - 1 eager adds) and ``torch.sum``, against the
-    same floor; B10 and B11, which walk the M workers a thread a column,
-    at M in TALL_MS. Returns ``{kernel: {...}}``."""
+    same floor; B1 on both designs at M in FOLD_MS and each side of
+    ``common.sqnorm_path``'s worker threshold, with its plain version and
+    byte bound; B10 (tiled like B2's tall pass 1) and B11 (a thread a
+    column walking the M workers) at M in TALL_MS. Returns
+    ``{kernel: {...}}``."""
     from benchmarks_torch.chain_floor import chain_floor_ms
     from repro_torch.core.quantize import int8_scale
-    from repro_torch.kernels import (common, fused_step, lowrank_ef, ref,
-                                     topk_pack)
+    from repro_torch.kernels import (censor, common, fused_step, lowrank_ef,
+                                     ref, topk_pack)
+    from repro_torch.kernels.build import REDUCE_CHUNK
     floors = {mm: chain_floor_ms(mm) for mm in sorted({m, *FOLD_MS})}
     floor = floors[m]
     gen = torch.Generator(device=device).manual_seed(23)
@@ -2537,24 +2633,45 @@ def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
             "ms_over_bound": ms / max(nbytes / HBM_BYTES_PER_S * 1e3,
                                       chain)}
         del x
-    # B10 and B11 at the tall shapes: a thread a column walks all M rows
+    # B1 on both designs: the fed mesh's M, and each side of sqnorm_path's
+    # worker threshold on rows of 16 and of one full reduction chunk
+    out["censor_delta_sqnorm_batched"] = {}
+    t = common.warp_rows_min_workers(sms)
+    for mm, nn in [*((mm, n) for mm in FOLD_MS), (t, n), (t + 1, n),
+                   (t, REDUCE_CHUNK), (t + 1, REDUCE_CHUNK)]:
+        x, y = randn(mm, nn), randn(mm, nn)
+        nbytes = 2 * mm * nn * el + 4 * mm
+        out["censor_delta_sqnorm_batched"][f"M={mm} n={nn}"] = {
+            "shape": f"M={mm} n={nn} float64",
+            "path": common.sqnorm_path(mm, nn, sms),
+            "ms": {d: _time_ms(lambda: censor.delta_sqnorm_on_card(x, y, d),
+                               10) for d in censor.SQNORM_PATHS},
+            "plain_ms": _time_ms(
+                lambda: ref.censor_delta_sqnorm_batched(x, y), 3),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        del x, y
+    # B10 (tiled over workers and columns) and B11 (a thread a column
+    # walks all M rows) at the tall shapes
     for name in ("select_pack_ef_batched", "residual_ef_batched"):
         out[name] = {}
     for mm in TALL_MS:
         pend, q, err = randn(mm, n), randn(mm, n), randn(mm, n) * 0.01
         keep = (randn(mm, n) > 0.2533).to(torch.float64)
         msk = alternating(mm)
-        for name, run, nbytes in (
+        for name, run, plain, nbytes in (
                 ("select_pack_ef_batched",
                  lambda: topk_pack.select_pack_ef_batched(pend, err, keep,
                                                           msk),
+                 lambda: ref.select_pack_ef_batched(pend, err, keep, msk),
                  5 * mm * n * el + 4 * mm),
                 ("residual_ef_batched",
                  lambda: lowrank_ef.residual_ef_batched(pend, q, err, msk),
+                 lambda: ref.residual_ef_batched(pend, q, err, msk),
                  4 * mm * n * el + 4 * mm)):
             out[name][f"M={mm}"] = {
                 "shape": f"M={mm} n={n} float64",
-                "ms": _time_ms(run, 10), "bytes": nbytes,
+                "ms": _time_ms(run, 10), "plain_ms": _time_ms(plain, 3),
+                "bytes": nbytes,
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
         del pend, q, err, keep, msk
     torch.cuda.empty_cache()
@@ -2772,6 +2889,7 @@ def main() -> None:
     phase_bank_advance_paths(dev)
     phase_absmax_paths(dev)
     phase_fused_fold_paths(dev)
+    phase_tall_paths(dev)
     phase_attention_kernels(dev, max_err)
     phase_golden(dev)
     flat, setup_s = full_task(dev)

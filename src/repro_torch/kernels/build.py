@@ -57,6 +57,7 @@ _STATS_ARGS = (_DEV,) + (_P,) * 7 + (_I64, _I64, _I64, _P)
 _INT8_ARGS = (_DEV,) + (_P,) * 11 + (_I64, _I64, _F64, _F64, _P)
 _FOLD_ARGS = (_DEV,) + (_P,) * 2 + (_I64, _I64, _P)
 _SQNORM_ARGS = (_DEV,) + (_P,) * 3 + (_I64, _I64, _I64, _P)
+_WARP_ARGS = (_DEV,) + (_P,) * 3 + (_I64, _I64, _P)
 _BANK_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _I64, _P)
 _HB_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _F64, _F64, _P)
 _PACK_ARGS = (_DEV,) + (_P,) * 6 + (_I64, _I64, _P)
@@ -87,6 +88,7 @@ def _pairs(name: str, argtypes: tuple) -> dict:
 
 SIGNATURES = {
     "censor": {**_both("censor_delta_sqnorm_batched", _REDUCE_ARGS),
+               **_both("censor_delta_sqnorm_batched_warp", _WARP_ARGS),
                **_both("sqnorm_batched", _SQNORM_ARGS),
                **_both("bank_advance", _BANK_ARGS),
                **_both("censor_bank_advance", _BANK_ARGS),

@@ -13,8 +13,12 @@ import torch
 
 from . import ref
 from .build import REDUCE_CHUNK, ROW_TILE, SINGLE_DTYPES, launch
-from .common import (check_leaves, check_worker_vector, count_launch,
-                     grid_chunks, on_card)
+from .common import (KERNEL_DTYPES, check_leaves, check_worker_vector,
+                     count_launch, grid_chunks, on_card, sm_count,
+                     sqnorm_path)
+
+#: B1's designs (``common.sqnorm_path`` picks one by shape)
+SQNORM_PATHS = ("two_pass", "warp")
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -39,17 +43,43 @@ def censor_delta_sqnorm_batched(g: torch.Tensor, ghat: torch.Tensor
 
     The subtraction runs in the bank dtype and the sum in f32, in a fixed
     order: two launches give the same bits, and the M=1 call on one
-    worker equals that worker's entry of the batched call.
+    worker equals that worker's entry of the batched call. Of its two
+    designs, ``common.sqnorm_path`` picks one by shape; they give the same
+    bits.
     """
     name = "censor_delta_sqnorm_batched"
-    suffix = check_leaves(name, g, ghat)
+    check_leaves(name, g, ghat)
     m, n = g.shape[0], g[0].numel()
     if n == 0:
         return torch.zeros((m,), dtype=torch.float32, device=g.device)
     if not on_card(name, g, ghat):
         return ref.censor_delta_sqnorm_batched(g, ghat)
-    return _sqnorm_launch(name, f"{name}_{suffix}", g.device,
-                          (_ptr(g), _ptr(ghat)), g.shape, m, n)
+    return delta_sqnorm_on_card(g, ghat,
+                                sqnorm_path(m, n, sm_count(g.device.index)))
+
+
+def delta_sqnorm_on_card(g: torch.Tensor, ghat: torch.Tensor,
+                         path: str) -> torch.Tensor:
+    """B1 on checked CUDA operands by ``path`` (one of ``SQNORM_PATHS``;
+    ``"warp"`` takes rows of at most ``REDUCE_CHUNK`` elements).
+    :func:`censor_delta_sqnorm_batched` takes the path
+    ``common.sqnorm_path`` picks; the card's checks call both on one
+    input."""
+    name = "censor_delta_sqnorm_batched"
+    m, n = g.shape[0], g[0].numel()
+    suffix = KERNEL_DTYPES[g.dtype]
+    if path == "two_pass":
+        return _sqnorm_launch(name, f"{name}_{suffix}", g.device,
+                              (_ptr(g), _ptr(ghat)), g.shape, m, n)
+    if path != "warp" or n > REDUCE_CHUNK:
+        raise ValueError(f"{name}: path must be one of {SQNORM_PATHS} (warp "
+                         f"for rows of at most {REDUCE_CHUNK} elements), "
+                         f"got {path!r} at n={n}")
+    out = torch.empty((m,), dtype=torch.float32, device=g.device)
+    count_launch(name)
+    launch("censor", f"{name}_warp_{suffix}", g.device,
+           _ptr(g), _ptr(ghat), _ptr(out), m, n)
+    return out
 
 
 def sqnorm_batched(x: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,7 @@ import functools
 import torch
 
 from ..obs import compile_log
-from .build import GRID_X_MAX
+from .build import GRID_X_MAX, REDUCE_CHUNK
 
 KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
            "int8_stats_batched", "fused_int8_step", "sqnorm_batched",
@@ -129,6 +129,29 @@ def fold_path(m: int, n: int, sms: int) -> str:
     if m <= ONE_PASS_MAX_WORKERS or n >= sms * THREADS_PER_SM:
         return "one_pass"
     return "tall"
+
+
+#: threads of a block of every kernel here (kThreads in csrc/reduce.cuh)
+BLOCK_THREADS = 256
+
+
+def warp_rows_min_workers(sms: int) -> int:
+    """Workers from which B1's two-pass design fills a card of ``sms``
+    SMs with its block a worker (rows of one reduction chunk): 1056 on an
+    H100. Below them its eight warps a worker hide more load latency than
+    the warp design's one."""
+    return sms * THREADS_PER_SM // BLOCK_THREADS
+
+
+def sqnorm_path(m: int, n: int, sms: int) -> str:
+    """Which design B1 runs on an (M, n) bank, on a card of ``sms`` SMs.
+    ``"warp"``: a warp a worker, one launch, for rows of one reduction
+    chunk (n <= 2048) on more than ``warp_rows_min_workers(sms)`` workers.
+    ``"two_pass"``: a block a (chunk, worker), then a block a worker folds
+    the partials. Both give the same bits."""
+    if n <= REDUCE_CHUNK and m > warp_rows_min_workers(sms):
+        return "warp"
+    return "two_pass"
 
 
 @functools.cache

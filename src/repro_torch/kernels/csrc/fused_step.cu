@@ -178,9 +178,7 @@ fold_workers_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t m, int
 }
 
 // ------------------------------------------------------------ tall banks
-// Pass 1: a block covers 2^shift columns (the power of two >= min(n, 256))
-// and 256 >> shift rows a sweep, kRowItems sweeps: a warp reads whole rows
-// of a narrow bank, and no thread divides by n to find its worker.
+// Pass 1, tiled as reduce.cuh's tall_grid says (B10 shares the tiling).
 template <typename T, bool kInt8>
 __global__ void __launch_bounds__(kThreads)
 tall_advance_kernel(const T* __restrict__ g, const T* __restrict__ h,
@@ -452,13 +450,6 @@ fold_columns_kernel(const T* __restrict__ x, const T* __restrict__ theta,
   }
 }
 
-// the least shift with 2^shift >= min(n, cap), cap a power of two
-inline int pow2_shift(int64_t n, int cap) {
-  int s = 0;
-  while ((int64_t(1) << s) < n && (1 << s) < cap) ++s;
-  return s;
-}
-
 template <typename T, int kPitch, bool kEpilogue>
 static int launch_fold_tiles(const void* x, const void* theta, const void* prev, void* agg,
                              void* theta_out, const FoldTile& f, int64_t tiles, double alpha,
@@ -501,21 +492,12 @@ static int launch_fold(const void* x, const void* theta, const void* prev, void*
   }
 }
 
-// Pass 1's grid: x the column tiles, y the row tiles (walked with a stride
-// past grid y's limit)
-inline dim3 tall_grid(int64_t m, int64_t n, int shift) {
-  const int64_t tile = (int64_t)(kThreads >> shift) * kRowItems;
-  const int64_t y = (m + tile - 1) / tile;
-  return dim3((unsigned)((n + (1 << shift) - 1) >> shift),
-              (unsigned)(y < kMaxGridY ? y : kMaxGridY));
-}
-
 template <typename T>
 static int launch_fused_dense_tall(const void* g, const void* h, const void* theta,
                                    const void* prev, const void* mask, void* new_h, void* agg,
                                    void* theta_out, int64_t m, int64_t n, double alpha,
                                    double beta, void* stream) {
-  if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  if (!tall_grid_ok(m, n)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int shift = pow2_shift(n, kThreads);
   tall_advance_kernel<T, false><<<tall_grid(m, n, shift), kThreads, 0, s>>>(
@@ -532,7 +514,7 @@ static int launch_fused_int8_tall(const void* g, const void* h, const void* e,
                                   const void* scale, void* new_h, void* new_e, void* agg,
                                   void* theta_out, int64_t m, int64_t n, double alpha,
                                   double beta, void* stream) {
-  if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  if (!tall_grid_ok(m, n)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int shift = pow2_shift(n, kThreads);
   tall_advance_kernel<T, true><<<tall_grid(m, n, shift), kThreads, 0, s>>>(

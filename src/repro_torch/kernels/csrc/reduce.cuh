@@ -23,6 +23,7 @@
 namespace repro {
 
 constexpr int kThreads = 256;                         // threads per block
+constexpr int kWarps = kThreads / 32;                 // warps per block
 constexpr int kItems = 8;                             // elements per thread per chunk
 constexpr int64_t kChunk = (int64_t)kThreads * kItems;  // elements per reduction block
 
@@ -158,6 +159,28 @@ inline bool row_tiles_ok(int64_t m, int64_t n) {
 }
 inline dim3 row_tiles(int64_t m, int64_t n) {
   return dim3((unsigned)((n + kRowTile - 1) / kRowTile), worker_blocks(m));
+}
+
+// The tiling of an elementwise pass over a tall bank (B2/B6's pass 1, B10):
+// a block covers 2^shift columns, the power of two >= min(n, kThreads), and
+// kThreads >> shift rows a sweep, kRowItems sweeps, so a warp reads whole
+// rows of a narrow bank and no thread divides by n to find its worker.
+// The least shift with 2^shift >= min(n, cap), cap a power of two:
+inline int pow2_shift(int64_t n, int cap) {
+  int s = 0;
+  while ((int64_t(1) << s) < n && (1 << s) < cap) ++s;
+  return s;
+}
+// the grid: x the column tiles, y the row tiles (walked with a stride past
+// grid y's limit)
+inline bool tall_grid_ok(int64_t m, int64_t n) {
+  return m >= 1 && n >= 1 && (n + kThreads - 1) / kThreads <= kMaxGridX;
+}
+inline dim3 tall_grid(int64_t m, int64_t n, int shift) {
+  const int64_t tile = (int64_t)(kThreads >> shift) * kRowItems;
+  const int64_t y = (m + tile - 1) / tile;
+  return dim3((unsigned)((n + (1 << shift) - 1) >> shift),
+              (unsigned)(y < kMaxGridY ? y : kMaxGridY));
 }
 
 }  // namespace repro

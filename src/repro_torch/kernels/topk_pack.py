@@ -5,8 +5,9 @@ Wraps ``csrc/topk_pack.cu`` (port of ``repro/kernels/topk_pack.py``).
 Given the exact 0/1 keep masks (``opt.transport.tree_topk_keep``, plain
 PyTorch), one pass per leaf emits the payload (kept entries verbatim,
 ``+0.0`` elsewhere: a select, so a kept ``-0.0`` survives) and the next EF
-leaf. CPU tensors run ``ref.select_pack_ef_batched``; CUDA tensors launch
-the kernel.
+leaf. The pass is tiled over workers and columns alike (B2's tall pass 1),
+so a bank of 10^5 narrow rows runs on the whole card. CPU tensors run
+``ref.select_pack_ef_batched``; CUDA tensors launch the kernel.
 """
 from __future__ import annotations
 

@@ -787,3 +787,93 @@ def test_run_mesh_on_the_card(card, shards):
         assert np.array_equal(mh.objective, h.objective.cpu().numpy())
         assert np.array_equal(mh.mask, h.mask.cpu().numpy().astype(np.int8))
         assert _same(mh.final_params, h.final_params)
+
+
+# (M, n) of B10 and B1 on tall banks: M at 65 and 66, a short tall bank,
+# each side of common.sqnorm_path's worker threshold ("t" and "t+1",
+# resolved on the card), past grid y's 65535 blocks and the fed-mesh
+# frontier; n in {1, 16, 33} and rows of one and of two reduction chunks
+# (2048, 2049: B1's warp design takes the first only)
+TALL_SHAPES = [(65, 16), (66, 33), (300, 1), ("t", 16), ("t+1", 16),
+               ("t+1", 2048), (65536, 2048), (70000, 16), (100000, 16),
+               (100000, 2049)]
+
+
+def _tall_m(m, device):
+    if isinstance(m, str):
+        t = common.warp_rows_min_workers(common.sm_count(device.index or 0))
+        m = t if m == "t" else t + 1
+    return m
+
+
+def _tall_salted(m, n, dtype, device):
+    """g/pending, ghat, err and 0/1 keep masks: column 0 all -0.0, a kept
+    and a dropped -0.0 in every 7th column, -0.0 in the keep mask itself,
+    and where n >= 3 NaN and +-inf in the last columns."""
+    g, h, e, _, _, _ = _inputs(m, n, dtype, device)
+    g[:, 0], h[:, 0], e[:, 0] = -0.0, -0.0, -0.0
+    if n >= 3:
+        g[m // 2, n - 1] = float("nan")
+        h[m - 1, n - 2] = float("inf")
+        g[0, n - 1] = float("-inf")
+    gen = torch.Generator(device=device).manual_seed(m + n)
+    keep = (torch.rand((m, n), generator=gen, device=device) < 0.4
+            ).to(dtype)
+    keep[:, ::7] = 1.0
+    keep[:, ::14] = 0.0
+    keep[:, 3::29] = -0.0
+    return g, h, e, keep
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", TALL_SHAPES)
+def test_select_pack_on_tall_banks(card, m, n, dtype):
+    """B10 bit for bit against its plain version (NaN where it gives NaN)
+    under all three masks, one launch a call, a repeat launch bitwise, and
+    the M=1 row calls of _sample_workers against the batched call."""
+    m = _tall_m(m, card)
+    g, _, e, keep = _tall_salted(m, n, dtype, card)
+    masks = {"ones": torch.ones(m, device=card),
+             "zeros": torch.zeros(m, device=card),
+             "alternating": torch.tensor([float(i % 2 == 0)
+                                          for i in range(m)], device=card)}
+    for name, mask in masks.items():
+        common.reset_launches()
+        out = topk_pack.select_pack_ef_batched(g, e, keep, mask)
+        assert _launched() == {"select_pack_ef_batched": 1}
+        for a, b in zip(out, ref.select_pack_ef_batched(g, e, keep, mask)):
+            assert _same_or_nan(a, b), name
+        for a, b in zip(topk_pack.select_pack_ef_batched(g, e, keep, mask),
+                        out):
+            assert _same(a, b), (name, "repeat")
+        if name == "ones":
+            for w in _sample_workers(m):
+                row = topk_pack.select_pack_ef_row(g[w], e[w], keep[w])
+                assert _same_or_nan(row[0], out[0][w]) \
+                    and _same_or_nan(row[1], out[1][w]), w
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", TALL_SHAPES)
+def test_delta_sqnorm_on_both_designs(card, m, n, dtype):
+    """B1 by the design its wrapper picks against its plain version
+    (rel 1e-5, NaN where NaN), one launch a call; each design that takes
+    the shape bit for bit (NaN where NaN) against the first, against B8
+    on g - ghat and against its M=1 calls of _sample_workers."""
+    m = _tall_m(m, card)
+    g, h, _, _ = _tall_salted(m, n, dtype, card)
+    common.reset_launches()
+    out = censor.censor_delta_sqnorm_batched(g, h)
+    assert _launched() == {"censor_delta_sqnorm_batched": 1}
+    plain = ref.censor_delta_sqnorm_batched(g, h)
+    nan = torch.isnan(plain)
+    assert torch.equal(torch.isnan(out), nan)
+    torch.testing.assert_close(out[~nan], plain[~nan], rtol=1e-5, atol=0)
+    b8 = censor.sqnorm_batched(g - h)
+    designs = censor.SQNORM_PATHS if n <= 2048 else ("two_pass",)
+    for design in designs:
+        got = censor.delta_sqnorm_on_card(g, h, design)
+        assert _same_or_nan(got, out) and _same_or_nan(got, b8), design
+        for w in _sample_workers(m):
+            one = censor.delta_sqnorm_on_card(g[w:w + 1], h[w:w + 1], design)
+            assert _same_or_nan(one, out[w:w + 1]), (design, w)
