@@ -27,13 +27,14 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  worker fold (fold_workers) on the shape their wrappers
                  dispatch (common.fold_path) and on the other design, at M
                  up to 100,000 and on each side of the threshold, salted
-                 with -0.0, NaN and +-inf; (phase tall_paths) B10 and B1
-                 on tall banks (M from 65 to 100,000 and on each side of
-                 B1's worker threshold, n in {1, 16, 33, 2049}, f32 and
-                 f64, salted the same way): B10 against its plain version
-                 bit for bit, B1's two designs (common.sqnorm_path)
-                 against each other, B8 on g - ghat and their M=1 calls
-                 bit for bit;
+                 with -0.0, NaN and +-inf; (phase tall_paths) B10, B1,
+                 B8 and B5 on tall banks (M from 65 to 100,000 and on
+                 each side of the worker threshold, n in {1, 16, 33,
+                 2049}, f32 and f64, salted the same way): B10 against its
+                 plain version bit for bit; the two designs of B1, B8 and
+                 B5 (common.sqnorm_path) against each other and their M=1
+                 calls, B1 against B8 on g - ghat, B5 against B8 and B7a
+                 on its pending delta, bit for bit (NaN where NaN);
                  (phase attention_kernels) B14 over GQA 1/2/4/6,
                  causal, window and non-causal rectangular shapes on and
                  off its tiles, head dims 32-256, strided and misaligned
@@ -119,7 +120,8 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  the measured floor of an exact fold there:
                  benchmarks_torch/chain_floor.py; fold_workers and B1's
                  two designs there and at 10^6, B1 also on each side of
-                 its worker threshold; B10 and B11 at M = 70,000 and
+                 its worker threshold; B4, B5, B7a, B7b, B8, B9 (B5 and
+                 B8 on both designs), B10 and B11 at M = 70,000 and
                  100,000, n = 16);
                  then the ``{"kernels": [...]}`` line of all 17 kernels
                  (16 ported, and fold_workers, which only the port has).
@@ -996,59 +998,95 @@ def phase_fused_fold_paths(device,
 
 
 def tall_path_cases(sms: int) -> list:
-    """(M, n) of B10 and B1's tall-bank cases: M at 65 and 66, a short
-    tall bank, each side of ``common.sqnorm_path``'s worker threshold,
-    phase kernels_large_m's M (past grid y's 65535 blocks) and the
-    fed-mesh frontier, each with n in {1, 16, 33, 2049} (2049: a row of
-    two reduction chunks, where B1 runs its two-pass design only)."""
+    """(M, n) of the tall-bank cases of B10, B1, B8 and B5: M at 65 and
+    66, a short tall bank, each side of ``common.sqnorm_path``'s worker
+    threshold, phase kernels_large_m's M (past grid y's 65535 blocks) and
+    the fed-mesh frontier, each with n in {1, 16, 33, 2049} (2049: a row
+    of two reduction chunks, where B1, B8 and B5 run their two-pass design
+    only)."""
     from repro_torch.kernels.common import warp_rows_min_workers
     t = warp_rows_min_workers(sms)
     return [(m, n) for m in sorted({65, 66, 300, t, t + 1, LARGE_M, MANY_M})
             for n in (1, 16, 33, 2049)]
 
 
+def _within_or_nan(got, plain) -> bool:
+    """NaN exactly where the plain version gives NaN, within SQNORM_RTOL
+    elsewhere."""
+    nan = torch.isnan(plain)
+    return torch.equal(torch.isnan(got), nan) and torch.allclose(
+        got[~nan], plain[~nan], rtol=SQNORM_RTOL, atol=0)
+
+
+def _tall_sums(g, h, e, designs, m, tag) -> None:
+    """B1, B8 and B5 on one tall case: each by the design its wrapper
+    picks against its plain version (the sums within SQNORM_RTOL, B5's
+    abs-max exact; NaN where NaN) and a repeat launch bitwise; each
+    design in ``designs`` against the picked one and its M=1 calls of
+    sample_workers, B1 against B8 on g - ghat and B5 against B8 and B7a
+    on pending = (g - ghat) + e, NaN where NaN and bitwise elsewhere."""
+    from repro_torch.kernels import censor, fused_step, quantize_ef, ref
+    x, pend = g - h, (g - h) + e
+    b1 = censor.censor_delta_sqnorm_batched(g, h)
+    b8 = censor.sqnorm_batched(x)
+    sq, am = fused_step.int8_stats_batched(g, h, e)
+    sq_p, am_p = ref.int8_stats_batched(g, h, e)
+    check(_within_or_nan(b1, ref.censor_delta_sqnorm_batched(g, h)),
+          f"B1 {tag} against the plain version")
+    check(_within_or_nan(b8, ref.sqnorm_batched(x)),
+          f"B8 {tag} against the plain version")
+    check(_within_or_nan(sq, sq_p) and same_or_nan(am, am_p),
+          f"B5 {tag} against the plain version")
+    sq2, am2 = fused_step.int8_stats_batched(g, h, e)
+    check(same_bits(censor.censor_delta_sqnorm_batched(g, h), b1)
+          and same_bits(censor.sqnorm_batched(x), b8)
+          and same_bits(sq2, sq) and same_bits(am2, am), f"repeat {tag}")
+    b8p = censor.sqnorm_batched(pend)
+    b7a = quantize_ef.absmax_batched(pend)
+    for design in designs:
+        d1 = censor.delta_sqnorm_on_card(g, h, design)
+        d8 = censor.sqnorm_on_card(x, design)
+        s, a = fused_step.int8_stats_on_card(g, h, e, design)
+        check(same_or_nan(d1, b1) and same_or_nan(d1, b8),
+              f"B1 {design} {tag}")
+        check(same_or_nan(d8, b8) and same_or_nan(d8, b1),
+              f"B8 {design} {tag}")
+        check(same_or_nan(s, sq) and same_or_nan(a, am), f"B5 {design} {tag}")
+        check(same_or_nan(s, b8p) and same_or_nan(a, b7a),
+              f"B5 {design} against B8 and B7a on pending {tag}")
+        for w in sample_workers(m):
+            r = slice(w, w + 1)
+            one = (censor.delta_sqnorm_on_card(g[r], h[r], design),
+                   censor.sqnorm_on_card(x[r], design),
+                   *fused_step.int8_stats_on_card(g[r], h[r], e[r], design))
+            for got, want, what in zip(one, (b1, b8, sq, am),
+                                       ("B1", "B8", "B5 sq", "B5 am")):
+                check(same_or_nan(got, want[r]),
+                      f"{what} {design} M=1 slice {w} {tag}")
+
+
 def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
-    """B10 and B1 on the tall_path_cases, inputs salted with -0.0 (column
-    0 all -0.0; a kept and a dropped -0.0 in every 7th column), NaN and
-    +-inf. B10 under all three masks: bitwise (NaN where NaN) against the
-    plain version, a repeat launch bitwise, and the M=1 row calls of
-    sample_workers against the batched call under the all-ones mask. B1
-    on both designs where both run (n <= 2048): each against the other,
-    against B8 on g - ghat and against its M=1 calls, NaN where NaN and
-    the same bits elsewhere; a repeat launch bitwise; the design picked
-    against the plain version within SQNORM_RTOL (NaN where NaN)."""
+    """B10, B1, B8 and B5 on the tall_path_cases, inputs salted with -0.0
+    (column 0 all -0.0; a kept and a dropped -0.0 in every 7th column),
+    NaN and +-inf. B10 under all three masks: bitwise (NaN where NaN)
+    against the plain version, a repeat launch bitwise, and the M=1 row
+    calls of sample_workers against the batched call under the all-ones
+    mask. B1, B8 and B5 on both designs where both run (n <= 2048), as
+    _tall_sums says."""
     from repro_torch.kernels import censor, common, ref, topk_pack
     from repro_torch.kernels.build import REDUCE_CHUNK
     sms = common.sm_count(device.index or 0)
-    cases, paths = 0, {}
+    cases, sum_cases, paths = 0, 0, {}
     for dtype in dtypes:
         for m, n in tall_path_cases(sms):
             g, h, e, _, _ = _fold_inputs(m, n, dtype, device, 3 * m + n)
             keep = _keep(g, m + n)
-            path = common.sqnorm_path(m, n, sms)
-            paths[f"M={m} n={n}"] = path
-            tag = f"{dtype} M={m} n={n}"
-            out = censor.censor_delta_sqnorm_batched(g, h)
-            plain = ref.censor_delta_sqnorm_batched(g, h)
-            nan = torch.isnan(plain)
-            check(torch.equal(torch.isnan(out), nan) and torch.allclose(
-                out[~nan], plain[~nan], rtol=SQNORM_RTOL, atol=0),
-                f"B1 {tag} ({path}) against the plain version")
-            check(same_bits(censor.censor_delta_sqnorm_batched(g, h), out),
-                  f"B1 repeat {tag}")
-            b8 = censor.sqnorm_batched(g - h)
-            designs = censor.SQNORM_PATHS if n <= REDUCE_CHUNK \
-                else ("two_pass",)
-            for design in designs:
-                got = censor.delta_sqnorm_on_card(g, h, design)
-                check(same_or_nan(got, out), f"B1 {design} {tag}")
-                check(same_or_nan(got, b8), f"B1 {design} != B8 {tag}")
-                for w in sample_workers(m):
-                    one = censor.delta_sqnorm_on_card(g[w:w + 1], h[w:w + 1],
-                                                      design)
-                    check(same_or_nan(one, out[w:w + 1]),
-                          f"B1 {design} M=1 slice {w} {tag}")
-            del out, plain, b8
+            paths[f"M={m} n={n}"] = common.sqnorm_path(m, n, sms)
+            tag = f"{dtype} M={m} n={n} ({paths[f'M={m} n={n}']})"
+            _tall_sums(g, h, e, censor.SQNORM_PATHS if n <= REDUCE_CHUNK
+                       else ("two_pass",), m, tag)
+            sum_cases += 1
+            torch.cuda.empty_cache()
             for mname, mask in _masks(m, device).items():
                 mtag = f"{tag} mask={mname}"
                 got = topk_pack.select_pack_ef_batched(g, e, keep, mask)
@@ -1069,14 +1107,18 @@ def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
                 cases += 1
             del g, h, e, keep
             torch.cuda.empty_cache()
-    emit({"phase": "tall_paths", "cases": cases, "sms": sms,
-          "b1_path_by_shape": paths,
-          "kernels": ["select_pack_ef_batched", "censor_delta_sqnorm_batched"],
+    emit({"phase": "tall_paths", "cases": cases, "sum_cases": sum_cases,
+          "sms": sms,
+          "sqnorm_path_by_shape": paths,
+          "kernels": ["select_pack_ef_batched", "censor_delta_sqnorm_batched",
+                      "sqnorm_batched", "int8_stats_batched"],
           "rule": "B10 against the plain version NaN where it gives NaN, "
           "the same bits elsewhere (-0.0 included), repeat and M=1 rows "
-          "bitwise; B1's two designs against each other, B8 on g - ghat and "
-          "their M=1 calls NaN where NaN and bitwise elsewhere, against the "
-          "plain version within SQNORM_RTOL"})
+          "bitwise; the two designs of B1, B8 and B5 against each other "
+          "and their M=1 calls, B1 against B8 on g - ghat, B5 against B8 "
+          "and B7a on pending, NaN where NaN and bitwise elsewhere; each "
+          "against its plain version within SQNORM_RTOL (B5's abs-max "
+          "exact), NaN where NaN"})
 
 
 # ----------------------------------------------------------- phase 3b
@@ -2549,6 +2591,10 @@ def _time_ms(fn, reps: int) -> float:
 # and of fold_workers and B1, up to the ladder's 10^6 clients
 TALL_MS = (MANY_M_STAGED, MANY_M)
 FOLD_MS = (MANY_M, 1_000_000)
+# the per-worker kernels fed_mesh_timing also times at M in TALL_MS
+TALL_WORKER_KERNELS = ("censor_bank_advance", "int8_stats_batched",
+                       "absmax_batched", "quantize_ef_batched",
+                       "sqnorm_batched", "bank_advance")
 
 
 def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
@@ -2561,7 +2607,8 @@ def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
     same floor; B1 on both designs at M in FOLD_MS and each side of
     ``common.sqnorm_path``'s worker threshold, with its plain version and
     byte bound; B10 (tiled like B2's tall pass 1) and B11 (a thread a
-    column walking the M workers) at M in TALL_MS. Returns
+    column walking the M workers) at M in TALL_MS, and the
+    TALL_WORKER_KERNELS there (tall_worker_timing). Returns
     ``{kernel: {...}}``."""
     from benchmarks_torch.chain_floor import chain_floor_ms
     from repro_torch.core.quantize import int8_scale
@@ -2675,9 +2722,72 @@ def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
         del pend, q, err, keep, msk
     torch.cuda.empty_cache()
+    out.update(tall_worker_timing(device, randn, alternating, n))
     emit({"phase": "fed_mesh_timing",
           "chain_floor_ms": {f"M={mm}": f for mm, f in floors.items()},
           **out})
+    return out
+
+
+def tall_worker_timing(device, randn, alternating, n=MANY_D) -> dict:
+    """B4, B5, B7a, B7b, B8 and B9 at M in TALL_MS, n = 16, f64: each one's
+    time (B5 and B8 on both designs, the one ``common.sqnorm_path`` picks
+    named), its plain version's, its library call's where one computes
+    the same function (phase_timing's), and its byte bound. Returns
+    ``{kernel: {"M=...": {...}}}``."""
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import censor, common, fused_step, quantize_ef, ref
+    sms = common.sm_count(device.index or 0)
+    el = 8                                              # f64 bytes
+    out = {name: {} for name in TALL_WORKER_KERNELS}
+    for mm in TALL_MS:
+        g, h, e = randn(mm, n), randn(mm, n), randn(mm, n) * 0.01
+        pend = (g - h) + e
+        mask = alternating(mm)
+        mw = mask.to(torch.float64)[:, None]     # the library calls' weight
+        scale = int8_scale(ref.absmax_batched(pend))
+        work = {   # name: (kernel by design, plain, library or None, bytes)
+            "int8_stats_batched": (
+                {d: (lambda d=d: fused_step.int8_stats_on_card(g, h, e, d))
+                 for d in censor.SQNORM_PATHS},
+                lambda: ref.int8_stats_batched(g, h, e), None,
+                3 * mm * n * el + (4 + el) * mm),
+            "sqnorm_batched": (
+                {d: (lambda d=d: censor.sqnorm_on_card(pend, d))
+                 for d in censor.SQNORM_PATHS},
+                lambda: ref.sqnorm_batched(pend),
+                lambda: torch.linalg.vecdot(pend, pend),
+                mm * n * el + 4 * mm),
+            "censor_bank_advance": (
+                {"row_tiles": lambda: censor.censor_bank_advance(g, h, mask)},
+                lambda: ref.censor_bank_advance(g, h, mask),
+                lambda: torch.lerp(h, g, mw), 3 * mm * n * el + 4 * mm),
+            "bank_advance": (
+                {"row_tiles": lambda: censor.bank_advance(h, pend, mask)},
+                lambda: ref.bank_advance(h, pend, mask),
+                lambda: torch.addcmul(h, mw, pend), 3 * mm * n * el + 4 * mm),
+            "absmax_batched": (
+                {"two_pass": lambda: quantize_ef.absmax_batched(pend)},
+                lambda: ref.absmax_batched(pend),
+                lambda: torch.linalg.vector_norm(pend, ord=math.inf, dim=1),
+                mm * n * el + el * mm),
+            "quantize_ef_batched": (
+                {"row_tiles": lambda: quantize_ef.quantize_ef_batched(
+                    pend, e, mask, scale)},
+                lambda: ref.quantize_ef_batched(pend, e, mask, scale), None,
+                4 * mm * n * el + 8 * mm),
+        }
+        for name, (designs, plain, lib, nbytes) in work.items():
+            picked = (common.sqnorm_path(mm, n, sms) if len(designs) > 1
+                      else next(iter(designs)))
+            out[name][f"M={mm}"] = {
+                "shape": f"M={mm} n={n} float64", "path": picked,
+                "ms": {d: _time_ms(fn, 10) for d, fn in designs.items()},
+                "plain_ms": _time_ms(plain, 3),
+                "library_ms": None if lib is None else _time_ms(lib, 10),
+                "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        del g, h, e, pend, mask, mw, scale
+        torch.cuda.empty_cache()
     return out
 
 

@@ -54,6 +54,7 @@ _DEV, _P, _I64, _F64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, \
 _REDUCE_ARGS = (_DEV,) + (_P,) * 4 + (_I64, _I64, _I64, _P)
 _DENSE_ARGS = (_DEV,) + (_P,) * 8 + (_I64, _I64, _F64, _F64, _P)
 _STATS_ARGS = (_DEV,) + (_P,) * 7 + (_I64, _I64, _I64, _P)
+_STATS_WARP_ARGS = (_DEV,) + (_P,) * 5 + (_I64, _I64, _P)
 _INT8_ARGS = (_DEV,) + (_P,) * 11 + (_I64, _I64, _F64, _F64, _P)
 _FOLD_ARGS = (_DEV,) + (_P,) * 2 + (_I64, _I64, _P)
 _SQNORM_ARGS = (_DEV,) + (_P,) * 3 + (_I64, _I64, _I64, _P)
@@ -90,6 +91,7 @@ SIGNATURES = {
     "censor": {**_both("censor_delta_sqnorm_batched", _REDUCE_ARGS),
                **_both("censor_delta_sqnorm_batched_warp", _WARP_ARGS),
                **_both("sqnorm_batched", _SQNORM_ARGS),
+               **_both("sqnorm_batched_warp", _FOLD_ARGS),
                **_both("bank_advance", _BANK_ARGS),
                **_both("censor_bank_advance", _BANK_ARGS),
                **_pairs("censor_delta_sqnorm", _REDUCE_ARGS),
@@ -97,6 +99,7 @@ SIGNATURES = {
     "fused_step": {**_both("fused_dense_step", _DENSE_ARGS),
                    **_both("fused_dense_step_tall", _DENSE_ARGS),
                    **_both("int8_stats_batched", _STATS_ARGS),
+                   **_both("int8_stats_batched_warp", _STATS_WARP_ARGS),
                    **_both("fused_int8_step", _INT8_ARGS),
                    **_both("fused_int8_step_tall", _INT8_ARGS),
                    **_both("fold_workers", _FOLD_ARGS),

@@ -17,7 +17,7 @@ from .common import (KERNEL_DTYPES, check_leaves, check_worker_vector,
                      count_launch, grid_chunks, on_card, sm_count,
                      sqnorm_path)
 
-#: B1's designs (``common.sqnorm_path`` picks one by shape)
+#: the designs of B1, B8 and B5 (``common.sqnorm_path`` picks one by shape)
 SQNORM_PATHS = ("two_pass", "warp")
 
 
@@ -58,6 +58,28 @@ def censor_delta_sqnorm_batched(g: torch.Tensor, ghat: torch.Tensor
                                 sqnorm_path(m, n, sm_count(g.device.index)))
 
 
+def warp_design(name: str, path: str, n: int) -> bool:
+    """Whether ``path`` names the warp design of B1, B8 or B5 (``False``:
+    the two-pass design). Raises, before any launch, on another name or on
+    a row of more than ``REDUCE_CHUNK`` elements for the warp design."""
+    if path == "two_pass":
+        return False
+    if path != "warp" or n > REDUCE_CHUNK:
+        raise ValueError(f"{name}: path must be one of {SQNORM_PATHS} (warp "
+                         f"for rows of at most {REDUCE_CHUNK} elements), "
+                         f"got {path!r} at n={n}")
+    return True
+
+
+def _warp_launch(name: str, lib_fn: str, device, ptrs, m: int,
+                 n: int) -> torch.Tensor:
+    """Run one warp-design reduction; returns its (M,) f32 result."""
+    out = torch.empty((m,), dtype=torch.float32, device=device)
+    count_launch(name)
+    launch("censor", lib_fn, device, *ptrs, _ptr(out), m, n)
+    return out
+
+
 def delta_sqnorm_on_card(g: torch.Tensor, ghat: torch.Tensor,
                          path: str) -> torch.Tensor:
     """B1 on checked CUDA operands by ``path`` (one of ``SQNORM_PATHS``;
@@ -68,34 +90,41 @@ def delta_sqnorm_on_card(g: torch.Tensor, ghat: torch.Tensor,
     name = "censor_delta_sqnorm_batched"
     m, n = g.shape[0], g[0].numel()
     suffix = KERNEL_DTYPES[g.dtype]
-    if path == "two_pass":
-        return _sqnorm_launch(name, f"{name}_{suffix}", g.device,
-                              (_ptr(g), _ptr(ghat)), g.shape, m, n)
-    if path != "warp" or n > REDUCE_CHUNK:
-        raise ValueError(f"{name}: path must be one of {SQNORM_PATHS} (warp "
-                         f"for rows of at most {REDUCE_CHUNK} elements), "
-                         f"got {path!r} at n={n}")
-    out = torch.empty((m,), dtype=torch.float32, device=g.device)
-    count_launch(name)
-    launch("censor", f"{name}_warp_{suffix}", g.device,
-           _ptr(g), _ptr(ghat), _ptr(out), m, n)
-    return out
+    ptrs = (_ptr(g), _ptr(ghat))
+    if warp_design(name, path, n):
+        return _warp_launch(name, f"{name}_warp_{suffix}", g.device, ptrs,
+                            m, n)
+    return _sqnorm_launch(name, f"{name}_{suffix}", g.device, ptrs, g.shape,
+                          m, n)
 
 
 def sqnorm_batched(x: torch.Tensor) -> torch.Tensor:
     """(M,) f32 ``sum_j x[m, j]^2`` of one (M, ...) pending leaf.
 
-    B1's chunks and tree on ``x`` in place of ``g - ghat``: on
+    B1's designs, chunks and trees on ``x`` in place of ``g - ghat``: on
     ``x = g - ghat`` it equals :func:`censor_delta_sqnorm_batched` bit for
-    bit, and the M=1 call equals the batched slice.
+    bit, and the M=1 call equals the batched slice. ``common.sqnorm_path``
+    picks the design by shape, as for B1.
     """
     name = "sqnorm_batched"
-    suffix = check_leaves(name, x)
+    check_leaves(name, x)
     m, n = x.shape[0], x[0].numel()
     if n == 0:
         return torch.zeros((m,), dtype=torch.float32, device=x.device)
     if not on_card(name, x):
         return ref.sqnorm_batched(x)
+    return sqnorm_on_card(x, sqnorm_path(m, n, sm_count(x.device.index)))
+
+
+def sqnorm_on_card(x: torch.Tensor, path: str) -> torch.Tensor:
+    """B8 on a checked CUDA leaf by ``path``, as
+    :func:`delta_sqnorm_on_card`."""
+    name = "sqnorm_batched"
+    m, n = x.shape[0], x[0].numel()
+    suffix = KERNEL_DTYPES[x.dtype]
+    if warp_design(name, path, n):
+        return _warp_launch(name, f"{name}_warp_{suffix}", x.device,
+                            (_ptr(x),), m, n)
     return _sqnorm_launch(name, f"{name}_{suffix}", x.device, (_ptr(x),),
                           x.shape, m, n)
 

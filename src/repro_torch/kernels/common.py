@@ -136,19 +136,22 @@ BLOCK_THREADS = 256
 
 
 def warp_rows_min_workers(sms: int) -> int:
-    """Workers from which B1's two-pass design fills a card of ``sms``
-    SMs with its block a worker (rows of one reduction chunk): 1056 on an
-    H100. Below them its eight warps a worker hide more load latency than
-    the warp design's one."""
+    """Workers from which the two-pass design of B1, B8 and B5 fills a
+    card of ``sms`` SMs with its block a worker (rows of one reduction
+    chunk): 1056 on an H100. Below them its eight warps a worker hide more
+    load latency than the warp design's one."""
     return sms * THREADS_PER_SM // BLOCK_THREADS
 
 
 def sqnorm_path(m: int, n: int, sms: int) -> str:
-    """Which design B1 runs on an (M, n) bank, on a card of ``sms`` SMs.
-    ``"warp"``: a warp a worker, one launch, for rows of one reduction
-    chunk (n <= 2048) on more than ``warp_rows_min_workers(sms)`` workers.
-    ``"two_pass"``: a block a (chunk, worker), then a block a worker folds
-    the partials. Both give the same bits."""
+    """Which design B1 (``censor_delta_sqnorm_batched``), B8
+    (``sqnorm_batched``) and B5 (``int8_stats_batched``) run on an (M, n)
+    bank, on a card of ``sms`` SMs. ``"warp"``: a warp a worker, one
+    launch, for rows of one reduction chunk (n <= 2048) on more than
+    ``warp_rows_min_workers(sms)`` workers. ``"two_pass"``: a block a
+    (chunk, worker), then a block a worker folds the partials (B5: two
+    such launches, the sums and the abs-maxes). Both give the same
+    bits."""
     if n <= REDUCE_CHUNK and m > warp_rows_min_workers(sms):
         return "warp"
     return "two_pass"

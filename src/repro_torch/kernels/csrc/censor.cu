@@ -39,14 +39,15 @@
 // several loads are in flight per thread (see PERF.md). All four put the
 // worker on grid y and walk any M with a stride of gridDim.y (reduce.cuh),
 // so a worker's output does not depend on M.
-// B1 has a second design for rows of one chunk (n <= kChunk) on many
-// workers (the fed mesh: M = 10^5 rows of 16), which the wrapper picks by
-// shape (kernels/common.py:sqnorm_path): a warp a worker, one launch, no
-// partials. There the two-pass design runs a 256-thread block a row (240
-// threads idle at n = 16) and a second launch of M blocks that each add
-// one partial. Its lanes replay the two-pass design's threads, shuffle trees
-// and cross-warp tree in their order (delta_sqnorm_warp_rows), so the two
-// designs give the same bits, and B8 on g - ghat still equals B1.
+// B1 and B8 have a second design for rows of one chunk (n <= kChunk) on
+// many workers (the fed mesh: M = 10^5 rows of 16), which the wrapper
+// picks by shape (kernels/common.py:sqnorm_path): a warp a worker, one
+// launch, no partials. There the two-pass design runs a 256-thread block a
+// row (240 threads idle at n = 16) and a second launch of M blocks that
+// each add one partial. Its lanes replay the two-pass design's threads,
+// shuffle trees and cross-warp tree in their order (reduce.cuh's
+// warp_row_reduce, shared with B5), so the two designs give the same bits,
+// and B8 on g - ghat still equals B1 on either.
 // B4 advances in the arithmetic mask form of B2, so its output equals B2's
 // ghat' bit for bit (a select would not: h + (g - h) != g in floating
 // point). B9 computes ghat + (T)mask * payload with the same rounding
@@ -112,63 +113,53 @@ static int launch_delta_sqnorm(const void* g, const void* h, void* part, void* o
   return (int)cudaGetLastError();
 }
 
-// B1 on rows of one chunk (n <= kChunk), a warp a worker, the workers on
-// grid x (kWarps a block). Lane l runs the two-pass design's threads l,
-// l + 32, ..., l + 224 of the worker's one block ("virtual warps" 0-7):
-// each virtual thread's fold, each virtual warp's shuffle tree and the
-// tree over the eight warp sums are block_reduce's, in its order. Two steps
-// of the two-pass order are left out because they are exact: block_reduce
-// pads the eight warp sums with +0.0 up to a warp (the steps at offsets 16
-// and 8 add +0.0 to each), and finish_partials adds 0.0f + partial. A sum
-// of squares that starts from 0.0f is >= +0.0 or NaN, and x + 0.0 is x for
-// every such x. A virtual warp that holds no element (n <= 224) sums to
-// +0.0 in both designs.
-template <typename T>
+// B1 and B8 on rows of one chunk (n <= kChunk), a warp a worker, the
+// workers on grid x (kWarps a block): reduce.cuh's warp_row_reduce, which
+// gives the two-pass design's bits.
+template <typename T, int kN>
 __global__ void __launch_bounds__(kThreads)
 delta_sqnorm_warp_rows(const T* __restrict__ g, const T* __restrict__ h, float* __restrict__ out,
                        int64_t m, int64_t n) {
-  const int lane = threadIdx.x & 31;
-  const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (w >= m) return;   // a whole warp returns: the shuffles below see all 32 lanes
-  const T* gw = g + w * n;
-  const T* hw = h + w * n;
-  const int held = (int)(((n < kThreads ? n : kThreads) + 31) / 32);   // virtual warps with data
-  float s[kWarps];
-#pragma unroll
-  for (int v = 0; v < kWarps; ++v) {
-    float acc = 0.0f;
-    if (v < held) {          // the same for every lane of the warp
-      const int64_t base = (int64_t)v * 32 + lane;
-      T gv[kItems], hv[kItems];
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) {
-        const int64_t j = base + (int64_t)k * kThreads;
-        gv[k] = j < n ? gw[j] : T(0);
-        hv[k] = j < n ? hw[j] : T(0);
-      }
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) {
-        if (base + (int64_t)k * kThreads < n) {
-          const float d = (float)sub(gv[k], hv[k]);
-          acc = add(acc, mul(d, d));
-        }
-      }
-      acc = warp_reduce(acc, SumOp());
-    }
-    s[v] = acc;
-  }
-  // block_reduce's tree over the warp sums (warp 0's shuffles at offsets 4, 2, 1)
-  const float r = add(add(add(s[0], s[4]), add(s[2], s[6])), add(add(s[1], s[5]), add(s[3], s[7])));
-  if (lane == 0) out[w] = r;
+  const int64_t w = warp_row();
+  if (w >= m) return;
+  float sq;
+  warp_row_reduce<DeltaRow<T>, false, kN>(DeltaRow<T>{g, h}, w, n, &sq, nullptr);
+  if ((threadIdx.x & 31) == 0) out[w] = sq;
+}
+
+template <typename T, int kN>
+__global__ void __launch_bounds__(kThreads)
+sqnorm_warp_rows(const T* __restrict__ x, float* __restrict__ out, int64_t m, int64_t n) {
+  const int64_t w = warp_row();
+  if (w >= m) return;
+  float sq;
+  warp_row_reduce<PlainRow<T>, false, kN>(PlainRow<T>{x}, w, n, &sq, nullptr);
+  if ((threadIdx.x & 31) == 0) out[w] = sq;
 }
 
 template <typename T>
 static int launch_delta_sqnorm_warp(const void* g, const void* h, void* out, int64_t m,
                                     int64_t n, void* stream) {
-  const int64_t blocks = (m + kWarps - 1) / kWarps;
-  if (m < 1 || n < 1 || n > kChunk || blocks > kMaxGridX) return (int)cudaErrorInvalidValue;
-  delta_sqnorm_warp_rows<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)g, (const T*)h, (float*)out, m, n);
+  if (!warp_rows_ok(m, n)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (warp_rows_one_item(n))
+    delta_sqnorm_warp_rows<T, 1><<<warp_row_blocks(m), kThreads, 0, s>>>(
+        (const T*)g, (const T*)h, (float*)out, m, n);
+  else
+    delta_sqnorm_warp_rows<T, kItems><<<warp_row_blocks(m), kThreads, 0, s>>>(
+        (const T*)g, (const T*)h, (float*)out, m, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_sqnorm_warp(const void* x, void* out, int64_t m, int64_t n, void* stream) {
+  if (!warp_rows_ok(m, n)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (warp_rows_one_item(n))
+    sqnorm_warp_rows<T, 1><<<warp_row_blocks(m), kThreads, 0, s>>>((const T*)x, (float*)out, m, n);
+  else
+    sqnorm_warp_rows<T, kItems><<<warp_row_blocks(m), kThreads, 0, s>>>((const T*)x, (float*)out,
+                                                                         m, n);
   return (int)cudaGetLastError();
 }
 
@@ -489,6 +480,20 @@ int sqnorm_batched_f64(int device, const void* x, void* part, void* out, int64_t
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
   return launch_sqnorm<double>(x, part, out, m, n, nchunks, stream);
+}
+
+int sqnorm_batched_warp_f32(int device, const void* x, void* out, int64_t m, int64_t n,
+                            void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_sqnorm_warp<float>(x, out, m, n, stream);
+}
+
+int sqnorm_batched_warp_f64(int device, const void* x, void* out, int64_t m, int64_t n,
+                            void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_sqnorm_warp<double>(x, out, m, n, stream);
 }
 
 int bank_advance_f32(int device, const void* h, const void* q, const void* mask, void* out,

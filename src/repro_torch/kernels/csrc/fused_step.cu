@@ -54,8 +54,13 @@
 // runtime arguments, so one build serves any hyperparameters. B5 is a
 // two-pass reduction shaped like B1 (censor.cu): fixed order, no atomics,
 // the M=1 call bitwise equal to a batched slice, any M (its blocks walk
-// the workers with a stride of gridDim.y, reduce.cuh). Offsets are 64-bit:
-// M*n passes 2^31 one model size up.
+// the workers with a stride of gridDim.y, reduce.cuh). Like B1 it has a
+// second design for rows of one chunk on many workers (the fed mesh's
+// int8 step), picked by the same rule (kernels/common.py:sqnorm_path): a
+// warp a worker writes both statistics in one launch, where the two-pass
+// design runs a 256-thread block a 16-element row and two finish launches.
+// Both designs give the same bits. Offsets are 64-bit: M*n passes 2^31
+// one model size up.
 #include "reduce.cuh"
 
 using namespace repro;
@@ -137,6 +142,36 @@ int8_stats_partials(const T* __restrict__ g, const T* __restrict__ h,
       sq_part[w * nchunks + c] = acc;
       am_part[w * nchunks + c] = am;
     }
+  }
+}
+
+// B5 on rows of one chunk (n <= kChunk), a warp a worker: reduce.cuh's
+// warp_row_reduce on pending = (g - ghat) + e, the sum of squares and the
+// abs-max in one launch, with the two-pass design's bits (its sum is B8's
+// on pending, its abs-max B7a's)
+template <typename TT>
+struct PendingRow {
+  using T = TT;
+  struct Item { T g, h, e; };
+  const T* __restrict__ g;
+  const T* __restrict__ h;
+  const T* __restrict__ e;
+  __device__ __forceinline__ Item load(int64_t i) const { return {g[i], h[i], e[i]}; }
+  __device__ __forceinline__ T value(const Item& x) const { return add(sub(x.g, x.h), x.e); }
+};
+
+template <typename T, int kN>
+__global__ void __launch_bounds__(kThreads)
+int8_stats_warp_rows(const T* __restrict__ g, const T* __restrict__ h, const T* __restrict__ e,
+                     float* __restrict__ sq, T* __restrict__ am, int64_t m, int64_t n) {
+  const int64_t w = warp_row();
+  if (w >= m) return;
+  float s;
+  T a;
+  warp_row_reduce<PendingRow<T>, true, kN>(PendingRow<T>{g, h, e}, w, n, &s, &a);
+  if ((threadIdx.x & 31) == 0) {
+    sq[w] = s;
+    am[w] = a;
   }
 }
 
@@ -557,6 +592,20 @@ static int launch_int8_stats(const void* g, const void* h, const void* e, void* 
 }
 
 template <typename T>
+static int launch_int8_stats_warp(const void* g, const void* h, const void* e, void* sq, void* am,
+                                  int64_t m, int64_t n, void* stream) {
+  if (!warp_rows_ok(m, n)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (warp_rows_one_item(n))
+    int8_stats_warp_rows<T, 1><<<warp_row_blocks(m), kThreads, 0, s>>>(
+        (const T*)g, (const T*)h, (const T*)e, (float*)sq, (T*)am, m, n);
+  else
+    int8_stats_warp_rows<T, kItems><<<warp_row_blocks(m), kThreads, 0, s>>>(
+        (const T*)g, (const T*)h, (const T*)e, (float*)sq, (T*)am, m, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 static int launch_fused_int8(const void* g, const void* h, const void* e, const void* theta,
                              const void* prev, const void* mask, const void* scale,
                              void* new_h, void* new_e, void* agg, void* theta_out,
@@ -619,6 +668,20 @@ int int8_stats_batched_f64(int device, const void* g, const void* h, const void*
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
   return launch_int8_stats<double>(g, h, e, sq_part, am_part, sq, am, m, n, nchunks, stream);
+}
+
+int int8_stats_batched_warp_f32(int device, const void* g, const void* h, const void* e, void* sq,
+                                void* am, int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_int8_stats_warp<float>(g, h, e, sq, am, m, n, stream);
+}
+
+int int8_stats_batched_warp_f64(int device, const void* g, const void* h, const void* e, void* sq,
+                                void* am, int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_int8_stats_warp<double>(g, h, e, sq, am, m, n, stream);
 }
 
 int fused_int8_step_f32(int device, const void* g, const void* h, const void* e, const void* theta,

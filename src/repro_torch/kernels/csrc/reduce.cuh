@@ -91,6 +91,103 @@ finish_partials(const T* __restrict__ part, T* __restrict__ out, int64_t nchunks
   if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
+// The warp-rows design of the sum-of-squares reductions (B1, B8, B5) on
+// rows of one chunk (n <= kChunk) on many workers: a warp a worker, one
+// launch, no partials. `Row` loads one element's operands (`load`, an
+// offset into the (M, n) operands) and gives the element in the bank
+// dtype (`value`): B1 g - ghat, B8 x, B5 (g - ghat) + e. Each lane sums
+// the squares of (float)value; with kAbsmax (B5) it also takes the
+// abs-max in the bank dtype.
+//
+// Lane l runs the two-pass design's threads l, l + 32, ..., l + 224 of the
+// worker's one block ("virtual warps" 0-7): each virtual thread's fold,
+// each virtual warp's shuffle tree and the tree over the eight warp
+// results are block_reduce's, in its order, so the two designs give the
+// same bits. Two steps of the two-pass order are left out because they
+// are exact: block_reduce pads the eight warp results with the identity
+// up to a warp (the steps at offsets 16 and 8 fold it into each), and
+// finish_partials folds identity with the one partial. A sum of squares
+// that starts from +0.0 is >= +0.0 or NaN, and x + 0.0 is x for every such
+// x; an abs-max from T(0) is the same, and maxval(x, T(0)) and
+// maxval(T(0), x) are x. A virtual warp that holds no element (n <= 224)
+// gives the identity in both designs.
+//
+// kN is the items a virtual thread folds: kItems, or 1 where n <= kThreads
+// (its items k >= 1 lie past the row then). The one-item build folds the
+// same elements in the same order with fewer registers (f64 B5: 43
+// against 92 under ptxas on sm_90a), so more warps an SM keep loads in
+// flight (B5 at M = 10^5, n = 16, f64 on an H100: 0.071 -> 0.030 ms).
+template <typename Row, bool kAbsmax, int kN>
+__device__ __forceinline__ void warp_row_reduce(const Row& row, int64_t w, int64_t n, float* sq,
+                                                typename Row::T* am) {
+  using T = typename Row::T;
+  using Item = typename Row::Item;
+  const int lane = threadIdx.x & 31;
+  const int64_t off = w * n;
+  const int held = (int)(((n < kThreads ? n : kThreads) + 31) / 32);   // virtual warps with data
+  float s[kWarps];
+  T a[kWarps];
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) {
+    float acc = 0.0f;
+    T mx = T(0);
+    if (v < held) {          // the same for every lane of the warp
+      const int64_t base = (int64_t)v * 32 + lane;
+      Item it[kN];
+#pragma unroll
+      for (int k = 0; k < kN; ++k) {
+        const int64_t j = base + (int64_t)k * kThreads;
+        it[k] = j < n ? row.load(off + j) : Item{};
+      }
+#pragma unroll
+      for (int k = 0; k < kN; ++k) {
+        if (base + (int64_t)k * kThreads < n) {
+          const T p = row.value(it[k]);
+          const float x = (float)p;
+          acc = add(acc, mul(x, x));
+          if constexpr (kAbsmax) mx = maxval(mx, absval(p));
+        }
+      }
+      acc = warp_reduce(acc, SumOp());
+      if constexpr (kAbsmax) mx = warp_reduce(mx, MaxOp());
+    }
+    s[v] = acc;
+    a[v] = mx;
+  }
+  // block_reduce's tree over the warp results (warp 0's shuffles at
+  // offsets 4, 2, 1)
+  *sq = add(add(add(s[0], s[4]), add(s[2], s[6])), add(add(s[1], s[5]), add(s[3], s[7])));
+  if constexpr (kAbsmax)
+    *am = maxval(maxval(maxval(a[0], a[4]), maxval(a[2], a[6])),
+                 maxval(maxval(a[1], a[5]), maxval(a[3], a[7])));
+}
+
+// A warp-rows kernel's worker: the warp's index over the grid; a whole
+// warp is past m or none of it, so the shuffles see all 32 lanes.
+__device__ __forceinline__ int64_t warp_row() {
+  return (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+}
+
+// The rows of B1 (g - ghat) and B8 (its one operand); B5's, (g - ghat) +
+// e, are fused_step.cu's.
+template <typename TT>
+struct DeltaRow {
+  using T = TT;
+  struct Item { T g, h; };
+  const T* __restrict__ g;
+  const T* __restrict__ h;
+  __device__ __forceinline__ Item load(int64_t i) const { return {g[i], h[i]}; }
+  __device__ __forceinline__ T value(const Item& x) const { return sub(x.g, x.h); }
+};
+template <typename TT>
+struct PlainRow {
+  using T = TT;
+  struct Item { T x; };
+  const T* __restrict__ x;
+  __device__ __forceinline__ Item load(int64_t i) const { return {x[i]}; }
+  __device__ __forceinline__ T value(const Item& v) const { return v.x; }
+};
+
 inline int64_t num_chunks(int64_t n) { return (n + kChunk - 1) / kChunk; }
 
 constexpr int64_t kMaxGridX = 0x7fffffff;  // blocks of grid x
@@ -107,6 +204,14 @@ inline bool reduction_shape_ok(int64_t m, int64_t n, int64_t nchunks) {
 }
 
 inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// The grid of a warp-rows launch: the workers on grid x, kWarps a block.
+inline bool warp_rows_ok(int64_t m, int64_t n) {
+  return m >= 1 && n >= 1 && n <= kChunk && (m + kWarps - 1) / kWarps <= kMaxGridX;
+}
+inline unsigned warp_row_blocks(int64_t m) { return (unsigned)((m + kWarps - 1) / kWarps); }
+// whether a warp-rows kernel takes its one-item build (warp_row_reduce)
+inline bool warp_rows_one_item(int64_t n) { return n <= kThreads; }
 
 // 16 bytes of one bank dtype, B9's arithmetic on each element of it, and
 // B7a's fold of their magnitudes

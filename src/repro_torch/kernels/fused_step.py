@@ -12,6 +12,9 @@ B2 and B6 have two designs, picked by the bank's shape
 where the columns fill the card or M is small; and for tall banks (M >> n)
 the per-element work on the whole card, then the worker fold per column
 tile from shared memory (two launches, one count). Both give the same bits.
+B5, like B1 and B8, has two designs too (``common.sqnorm_path``): two
+passes, or a warp a worker in one launch for rows of one reduction chunk
+on many workers; both give the same bits.
 
 :func:`fold_workers` is that worker fold as a launch of its own, for the
 routes whose bank advance runs in other kernels (the staged steps,
@@ -34,9 +37,10 @@ import torch
 
 from . import ref
 from .build import REDUCE_CHUNK, launch
-from .censor import _ptr
+from .censor import _ptr, warp_design
 from .common import (KERNEL_DTYPES, check_bank, check_worker_vector,
-                     count_launch, fold_path, grid_chunks, on_card, sm_count)
+                     count_launch, fold_path, grid_chunks, on_card, sm_count,
+                     sqnorm_path)
 
 FOLD_PATHS = ("one_pass", "tall")
 
@@ -136,28 +140,51 @@ def int8_stats_batched(g: torch.Tensor, ghat: torch.Tensor,
 
     ``pending = (g - ghat) + err`` is recomputed in registers and never
     written. Returns ``(sqnorms, amax)``: (M,) f32 and (M,) in the bank
-    dtype (the max is exact, so its order does not matter).
+    dtype (the max is exact, so its order does not matter). Of its two
+    designs, ``common.sqnorm_path`` picks one by shape, as for B1 and B8;
+    they give the same bits, and ``sqnorms`` equals B8's on ``pending``.
     """
     name = "int8_stats_batched"
     if g.dim() < 1 or not (g.shape == ghat.shape == err.shape):
         raise ValueError(f"{name}: g, ghat and err must share one (M, ...) "
                          "shape")
-    suffix = check_bank(name, g, ghat, err)
+    check_bank(name, g, ghat, err)
     m, n = g.shape[0], g[0].numel()
     if n == 0:
         return (torch.zeros((m,), dtype=torch.float32, device=g.device),
                 torch.zeros((m,), dtype=ghat.dtype, device=g.device))
     if not on_card(name, g, ghat, err):
         return ref.int8_stats_batched(g, ghat, err)
+    return int8_stats_on_card(g, ghat, err,
+                              sqnorm_path(m, n, sm_count(g.device.index)))
+
+
+def int8_stats_on_card(g: torch.Tensor, ghat: torch.Tensor,
+                       err: torch.Tensor, path: str):
+    """B5 on checked CUDA operands by ``path`` (one of
+    ``censor.SQNORM_PATHS``, as B1 and B8): the warp design writes both
+    statistics in one launch, the two-pass one writes partials and folds
+    them in two more. :func:`int8_stats_batched` takes the path
+    ``common.sqnorm_path`` picks; the card's checks call both on one
+    input."""
+    name = "int8_stats_batched"
+    m, n = g.shape[0], g[0].numel()
+    suffix = KERNEL_DTYPES[g.dtype]
+    warp = warp_design(name, path, n)    # raises before any allocation
+    sq = torch.empty((m,), dtype=torch.float32, device=g.device)
+    am = torch.empty((m,), dtype=ghat.dtype, device=g.device)
+    ptrs = (_ptr(g), _ptr(ghat), _ptr(err))
+    if warp:
+        count_launch(name)
+        launch("fused_step", f"{name}_warp_{suffix}", g.device, *ptrs,
+               _ptr(sq), _ptr(am), m, n)
+        return sq, am
     nchunks = grid_chunks(name, g.shape, n, REDUCE_CHUNK, m)
     sq_part = torch.empty((m, nchunks), dtype=torch.float32, device=g.device)
     am_part = torch.empty((m, nchunks), dtype=ghat.dtype, device=g.device)
-    sq = torch.empty((m,), dtype=torch.float32, device=g.device)
-    am = torch.empty((m,), dtype=ghat.dtype, device=g.device)
     count_launch(name)
-    launch("fused_step", f"{name}_{suffix}", g.device, _ptr(g), _ptr(ghat),
-           _ptr(err), _ptr(sq_part), _ptr(am_part), _ptr(sq), _ptr(am),
-           m, n, nchunks)
+    launch("fused_step", f"{name}_{suffix}", g.device, *ptrs, _ptr(sq_part),
+           _ptr(am_part), _ptr(sq), _ptr(am), m, n, nchunks)
     return sq, am
 
 

@@ -877,3 +877,67 @@ def test_delta_sqnorm_on_both_designs(card, m, n, dtype):
         for w in _sample_workers(m):
             one = censor.delta_sqnorm_on_card(g[w:w + 1], h[w:w + 1], design)
             assert _same_or_nan(one, out[w:w + 1]), (design, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", TALL_SHAPES)
+def test_sqnorm_on_both_designs(card, m, n, dtype):
+    """B8 by the design its wrapper picks against its plain version (rel
+    1e-5, NaN where NaN), one launch a call, a repeat launch bitwise; each
+    design that takes the shape bit for bit (NaN where NaN) against the
+    first, against B1 on (g, ghat) and against its M=1 calls of
+    _sample_workers, on x = g - ghat."""
+    m = _tall_m(m, card)
+    g, h, _, _ = _tall_salted(m, n, dtype, card)
+    x = g - h
+    common.reset_launches()
+    out = censor.sqnorm_batched(x)
+    assert _launched() == {"sqnorm_batched": 1}
+    plain = ref.sqnorm_batched(x)
+    nan = torch.isnan(plain)
+    assert torch.equal(torch.isnan(out), nan)
+    torch.testing.assert_close(out[~nan], plain[~nan], rtol=1e-5, atol=0)
+    assert _same(censor.sqnorm_batched(x), out)
+    b1 = censor.censor_delta_sqnorm_batched(g, h)
+    designs = censor.SQNORM_PATHS if n <= 2048 else ("two_pass",)
+    for design in designs:
+        got = censor.sqnorm_on_card(x, design)
+        assert _same_or_nan(got, out) and _same_or_nan(got, b1), design
+        for w in _sample_workers(m):
+            one = censor.sqnorm_on_card(x[w:w + 1], design)
+            assert _same_or_nan(one, out[w:w + 1]), (design, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", TALL_SHAPES)
+def test_int8_stats_on_both_designs(card, m, n, dtype):
+    """B5 by the design its wrapper picks against its plain version (the
+    sums rel 1e-5, the abs-max exact; NaN where NaN), one launch a call, a
+    repeat launch bitwise; each design that takes the shape bit for bit
+    (NaN where NaN) against the first, its sums against B8 and its abs-max
+    against B7a on pending = (g - ghat) + e, and against its M=1 calls of
+    _sample_workers."""
+    m = _tall_m(m, card)
+    g, h, e, _ = _tall_salted(m, n, dtype, card)
+    common.reset_launches()
+    sq, am = fused_step.int8_stats_batched(g, h, e)
+    assert _launched() == {"int8_stats_batched": 1}
+    sq_p, am_p = ref.int8_stats_batched(g, h, e)
+    nan = torch.isnan(sq_p)
+    assert torch.equal(torch.isnan(sq), nan)
+    torch.testing.assert_close(sq[~nan], sq_p[~nan], rtol=1e-5, atol=0)
+    assert _same_or_nan(am, am_p)
+    sq2, am2 = fused_step.int8_stats_batched(g, h, e)
+    assert _same(sq2, sq) and _same(am2, am)
+    pend = (g - h) + e
+    b8, b7a = censor.sqnorm_batched(pend), quantize_ef.absmax_batched(pend)
+    designs = censor.SQNORM_PATHS if n <= 2048 else ("two_pass",)
+    for design in designs:
+        s, a = fused_step.int8_stats_on_card(g, h, e, design)
+        assert _same_or_nan(s, sq) and _same_or_nan(a, am), design
+        assert _same_or_nan(s, b8) and _same_or_nan(a, b7a), design
+        for w in _sample_workers(m):
+            s1, a1 = fused_step.int8_stats_on_card(
+                g[w:w + 1], h[w:w + 1], e[w:w + 1], design)
+            assert _same_or_nan(s1, sq[w:w + 1]) \
+                and _same_or_nan(a1, am[w:w + 1]), (design, w)

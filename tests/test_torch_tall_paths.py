@@ -1,14 +1,16 @@
-"""B10 and B1 on tall worker banks (``kernels/csrc/topk_pack.cu``,
-``kernels/csrc/censor.cu``), on the CPU.
+"""B10, B1, B8 and B5 on tall worker banks (``kernels/csrc/topk_pack.cu``,
+``kernels/csrc/censor.cu``, ``kernels/csrc/fused_step.cu``), on the CPU.
 
 B10 (top-k select/pack + EF) has one design, tiled over workers and
 columns like B2's tall pass 1, so it needs no picker. B1 (the eq.-(8)
-censor norm) has two, which its wrapper picks by shape
-(``common.sqnorm_path``): a warp a worker, in one launch, for rows of one
-reduction chunk on many workers; elsewhere the two-pass design (a block a
-(chunk, worker), then a block a worker over the partials). The kernels run
-only on the card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``'s
-phase tall_paths hold the designs against each other there); here:
+censor norm), B8 (the norm of a pending delta) and B5 (the int8 step's
+norm and abs-max) have two, which their wrappers pick by shape with one
+rule (``common.sqnorm_path``): a warp a worker, in one launch, for rows of
+one reduction chunk on many workers; elsewhere the two-pass design (a
+block a (chunk, worker), then a block a worker over the partials). The
+kernels run only on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``'s phase tall_paths hold the designs against each other
+there); here:
 
   * the picker at the full-width shape (M = 4, n = 163,597,056), Fig. 11's
     (M = 9, n = 50), the fed-mesh frontier and ladder top (M = 10^5 and
@@ -16,12 +18,19 @@ phase tall_paths hold the designs against each other there); here:
     2048 elements; the threshold moves with the card's SM count; an
     unknown design or a row too wide for the warp design is refused before
     any launch;
+  * the wrappers of B1, B8 and B5 past the dispatch rule (meta tensors,
+    ``launch`` recorded): the launcher of the picked design, bound in
+    ``build.SIGNATURES`` with the arity its C definition has, one count a
+    call;
   * the plain versions at tall shapes, salted with -0.0, NaN and +-inf, in
     f32 and f64, against the JAX package's oracles (``repro/kernels/ref.py``)
     and Pallas kernels (interpret mode), with ``test_torch_kernels.py``'s
-    tolerances: B10 exact (-0.0 included; NaN where NaN), B1 within rel
-    1e-5 (both sides accumulate in f32, in other orders; NaN where NaN).
+    tolerances: B10 exact (-0.0 included; NaN where NaN), B1, B8 and B5's
+    sums within rel 1e-5 (both sides accumulate in f32, in other orders;
+    NaN where NaN), B5's abs-max exact (NaN where NaN).
 """
+import re
+
 import jax
 
 jax.config.update("jax_enable_x64", True)
@@ -32,19 +41,22 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from repro.kernels import censor as j_censor  # noqa: E402
+from repro.kernels import fused_step as j_fused  # noqa: E402
 from repro.kernels import ref as j_ref  # noqa: E402
 from repro.kernels import topk_pack as j_topk  # noqa: E402
-from repro_torch.kernels import censor, common, topk_pack  # noqa: E402
+from repro_torch.kernels import (build, censor, common,  # noqa: E402
+                                 fused_step, topk_pack)
 from repro_torch.kernels.build import REDUCE_CHUNK  # noqa: E402
 
 H100_SMS = 132
 T = common.warp_rows_min_workers(H100_SMS)     # 1056 workers
 
 
-@pytest.mark.parametrize("m,n,path", [
+PICKER_CASES = [
     (4, 163_597_056, "two_pass"),       # full width, chb-paper-lm-124m
     (9, 50, "two_pass"),                # Fig. 11's linreg
     (100_000, 16, "warp"),              # the fed-mesh frontier
+    (70_000, 16, "warp"),               # its staged and top-k steps
     (12_500, 16, "warp"),               # a shard of it at K = 8
     (1_000_000, 16, "warp"),            # fed_mesh.py's ladder top
     (70_000, 2049, "two_pass"),         # two chunks a row
@@ -54,9 +66,66 @@ T = common.warp_rows_min_workers(H100_SMS)     # 1056 workers
     (T + 1, REDUCE_CHUNK, "warp"),
     (T + 1, REDUCE_CHUNK + 1, "two_pass"),
     (T, REDUCE_CHUNK, "two_pass"),
-])
+]
+
+
+@pytest.mark.parametrize("m,n,path", PICKER_CASES)
 def test_sqnorm_path_by_shape(m, n, path):
     assert common.sqnorm_path(m, n, H100_SMS) == path
+
+
+def _b1(x):
+    return censor.censor_delta_sqnorm_batched(x, x)
+
+
+def _b5(x):
+    return fused_step.int8_stats_batched(x, x, x)
+
+
+# wrapper: (call on one (M, n) operand, library, C launcher base name)
+WRAPPERS = {"B1": (_b1, "censor", "censor_delta_sqnorm_batched"),
+            "B8": (censor.sqnorm_batched, "censor", "sqnorm_batched"),
+            "B5": (_b5, "fused_step", "int8_stats_batched")}
+
+
+@pytest.fixture
+def on_h100(monkeypatch):
+    """The wrappers past the dispatch rule as on an H100: meta tensors
+    count as on the card, and each ``launch`` is recorded, not run."""
+    calls = []
+    for mod in (censor, fused_step):
+        monkeypatch.setattr(mod, "on_card", lambda name, *ts: True)
+        monkeypatch.setattr(mod, "sm_count", lambda index: H100_SMS)
+        monkeypatch.setattr(mod, "launch", lambda lib, fn, dev, *args:
+                            calls.append((lib, fn, len(args))))
+    common.reset_launches()
+    return calls
+
+
+def _c_arity(lib: str, fn: str) -> int:
+    """Parameters of the C launcher ``fn`` as ``csrc/<lib>.cu`` defines
+    it (the device and stream included)."""
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    found = re.search(rf"\bint {fn}\(([^)]*)\)", src)
+    assert found, f"{fn} is not defined in {lib}.cu"
+    return len(found.group(1).split(","))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel", WRAPPERS)
+@pytest.mark.parametrize("m,n,path", PICKER_CASES)
+def test_wrapper_launches_the_picked_design(on_h100, kernel, m, n, path,
+                                            dtype):
+    call, lib, base = WRAPPERS[kernel]
+    call(torch.empty((m, n), dtype=dtype, device="meta"))
+    suffix = common.KERNEL_DTYPES[dtype]
+    fn = f"{base}_warp_{suffix}" if path == "warp" else f"{base}_{suffix}"
+    assert len(on_h100) == 1 and on_h100[0][:2] == (lib, fn)
+    argtypes = build.SIGNATURES[lib][fn]
+    assert len(argtypes) == on_h100[0][2] + 2 == _c_arity(lib, fn)
+    assert common.LAUNCHES[base] == 1
+    assert sum(common.LAUNCHES.values()) == 1
 
 
 def test_sqnorm_path_threshold_follows_the_sm_count():
@@ -77,6 +146,26 @@ def test_unknown_or_too_wide_design_is_refused_before_a_launch():
         censor.delta_sqnorm_on_card(g, g, "warp")
     assert censor.SQNORM_PATHS == ("two_pass", "warp")
     assert common.LAUNCHES["censor_delta_sqnorm_batched"] == 0
+
+
+# kernel: (its design entry point on one (M, n) operand, LAUNCHES key)
+ON_CARD = {
+    "B8": (censor.sqnorm_on_card, "sqnorm_batched"),
+    "B5": (lambda x, d: fused_step.int8_stats_on_card(x, x, x, d),
+           "int8_stats_batched"),
+}
+
+
+@pytest.mark.parametrize("kernel", ON_CARD)
+def test_b8_b5_refuse_an_unknown_or_too_wide_design(kernel):
+    run, name = ON_CARD[kernel]
+    common.reset_launches()
+    g = torch.zeros((T + 1, REDUCE_CHUNK + 1), dtype=torch.float64)
+    with pytest.raises(ValueError, match="path must be one of"):
+        run(g, "one_pass")
+    with pytest.raises(ValueError, match="at most 2048 elements"):
+        run(g, "warp")
+    assert sum(common.LAUNCHES.values()) == 0
 
 
 def _salted(m, n, dtype):
@@ -147,3 +236,48 @@ def test_tall_delta_sqnorm_against_jax(m, n, dtype):
         np.testing.assert_allclose(got[~nan], want[~nan], rtol=1e-5)
         if n >= 3:
             assert nan[m // 2] and np.isinf(got[m - 1]) and nan.sum() == 1
+
+
+def _within_or_nan(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_allclose(got[~nan], want[~nan], rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", TALL)
+def test_tall_sqnorm_against_jax(m, n, dtype):
+    g, h, e, *_ = _salted(m, n, dtype)
+    x = (g - h) + e
+    got = censor.sqnorm_batched(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == (m,)
+    for want in (j_censor.sqnorm_batched(jnp.asarray(x), interpret=True),
+                 j_ref.sqnorm_batched(jnp.asarray(x))):
+        _within_or_nan(got, want)
+    if n >= 3:
+        assert np.isnan(got[m // 2]) and np.isinf(got[m - 1])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", TALL)
+def test_tall_int8_stats_against_jax(m, n, dtype):
+    g, h, e, *_ = _salted(m, n, dtype)
+    sq, am = fused_step.int8_stats_batched(
+        *(torch.from_numpy(a) for a in (g, h, e)))
+    assert sq.dtype == torch.float32 and am.dtype == torch.from_numpy(g).dtype
+    sq, am = sq.numpy(), am.numpy()
+    args = [jnp.asarray(a) for a in (g, h, e)]
+    for want_sq, want_am in (
+            j_fused.int8_stats_batched(*args, interpret=True),
+            j_ref.int8_stats_batched(*args)):
+        _within_or_nan(sq, want_sq)
+        _same_or_nan(am, np.asarray(want_am))
+    # the sum is B8's on pending (the plain versions)
+    pending = torch.from_numpy((g - h) + e)
+    _same_or_nan(sq, censor.sqnorm_batched(pending).numpy())
+    if n >= 3:
+        assert np.isnan(am[m // 2]) and np.isinf(am[m - 1])
+        assert np.isinf(am[0])
