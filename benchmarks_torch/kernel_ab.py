@@ -12,14 +12,18 @@ parent commit, unpacked with ``git archive`` into a directory that
 ``fused_step.cu`` (B5) of every tree with the port's nvcc flags into
 ``build/kernel_ab/``, prints each compiler log (``-Xptxas -v``), checks
 each tree's B9 and B7a bits (B7a NaN where its plain version gives NaN)
-and B14 against the f64 rule of ``chip_smoke.py`` on a few shapes (it
-stops if this tree's fail and reports the others'), then times all at the
-main path's shapes in turns (the others, this, this, the others in
-reverse) beside their library calls: B14 at serve_long's prefill (B 8,
-H = K 12, L 2048, d 64, causal, the model's strided views) against
-``scaled_dot_product_attention``, B9 at M = 4, n = 163,597,056 f32
-against ``addcmul``, B7a at the same shape against
-``linalg.vector_norm(inf)``. ``sums`` checks that B1, B5 and B8 of this
+and B14 against the f64 rule of ``chip_smoke.py`` on a few shapes, B9 and
+B7a also on tall banks up to M = 100,000 (it stops if this tree's fail
+and reports the others'), then times all at the main path's shapes in
+turns (the others, this, this, the others in reverse) beside their
+library calls: B14 at serve_long's prefill (B 8, H = K 12, L 2048, d 64,
+causal, the model's strided views) against
+``scaled_dot_product_attention``, B9 at M = 4, n = 163,597,056 f32 and
+at the fed mesh's M = 70,000 and 100,000, n = 16 (f64) against
+``addcmul``, B7a at the same shapes against ``linalg.vector_norm(inf)``.
+Each tree runs the B7a launcher it has: this tree the design its wrapper
+picks (``kernels/common.py:sqnorm_path``), a tree without the warp
+design its two passes. ``sums`` checks that B1, B5 and B8 of this
 tree give every other tree's bits at M = 4, n = 163,597,056 (f32) and at
 M = 9, n = 70,001 (f32 and f64), and stops if they do not; then times the
 three at M = 4, n = 163,597,056 (B8 beside ``linalg.vecdot``). ``fused``
@@ -197,9 +201,13 @@ def flash(libs, q, k, v, causal=True, window=None):
     return out
 
 
+def _suffix(x: torch.Tensor) -> str:
+    return "f32" if x.dtype == torch.float32 else "f64"
+
+
 def bank(libs, h, q, mask):
     out = torch.empty_like(h)
-    run(libs["censor"], "bank_advance_f32", h.device, h.data_ptr(),
+    run(libs["censor"], f"bank_advance_{_suffix(h)}", h.device, h.data_ptr(),
         q.data_ptr(), mask.data_ptr(), out.data_ptr(), h.shape[0],
         h[0].numel())
     return out
@@ -235,19 +243,37 @@ def check_flash(trees, randn) -> None:
             raise SystemExit("kernel_ab: B14 outside the f64 rule")
 
 
-def check_bank(trees, randn, dev) -> None:
-    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
-    for n in (127, 4096, 2 ** 20 + 17, 2 ** 20):
-        for off in (0, 1):            # off 1: a view one float off alignment
-            hh = randn(4 * n + off)[off:].view(4, n)
-            qq = randn(4 * n + off)[off:].view(4, n)
-            want = ref.bank_advance(hh, qq, mask).view(torch.int32)
-            ok = {tag: torch.equal(bank(libs, hh, qq, mask).view(torch.int32),
-                                   want) for tag, libs in trees.items()}
-            print(json.dumps({"check": "B9", "n": n, "off": off, "ok": ok}),
-                  flush=True)
+# B9's and B7a's tall shapes (the staged int8 and top-k steps of phase
+# many_workers run at MANY_M_STAGED), timed beside full width
+TALL_AB = ((MANY_M_STAGED, MANY_D), (MANY_M, MANY_D))
+
+
+def check_bank(trees, dev) -> None:
+    """Each tree's B9 against ``ref.bank_advance`` bit for bit (-0.0 and
+    NaN salted) on aligned leaves and views one element off alignment, at
+    M = 4 and on tall banks, f32 and f64."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for m, n, dtype in ((4, 127, torch.float32), (4, 4096, torch.float32),
+                        (4, 2 ** 20 + 17, torch.float32),
+                        (4, 2 ** 20, torch.float32), (4, 4096, torch.float64),
+                        (1057, 16, torch.float64), (70000, 33, torch.float32),
+                        *((m, n, torch.float64) for m, n in TALL_AB)):
+        for off in (0, 1):            # off 1: a view one element off alignment
+            hh, qq = (torch.randn(off + m * n, generator=gen, device=dev,
+                                  dtype=dtype)[off:].view(m, n)
+                      for _ in range(2))
+            hh[:, ::7] = -0.0
+            qq[:, 3::11] = float("nan")
+            mask = torch.tensor([float(i % 3 != 1) for i in range(m)],
+                                device=dev)
+            want = ref.bank_advance(hh, qq, mask)
+            ok = {tag: same_bits(bank(libs, hh, qq, mask), want)
+                  for tag, libs in trees.items()}
+            print(json.dumps({"check": "B9", "m": m, "n": n, "off": off,
+                              "dtype": str(dtype), "ok": ok}), flush=True)
             if not ok["this"]:
-                raise SystemExit(f"kernel_ab: B9 differs at n={n} off={off}")
+                raise SystemExit(f"kernel_ab: B9 differs at M={m} n={n} "
+                                 f"off={off} {dtype}")
 
 
 def absmax_span(tree: Path) -> int:
@@ -270,22 +296,32 @@ def absmax_span(tree: Path) -> int:
 
 
 def absmax(libs, span, x):
+    """B7a of one tree: the design this tree's wrapper picks
+    (``common.sqnorm_path``) where the tree has its launcher, else its
+    two-pass design."""
     m, n = x.shape
-    part = torch.empty((m, -(-n // span)), dtype=x.dtype, device=x.device)
+    lib = libs["quantize_ef"]
     out = torch.empty((m,), dtype=x.dtype, device=x.device)
-    suffix = "f32" if x.dtype == torch.float32 else "f64"
-    run(libs["quantize_ef"], f"absmax_batched_{suffix}", x.device,
-        x.data_ptr(), part.data_ptr(), out.data_ptr(), m, n, part.shape[1])
+    warp = f"absmax_batched_warp_{_suffix(x)}"
+    if hasattr(lib, warp) and common.sqnorm_path(
+            m, n, common.sm_count(x.device.index or 0)) == "warp":
+        run(lib, warp, x.device, x.data_ptr(), out.data_ptr(), m, n)
+        return out
+    part = torch.empty((m, -(-n // span)), dtype=x.dtype, device=x.device)
+    run(lib, f"absmax_batched_{_suffix(x)}", x.device, x.data_ptr(),
+        part.data_ptr(), out.data_ptr(), m, n, part.shape[1])
     return out
 
 
 def check_absmax(trees, spans, dev) -> None:
     """Each tree's B7a against ``ref.absmax_batched`` on its 16-byte and
     element-wise paths (odd n, a view one element off alignment), rows
-    salted with -0.0, NaN and +-inf."""
+    salted with -0.0, NaN and +-inf, at M <= 9 and on tall banks."""
     gen = torch.Generator(device=dev).manual_seed(11)
     for m, n, off in ((1, 1, 0), (4, 4096, 0), (9, 70001, 0), (4, 4100, 1),
-                      (3, 2 ** 20 + 4, 0)):
+                      (3, 2 ** 20 + 4, 0), (1057, 16, 0), (70000, 33, 0),
+                      (70000, 36, 1), (70000, 2048, 1),
+                      *((m, n, 0) for m, n in TALL_AB)):
         for dtype in (torch.float32, torch.float64):
             x = torch.randn(off + m * n, generator=gen, device=dev,
                             dtype=dtype)[off:].view(m, n)
@@ -559,24 +595,32 @@ def main() -> None:
              for tag, libs in having("flash_attention").items()},
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     if "B9" in args.only:
-        check_bank(having("censor"), randn, dev)
-        hh, qq = randn(4, FULL_D), randn(4, FULL_D)
-        mask = torch.tensor([1.0, 0.0, 1.0, 0.0], device=dev)
-        work["B9"] = (
-            {tag: (lambda libs=libs: bank(libs, hh, qq, mask))
-             for tag, libs in having("censor").items()},
-            lambda: torch.addcmul(hh, mask[:, None], qq))
+        check_bank(having("censor"), dev)
+        for m, n, dtype in ((4, FULL_D, torch.float32),
+                            *((m, n, torch.float64) for m, n in TALL_AB)):
+            hh, qq = (randn(m, n).to(dtype) for _ in range(2))
+            mask = torch.tensor([float(i % 2 == 0) for i in range(m)],
+                                device=dev)
+            mw = mask.to(dtype)[:, None]
+            work[f"B9 M={m} n={n} {str(dtype)[6:]}"] = (
+                {tag: (lambda libs=libs, hh=hh, qq=qq, mask=mask:
+                       bank(libs, hh, qq, mask))
+                 for tag, libs in having("censor").items()},
+                lambda hh=hh, qq=qq, mw=mw: torch.addcmul(hh, mw, qq))
     if "B7a" in args.only:
         check_absmax(having("quantize_ef"), spans, dev)
-        pend = randn(4, FULL_D)
-        fns = {tag: (lambda libs=libs, tag=tag: absmax(libs, spans[tag],
-                                                        pend))
-               for tag, libs in having("quantize_ef").items()}
-        work["B7a"] = (fns, lambda: torch.linalg.vector_norm(
-            pend, ord=math.inf, dim=1))
-        if args.ablate:
-            splits["B7a"] = {tag: split(fn, args.reps)
-                             for tag, fn in fns.items()}
+        for m, n, dtype in ((4, FULL_D, torch.float32),
+                            *((m, n, torch.float64) for m, n in TALL_AB)):
+            pend = randn(m, n).to(dtype)
+            key = f"B7a M={m} n={n} {str(dtype)[6:]}"
+            fns = {tag: (lambda libs=libs, tag=tag, pend=pend:
+                         absmax(libs, spans[tag], pend))
+                   for tag, libs in having("quantize_ef").items()}
+            work[key] = (fns, lambda pend=pend: torch.linalg.vector_norm(
+                pend, ord=math.inf, dim=1))
+            if args.ablate:
+                splits[key] = {tag: split(fn, args.reps)
+                               for tag, fn in fns.items()}
     if "fused" in args.only:
         check_fused({t: libs for t, libs in having("fused_step").items()
                      if t not in {d.name for d in ablated}}, dev)
@@ -617,7 +661,7 @@ def main() -> None:
         line = {"kernel": name, "ms": times, "card": smi}
         if name in splits:
             line["device_us_per_call_by_kernel"] = splits[name]
-        if name == "B7a":
+        if name.startswith(f"B7a M=4 n={FULL_D} "):
             line["partials_per_worker"] = {
                 tag: -(-FULL_D // span) for tag, span in spans.items()}
         print(json.dumps(line), flush=True)

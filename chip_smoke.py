@@ -28,13 +28,14 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  dispatch (common.fold_path) and on the other design, at M
                  up to 100,000 and on each side of the threshold, salted
                  with -0.0, NaN and +-inf; (phase tall_paths) B10, B1,
-                 B8 and B5 on tall banks (M from 65 to 100,000 and on
-                 each side of the worker threshold, n in {1, 16, 33,
-                 2049}, f32 and f64, salted the same way): B10 against its
-                 plain version bit for bit; the two designs of B1, B8 and
-                 B5 (common.sqnorm_path) against each other and their M=1
-                 calls, B1 against B8 on g - ghat, B5 against B8 and B7a
-                 on its pending delta, bit for bit (NaN where NaN);
+                 B8, B5, B7a and B9 on tall banks (M from 65 to 100,000
+                 and on each side of the worker threshold, n in {1, 16,
+                 33, 2049}, f32 and f64, salted the same way): B10 and B9
+                 against their plain versions bit for bit; the two designs
+                 of B1, B8, B5 and B7a (common.sqnorm_path) against each
+                 other and their M=1 calls, B1 against B8 on g - ghat, B5
+                 against B8 and B7a on its pending delta, bit for bit (NaN
+                 where NaN); B7a and B9 also on misaligned views;
                  (phase attention_kernels) B14 over GQA 1/2/4/6,
                  causal, window and non-causal rectangular shapes on and
                  off its tiles, head dims 32-256, strided and misaligned
@@ -120,8 +121,8 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  the measured floor of an exact fold there:
                  benchmarks_torch/chain_floor.py; fold_workers and B1's
                  two designs there and at 10^6, B1 also on each side of
-                 its worker threshold; B4, B5, B7a, B7b, B8, B9 (B5 and
-                 B8 on both designs), B10 and B11 at M = 70,000 and
+                 its worker threshold; B4, B5, B7a, B7b, B8, B9 (B5, B8
+                 and B7a on both designs), B10 and B11 at M = 70,000 and
                  100,000, n = 16);
                  then the ``{"kernels": [...]}`` line of all 17 kernels
                  (16 ported, and fold_workers, which only the port has).
@@ -1065,14 +1066,66 @@ def _tall_sums(g, h, e, designs, m, tag) -> None:
                       f"{what} {design} M=1 slice {w} {tag}")
 
 
+def _offset_copy(x: torch.Tensor, off: int) -> torch.Tensor:
+    """A copy of ``x`` in a view starting ``off`` elements into its
+    storage (off 1: every row off 16-byte alignment)."""
+    flat = torch.empty(off + x.numel(), dtype=x.dtype, device=x.device)
+    out = flat[off:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _tall_b7a_b9(g, h, e, designs, m, tag) -> None:
+    """B7a and B9 on one tall case, each on an aligned leaf and on a view
+    one element off alignment (the 16-byte and the element-wise loads):
+    B7a by the design its wrapper picks against its plain version and
+    B5's abs-max of the same pending, each design in ``designs`` against
+    the picked one and its M=1 calls of sample_workers; B9 under all three
+    masks against its plain version and its M=1 calls of sample_workers;
+    both a repeat launch bitwise, the rest NaN where NaN and bitwise
+    elsewhere (-0.0 included)."""
+    from repro_torch.kernels import censor, fused_step, quantize_ef, ref
+    pend = (g - h) + e
+    am5 = fused_step.int8_stats_batched(g, h, e)[1]
+    plain = ref.absmax_batched(pend)
+    for off in (0, 1):
+        otag = f"{tag} offset={off}"
+        x = _offset_copy(pend, off)
+        am = quantize_ef.absmax_batched(x)
+        check(same_or_nan(am, plain), f"B7a {otag} against the plain version")
+        check(same_or_nan(am, am5), f"B7a {otag} against B5's abs-max")
+        check(same_bits(quantize_ef.absmax_batched(x), am), f"B7a repeat {otag}")
+        for design in designs:
+            check(same_or_nan(quantize_ef.absmax_on_card(x, design), am),
+                  f"B7a {design} {otag}")
+            for w in sample_workers(m):
+                check(same_or_nan(quantize_ef.absmax_on_card(x[w:w + 1], design),
+                                  am[w:w + 1]), f"B7a {design} M=1 slice {w} {otag}")
+        del x
+        hh, qq = _offset_copy(h, off), _offset_copy(g, off)
+        for mname, mask in _masks(m, h.device).items():
+            mtag = f"{otag} mask={mname}"
+            out = censor.bank_advance(hh, qq, mask)
+            check(same_or_nan(out, ref.bank_advance(h, g, mask)),
+                  f"B9 {mtag} against the plain version")
+            check(same_bits(censor.bank_advance(hh, qq, mask), out), f"B9 repeat {mtag}")
+            for w in sample_workers(m):
+                r = slice(w, w + 1)
+                check(same_or_nan(censor.bank_advance(hh[r], qq[r], mask[r]), out[r]),
+                      f"B9 M=1 slice {w} {mtag}")
+            del out
+        del hh, qq
+
+
 def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
-    """B10, B1, B8 and B5 on the tall_path_cases, inputs salted with -0.0
-    (column 0 all -0.0; a kept and a dropped -0.0 in every 7th column),
-    NaN and +-inf. B10 under all three masks: bitwise (NaN where NaN)
-    against the plain version, a repeat launch bitwise, and the M=1 row
-    calls of sample_workers against the batched call under the all-ones
-    mask. B1, B8 and B5 on both designs where both run (n <= 2048), as
-    _tall_sums says."""
+    """B10, B1, B8, B5, B7a and B9 on the tall_path_cases, inputs salted
+    with -0.0 (column 0 all -0.0; a kept and a dropped -0.0 in every 7th
+    column), NaN and +-inf. B10 under all three masks: bitwise (NaN where
+    NaN) against the plain version, a repeat launch bitwise, and the M=1
+    row calls of sample_workers against the batched call under the
+    all-ones mask. B1, B8 and B5 on both designs where both run (n <=
+    2048), as _tall_sums says; B7a on both designs there and B9 on its
+    one, on aligned and misaligned views, as _tall_b7a_b9 says."""
     from repro_torch.kernels import censor, common, ref, topk_pack
     from repro_torch.kernels.build import REDUCE_CHUNK
     sms = common.sm_count(device.index or 0)
@@ -1083,8 +1136,9 @@ def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
             keep = _keep(g, m + n)
             paths[f"M={m} n={n}"] = common.sqnorm_path(m, n, sms)
             tag = f"{dtype} M={m} n={n} ({paths[f'M={m} n={n}']})"
-            _tall_sums(g, h, e, censor.SQNORM_PATHS if n <= REDUCE_CHUNK
-                       else ("two_pass",), m, tag)
+            designs = censor.SQNORM_PATHS if n <= REDUCE_CHUNK else ("two_pass",)
+            _tall_sums(g, h, e, designs, m, tag)
+            _tall_b7a_b9(g, h, e, designs, m, tag)
             sum_cases += 1
             torch.cuda.empty_cache()
             for mname, mask in _masks(m, device).items():
@@ -1111,14 +1165,16 @@ def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
           "sms": sms,
           "sqnorm_path_by_shape": paths,
           "kernels": ["select_pack_ef_batched", "censor_delta_sqnorm_batched",
-                      "sqnorm_batched", "int8_stats_batched"],
-          "rule": "B10 against the plain version NaN where it gives NaN, "
-          "the same bits elsewhere (-0.0 included), repeat and M=1 rows "
-          "bitwise; the two designs of B1, B8 and B5 against each other "
-          "and their M=1 calls, B1 against B8 on g - ghat, B5 against B8 "
-          "and B7a on pending, NaN where NaN and bitwise elsewhere; each "
-          "against its plain version within SQNORM_RTOL (B5's abs-max "
-          "exact), NaN where NaN"})
+                      "sqnorm_batched", "int8_stats_batched",
+                      "absmax_batched", "bank_advance"],
+          "rule": "B10 and B9 against the plain version NaN where it "
+          "gives NaN, the same bits elsewhere (-0.0 included), repeat and "
+          "M=1 rows bitwise; the two designs of B1, B8, B5 and B7a against "
+          "each other and their M=1 calls, B1 against B8 on g - ghat, B5 "
+          "against B8 and B7a on pending, NaN where NaN and bitwise "
+          "elsewhere; each against its plain version within SQNORM_RTOL "
+          "(B5's and B7a's abs-max exact), NaN where NaN; B7a and B9 also "
+          "on views one element off alignment"})
 
 
 # ----------------------------------------------------------- phase 3b
@@ -2731,9 +2787,10 @@ def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
 
 def tall_worker_timing(device, randn, alternating, n=MANY_D) -> dict:
     """B4, B5, B7a, B7b, B8 and B9 at M in TALL_MS, n = 16, f64: each one's
-    time (B5 and B8 on both designs, the one ``common.sqnorm_path`` picks
-    named), its plain version's, its library call's where one computes
-    the same function (phase_timing's), and its byte bound. Returns
+    time (B5, B8 and B7a on both designs, the one ``common.sqnorm_path``
+    picks named; B9 on its one design, B10's tall tiling), its plain
+    version's, its library call's where one computes the same function
+    (phase_timing's), and its byte bound. Returns
     ``{kernel: {"M=...": {...}}}``."""
     from repro_torch.core.quantize import int8_scale
     from repro_torch.kernels import censor, common, fused_step, quantize_ef, ref
@@ -2763,11 +2820,12 @@ def tall_worker_timing(device, randn, alternating, n=MANY_D) -> dict:
                 lambda: ref.censor_bank_advance(g, h, mask),
                 lambda: torch.lerp(h, g, mw), 3 * mm * n * el + 4 * mm),
             "bank_advance": (
-                {"row_tiles": lambda: censor.bank_advance(h, pend, mask)},
+                {"tall": lambda: censor.bank_advance(h, pend, mask)},
                 lambda: ref.bank_advance(h, pend, mask),
                 lambda: torch.addcmul(h, mw, pend), 3 * mm * n * el + 4 * mm),
             "absmax_batched": (
-                {"two_pass": lambda: quantize_ef.absmax_batched(pend)},
+                {d: (lambda d=d: quantize_ef.absmax_on_card(pend, d))
+                 for d in censor.SQNORM_PATHS},
                 lambda: ref.absmax_batched(pend),
                 lambda: torch.linalg.vector_norm(pend, ord=math.inf, dim=1),
                 mm * n * el + el * mm),

@@ -35,7 +35,7 @@ REDUCE_CHUNK = 2048
 #: csrc/quantize_ef.cu: 16 chunks); its launcher rejects another count
 ABSMAX_SPAN = 16 * REDUCE_CHUNK
 #: elements of one worker row that one block of a row-tiled pass (B4, B7b,
-#: B9, B12b) covers (kRowTile in csrc/reduce.cuh)
+#: B12b) covers (kRowTile in csrc/reduce.cuh)
 ROW_TILE = 1024
 #: blocks one launch holds on grid x (kMaxGridX in csrc/reduce.cuh); the
 #: per-worker kernels put the worker on grid y and walk any M with a
@@ -108,6 +108,7 @@ SIGNATURES = {
     "topk_pack": _both("select_pack_ef_batched", _PACK_ARGS),
     "lowrank_ef": _both("residual_ef_batched", _RESIDUAL_ARGS),
     "quantize_ef": {**_both("absmax_batched", _SQNORM_ARGS),
+                    **_both("absmax_batched_warp", _FOLD_ARGS),
                     **_both("quantize_ef_batched", _PACK_ARGS)},
     "flash_attention": {f"flash_attention_{s}": _FLASH_ARGS
                         for s in ATTENTION_DTYPES.values()},

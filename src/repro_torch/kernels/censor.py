@@ -13,11 +13,12 @@ import torch
 
 from . import ref
 from .build import REDUCE_CHUNK, ROW_TILE, SINGLE_DTYPES, launch
-from .common import (KERNEL_DTYPES, check_leaves, check_worker_vector,
-                     count_launch, grid_chunks, on_card, sm_count,
-                     sqnorm_path)
+from .common import (BLOCK_THREADS, KERNEL_DTYPES, check_leaves,
+                     check_worker_vector, count_launch, grid_chunks, on_card,
+                     sm_count, sqnorm_path)
 
-#: the designs of B1, B8 and B5 (``common.sqnorm_path`` picks one by shape)
+#: the designs of B1, B8, B5 and B7a (``common.sqnorm_path`` picks one by
+#: shape)
 SQNORM_PATHS = ("two_pass", "warp")
 
 
@@ -59,7 +60,7 @@ def censor_delta_sqnorm_batched(g: torch.Tensor, ghat: torch.Tensor
 
 
 def warp_design(name: str, path: str, n: int) -> bool:
-    """Whether ``path`` names the warp design of B1, B8 or B5 (``False``:
+    """Whether ``path`` names the warp design of B1, B8, B5 or B7a (``False``:
     the two-pass design). Raises, before any launch, on another name or on
     a row of more than ``REDUCE_CHUNK`` elements for the warp design."""
     if path == "two_pass":
@@ -131,7 +132,13 @@ def sqnorm_on_card(x: torch.Tensor, path: str) -> torch.Tensor:
 
 def bank_advance(ghat: torch.Tensor, payload: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
-    """``ghat + mask * payload`` of one (M, ...) leaf, in one pass."""
+    """``ghat + mask * payload`` of one (M, ...) leaf, in one pass.
+
+    On the card, one design for every shape: B10's tiling over workers and
+    columns (a block covers up to 256 columns of several rows), so a tall
+    bank of short rows runs on the whole card and a wide one as the row
+    tiles did.
+    """
     name = "bank_advance"
     suffix = check_leaves(name, ghat, payload)
     m, n = ghat.shape[0], ghat[0].numel()
@@ -140,7 +147,7 @@ def bank_advance(ghat: torch.Tensor, payload: torch.Tensor,
         return ghat
     if not on_card(name, ghat, payload, mask):
         return ref.bank_advance(ghat, payload, mask)
-    grid_chunks(name, ghat.shape, n, ROW_TILE)
+    grid_chunks(name, ghat.shape, n, BLOCK_THREADS)
     out = torch.empty_like(ghat)
     count_launch(name)
     launch("censor", f"{name}_{suffix}", ghat.device, _ptr(ghat),

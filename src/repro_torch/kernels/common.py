@@ -136,7 +136,7 @@ BLOCK_THREADS = 256
 
 
 def warp_rows_min_workers(sms: int) -> int:
-    """Workers from which the two-pass design of B1, B8 and B5 fills a
+    """Workers from which the two-pass design of B1, B8, B5 and B7a fills a
     card of ``sms`` SMs with its block a worker (rows of one reduction
     chunk): 1056 on an H100. Below them its eight warps a worker hide more
     load latency than the warp design's one."""
@@ -145,13 +145,14 @@ def warp_rows_min_workers(sms: int) -> int:
 
 def sqnorm_path(m: int, n: int, sms: int) -> str:
     """Which design B1 (``censor_delta_sqnorm_batched``), B8
-    (``sqnorm_batched``) and B5 (``int8_stats_batched``) run on an (M, n)
-    bank, on a card of ``sms`` SMs. ``"warp"``: a warp a worker, one
-    launch, for rows of one reduction chunk (n <= 2048) on more than
-    ``warp_rows_min_workers(sms)`` workers. ``"two_pass"``: a block a
-    (chunk, worker), then a block a worker folds the partials (B5: two
-    such launches, the sums and the abs-maxes). Both give the same
-    bits."""
+    (``sqnorm_batched``), B5 (``int8_stats_batched``) and B7a
+    (``absmax_batched``) run on an (M, n) bank, on a card of ``sms`` SMs.
+    ``"warp"``: one launch for rows of one reduction chunk (n <= 2048) on
+    more than ``warp_rows_min_workers(sms)`` workers, a warp a worker (B7a:
+    a power-of-two segment of a warp's lanes a worker). ``"two_pass"``: a
+    block a (chunk, worker), then a block a worker folds the partials (B5:
+    two such launches, the sums and the abs-maxes; B7a: a block a span of
+    16 chunks). Both give the same bits."""
     if n <= REDUCE_CHUNK and m > warp_rows_min_workers(sms):
         return "warp"
     return "two_pass"

@@ -34,9 +34,9 @@
 // worker's chunks depend only on n, the M=1 call on one worker equals that
 // worker's slice of a batched call. B8 squares (float)x where B1 squares
 // (float)(g - ghat) with the same chunks and tree, so B8 on g - ghat equals
-// B1 on (g, ghat) bit for bit. B4 and B9 tile each worker row: a thread
-// loads kRowItems elements of both operands before it computes any, so
-// several loads are in flight per thread (see PERF.md). All four put the
+// B1 on (g, ghat) bit for bit. B4 tiles each worker row: a thread loads
+// kRowItems elements of both operands before it computes any, so several
+// loads are in flight per thread (see PERF.md). B1, B8 and B4 put the
 // worker on grid y and walk any M with a stride of gridDim.y (reduce.cuh),
 // so a worker's output does not depend on M.
 // B1 and B8 have a second design for rows of one chunk (n <= kChunk) on
@@ -51,12 +51,17 @@
 // B4 advances in the arithmetic mask form of B2, so its output equals B2's
 // ghat' bit for bit (a select would not: h + (g - h) != g in floating
 // point). B9 computes ghat + (T)mask * payload with the same rounding
-// intrinsics. Where n is a multiple of the elements in 16 bytes and ghat,
-// payload and out are 16-byte aligned (every row then is), a B9 thread
-// moves kRowItems float4s (f32) or double2s (f64) of each operand: 128
-// bytes in flight a thread, 16-byte loads and stores. Otherwise (an odd n
-// misaligns every row after the first, or a view starts off alignment) it
-// takes B4's scalar tiling. The launcher decides.
+// intrinsics, on one design for every shape: B10's tall tiling
+// (tall_pair_kernel below). A block of it holds 32 of the fed mesh's rows
+// of 8 double2s a sweep (f64, n = 16), where a block a row would leave
+// 248 of its 256 threads idle, and at full width it covers 256 columns
+// of 2 rows. Where n is a multiple of the elements in 16 bytes and ghat,
+// payload and out are 16-byte aligned (every row then is), it tiles the
+// row's float4s (f32) or double2s (f64): 16-byte loads and stores, two
+// rows of each operand in flight a thread. Otherwise (an odd n misaligns
+// every row after the first, or a view starts off alignment) it tiles
+// elements. The launcher decides. The tile body is generic over the
+// element operation, so B4 can take it.
 //
 // B12a and B12b are the single-tensor entry points of one (g, ghat) pair
 // whose dtypes may differ (f32, f64 or bf16 each). B12a casts both to f32
@@ -195,59 +200,46 @@ sqnorm_partials(const T* __restrict__ x, float* __restrict__ part, int64_t m, in
   }
 }
 
-// B9 on rows of n elements (one row a grid y), element by element
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bank_advance_kernel(const T* __restrict__ h, const T* __restrict__ q,
-                    const float* __restrict__ mask, T* __restrict__ out, int64_t m, int64_t n) {
-  const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
-  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
-    const T mk = (T)mask[w];
-    const T* hw = h + w * n;
-    const T* qw = q + w * n;
-    T* ow = out + w * n;
-    T hv[kRowItems], qv[kRowItems];
-#pragma unroll
-    for (int k = 0; k < kRowItems; ++k) {
-      const int64_t j = base + (int64_t)k * kThreads;
-      hv[k] = j < n ? hw[j] : T(0);
-      qv[k] = j < n ? qw[j] : T(0);
-    }
-#pragma unroll
-    for (int k = 0; k < kRowItems; ++k) {
-      const int64_t j = base + (int64_t)k * kThreads;
-      // the arithmetic mask form ghat + mk * payload
-      if (j < n) ow[j] = add(hv[k], mul(mk, qv[k]));
-    }
-  }
-}
+// The tall tiling of a two-operand elementwise pass out = op(a, mk, b)
+// over an (M, ncols) bank of E: elements (E = T) or 16-byte vectors of
+// them (E = Vec16<T>::type). As B10's (topk_pack.cu) and B2/B6's pass 1,
+// reduce.cuh's tall_grid: a block covers 2^shift columns, the power of
+// two >= min(ncols, kThreads), and kThreads >> shift rows a sweep, kRows
+// sweeps; a thread issues the loads of all its rows, and reads mask[w]
+// once a row, before it computes any. B9 runs it with AdvanceOp; nothing
+// in it is B9's but the operation.
+// kRows = 2 (kAdvanceRows): on an H100 at M = 70,000, n = 16, f64 B10's
+// four rows a thread took 91 registers (two blocks an SM) and 0.0078 ms,
+// two rows 40-44 registers and 0.006 ms, one row 0.0063, with the same
+// time at full width (benchmarks_torch/kernel_ab.py --only B9).
+constexpr int kAdvanceRows = 2;
 
-// B9 on rows of nv 16-byte vectors, 16-byte aligned
-template <typename T>
+template <typename T, typename E, typename Op, int kRows>
 __global__ void __launch_bounds__(kThreads)
-bank_advance_vec_kernel(const T* __restrict__ h, const T* __restrict__ q,
-                        const float* __restrict__ mask, T* __restrict__ out, int64_t m,
-                        int64_t nv) {
-  using V = typename Vec16<T>::type;
-  const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
-  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
-    const T mk = (T)mask[w];
-    const V* hw = reinterpret_cast<const V*>(h) + w * nv;
-    const V* qw = reinterpret_cast<const V*>(q) + w * nv;
-    V* ow = reinterpret_cast<V*>(out) + w * nv;
-    V hv[kRowItems], qv[kRowItems];
+tall_pair_kernel(const E* __restrict__ a, const E* __restrict__ b, const float* __restrict__ mask,
+                 E* __restrict__ out, int64_t m, int64_t ncols, int shift) {
+  const int64_t j = ((int64_t)blockIdx.x << shift) + (threadIdx.x & ((1 << shift) - 1));
+  if (j >= ncols) return;
+  const int64_t sweep = kThreads >> shift;     // rows a sweep of the block covers
+  const int64_t tile = sweep * kRows;          // rows a block covers
+  const Op op{};
+  for (int64_t w0 = (int64_t)blockIdx.y * tile + (threadIdx.x >> shift); w0 < m;
+       w0 += (int64_t)gridDim.y * tile) {
+    E av[kRows], bv[kRows];
+    float mk[kRows];
 #pragma unroll
-    for (int k = 0; k < kRowItems; ++k) {
-      const int64_t j = base + (int64_t)k * kThreads;
-      if (j < nv) {
-        hv[k] = hw[j];
-        qv[k] = qw[j];
+    for (int k = 0; k < kRows; ++k) {
+      const int64_t w = w0 + k * sweep;
+      if (w < m) {
+        av[k] = a[w * ncols + j];
+        bv[k] = b[w * ncols + j];
+        mk[k] = mask[w];
       }
     }
 #pragma unroll
-    for (int k = 0; k < kRowItems; ++k) {
-      const int64_t j = base + (int64_t)k * kThreads;
-      if (j < nv) ow[j] = Vec16<T>::advance(hv[k], mk, qv[k]);
+    for (int k = 0; k < kRows; ++k) {
+      const int64_t w = w0 + k * sweep;
+      if (w < m) out[w * ncols + j] = apply_op(op, av[k], (T)mk[k], bv[k]);
     }
   }
 }
@@ -295,16 +287,21 @@ static int launch_sqnorm(const void* x, void* part, void* out, int64_t m, int64_
 template <typename T>
 static int launch_bank_advance(const void* h, const void* q, const void* mask, void* out,
                                int64_t m, int64_t n, void* stream) {
-  if (!row_tiles_ok(m, n)) return (int)cudaErrorInvalidValue;
+  if (!tall_grid_ok(m, n)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   constexpr int64_t per_vec = 16 / sizeof(T);
   if (n % per_vec == 0 && aligned16(h) && aligned16(q) && aligned16(out)) {
+    using V = typename Vec16<T>::type;
     const int64_t nv = n / per_vec;
-    bank_advance_vec_kernel<T><<<row_tiles(m, nv), kThreads, 0, s>>>(
-        (const T*)h, (const T*)q, (const float*)mask, (T*)out, m, nv);
+    const int shift = pow2_shift(nv, kThreads);
+    tall_pair_kernel<T, V, AdvanceOp, kAdvanceRows>
+        <<<tall_grid(m, nv, shift, kAdvanceRows), kThreads, 0, s>>>(
+            (const V*)h, (const V*)q, (const float*)mask, (V*)out, m, nv, shift);
   } else {
-    bank_advance_kernel<T><<<row_tiles(m, n), kThreads, 0, s>>>(
-        (const T*)h, (const T*)q, (const float*)mask, (T*)out, m, n);
+    const int shift = pow2_shift(n, kThreads);
+    tall_pair_kernel<T, T, AdvanceOp, kAdvanceRows>
+        <<<tall_grid(m, n, shift, kAdvanceRows), kThreads, 0, s>>>(
+            (const T*)h, (const T*)q, (const float*)mask, (T*)out, m, n, shift);
   }
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,24 @@
 // than one a thread. Its max keeps a NaN (maxval), so it equals torch.amax
 // and B5's abs-max on the same pending, NaN rows included (which NaN
 // payload a NaN row returns may differ); |-0.0| is +0, and a row of zeros
-// gives +0. B7b is B6's int8 round trip and EF blend (fused_step.cu)
+// gives +0.
+// B7a has a second design for rows of one chunk (n <= kChunk) on many
+// workers (the fed mesh: M = 70,000-10^5 rows of 16), which the wrapper
+// picks by B1's rule (kernels/common.py:sqnorm_path): one launch, no
+// partials. There the two-pass design gives a row of 8 double2s a
+// 256-thread block sized for a 32,768-element span (8 threads load, all
+// 256 walk the guarded rounds and the barrier), then a second launch of M
+// blocks that each fold one partial. The warp design (absmax_seg_rows)
+// gives a row 2^shift lanes of a warp, the power of two >= min(its 16-byte
+// vectors, 32), so every lane issues a 16-byte load (f64, n = 16: 8 lanes
+// a row, 4 rows a warp); a lane keeps kRowItems rows' loads in flight and
+// walks its row with a stride of 2^shift, then each segment folds its
+// lanes with __shfl_xor_sync. Element loads where n is not a multiple of
+// the vector or x is off 16-byte alignment, as in pass 1. Max is exact and
+// order-free, so any partition gives the two-pass design's bits (which NaN
+// payload a NaN row returns aside). The body holds a few registers at any
+// n <= kChunk (kRowItems values and maxes), so it needs no item builds.
+// B7b is B6's int8 round trip and EF blend (fused_step.cu)
 // without the bank advance, tiled per worker row: a thread loads kRowItems
 // elements of pending and err before it computes, so several loads are in
 // flight per thread. It uses the same intrinsics in the same order and a
@@ -140,6 +157,49 @@ absmax_finish(const T* __restrict__ part, T* __restrict__ out, int64_t nspans) {
   if (threadIdx.x == 0) out[blockIdx.x] = am;
 }
 
+// The warp design: rows of ncols items E (elements, or 16-byte vectors of
+// them) on 2^shift lanes each, kThreads >> shift rows a sweep of a block,
+// kRowItems sweeps a block; grid x walks the blocks' row tiles.
+inline unsigned seg_row_blocks(int64_t m, int shift) {
+  const int64_t tile = (int64_t)(kThreads >> shift) * kRowItems;
+  const int64_t b = (m + tile - 1) / tile;
+  return (unsigned)(b < kMaxGridX ? b : kMaxGridX);
+}
+
+template <typename T, typename E>
+__global__ void __launch_bounds__(kThreads)
+absmax_seg_rows(const E* __restrict__ x, T* __restrict__ out, int64_t m, int64_t ncols,
+                int shift) {
+  const int seg = 1 << shift;
+  const int sub = threadIdx.x & (seg - 1);         // the lane's place in its row
+  const int64_t sweep = kThreads >> shift;         // rows a sweep of the block covers
+  const int64_t tile = sweep * kRowItems;          // rows a block covers
+  const int64_t r = threadIdx.x >> shift;
+  // the walk is uniform over the block, so every lane reaches the shuffles
+  for (int64_t b0 = (int64_t)blockIdx.x * tile; b0 < m; b0 += (int64_t)gridDim.x * tile) {
+    T am[kRowItems];
+#pragma unroll
+    for (int k = 0; k < kRowItems; ++k) am[k] = T(0);
+    for (int64_t j = sub; j < ncols; j += seg) {
+      E v[kRowItems];
+#pragma unroll
+      for (int k = 0; k < kRowItems; ++k) {
+        const int64_t w = b0 + r + k * sweep;
+        v[k] = w < m ? x[w * ncols + j] : E{};
+      }
+#pragma unroll
+      for (int k = 0; k < kRowItems; ++k) am[k] = fold_abs(am[k], v[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kRowItems; ++k) {
+      for (int off = seg >> 1; off > 0; off >>= 1)
+        am[k] = maxval(am[k], __shfl_xor_sync(0xffffffffu, am[k], off));
+      const int64_t w = b0 + r + k * sweep;
+      if (sub == 0 && w < m) out[w] = am[k];
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 quantize_ef_kernel(const T* __restrict__ p, const T* __restrict__ e,
@@ -192,6 +252,24 @@ static int launch_absmax(const void* x, void* part, void* out, int64_t m, int64_
 }
 
 template <typename T>
+static int launch_absmax_warp(const void* x, void* out, int64_t m, int64_t n, void* stream) {
+  if (!warp_rows_ok(m, n)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  constexpr int64_t per_vec = 16 / sizeof(T);
+  if (n % per_vec == 0 && aligned16(x)) {
+    using V = typename Vec16<T>::type;
+    const int shift = pow2_shift(n / per_vec, 32);
+    absmax_seg_rows<T, V><<<seg_row_blocks(m, shift), kThreads, 0, s>>>(
+        (const V*)x, (T*)out, m, n / per_vec, shift);
+  } else {
+    const int shift = pow2_shift(n, 32);
+    absmax_seg_rows<T, T><<<seg_row_blocks(m, shift), kThreads, 0, s>>>((const T*)x, (T*)out, m,
+                                                                       n, shift);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 static int launch_quantize_ef(const void* p, const void* e, const void* mask, const void* scale,
                               void* payload, void* new_e, int64_t m, int64_t n, void* stream) {
   if (!row_tiles_ok(m, n)) return (int)cudaErrorInvalidValue;
@@ -215,6 +293,20 @@ int absmax_batched_f64(int device, const void* x, void* part, void* out, int64_t
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
   return launch_absmax<double>(x, part, out, m, n, nchunks, stream);
+}
+
+int absmax_batched_warp_f32(int device, const void* x, void* out, int64_t m, int64_t n,
+                            void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_absmax_warp<float>(x, out, m, n, stream);
+}
+
+int absmax_batched_warp_f64(int device, const void* x, void* out, int64_t m, int64_t n,
+                            void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_absmax_warp<double>(x, out, m, n, stream);
 }
 
 int quantize_ef_batched_f32(int device, const void* p, const void* e, const void* mask,

@@ -213,18 +213,13 @@ inline unsigned warp_row_blocks(int64_t m) { return (unsigned)((m + kWarps - 1) 
 // whether a warp-rows kernel takes its one-item build (warp_row_reduce)
 inline bool warp_rows_one_item(int64_t n) { return n <= kThreads; }
 
-// 16 bytes of one bank dtype, B9's arithmetic on each element of it, and
-// B7a's fold of their magnitudes
+// 16 bytes of one bank dtype, and B7a's fold of their magnitudes
 template <typename T>
 struct Vec16;
 template <>
 struct Vec16<float> {
   using type = float4;
   __device__ __forceinline__ static float4 zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
-  __device__ __forceinline__ static float4 advance(float4 h, float mk, float4 q) {
-    return make_float4(add(h.x, mul(mk, q.x)), add(h.y, mul(mk, q.y)), add(h.z, mul(mk, q.z)),
-                       add(h.w, mul(mk, q.w)));
-  }
   __device__ __forceinline__ static float absmax(float am, float4 v) {
     am = maxval(am, absval(v.x));
     am = maxval(am, absval(v.y));
@@ -236,12 +231,38 @@ template <>
 struct Vec16<double> {
   using type = double2;
   __device__ __forceinline__ static double2 zero() { return make_double2(0.0, 0.0); }
-  __device__ __forceinline__ static double2 advance(double2 h, double mk, double2 q) {
-    return make_double2(add(h.x, mul(mk, q.x)), add(h.y, mul(mk, q.y)));
-  }
   __device__ __forceinline__ static double absmax(double am, double2 v) {
     return maxval(maxval(am, absval(v.x)), absval(v.y));
   }
+};
+
+// One operation of a pass that runs on elements (E = T) or on 16-byte
+// vectors of them (E = Vec16<T>::type): out = op(a, mk, b) on each
+// element, and the fold of |v| into a running abs-max.
+template <typename T, typename Op>
+__device__ __forceinline__ T apply_op(const Op& op, T a, T mk, T b) { return op(a, mk, b); }
+template <typename Op>
+__device__ __forceinline__ float4 apply_op(const Op& op, float4 a, float mk, float4 b) {
+  return make_float4(op(a.x, mk, b.x), op(a.y, mk, b.y), op(a.z, mk, b.z), op(a.w, mk, b.w));
+}
+template <typename Op>
+__device__ __forceinline__ double2 apply_op(const Op& op, double2 a, double mk, double2 b) {
+  return make_double2(op(a.x, mk, b.x), op(a.y, mk, b.y));
+}
+template <typename T>
+__device__ __forceinline__ T fold_abs(T am, T v) { return maxval(am, absval(v)); }
+__device__ __forceinline__ float fold_abs(float am, float4 v) {
+  return Vec16<float>::absmax(am, v);
+}
+__device__ __forceinline__ double fold_abs(double am, double2 v) {
+  return Vec16<double>::absmax(am, v);
+}
+
+// B9's bank advance of one element, the arithmetic mask form
+// ghat + mk * payload (a = ghat, b = payload)
+struct AdvanceOp {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T h, T mk, T q) const { return add(h, mul(mk, q)); }
 };
 
 // Blocks of an elementwise pass: one thread per column, capped so the
@@ -266,10 +287,11 @@ inline dim3 row_tiles(int64_t m, int64_t n) {
   return dim3((unsigned)((n + kRowTile - 1) / kRowTile), worker_blocks(m));
 }
 
-// The tiling of an elementwise pass over a tall bank (B2/B6's pass 1, B10):
-// a block covers 2^shift columns, the power of two >= min(n, kThreads), and
-// kThreads >> shift rows a sweep, kRowItems sweeps, so a warp reads whole
-// rows of a narrow bank and no thread divides by n to find its worker.
+// The tiling of an elementwise pass over a tall bank (B2/B6's pass 1, B10,
+// B9): a block covers 2^shift columns, the power of two >= min(n,
+// kThreads), and kThreads >> shift rows a sweep, `rows` sweeps (kRowItems,
+// or B9's two), so a warp reads whole rows of a narrow bank and no thread
+// divides by n to find its worker.
 // The least shift with 2^shift >= min(n, cap), cap a power of two:
 inline int pow2_shift(int64_t n, int cap) {
   int s = 0;
@@ -281,8 +303,8 @@ inline int pow2_shift(int64_t n, int cap) {
 inline bool tall_grid_ok(int64_t m, int64_t n) {
   return m >= 1 && n >= 1 && (n + kThreads - 1) / kThreads <= kMaxGridX;
 }
-inline dim3 tall_grid(int64_t m, int64_t n, int shift) {
-  const int64_t tile = (int64_t)(kThreads >> shift) * kRowItems;
+inline dim3 tall_grid(int64_t m, int64_t n, int shift, int rows = kRowItems) {
+  const int64_t tile = (int64_t)(kThreads >> shift) * rows;
   const int64_t y = (m + tile - 1) / tile;
   return dim3((unsigned)((n + (1 << shift) - 1) >> shift),
               (unsigned)(y < kMaxGridY ? y : kMaxGridY));

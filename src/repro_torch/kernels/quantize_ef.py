@@ -7,6 +7,10 @@ B7a for the per-worker abs-max, derives the scales with
 ``core.quantize.int8_scale``, then B7b for the payload and the next
 error-feedback leaf. CPU tensors run ``ref``'s plain versions; CUDA
 tensors launch the kernels (see ``common`` for the dispatch rule).
+
+B7a, like B1, B8 and B5, has two designs (``common.sqnorm_path``): two
+passes, or one launch for rows of one reduction chunk on many workers;
+both give the same bits.
 """
 from __future__ import annotations
 
@@ -14,28 +18,50 @@ import torch
 
 from . import ref
 from .build import ABSMAX_SPAN, ROW_TILE, launch
-from .censor import _ptr
-from .common import (check_leaves, check_worker_vector, count_launch,
-                     grid_chunks, on_card)
+from .censor import _ptr, warp_design
+from .common import (KERNEL_DTYPES, check_leaves, check_worker_vector,
+                     count_launch, grid_chunks, on_card, sm_count,
+                     sqnorm_path)
 
 
 def absmax_batched(x: torch.Tensor) -> torch.Tensor:
     """(M,) ``max_j |x[m, j]|`` of one (M, ...) leaf, in ``x.dtype``.
 
     A NaN in a worker's row gives NaN, as ``torch.amax`` does; on the
-    same pending it equals B5's abs-max. On the card, one partial per
-    ``ABSMAX_SPAN`` elements of a row, then one fold a worker.
+    same pending it equals B5's abs-max. Of its two designs,
+    ``common.sqnorm_path`` picks one by shape, as for B1, B8 and B5; they
+    give the same bits (which NaN a NaN row returns aside).
     """
     name = "absmax_batched"
-    suffix = check_leaves(name, x)
+    check_leaves(name, x)
     m, n = x.shape[0], x[0].numel()
     if n == 0:
         return torch.zeros((m,), dtype=x.dtype, device=x.device)
     if not on_card(name, x):
         return ref.absmax_batched(x)
+    return absmax_on_card(x, sqnorm_path(m, n, sm_count(x.device.index)))
+
+
+def absmax_on_card(x: torch.Tensor, path: str) -> torch.Tensor:
+    """B7a on a checked CUDA leaf by ``path`` (one of
+    ``censor.SQNORM_PATHS``). ``"two_pass"``: one partial per
+    ``ABSMAX_SPAN`` elements of a row, then one fold a worker.
+    ``"warp"`` (rows of at most ``REDUCE_CHUNK`` elements): one launch, a
+    row on a power-of-two segment of a warp's lanes.
+    :func:`absmax_batched` takes the path ``common.sqnorm_path`` picks;
+    the card's checks call both on one input."""
+    name = "absmax_batched"
+    m, n = x.shape[0], x[0].numel()
+    suffix = KERNEL_DTYPES[x.dtype]
+    warp = warp_design(name, path, n)    # raises before any allocation
+    out = torch.empty((m,), dtype=x.dtype, device=x.device)
+    if warp:
+        count_launch(name)
+        launch("quantize_ef", f"{name}_warp_{suffix}", x.device, _ptr(x),
+               _ptr(out), m, n)
+        return out
     nspans = grid_chunks(name, x.shape, n, ABSMAX_SPAN, m)
     part = torch.empty((m, nspans), dtype=x.dtype, device=x.device)
-    out = torch.empty((m,), dtype=x.dtype, device=x.device)
     count_launch(name)
     launch("quantize_ef", f"{name}_{suffix}", x.device, _ptr(x), _ptr(part),
            _ptr(out), m, n, nspans)

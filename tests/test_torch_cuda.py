@@ -825,6 +825,13 @@ def _tall_salted(m, n, dtype, device):
     return g, h, e, keep
 
 
+def _tall_masks(m, device):
+    return {"ones": torch.ones(m, device=device),
+            "zeros": torch.zeros(m, device=device),
+            "alternating": torch.tensor([float(i % 2 == 0)
+                                         for i in range(m)], device=device)}
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 @pytest.mark.parametrize("m,n", TALL_SHAPES)
 def test_select_pack_on_tall_banks(card, m, n, dtype):
@@ -833,11 +840,7 @@ def test_select_pack_on_tall_banks(card, m, n, dtype):
     the M=1 row calls of _sample_workers against the batched call."""
     m = _tall_m(m, card)
     g, _, e, keep = _tall_salted(m, n, dtype, card)
-    masks = {"ones": torch.ones(m, device=card),
-             "zeros": torch.zeros(m, device=card),
-             "alternating": torch.tensor([float(i % 2 == 0)
-                                          for i in range(m)], device=card)}
-    for name, mask in masks.items():
+    for name, mask in _tall_masks(m, card).items():
         common.reset_launches()
         out = topk_pack.select_pack_ef_batched(g, e, keep, mask)
         assert _launched() == {"select_pack_ef_batched": 1}
@@ -941,3 +944,71 @@ def test_int8_stats_on_both_designs(card, m, n, dtype):
                 g[w:w + 1], h[w:w + 1], e[w:w + 1], design)
             assert _same_or_nan(s1, sq[w:w + 1]) \
                 and _same_or_nan(a1, am[w:w + 1]), (design, w)
+
+
+# (M, n) of B7a and B9 on tall banks: past common.sqnorm_path's worker
+# threshold ("t+1", resolved on the card), past grid y's 65535 blocks and
+# the fed-mesh frontier; n in {1, 16, 33, 36, 2048} (33: element loads
+# past the first row; 2048: a row of one full reduction chunk). Each on an
+# aligned leaf and on a view one element off alignment.
+TALL_B7A_B9 = [(m, n) for m in ("t+1", 70000, 100000)
+               for n in (1, 16, 33, 36, 2048)]
+
+
+def _offset_view(x, offset):
+    """A copy of ``x`` in a view ``offset`` elements into its storage."""
+    flat = torch.empty(offset + x.numel(), dtype=x.dtype, device=x.device)
+    out = flat[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m,n", TALL_B7A_B9)
+def test_absmax_on_both_designs(card, m, n, offset, dtype):
+    """B7a by the design its wrapper picks against its plain version (NaN
+    where NaN, +0 for a row of -0.0), one launch a call, a repeat launch
+    bitwise, equal to B5's abs-max of the same pending; each design bit
+    for bit (NaN where NaN) against the first and against its M=1 calls of
+    _sample_workers."""
+    m = _tall_m(m, card)
+    g, h, e, _ = _tall_salted(m, n, dtype, card)
+    g[1], h[1], e[1] = -0.0, 0.0, -0.0          # pending all -0.0
+    pend = (g - h) + e
+    x = _offset_view(pend, offset)
+    common.reset_launches()
+    am = quantize_ef.absmax_batched(x)
+    assert _launched() == {"absmax_batched": 1}
+    assert _same_or_nan(am, ref.absmax_batched(pend))
+    assert _bits(am[1]).item() == 0
+    assert _same(quantize_ef.absmax_batched(x), am)
+    assert _same_or_nan(am, fused_step.int8_stats_batched(g, h, e)[1])
+    for design in censor.SQNORM_PATHS:
+        assert _same_or_nan(quantize_ef.absmax_on_card(x, design), am), design
+        for w in _sample_workers(m):
+            one = quantize_ef.absmax_on_card(x[w:w + 1], design)
+            assert _same_or_nan(one, am[w:w + 1]), (design, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m,n", TALL_B7A_B9)
+def test_bank_advance_on_tall_banks(card, m, n, offset, dtype):
+    """B9 (one design, B10's tiling) under all three masks bit for bit
+    against its plain version (NaN where NaN, -0.0 included), one launch a
+    call, a repeat launch bitwise, and the M=1 calls of _sample_workers
+    against the batched call."""
+    m = _tall_m(m, card)
+    g, h, _, _ = _tall_salted(m, n, dtype, card)
+    hh, qq = _offset_view(h, offset), _offset_view(g, offset)
+    for name, mask in _tall_masks(m, card).items():
+        common.reset_launches()
+        out = censor.bank_advance(hh, qq, mask)
+        assert _launched() == {"bank_advance": 1}
+        assert _same_or_nan(out, ref.bank_advance(h, g, mask)), name
+        assert _same(censor.bank_advance(hh, qq, mask), out), name
+        for w in _sample_workers(m):
+            r = slice(w, w + 1)
+            assert _same_or_nan(censor.bank_advance(hh[r], qq[r], mask[r]),
+                                out[r]), (name, w)

@@ -1,16 +1,19 @@
-"""B10, B1, B8 and B5 on tall worker banks (``kernels/csrc/topk_pack.cu``,
-``kernels/csrc/censor.cu``, ``kernels/csrc/fused_step.cu``), on the CPU.
+"""B10, B9, B1, B8, B5 and B7a on tall worker banks
+(``kernels/csrc/topk_pack.cu``, ``kernels/csrc/censor.cu``,
+``kernels/csrc/fused_step.cu``, ``kernels/csrc/quantize_ef.cu``), on the
+CPU.
 
-B10 (top-k select/pack + EF) has one design, tiled over workers and
-columns like B2's tall pass 1, so it needs no picker. B1 (the eq.-(8)
-censor norm), B8 (the norm of a pending delta) and B5 (the int8 step's
-norm and abs-max) have two, which their wrappers pick by shape with one
-rule (``common.sqnorm_path``): a warp a worker, in one launch, for rows of
-one reduction chunk on many workers; elsewhere the two-pass design (a
-block a (chunk, worker), then a block a worker over the partials). The
-kernels run only on the card (``tests/test_torch_cuda.py`` and
-``chip_smoke.py``'s phase tall_paths hold the designs against each other
-there); here:
+B10 (top-k select/pack + EF) and B9 (the bank advance by a payload) have
+one design each, tiled over workers and columns like B2's tall pass 1, so
+they need no picker. B1 (the eq.-(8) censor norm), B8 (the norm of a
+pending delta), B5 (the int8 step's norm and abs-max) and B7a (the staged
+int8 step's abs-max) have two, which their wrappers pick by shape with one
+rule (``common.sqnorm_path``): one launch for rows of one reduction chunk
+on many workers (a warp a worker; B7a a power-of-two segment of a warp's
+lanes a worker); elsewhere the two-pass design (a block a (chunk,
+worker), then a block a worker over the partials). The kernels run only
+on the card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``'s phase
+tall_paths hold the designs against each other there); here:
 
   * the picker at the full-width shape (M = 4, n = 163,597,056), Fig. 11's
     (M = 9, n = 50), the fed-mesh frontier and ladder top (M = 10^5 and
@@ -18,16 +21,17 @@ there); here:
     2048 elements; the threshold moves with the card's SM count; an
     unknown design or a row too wide for the warp design is refused before
     any launch;
-  * the wrappers of B1, B8 and B5 past the dispatch rule (meta tensors,
-    ``launch`` recorded): the launcher of the picked design, bound in
-    ``build.SIGNATURES`` with the arity its C definition has, one count a
-    call;
+  * the wrappers of B1, B8, B5 and B7a past the dispatch rule (meta
+    tensors, ``launch`` recorded): the launcher of the picked design, and
+    B9's one launcher at every picker shape, bound in ``build.SIGNATURES``
+    with the arity its C definition has, one count a call;
   * the plain versions at tall shapes, salted with -0.0, NaN and +-inf, in
     f32 and f64, against the JAX package's oracles (``repro/kernels/ref.py``)
     and Pallas kernels (interpret mode), with ``test_torch_kernels.py``'s
-    tolerances: B10 exact (-0.0 included; NaN where NaN), B1, B8 and B5's
-    sums within rel 1e-5 (both sides accumulate in f32, in other orders;
-    NaN where NaN), B5's abs-max exact (NaN where NaN).
+    tolerances: B10, B9 and B7a exact (-0.0 included, +0 for a row of
+    -0.0; NaN where NaN), B1, B8 and B5's sums within rel 1e-5 (both sides
+    accumulate in f32, in other orders; NaN where NaN), B5's abs-max exact
+    (NaN where NaN).
 """
 import re
 
@@ -42,10 +46,11 @@ import torch  # noqa: E402
 
 from repro.kernels import censor as j_censor  # noqa: E402
 from repro.kernels import fused_step as j_fused  # noqa: E402
+from repro.kernels import quantize_ef as j_quant  # noqa: E402
 from repro.kernels import ref as j_ref  # noqa: E402
 from repro.kernels import topk_pack as j_topk  # noqa: E402
 from repro_torch.kernels import (build, censor, common,  # noqa: E402
-                                 fused_step, topk_pack)
+                                 fused_step, quantize_ef, topk_pack)
 from repro_torch.kernels.build import REDUCE_CHUNK  # noqa: E402
 
 H100_SMS = 132
@@ -85,7 +90,9 @@ def _b5(x):
 # wrapper: (call on one (M, n) operand, library, C launcher base name)
 WRAPPERS = {"B1": (_b1, "censor", "censor_delta_sqnorm_batched"),
             "B8": (censor.sqnorm_batched, "censor", "sqnorm_batched"),
-            "B5": (_b5, "fused_step", "int8_stats_batched")}
+            "B5": (_b5, "fused_step", "int8_stats_batched"),
+            "B7a": (quantize_ef.absmax_batched, "quantize_ef",
+                    "absmax_batched")}
 
 
 @pytest.fixture
@@ -93,7 +100,7 @@ def on_h100(monkeypatch):
     """The wrappers past the dispatch rule as on an H100: meta tensors
     count as on the card, and each ``launch`` is recorded, not run."""
     calls = []
-    for mod in (censor, fused_step):
+    for mod in (censor, fused_step, quantize_ef):
         monkeypatch.setattr(mod, "on_card", lambda name, *ts: True)
         monkeypatch.setattr(mod, "sm_count", lambda index: H100_SMS)
         monkeypatch.setattr(mod, "launch", lambda lib, fn, dev, *args:
@@ -125,6 +132,23 @@ def test_wrapper_launches_the_picked_design(on_h100, kernel, m, n, path,
     argtypes = build.SIGNATURES[lib][fn]
     assert len(argtypes) == on_h100[0][2] + 2 == _c_arity(lib, fn)
     assert common.LAUNCHES[base] == 1
+    assert sum(common.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n,_path", PICKER_CASES)
+def test_bank_advance_launches_its_one_design(on_h100, m, n, _path, dtype):
+    """B9 has one design (B10's tiling) at every picker shape: one
+    launcher, bound with its C arity, one count a call."""
+    x = torch.empty((m, n), dtype=dtype, device="meta")
+    mask = torch.empty((m,), dtype=torch.float32, device="meta")
+    censor.bank_advance(x, x, mask)
+    fn = f"bank_advance_{common.KERNEL_DTYPES[dtype]}"
+    assert len(on_h100) == 1 and on_h100[0][:2] == ("censor", fn)
+    argtypes = build.SIGNATURES["censor"][fn]
+    assert len(argtypes) == on_h100[0][2] + 2 == _c_arity("censor", fn)
+    assert common.LAUNCHES["bank_advance"] == 1
     assert sum(common.LAUNCHES.values()) == 1
 
 
@@ -165,6 +189,16 @@ def test_b8_b5_refuse_an_unknown_or_too_wide_design(kernel):
         run(g, "one_pass")
     with pytest.raises(ValueError, match="at most 2048 elements"):
         run(g, "warp")
+    assert sum(common.LAUNCHES.values()) == 0
+
+
+def test_b7a_refuses_an_unknown_or_too_wide_design():
+    common.reset_launches()
+    x = torch.zeros((T + 1, REDUCE_CHUNK + 1), dtype=torch.float64)
+    with pytest.raises(ValueError, match="path must be one of"):
+        quantize_ef.absmax_on_card(x, "one_pass")
+    with pytest.raises(ValueError, match="at most 2048 elements"):
+        quantize_ef.absmax_on_card(x, "warp")
     assert sum(common.LAUNCHES.values()) == 0
 
 
@@ -281,3 +315,36 @@ def test_tall_int8_stats_against_jax(m, n, dtype):
     if n >= 3:
         assert np.isnan(am[m // 2]) and np.isinf(am[m - 1])
         assert np.isinf(am[0])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", TALL)
+def test_tall_absmax_against_jax(m, n, dtype):
+    g, h, e, *_ = _salted(m, n, dtype)
+    x = (g - h) + e
+    x[1] = -0.0                             # a row of -0.0 gives +0
+    got = quantize_ef.absmax_batched(torch.from_numpy(x)).numpy()
+    assert got.dtype == dtype and got.shape == (m,)
+    for want in (j_quant.absmax_batched(jnp.asarray(x), interpret=True),
+                 j_ref.absmax_batched(jnp.asarray(x))):
+        _same_or_nan(got, np.asarray(want))
+    assert got[1] == 0 and not np.signbit(got[1])
+    if n >= 3:
+        assert np.isnan(got[m // 2]) and np.isinf(got[m - 1])
+        assert np.isinf(got[0])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", TALL)
+def test_tall_bank_advance_against_jax(m, n, dtype):
+    g, h, _, _, mask = _salted(m, n, dtype)
+    got = censor.bank_advance(*(torch.from_numpy(a)
+                                for a in (h, g, mask))).numpy()
+    args = [jnp.asarray(a) for a in (h, g, mask)]
+    for want in (j_censor.bank_advance(*args, interpret=True),
+                 j_ref.bank_advance(*args)):
+        _same_or_nan(got, np.asarray(want))
+    # column 0: -0.0 + mask * -0.0 stays -0.0 on every row
+    assert np.signbit(got[:, 0]).all()
