@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""B14, B9, B7a, B2, B6 and B10 of two source trees, side by side on one
-card, and the bits of their sums B1, B5 and B8.
+"""B14, B9, B4, B7a, B7b, B2, B6 and B10 of two source trees, side by side
+on one card, and the bits of their sums B1, B5 and B8.
 
     python3 benchmarks_torch/kernel_ab.py --other <dir> [<dir> ...]
-        [--only B14 B9 B7a sums fused B10] [--ablate] [--reps 10]
+        [--only B14 B9 B4 B7a B7b sums fused B10] [--ablate] [--reps 10]
 
 Each ``<dir>`` holds another checkout of this repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -21,6 +21,12 @@ causal, the model's strided views) against
 ``scaled_dot_product_attention``, B9 at M = 4, n = 163,597,056 f32 and
 at the fed mesh's M = 70,000 and 100,000, n = 16 (f64) against
 ``addcmul``, B7a at the same shapes against ``linalg.vector_norm(inf)``.
+``B4`` and ``B7b`` check each tree's B4 (``censor_bank_advance``) and B7b
+(``quantize_ef_batched``, with the scales of the plain abs-max) against
+their plain versions bit for bit (NaN where NaN; -0.0, NaN and +-inf
+salted) on aligned leaves and views one element off alignment, at M <= 9
+and on tall banks, and stop if this tree's differ; then time both at B9's
+shapes, B4 beside ``lerp`` (B7b has no library call).
 Each tree runs the B7a launcher it has: this tree the design its wrapper
 picks (``kernels/common.py:sqnorm_path``), a tree without the warp
 design its two passes. ``sums`` checks that B1, B5 and B8 of this
@@ -90,7 +96,8 @@ from repro_torch.kernels import build, common, flash_attention, ref  # noqa: E40
 OUT = ROOT / "build" / "kernel_ab"
 # the sources each choice of --only compiles
 SOURCES = {"B14": ("flash_attention",), "B9": ("censor",),
-           "B7a": ("quantize_ef",), "sums": ("censor", "fused_step"),
+           "B4": ("censor",), "B7a": ("quantize_ef",),
+           "B7b": ("quantize_ef",), "sums": ("censor", "fused_step"),
            "fused": ("fused_step",), "B10": ("topk_pack",)}
 
 
@@ -274,6 +281,76 @@ def check_bank(trees, dev) -> None:
             if not ok["this"]:
                 raise SystemExit(f"kernel_ab: B9 differs at M={m} n={n} "
                                  f"off={off} {dtype}")
+
+
+def censor_adv(libs, g, h, mask):
+    """B4 of one tree: ``h + mask * (g - h)``."""
+    out = torch.empty_like(h)
+    run(libs["censor"], f"censor_bank_advance_{_suffix(h)}", h.device,
+        g.data_ptr(), h.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        h.shape[0], h[0].numel())
+    return out
+
+
+def quant(libs, p, e, mask, scale):
+    """B7b of one tree: ``(payload, new_err)``."""
+    payload, new_e = torch.empty_like(p), torch.empty_like(p)
+    run(libs["quantize_ef"], f"quantize_ef_batched_{_suffix(p)}", p.device,
+        p.data_ptr(), e.data_ptr(), mask.data_ptr(), scale.data_ptr(),
+        payload.data_ptr(), new_e.data_ptr(), p.shape[0], p[0].numel())
+    return payload, new_e
+
+
+def staged_inputs(m, n, dtype, dev, off=0, gen=None):
+    """g, ghat, err (M, n) views ``off`` elements into their storage,
+    salted with -0.0, NaN and +-inf, pending = (g - ghat) + err, the
+    scales of its plain abs-max and a mask with every third worker not
+    transmitting."""
+    g, h, e = (torch.randn(off + m * n, generator=gen, device=dev,
+                           dtype=dtype)[off:].view(m, n) for _ in range(3))
+    e.mul_(0.01)
+    g[:, ::7] = -0.0
+    h[:, ::11] = -0.0
+    if n > 3:
+        g[0, 2] = float("nan")
+        h[-1, n - 1] = float("inf")
+        g[m // 2, 1] = float("-inf")
+    pend = torch.empty(off + m * n, device=dev, dtype=dtype)[off:].view(m, n)
+    pend.copy_((g - h) + e)
+    mask = torch.tensor([float(i % 3 != 1) for i in range(m)], device=dev)
+    return g, h, e, pend, int8_scale(ref.absmax_batched(pend)), mask
+
+
+def check_staged(kernel, trees, dev) -> None:
+    """Each tree's B4 or B7b against its plain version, bit for bit (NaN
+    where NaN), on aligned leaves and views one element off alignment, at
+    M <= 9 and on tall banks, f32 and f64."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for m, n, dtype in ((4, 127, torch.float32), (4, 4096, torch.float32),
+                        (4, 2 ** 20 + 17, torch.float32),
+                        (9, 2 ** 20, torch.float32), (4, 4096, torch.float64),
+                        (1057, 16, torch.float64), (70000, 33, torch.float32),
+                        (70000, 2049, torch.float64),
+                        *((m, n, torch.float64) for m, n in TALL_AB)):
+        for off in (0, 1):
+            g, h, e, pend, scale, mask = staged_inputs(m, n, dtype, dev, off,
+                                                       gen)
+            if kernel == "B4":
+                want = (ref.censor_bank_advance(g, h, mask),)
+                ok = {tag: same_or_nan(censor_adv(libs, g, h, mask), want[0])
+                      for tag, libs in trees.items()}
+            else:
+                want = ref.quantize_ef_batched(pend, e, mask, scale)
+                ok = {tag: all(same_or_nan(a, b) for a, b in zip(
+                    quant(libs, pend, e, mask, scale), want))
+                      for tag, libs in trees.items()}
+            print(json.dumps({"check": kernel, "m": m, "n": n, "off": off,
+                              "dtype": str(dtype), "ok": ok}), flush=True)
+            if not ok["this"]:
+                raise SystemExit(f"kernel_ab: {kernel} differs at M={m} "
+                                 f"n={n} off={off} {dtype}")
+            del g, h, e, pend, scale, mask, want
+            torch.cuda.empty_cache()
 
 
 def absmax_span(tree: Path) -> int:
@@ -607,6 +684,28 @@ def main() -> None:
                        bank(libs, hh, qq, mask))
                  for tag, libs in having("censor").items()},
                 lambda hh=hh, qq=qq, mw=mw: torch.addcmul(hh, mw, qq))
+    if "B4" in args.only:
+        check_staged("B4", having("censor"), dev)
+    if "B7b" in args.only:
+        check_staged("B7b", having("quantize_ef"), dev)
+    staged = {"B4", "B7b"} & set(args.only)
+    for m, n, dtype in ((4, FULL_D, torch.float32),
+                        *((m, n, torch.float64) for m, n in TALL_AB)
+                        ) if staged else ():
+        g, h, e, pend, scale, mask = staged_inputs(m, n, dtype, dev, 0, gen)
+        shape = f"M={m} n={n} {str(dtype)[6:]}"
+        if "B4" in args.only:
+            mw = mask.to(dtype)[:, None]
+            work[f"B4 {shape}"] = (
+                {tag: (lambda libs=libs, g=g, h=h, mask=mask:
+                       censor_adv(libs, g, h, mask))
+                 for tag, libs in having("censor").items()},
+                lambda g=g, h=h, mw=mw: torch.lerp(h, g, mw))
+        if "B7b" in args.only:
+            work[f"B7b {shape}"] = (
+                {tag: (lambda libs=libs, pend=pend, e=e, mask=mask,
+                       scale=scale: quant(libs, pend, e, mask, scale))
+                 for tag, libs in having("quantize_ef").items()}, None)
     if "B7a" in args.only:
         check_absmax(having("quantize_ef"), spans, dev)
         for m, n, dtype in ((4, FULL_D, torch.float32),

@@ -837,6 +837,68 @@ def phase_bank_advance_paths(device,
           "rule": "bitwise, -0.0, NaN and inf included"})
 
 
+def phase_staged_advance_paths(device,
+                               dtypes=(torch.float32, torch.float64)) -> None:
+    """B4's and B7b's 16-byte and element-wise paths on the
+    BANK_PATH_CASES (both operands at the case's offset, and on the
+    offset-1 cases also the second operand alone off alignment), inputs
+    salted with -0.0, NaN and +-inf, all three masks: bit for bit against
+    their plain versions (NaN where NaN), a repeat launch and the M=1
+    calls of sample_workers. B7b takes the scales of the plain abs-max
+    (1 for a NaN row, inf for an inf row)."""
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import censor, quantize_ef, ref
+    cases = 0
+    for dtype in dtypes:
+        for m, n, off in BANK_PATH_CASES:
+            gen = torch.Generator(device=device).manual_seed(
+                m * 11 + n % 1013 + off)
+            g, h, e = (_offset_leaf(m, n, 0, dtype, device, gen)
+                       for _ in range(3))
+            e.mul_(0.01)
+            g[:, ::7] = -0.0
+            h[:, ::5] = -0.0
+            g[:, 3::11] = float("nan")
+            h[:, 1::13] = float("inf")
+            g[:, 2::17] = float("-inf")
+            pend = (g - h) + e
+            scale = int8_scale(ref.absmax_batched(pend))
+            for offs in sorted({(off, off), (0, off)}):
+                tag = f"paths {dtype} M={m} n={n} offsets={offs}"
+                gg, hh = (_offset_copy(x, o) for x, o in zip((g, h), offs))
+                pp, ee = (_offset_copy(x, o) for x, o in zip((pend, e), offs))
+                for mname, mask in _masks(m, device).items():
+                    mtag = f"{tag} mask={mname}"
+                    out = censor.censor_bank_advance(gg, hh, mask)
+                    check(same_or_nan(out, ref.censor_bank_advance(g, h, mask)),
+                          f"B4 {mtag}")
+                    check(same_bits(censor.censor_bank_advance(gg, hh, mask), out),
+                          f"B4 {mtag}: repeat")
+                    pay, err = quantize_ef.quantize_ef_batched(pp, ee, mask, scale)
+                    pay_p, err_p = ref.quantize_ef_batched(pend, e, mask, scale)
+                    check(same_or_nan(pay, pay_p) and same_or_nan(err, err_p),
+                          f"B7b {mtag}")
+                    again = quantize_ef.quantize_ef_batched(pp, ee, mask, scale)
+                    check(same_bits(again[0], pay) and same_bits(again[1], err),
+                          f"B7b {mtag}: repeat")
+                    for w in sample_workers(m):
+                        r = slice(w, w + 1)
+                        check(same_or_nan(censor.censor_bank_advance(
+                            gg[r], hh[r], mask[r]), out[r]), f"B4 {mtag}: M=1 {w}")
+                        one = quantize_ef.quantize_ef_batched(pp[r], ee[r], mask[r],
+                                                              scale[r])
+                        check(same_or_nan(one[0], pay[r])
+                              and same_or_nan(one[1], err[r]),
+                              f"B7b {mtag}: M=1 {w}")
+                    cases += 1
+                del gg, hh, pp, ee
+            del g, h, e, pend
+    emit({"phase": "staged_advance_paths", "cases": cases,
+          "kernels": ["censor_bank_advance", "quantize_ef_batched"],
+          "rule": "bitwise, NaN where the plain version gives NaN; -0.0, "
+          "NaN and inf salted; repeat and M=1 rows bitwise"})
+
+
 def phase_absmax_paths(device,
                        dtypes=(torch.float32, torch.float64)) -> None:
     """B7a's 16-byte and element-wise paths on the ABSMAX_PATH_CASES, rows
@@ -1117,6 +1179,55 @@ def _tall_b7a_b9(g, h, e, designs, m, tag) -> None:
         del hh, qq
 
 
+def _tall_b4_b7b(g, h, e, m, tag) -> None:
+    """B4 and B7b on one tall case, under all three masks, with both
+    operands aligned, both a view one element off alignment, and the
+    second alone off it (the 16-byte and the element-wise paths): each
+    against its plain version, B4 against B2's ghat' and B7b's err'
+    against B6's (the scales of the plain abs-max), a repeat launch
+    bitwise, and the M=1 calls of sample_workers; NaN where NaN and
+    bitwise elsewhere (-0.0 included)."""
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import censor, fused_step, quantize_ef, ref
+    pend = (g - h) + e
+    scale = int8_scale(ref.absmax_batched(pend))
+    t = torch.zeros(g.shape[1], dtype=g.dtype, device=g.device)
+    for mname, mask in _masks(m, g.device).items():
+        b2 = fused_step.fused_dense_step(g, h, t, t, mask, 0.1, 0.4)[0]
+        b6 = fused_step.fused_int8_step(g, h, e, t, t, mask, scale, 0.1,
+                                        0.4)[1]
+        b4_p = ref.censor_bank_advance(g, h, mask)
+        pay_p, err_p = ref.quantize_ef_batched(pend, e, mask, scale)
+        for offs in ((0, 0), (1, 1), (0, 1)):
+            otag = f"{tag} offsets={offs} mask={mname}"
+            gg, hh = (_offset_copy(x, o) for x, o in zip((g, h), offs))
+            out = censor.censor_bank_advance(gg, hh, mask)
+            check(same_or_nan(out, b4_p), f"B4 {otag} against the plain version")
+            check(same_or_nan(out, b2), f"B4 {otag} against B2's ghat'")
+            check(same_bits(censor.censor_bank_advance(gg, hh, mask), out),
+                  f"B4 repeat {otag}")
+            for w in sample_workers(m):
+                r = slice(w, w + 1)
+                check(same_or_nan(censor.censor_bank_advance(gg[r], hh[r], mask[r]),
+                                  out[r]), f"B4 M=1 slice {w} {otag}")
+            del gg, hh, out
+            pp, ee = (_offset_copy(x, o) for x, o in zip((pend, e), offs))
+            pay, err = quantize_ef.quantize_ef_batched(pp, ee, mask, scale)
+            check(same_or_nan(pay, pay_p) and same_or_nan(err, err_p),
+                  f"B7b {otag} against the plain version")
+            check(same_or_nan(err, b6), f"B7b {otag}: err' against B6's")
+            again = quantize_ef.quantize_ef_batched(pp, ee, mask, scale)
+            check(same_bits(again[0], pay) and same_bits(again[1], err),
+                  f"B7b repeat {otag}")
+            for w in sample_workers(m):
+                r = slice(w, w + 1)
+                one = quantize_ef.quantize_ef_batched(pp[r], ee[r], mask[r], scale[r])
+                check(same_or_nan(one[0], pay[r]) and same_or_nan(one[1], err[r]),
+                      f"B7b M=1 slice {w} {otag}")
+            del pp, ee, pay, err, again
+        del b2, b6, b4_p, pay_p, err_p
+
+
 def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
     """B10, B1, B8, B5, B7a and B9 on the tall_path_cases, inputs salted
     with -0.0 (column 0 all -0.0; a kept and a dropped -0.0 in every 7th
@@ -1125,7 +1236,8 @@ def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
     row calls of sample_workers against the batched call under the
     all-ones mask. B1, B8 and B5 on both designs where both run (n <=
     2048), as _tall_sums says; B7a on both designs there and B9 on its
-    one, on aligned and misaligned views, as _tall_b7a_b9 says."""
+    one, on aligned and misaligned views, as _tall_b7a_b9 says; B4 and B7b
+    on their one design, as _tall_b4_b7b says."""
     from repro_torch.kernels import censor, common, ref, topk_pack
     from repro_torch.kernels.build import REDUCE_CHUNK
     sms = common.sm_count(device.index or 0)
@@ -1139,6 +1251,7 @@ def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
             designs = censor.SQNORM_PATHS if n <= REDUCE_CHUNK else ("two_pass",)
             _tall_sums(g, h, e, designs, m, tag)
             _tall_b7a_b9(g, h, e, designs, m, tag)
+            _tall_b4_b7b(g, h, e, m, tag)
             sum_cases += 1
             torch.cuda.empty_cache()
             for mname, mask in _masks(m, device).items():
@@ -1166,15 +1279,17 @@ def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
           "sqnorm_path_by_shape": paths,
           "kernels": ["select_pack_ef_batched", "censor_delta_sqnorm_batched",
                       "sqnorm_batched", "int8_stats_batched",
-                      "absmax_batched", "bank_advance"],
-          "rule": "B10 and B9 against the plain version NaN where it "
+                      "absmax_batched", "bank_advance",
+                      "censor_bank_advance", "quantize_ef_batched"],
+          "rule": "B10, B9, B4 and B7b against the plain version NaN where it "
           "gives NaN, the same bits elsewhere (-0.0 included), repeat and "
           "M=1 rows bitwise; the two designs of B1, B8, B5 and B7a against "
           "each other and their M=1 calls, B1 against B8 on g - ghat, B5 "
           "against B8 and B7a on pending, NaN where NaN and bitwise "
           "elsewhere; each against its plain version within SQNORM_RTOL "
-          "(B5's and B7a's abs-max exact), NaN where NaN; B7a and B9 also "
-          "on views one element off alignment"})
+          "(B5's and B7a's abs-max exact), NaN where NaN; B7a, B9, B4 and "
+          "B7b also on views one element off alignment; B4 equal to B2's "
+          "ghat', B7b's err' to B6's"})
 
 
 # ----------------------------------------------------------- phase 3b
@@ -2788,7 +2903,8 @@ def fed_mesh_timing(device, m=MANY_M, n=MANY_D) -> dict:
 def tall_worker_timing(device, randn, alternating, n=MANY_D) -> dict:
     """B4, B5, B7a, B7b, B8 and B9 at M in TALL_MS, n = 16, f64: each one's
     time (B5, B8 and B7a on both designs, the one ``common.sqnorm_path``
-    picks named; B9 on its one design, B10's tall tiling), its plain
+    picks named; B9, B4 and B7b on their one design, B10's tall tiling),
+    its plain
     version's, its library call's where one computes the same function
     (phase_timing's), and its byte bound. Returns
     ``{kernel: {"M=...": {...}}}``."""
@@ -2816,7 +2932,7 @@ def tall_worker_timing(device, randn, alternating, n=MANY_D) -> dict:
                 lambda: torch.linalg.vecdot(pend, pend),
                 mm * n * el + 4 * mm),
             "censor_bank_advance": (
-                {"row_tiles": lambda: censor.censor_bank_advance(g, h, mask)},
+                {"tall": lambda: censor.censor_bank_advance(g, h, mask)},
                 lambda: ref.censor_bank_advance(g, h, mask),
                 lambda: torch.lerp(h, g, mw), 3 * mm * n * el + 4 * mm),
             "bank_advance": (
@@ -2830,7 +2946,7 @@ def tall_worker_timing(device, randn, alternating, n=MANY_D) -> dict:
                 lambda: torch.linalg.vector_norm(pend, ord=math.inf, dim=1),
                 mm * n * el + el * mm),
             "quantize_ef_batched": (
-                {"row_tiles": lambda: quantize_ef.quantize_ef_batched(
+                {"tall": lambda: quantize_ef.quantize_ef_batched(
                     pend, e, mask, scale)},
                 lambda: ref.quantize_ef_batched(pend, e, mask, scale), None,
                 4 * mm * n * el + 8 * mm),
@@ -3055,6 +3171,7 @@ def main() -> None:
                           phase="kernels_large_m")
     max_err = {k: max(v, large[k]) for k, v in max_err.items()}
     phase_bank_advance_paths(dev)
+    phase_staged_advance_paths(dev)
     phase_absmax_paths(dev)
     phase_fused_fold_paths(dev)
     phase_tall_paths(dev)

@@ -34,8 +34,8 @@ REDUCE_CHUNK = 2048
 #: elements of one worker row behind one B7a partial (kAbsmaxSpan in
 #: csrc/quantize_ef.cu: 16 chunks); its launcher rejects another count
 ABSMAX_SPAN = 16 * REDUCE_CHUNK
-#: elements of one worker row that one block of a row-tiled pass (B4, B7b,
-#: B12b) covers (kRowTile in csrc/reduce.cuh)
+#: elements of one row that one block of a row-tiled pass (B12b) covers
+#: (kRowTile in csrc/reduce.cuh)
 ROW_TILE = 1024
 #: blocks one launch holds on grid x (kMaxGridX in csrc/reduce.cuh); the
 #: per-worker kernels put the worker on grid y and walk any M with a

@@ -161,6 +161,8 @@ def censor_bank_advance(g: torch.Tensor, ghat: torch.Tensor,
 
     The arithmetic-mask form, not a select (``h + (g - h) != g`` in
     floating point): it equals B2's ``new_ghat`` for the same operands.
+    On the card, B9's one design for every shape (B10's tiling over
+    workers and columns), with B4's element operation.
     """
     name = "censor_bank_advance"
     suffix = check_leaves(name, g, ghat)
@@ -170,7 +172,7 @@ def censor_bank_advance(g: torch.Tensor, ghat: torch.Tensor,
         return ghat
     if not on_card(name, g, ghat, mask):
         return ref.censor_bank_advance(g, ghat, mask)
-    grid_chunks(name, ghat.shape, n, ROW_TILE)
+    grid_chunks(name, ghat.shape, n, BLOCK_THREADS)
     out = torch.empty_like(ghat)
     count_launch(name)
     launch("censor", f"{name}_{suffix}", ghat.device, _ptr(g), _ptr(ghat),

@@ -98,9 +98,10 @@ def check_worker_vector(name: str, what: str, v: torch.Tensor,
 def grid_chunks(name: str, shape, n: int, span: int, m: int = 1) -> int:
     """Blocks of ``span`` elements in a worker row of ``n``: grid x of a
     reduction's pass 1 (whose pass 2 runs one block per worker, ``m``, on
-    grid x too) or of a row-tiled pass. Raises, naming the limit and the
-    shape, where one launch cannot hold them (the launcher would refuse
-    with a bare ``invalid argument``)."""
+    grid x too), of a row-tiled pass, or (``BLOCK_THREADS``) the most of
+    a tall pass (B4, B7b, B9, at most a column a thread). Raises, naming
+    the limit and the shape, where one launch cannot hold them (the
+    launcher would refuse with a bare ``invalid argument``)."""
     chunks = -(-n // span)
     if max(chunks, m) > GRID_X_MAX:
         raise ValueError(

@@ -34,11 +34,9 @@
 // worker's chunks depend only on n, the M=1 call on one worker equals that
 // worker's slice of a batched call. B8 squares (float)x where B1 squares
 // (float)(g - ghat) with the same chunks and tree, so B8 on g - ghat equals
-// B1 on (g, ghat) bit for bit. B4 tiles each worker row: a thread loads
-// kRowItems elements of both operands before it computes any, so several
-// loads are in flight per thread (see PERF.md). B1, B8 and B4 put the
-// worker on grid y and walk any M with a stride of gridDim.y (reduce.cuh),
-// so a worker's output does not depend on M.
+// B1 on (g, ghat) bit for bit. B1 and B8 put the worker on grid y and
+// walk any M with a stride of gridDim.y (reduce.cuh), so a worker's output
+// does not depend on M.
 // B1 and B8 have a second design for rows of one chunk (n <= kChunk) on
 // many workers (the fed mesh: M = 10^5 rows of 16), which the wrapper
 // picks by shape (kernels/common.py:sqnorm_path): a warp a worker, one
@@ -51,17 +49,18 @@
 // B4 advances in the arithmetic mask form of B2, so its output equals B2's
 // ghat' bit for bit (a select would not: h + (g - h) != g in floating
 // point). B9 computes ghat + (T)mask * payload with the same rounding
-// intrinsics, on one design for every shape: B10's tall tiling
-// (tall_pair_kernel below). A block of it holds 32 of the fed mesh's rows
-// of 8 double2s a sweep (f64, n = 16), where a block a row would leave
-// 248 of its 256 threads idle, and at full width it covers 256 columns
-// of 2 rows. Where n is a multiple of the elements in 16 bytes and ghat,
-// payload and out are 16-byte aligned (every row then is), it tiles the
-// row's float4s (f32) or double2s (f64): 16-byte loads and stores, two
-// rows of each operand in flight a thread. Otherwise (an odd n misaligns
-// every row after the first, or a view starts off alignment) it tiles
-// elements. The launcher decides. The tile body is generic over the
-// element operation, so B4 can take it.
+// intrinsics. Both run one design for every shape: B10's tall tiling
+// (tall_pair_kernel below, one body, the element operation a template
+// argument: reduce.cuh's AdvanceOp for B9, CensorAdvanceOp for B4). A
+// block of it holds 32 of the fed mesh's rows of 8 double2s a sweep (f64,
+// n = 16), where a block a row would leave 248 of its 256 threads idle,
+// and at full width it covers 256 columns of 2 rows. Where n is a
+// multiple of the elements in 16 bytes and ghat, the other operand and
+// out are 16-byte aligned (every row then is), it tiles the row's float4s
+// (f32) or double2s (f64): 16-byte loads and stores, two rows of each
+// operand in flight a thread. Otherwise (an odd n misaligns every row
+// after the first, or a view starts off alignment) it tiles elements. The
+// launcher decides. Its grid walks any M (reduce.cuh's tall_grid).
 //
 // B12a and B12b are the single-tensor entry points of one (g, ghat) pair
 // whose dtypes may differ (f32, f64 or bf16 each). B12a casts both to f32
@@ -70,8 +69,8 @@
 // chunks, tree and fixed-order pass 2 at M=1. B12b is a select, not a mask
 // multiply: with the transmit flag a runtime int, it copies g cast to
 // ghat's dtype, or ghat, so -0.0 and NaN on either side come through as
-// jnp.where passes them. It reads only the side it selects, with B4's
-// tiling (kRowItems loads in flight a thread).
+// jnp.where passes them. It reads only the side it selects, on the row
+// tiles of reduce.cuh (kRowItems loads in flight a thread).
 #include <cuda_bf16.h>
 
 #include "reduce.cuh"
@@ -206,14 +205,9 @@ sqnorm_partials(const T* __restrict__ x, float* __restrict__ part, int64_t m, in
 // reduce.cuh's tall_grid: a block covers 2^shift columns, the power of
 // two >= min(ncols, kThreads), and kThreads >> shift rows a sweep, kRows
 // sweeps; a thread issues the loads of all its rows, and reads mask[w]
-// once a row, before it computes any. B9 runs it with AdvanceOp; nothing
-// in it is B9's but the operation.
-// kRows = 2 (kAdvanceRows): on an H100 at M = 70,000, n = 16, f64 B10's
-// four rows a thread took 91 registers (two blocks an SM) and 0.0078 ms,
-// two rows 40-44 registers and 0.006 ms, one row 0.0063, with the same
-// time at full width (benchmarks_torch/kernel_ab.py --only B9).
-constexpr int kAdvanceRows = 2;
-
+// once a row, before it computes any. B9 runs it with AdvanceOp, B4 with
+// CensorAdvanceOp; nothing in it is either's but the operation. Its
+// launcher takes kRows = kAdvanceRows (reduce.cuh gives the reason).
 template <typename T, typename E, typename Op, int kRows>
 __global__ void __launch_bounds__(kThreads)
 tall_pair_kernel(const E* __restrict__ a, const E* __restrict__ b, const float* __restrict__ mask,
@@ -245,32 +239,6 @@ tall_pair_kernel(const E* __restrict__ a, const E* __restrict__ b, const float* 
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-censor_bank_advance_kernel(const T* __restrict__ g, const T* __restrict__ h,
-                           const float* __restrict__ mask, T* __restrict__ out, int64_t m,
-                           int64_t n) {
-  const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
-  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
-    const T mk = (T)mask[w];
-    const T* gw = g + w * n;
-    const T* hw = h + w * n;
-    T* ow = out + w * n;
-    T gv[kRowItems], hv[kRowItems];
-#pragma unroll
-    for (int k = 0; k < kRowItems; ++k) {
-      const int64_t j = base + (int64_t)k * kThreads;
-      gv[k] = j < n ? gw[j] : T(0);
-      hv[k] = j < n ? hw[j] : T(0);
-    }
-#pragma unroll
-    for (int k = 0; k < kRowItems; ++k) {
-      const int64_t j = base + (int64_t)k * kThreads;
-      if (j < n) ow[j] = add(hv[k], mul(mk, sub(gv[k], hv[k])));
-    }
-  }
-}
-
-template <typename T>
 static int launch_sqnorm(const void* x, void* part, void* out, int64_t m, int64_t n,
                          int64_t nchunks, void* stream) {
   if (!reduction_shape_ok(m, n, nchunks)) return (int)cudaErrorInvalidValue;
@@ -284,34 +252,28 @@ static int launch_sqnorm(const void* x, void* part, void* out, int64_t m, int64_
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_bank_advance(const void* h, const void* q, const void* mask, void* out,
-                               int64_t m, int64_t n, void* stream) {
+// B9 (Op = AdvanceOp, b = payload) and B4 (CensorAdvanceOp, b = g) on the
+// tall tiling, a = ghat: 16-byte vectors where every row of a, b and out
+// starts on a 16-byte boundary, elements otherwise.
+template <typename T, typename Op>
+static int launch_tall_pair(const void* a, const void* b, const void* mask, void* out,
+                            int64_t m, int64_t n, void* stream) {
   if (!tall_grid_ok(m, n)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   constexpr int64_t per_vec = 16 / sizeof(T);
-  if (n % per_vec == 0 && aligned16(h) && aligned16(q) && aligned16(out)) {
+  if (n % per_vec == 0 && aligned16(a) && aligned16(b) && aligned16(out)) {
     using V = typename Vec16<T>::type;
     const int64_t nv = n / per_vec;
     const int shift = pow2_shift(nv, kThreads);
-    tall_pair_kernel<T, V, AdvanceOp, kAdvanceRows>
+    tall_pair_kernel<T, V, Op, kAdvanceRows>
         <<<tall_grid(m, nv, shift, kAdvanceRows), kThreads, 0, s>>>(
-            (const V*)h, (const V*)q, (const float*)mask, (V*)out, m, nv, shift);
+            (const V*)a, (const V*)b, (const float*)mask, (V*)out, m, nv, shift);
   } else {
     const int shift = pow2_shift(n, kThreads);
-    tall_pair_kernel<T, T, AdvanceOp, kAdvanceRows>
+    tall_pair_kernel<T, T, Op, kAdvanceRows>
         <<<tall_grid(m, n, shift, kAdvanceRows), kThreads, 0, s>>>(
-            (const T*)h, (const T*)q, (const float*)mask, (T*)out, m, n, shift);
+            (const T*)a, (const T*)b, (const float*)mask, (T*)out, m, n, shift);
   }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_censor_bank_advance(const void* g, const void* h, const void* mask, void* out,
-                                      int64_t m, int64_t n, void* stream) {
-  if (!row_tiles_ok(m, n)) return (int)cudaErrorInvalidValue;
-  censor_bank_advance_kernel<T><<<row_tiles(m, n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)g, (const T*)h, (const float*)mask, (T*)out, m, n);
   return (int)cudaGetLastError();
 }
 
@@ -497,28 +459,28 @@ int bank_advance_f32(int device, const void* h, const void* q, const void* mask,
                      int64_t m, int64_t n, void* stream) {
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
-  return launch_bank_advance<float>(h, q, mask, out, m, n, stream);
+  return launch_tall_pair<float, AdvanceOp>(h, q, mask, out, m, n, stream);
 }
 
 int bank_advance_f64(int device, const void* h, const void* q, const void* mask, void* out,
                      int64_t m, int64_t n, void* stream) {
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
-  return launch_bank_advance<double>(h, q, mask, out, m, n, stream);
+  return launch_tall_pair<double, AdvanceOp>(h, q, mask, out, m, n, stream);
 }
 
 int censor_bank_advance_f32(int device, const void* g, const void* h, const void* mask, void* out,
                             int64_t m, int64_t n, void* stream) {
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
-  return launch_censor_bank_advance<float>(g, h, mask, out, m, n, stream);
+  return launch_tall_pair<float, CensorAdvanceOp>(h, g, mask, out, m, n, stream);
 }
 
 int censor_bank_advance_f64(int device, const void* g, const void* h, const void* mask, void* out,
                             int64_t m, int64_t n, void* stream) {
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
-  return launch_censor_bank_advance<double>(g, h, mask, out, m, n, stream);
+  return launch_tall_pair<double, CensorAdvanceOp>(h, g, mask, out, m, n, stream);
 }
 
 }  // extern "C"

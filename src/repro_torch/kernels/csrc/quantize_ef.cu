@@ -50,12 +50,17 @@
 // order-free, so any partition gives the two-pass design's bits (which NaN
 // payload a NaN row returns aside). The body holds a few registers at any
 // n <= kChunk (kRowItems values and maxes), so it needs no item builds.
-// B7b is B6's int8 round trip and EF blend (fused_step.cu)
-// without the bank advance, tiled per worker row: a thread loads kRowItems
-// elements of pending and err before it computes, so several loads are in
-// flight per thread. It uses the same intrinsics in the same order and a
-// clip that keeps a NaN (clampval), so its err' equals B6's bit for bit.
-// Both put the worker on grid y and walk any M (reduce.cuh).
+// B7b is B6's int8 round trip and EF blend (fused_step.cu) without the
+// bank advance (int8_ef below), with the same intrinsics in the same order
+// and a clip that keeps a NaN (clampval), so its err' equals B6's bit for
+// bit. It has one design for every shape, the tall tiling of B9 and B4
+// (tall_quant_kernel below): a block covers up to 256 columns of two rows
+// a thread, so the fed mesh's rows of 8 double2s share a block 32 to a
+// sweep, where a 256-thread block a row tile left 248 threads idle. Where
+// n is a multiple of the elements in 16 bytes and pending, err, payload
+// and new_e are 16-byte aligned, it moves float4s or double2s; otherwise
+// elements. The launcher decides. B7a's two-pass design puts the worker on
+// grid y, B7b's grid y walks the row tiles: both walk any M (reduce.cuh).
 #include "reduce.cuh"
 
 using namespace repro;
@@ -200,33 +205,71 @@ absmax_seg_rows(const E* __restrict__ x, T* __restrict__ out, int64_t m, int64_t
   }
 }
 
+// B7b's int8 round trip and EF blend of one element of pending p and err
+// e: B6's arithmetic without the bank advance (fused_step.cu:int8_advance),
+// in its order. The quotient is taken in f32 (rintf rounds half to even,
+// like torch.round; clampval keeps a NaN), the payload is cast to the
+// pending dtype, and e' = mk*(p - q) + keep*e with keep = 1 - mk. On a
+// 16-byte vector, the same on each element.
 template <typename T>
+__device__ __forceinline__ void int8_ef(T p, T e, T mk, T keep, float sc, T& pay, T& ne) {
+  const float q = clampval(rintf(__fdiv_rn((float)p, sc)), -127.0f, 127.0f);
+  pay = (T)__fmul_rn(q, sc);
+  ne = add(mul(mk, sub(p, pay)), mul(keep, e));
+}
+__device__ __forceinline__ void int8_ef(float4 p, float4 e, float mk, float keep, float sc,
+                                        float4& pay, float4& ne) {
+  int8_ef(p.x, e.x, mk, keep, sc, pay.x, ne.x);
+  int8_ef(p.y, e.y, mk, keep, sc, pay.y, ne.y);
+  int8_ef(p.z, e.z, mk, keep, sc, pay.z, ne.z);
+  int8_ef(p.w, e.w, mk, keep, sc, pay.w, ne.w);
+}
+__device__ __forceinline__ void int8_ef(double2 p, double2 e, double mk, double keep, float sc,
+                                        double2& pay, double2& ne) {
+  int8_ef(p.x, e.x, mk, keep, sc, pay.x, ne.x);
+  int8_ef(p.y, e.y, mk, keep, sc, pay.y, ne.y);
+}
+
+// B7b on the tall tiling of B9 and B4 (censor.cu:tall_pair_kernel) over an
+// (M, ncols) leaf of E, elements (E = T) or 16-byte vectors of them: a
+// block covers 2^shift columns and kThreads >> shift rows a sweep, kRows
+// sweeps (reduce.cuh's tall_grid); a thread issues the loads of pending
+// and err of all its rows, and reads mask[w] and scale[w] once a row,
+// before it computes any.
+template <typename T, typename E, int kRows>
 __global__ void __launch_bounds__(kThreads)
-quantize_ef_kernel(const T* __restrict__ p, const T* __restrict__ e,
-                   const float* __restrict__ mask, const float* __restrict__ scale,
-                   T* __restrict__ payload, T* __restrict__ new_e, int64_t m, int64_t n) {
-  const int64_t base = (int64_t)blockIdx.x * kRowTile + threadIdx.x;
-  for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
-    const float sc = scale[w];
-    const T mk = (T)mask[w];
-    const T keep = sub(T(1), mk);
-    const int64_t off = w * n;
-    T pv[kRowItems], ev[kRowItems];
+tall_quant_kernel(const E* __restrict__ p, const E* __restrict__ e,
+                  const float* __restrict__ mask, const float* __restrict__ scale,
+                  E* __restrict__ payload, E* __restrict__ new_e, int64_t m, int64_t ncols,
+                  int shift) {
+  const int64_t j = ((int64_t)blockIdx.x << shift) + (threadIdx.x & ((1 << shift) - 1));
+  if (j >= ncols) return;
+  const int64_t sweep = kThreads >> shift;     // rows a sweep of the block covers
+  const int64_t tile = sweep * kRows;          // rows a block covers
+  for (int64_t w0 = (int64_t)blockIdx.y * tile + (threadIdx.x >> shift); w0 < m;
+       w0 += (int64_t)gridDim.y * tile) {
+    E pv[kRows], ev[kRows];
+    float mk[kRows], sc[kRows];
 #pragma unroll
-    for (int k = 0; k < kRowItems; ++k) {
-      const int64_t j = base + (int64_t)k * kThreads;
-      pv[k] = j < n ? p[off + j] : T(0);
-      ev[k] = j < n ? e[off + j] : T(0);
+    for (int k = 0; k < kRows; ++k) {
+      const int64_t w = w0 + k * sweep;
+      if (w < m) {
+        pv[k] = p[w * ncols + j];
+        ev[k] = e[w * ncols + j];
+        mk[k] = mask[w];
+        sc[k] = scale[w];
+      }
     }
 #pragma unroll
-    for (int k = 0; k < kRowItems; ++k) {
-      const int64_t j = base + (int64_t)k * kThreads;
-      if (j >= n) continue;
-      // int8 round trip in f32: rintf rounds half to even, like torch.round
-      const float q = clampval(rintf(__fdiv_rn((float)pv[k], sc)), -127.0f, 127.0f);
-      const T pay = (T)__fmul_rn(q, sc);
-      payload[off + j] = pay;
-      new_e[off + j] = add(mul(mk, sub(pv[k], pay)), mul(keep, ev[k]));
+    for (int k = 0; k < kRows; ++k) {
+      const int64_t w = w0 + k * sweep;
+      if (w < m) {
+        const T mkw = (T)mk[k];
+        E pay, ne;
+        int8_ef(pv[k], ev[k], mkw, sub(T(1), mkw), sc[k], pay, ne);
+        payload[w * ncols + j] = pay;
+        new_e[w * ncols + j] = ne;
+      }
     }
   }
 }
@@ -269,13 +312,30 @@ static int launch_absmax_warp(const void* x, void* out, int64_t m, int64_t n, vo
   return (int)cudaGetLastError();
 }
 
+// 16-byte vectors where every row of pending, err, payload and new_e
+// starts on a 16-byte boundary, elements otherwise
 template <typename T>
 static int launch_quantize_ef(const void* p, const void* e, const void* mask, const void* scale,
                               void* payload, void* new_e, int64_t m, int64_t n, void* stream) {
-  if (!row_tiles_ok(m, n)) return (int)cudaErrorInvalidValue;
-  quantize_ef_kernel<T><<<row_tiles(m, n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)p, (const T*)e, (const float*)mask, (const float*)scale, (T*)payload,
-      (T*)new_e, m, n);
+  if (!tall_grid_ok(m, n)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  constexpr int64_t per_vec = 16 / sizeof(T);
+  if (n % per_vec == 0 && aligned16(p) && aligned16(e) && aligned16(payload) &&
+      aligned16(new_e)) {
+    using V = typename Vec16<T>::type;
+    const int64_t nv = n / per_vec;
+    const int shift = pow2_shift(nv, kThreads);
+    tall_quant_kernel<T, V, kAdvanceRows>
+        <<<tall_grid(m, nv, shift, kAdvanceRows), kThreads, 0, s>>>(
+            (const V*)p, (const V*)e, (const float*)mask, (const float*)scale, (V*)payload,
+            (V*)new_e, m, nv, shift);
+  } else {
+    const int shift = pow2_shift(n, kThreads);
+    tall_quant_kernel<T, T, kAdvanceRows>
+        <<<tall_grid(m, n, shift, kAdvanceRows), kThreads, 0, s>>>(
+            (const T*)p, (const T*)e, (const float*)mask, (const float*)scale, (T*)payload,
+            (T*)new_e, m, n, shift);
+  }
   return (int)cudaGetLastError();
 }
 

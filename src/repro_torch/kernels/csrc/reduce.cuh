@@ -264,6 +264,14 @@ struct AdvanceOp {
   template <typename T>
   __device__ __forceinline__ T operator()(T h, T mk, T q) const { return add(h, mul(mk, q)); }
 };
+// B4's, by the raw gradient: ghat + mk * (g - ghat) (a = ghat, b = g),
+// B2's ghat' to the bit (fused_step.cu:dense_advance)
+struct CensorAdvanceOp {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T h, T mk, T g) const {
+    return add(h, mul(mk, sub(g, h)));
+  }
+};
 
 // Blocks of an elementwise pass: one thread per column, capped so the
 // grid stays inside gridDim.x (the kernels walk on with a grid stride).
@@ -288,16 +296,22 @@ inline dim3 row_tiles(int64_t m, int64_t n) {
 }
 
 // The tiling of an elementwise pass over a tall bank (B2/B6's pass 1, B10,
-// B9): a block covers 2^shift columns, the power of two >= min(n,
+// B9, B4, B7b): a block covers 2^shift columns, the power of two >= min(n,
 // kThreads), and kThreads >> shift rows a sweep, `rows` sweeps (kRowItems,
-// or B9's two), so a warp reads whole rows of a narrow bank and no thread
-// divides by n to find its worker.
+// or B9's, B4's and B7b's two), so a warp reads whole rows of a narrow
+// bank and no thread divides by n to find its worker.
 // The least shift with 2^shift >= min(n, cap), cap a power of two:
 inline int pow2_shift(int64_t n, int cap) {
   int s = 0;
   while ((int64_t(1) << s) < n && (1 << s) < cap) ++s;
   return s;
 }
+// Rows a thread of B9's, B4's and B7b's tall passes holds: on an H100 at
+// M = 70,000, n = 16, f64 B10's four rows a thread took B9 91 registers
+// (two blocks an SM) and 0.0078 ms, two rows 40-44 registers and 0.006 ms,
+// one row 0.0063, with the same time at full width
+// (benchmarks_torch/kernel_ab.py --only B9).
+constexpr int kAdvanceRows = 2;
 // the grid: x the column tiles, y the row tiles (walked with a stride past
 // grid y's limit)
 inline bool tall_grid_ok(int64_t m, int64_t n) {

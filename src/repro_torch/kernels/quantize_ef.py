@@ -10,18 +10,19 @@ tensors launch the kernels (see ``common`` for the dispatch rule).
 
 B7a, like B1, B8 and B5, has two designs (``common.sqnorm_path``): two
 passes, or one launch for rows of one reduction chunk on many workers;
-both give the same bits.
+both give the same bits. B7b has one design for every shape, the tall
+tiling of B9 and B4 (a block covers up to 256 columns of several rows).
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
-from .build import ABSMAX_SPAN, ROW_TILE, launch
+from .build import ABSMAX_SPAN, launch
 from .censor import _ptr, warp_design
-from .common import (KERNEL_DTYPES, check_leaves, check_worker_vector,
-                     count_launch, grid_chunks, on_card, sm_count,
-                     sqnorm_path)
+from .common import (BLOCK_THREADS, KERNEL_DTYPES, check_leaves,
+                     check_worker_vector, count_launch, grid_chunks, on_card,
+                     sm_count, sqnorm_path)
 
 
 def absmax_batched(x: torch.Tensor) -> torch.Tensor:
@@ -89,7 +90,7 @@ def quantize_ef_batched(pending: torch.Tensor, err: torch.Tensor,
         return pending, torch.zeros_like(pending)
     if not on_card(name, pending, err, mask, scale):
         return ref.quantize_ef_batched(pending, err, mask, scale)
-    grid_chunks(name, pending.shape, n, ROW_TILE)
+    grid_chunks(name, pending.shape, n, BLOCK_THREADS)
     payload = torch.empty_like(pending)
     new_err = torch.empty_like(pending)
     count_launch(name)

@@ -1012,3 +1012,79 @@ def test_bank_advance_on_tall_banks(card, m, n, offset, dtype):
             r = slice(w, w + 1)
             assert _same_or_nan(censor.bank_advance(hh[r], qq[r], mask[r]),
                                 out[r]), (name, w)
+
+
+# (M, n) of B4 and B7b on the tall tiling of B9: M one past a 64-row
+# block tile, one past common.sqnorm_path's worker threshold on an H100
+# (1057), past grid y's 65535 blocks and the fed-mesh frontier; n in {1,
+# 16, 33, 2049} (33 and 2049: element loads, every row after the first off
+# 16-byte alignment)
+TALL_B4_B7B = [(m, n) for m in (65, 1057, 70000, 100000)
+               for n in (1, 16, 33, 2049)]
+# storage offsets of (first operand, second operand): both aligned, both a
+# view one element off alignment, the second alone off it
+B4_B7B_OFFSETS = [(0, 0), (1, 1), (0, 1)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("offsets", B4_B7B_OFFSETS,
+                         ids=["aligned", "both_off", "ghat_off"])
+@pytest.mark.parametrize("m,n", TALL_B4_B7B)
+def test_censor_bank_advance_on_tall_banks(card, m, n, offsets, dtype):
+    """B4 (one design, B9's tall tiling) on (g, ghat) under all three
+    masks: bit for bit (NaN where NaN, -0.0 included) against its plain
+    version and B2's ghat', one launch a call, a repeat launch bitwise,
+    and the M=1 calls of _sample_workers against the batched call."""
+    g, h, _, _ = _tall_salted(m, n, dtype, card)
+    t = torch.zeros(n, dtype=dtype, device=card)
+    gg, hh = (_offset_view(x, off) for x, off in zip((g, h), offsets))
+    for name, mask in _tall_masks(m, card).items():
+        common.reset_launches()
+        out = censor.censor_bank_advance(gg, hh, mask)
+        assert _launched() == {"censor_bank_advance": 1}
+        assert _same_or_nan(out, ref.censor_bank_advance(g, h, mask)), name
+        ghat2 = fused_step.fused_dense_step(g, h, t, t, mask, 0.1, 0.4)[0]
+        assert _same_or_nan(out, ghat2), (name, "B2's ghat'")
+        assert _same(censor.censor_bank_advance(gg, hh, mask), out), name
+        for w in _sample_workers(m):
+            r = slice(w, w + 1)
+            one = censor.censor_bank_advance(gg[r], hh[r], mask[r])
+            assert _same_or_nan(one, out[r]), (name, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("offsets", B4_B7B_OFFSETS,
+                         ids=["aligned", "both_off", "err_off"])
+@pytest.mark.parametrize("m,n", TALL_B4_B7B)
+def test_quantize_ef_on_tall_banks(card, m, n, offsets, dtype):
+    """B7b (one design, the tall tiling of B9 and B4) on (pending, err)
+    under all three masks, the scales of the plain abs-max (a NaN row's
+    1, an inf row's inf): payload and err' bit for bit (NaN where NaN)
+    against its plain version, err' against B6's, one launch a call, a
+    repeat launch bitwise, and the M=1 calls of _sample_workers against
+    the batched call."""
+    g, h, e, _ = _tall_salted(m, n, dtype, card)
+    pend = (g - h) + e
+    scale = int8_scale(ref.absmax_batched(pend))
+    t = torch.zeros(n, dtype=dtype, device=card)
+    pp, ee = (_offset_view(x, off) for x, off in zip((pend, e), offsets))
+    for name, mask in _tall_masks(m, card).items():
+        common.reset_launches()
+        out = quantize_ef.quantize_ef_batched(pp, ee, mask, scale)
+        assert _launched() == {"quantize_ef_batched": 1}
+        for a, b in zip(out, ref.quantize_ef_batched(pend, e, mask, scale)):
+            assert _same_or_nan(a, b), name
+        err6 = fused_step.fused_int8_step(g, h, e, t, t, mask, scale, 0.1,
+                                          0.4)[1]
+        assert _same_or_nan(out[1], err6), (name, "B6's err'")
+        again = quantize_ef.quantize_ef_batched(pp, ee, mask, scale)
+        assert all(_same(a, b) for a, b in zip(again, out)), name
+        for w in _sample_workers(m):
+            r = slice(w, w + 1)
+            one = quantize_ef.quantize_ef_batched(pp[r], ee[r], mask[r],
+                                                  scale[r])
+            assert all(_same_or_nan(a, b[r]) for a, b in zip(one, out)), \
+                (name, w)
+    if n >= 3:
+        assert float(scale[m // 2]) == 1.0 and bool(torch.isnan(
+            out[0][m // 2, n - 1]))

@@ -1,11 +1,12 @@
-"""B10, B9, B1, B8, B5 and B7a on tall worker banks
+"""B10, B9, B4, B7b, B1, B8, B5 and B7a on tall worker banks
 (``kernels/csrc/topk_pack.cu``, ``kernels/csrc/censor.cu``,
 ``kernels/csrc/fused_step.cu``, ``kernels/csrc/quantize_ef.cu``), on the
 CPU.
 
-B10 (top-k select/pack + EF) and B9 (the bank advance by a payload) have
-one design each, tiled over workers and columns like B2's tall pass 1, so
-they need no picker. B1 (the eq.-(8) censor norm), B8 (the norm of a
+B10 (top-k select/pack + EF), B9 (the bank advance by a payload), B4 (the
+bank advance by the raw gradient) and B7b (the staged int8 round trip +
+EF) have one design each, tiled over workers and columns like B2's tall
+pass 1, so they need no picker. B1 (the eq.-(8) censor norm), B8 (the norm of a
 pending delta), B5 (the int8 step's norm and abs-max) and B7a (the staged
 int8 step's abs-max) have two, which their wrappers pick by shape with one
 rule (``common.sqnorm_path``): one launch for rows of one reduction chunk
@@ -23,13 +24,18 @@ tall_paths hold the designs against each other there); here:
     any launch;
   * the wrappers of B1, B8, B5 and B7a past the dispatch rule (meta
     tensors, ``launch`` recorded): the launcher of the picked design, and
-    B9's one launcher at every picker shape, bound in ``build.SIGNATURES``
-    with the arity its C definition has, one count a call;
+    the one launcher of B9, B4 and B7b at every picker shape, bound in
+    ``build.SIGNATURES`` with the arity its C definition has, one count a
+    call;
   * the plain versions at tall shapes, salted with -0.0, NaN and +-inf, in
     f32 and f64, against the JAX package's oracles (``repro/kernels/ref.py``)
     and Pallas kernels (interpret mode), with ``test_torch_kernels.py``'s
-    tolerances: B10, B9 and B7a exact (-0.0 included, +0 for a row of
-    -0.0; NaN where NaN), B1, B8 and B5's sums within rel 1e-5 (both sides
+    tolerances: B10, B9, B4, B7a and B7b's payload exact (-0.0 included,
+    +0 for a row of -0.0; NaN where NaN), B7b's err' exact against the
+    oracle and the f64 kernel and within 4 eps |pending| of the f32
+    kernel (XLA contracts an FMA there, as ``test_torch_staged.py``
+    says), B4 equal to B2's ghat' and B7b's err' to B6's (the plain
+    versions), B1, B8 and B5's sums within rel 1e-5 (both sides
     accumulate in f32, in other orders; NaN where NaN), B5's abs-max exact
     (NaN where NaN).
 """
@@ -49,8 +55,9 @@ from repro.kernels import fused_step as j_fused  # noqa: E402
 from repro.kernels import quantize_ef as j_quant  # noqa: E402
 from repro.kernels import ref as j_ref  # noqa: E402
 from repro.kernels import topk_pack as j_topk  # noqa: E402
+from repro_torch.core.quantize import int8_scale  # noqa: E402
 from repro_torch.kernels import (build, censor, common,  # noqa: E402
-                                 fused_step, quantize_ef, topk_pack)
+                                 fused_step, quantize_ef, ref, topk_pack)
 from repro_torch.kernels.build import REDUCE_CHUNK  # noqa: E402
 
 H100_SMS = 132
@@ -149,6 +156,43 @@ def test_bank_advance_launches_its_one_design(on_h100, m, n, _path, dtype):
     argtypes = build.SIGNATURES["censor"][fn]
     assert len(argtypes) == on_h100[0][2] + 2 == _c_arity("censor", fn)
     assert common.LAUNCHES["bank_advance"] == 1
+    assert sum(common.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n,_path", PICKER_CASES)
+def test_censor_bank_advance_launches_its_design(on_h100, m, n, _path,
+                                                 dtype):
+    """B4 has one design (B9's tall tiling) at every picker shape: one
+    launcher, bound with its C arity, one count a call."""
+    x = torch.empty((m, n), dtype=dtype, device="meta")
+    mask = torch.empty((m,), dtype=torch.float32, device="meta")
+    censor.censor_bank_advance(x, x, mask)
+    fn = f"censor_bank_advance_{common.KERNEL_DTYPES[dtype]}"
+    assert len(on_h100) == 1 and on_h100[0][:2] == ("censor", fn)
+    argtypes = build.SIGNATURES["censor"][fn]
+    assert len(argtypes) == on_h100[0][2] + 2 == _c_arity("censor", fn)
+    assert common.LAUNCHES["censor_bank_advance"] == 1
+    assert sum(common.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n,_path", PICKER_CASES)
+def test_quantize_ef_launches_its_design(on_h100, m, n, _path, dtype):
+    """B7b has one design (the tall tiling of B9 and B4) at every picker
+    shape: one launcher, bound with its C arity, one count a call."""
+    x = torch.empty((m, n), dtype=dtype, device="meta")
+    mask, scale = (torch.empty((m,), dtype=torch.float32, device="meta")
+                   for _ in range(2))
+    quantize_ef.quantize_ef_batched(x, x, mask, scale)
+    fn = f"quantize_ef_batched_{common.KERNEL_DTYPES[dtype]}"
+    assert len(on_h100) == 1 and on_h100[0][:2] == ("quantize_ef", fn)
+    argtypes = build.SIGNATURES["quantize_ef"][fn]
+    assert len(argtypes) == on_h100[0][2] + 2 \
+        == _c_arity("quantize_ef", fn)
+    assert common.LAUNCHES["quantize_ef_batched"] == 1
     assert sum(common.LAUNCHES.values()) == 1
 
 
@@ -348,3 +392,59 @@ def test_tall_bank_advance_against_jax(m, n, dtype):
         _same_or_nan(got, np.asarray(want))
     # column 0: -0.0 + mask * -0.0 stays -0.0 on every row
     assert np.signbit(got[:, 0]).all()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", TALL)
+def test_tall_censor_bank_advance_against_jax(m, n, dtype):
+    g, h, _, _, mask = _salted(m, n, dtype)
+    gt, ht, mt = (torch.from_numpy(a) for a in (g, h, mask))
+    got = censor.censor_bank_advance(gt, ht, mt).numpy()
+    args = [jnp.asarray(a) for a in (g, h, mask)]
+    for want in (j_censor.censor_bank_advance(*args, interpret=True),
+                 j_ref.censor_bank_advance(*args)):
+        _same_or_nan(got, np.asarray(want))
+    # B2's ghat' of the same operands (the plain versions)
+    t = torch.zeros((n,), dtype=gt.dtype)
+    _same_or_nan(got, ref.fused_dense_step(gt, ht, t, t, mt, 0.1,
+                                           0.4)[0].numpy())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", TALL)
+def test_tall_quantize_ef_against_jax(m, n, dtype):
+    g, h, e, _, mask = _salted(m, n, dtype)
+    pend = (g - h) + e
+    pt, et, mt = (torch.from_numpy(a) for a in (pend, e, mask))
+    scale = int8_scale(ref.absmax_batched(pt))
+    got = quantize_ef.quantize_ef_batched(pt, et, mt, scale)
+    args = [jnp.asarray(a) for a in (pend, e, mask, scale.numpy())]
+    rp, re_ = j_ref.quantize_ef_batched(*args)
+    jp, je = j_quant.quantize_ef_batched(*args, interpret=True)
+    _same_or_nan(got[0].numpy(), np.asarray(rp))
+    _same_or_nan(got[1].numpy(), np.asarray(re_))
+    _same_or_nan(got[0].numpy(), np.asarray(jp))
+    if dtype == np.float64:
+        _same_or_nan(got[1].numpy(), np.asarray(je))
+    else:
+        # XLA contracts pending - q*scale into an FMA in the interpreted
+        # kernel (as in tests/test_torch_staged.py)
+        je = np.asarray(je)
+        nan = np.isnan(je)
+        np.testing.assert_array_equal(np.isnan(got[1].numpy()), nan)
+        bound = 4 * np.finfo(np.float32).eps * np.abs(pend)
+        assert np.all(np.abs(got[1].numpy()[~nan] - je[~nan])
+                      <= bound[~nan])
+    # B6's err' of the same operands (the plain versions)
+    gt, ht = torch.from_numpy(g), torch.from_numpy(h)
+    t = torch.zeros((n,), dtype=gt.dtype)
+    err6 = ref.fused_int8_step(gt, ht, et, t, t, mt, scale, 0.1, 0.4)[1]
+    _same_or_nan(got[1].numpy(), err6.numpy())
+    if n >= 3:
+        # a NaN row's scale is 1 and its NaN stays in the payload; the
+        # inf row's scale is inf and its payload NaN
+        assert float(scale[m // 2]) == 1.0
+        assert np.isnan(got[0].numpy()[m // 2, n - 1])
+        assert np.isnan(got[0].numpy()[m - 1]).all()
