@@ -12,7 +12,8 @@ parent commit, unpacked with ``git archive`` into a directory that
 ``fused_step.cu`` (B5) of every tree with the port's nvcc flags into
 ``build/kernel_ab/``, prints each compiler log (``-Xptxas -v``), checks
 each tree's B9 and B7a bits (B7a NaN where its plain version gives NaN)
-and B14 against the f64 rule of ``chip_smoke.py`` on a few shapes, B9 and
+and B14 against the f64 rule of ``chip_smoke.py`` on a few shapes (and
+whether its bits are this tree's), B9 and
 B7a also on tall banks up to M = 100,000 (it stops if this tree's fail
 and reports the others'), then times all at the main path's shapes in
 turns (the others, this, this, the others in reverse) beside their
@@ -73,6 +74,7 @@ import ast
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -123,10 +125,26 @@ def compile_tree(tag: str, csrc: Path, names) -> dict:
         for fn, argtypes in build.SIGNATURES[name].items():
             f = getattr(cdll, fn, None)      # an older tree may lack one
             if f is not None:
-                f.argtypes = argtypes
+                f.argtypes = _tree_argtypes(csrc / f"{name}.cu", fn,
+                                            argtypes)
                 f.restype = ctypes.c_int
         libs[name] = cdll
     return libs
+
+
+def _tree_argtypes(source: Path, fn: str, argtypes: tuple) -> tuple:
+    """This tree's argtypes for ``fn``, or, where another tree's source
+    defines B14's launchers without the lse pointer (trees before it
+    existed), those launchers' shorter list."""
+    found = re.search(rf"\bint {fn}\(([^)]*)\)", source.read_text())
+    if found and fn.startswith("flash_attention_") and \
+            len(found.group(1).split(",")) == len(argtypes) - 1:
+        return argtypes[:5] + argtypes[6:]        # no lse pointer
+    return argtypes
+
+
+def _takes_lse(lib) -> bool:
+    return len(lib.flash_attention_f32.argtypes) == 9
 
 
 # (variant, source, [(text of this tree's source, its replacement)])
@@ -202,8 +220,11 @@ def flash(libs, q, k, v, causal=True, window=None):
         0 if window is None else int(window),
         int(flash_attention.async_copy_ok(q, k, v)))
     suffix = "f32" if q.dtype == torch.float32 else "bf16"
-    run(libs["flash_attention"], f"flash_attention_{suffix}", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    lib = libs["flash_attention"]
+    # serving's call: a null lse pointer where the launcher takes one
+    lse = (None,) if _takes_lse(lib) else ()
+    run(lib, f"flash_attention_{suffix}", q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse,
         ctypes.addressof(dims), float(d ** -0.5))
     return out
 
@@ -237,14 +258,19 @@ def check_flash(trees, randn) -> None:
         err_p = float((ref.flash_attention_fwd(
             q, k, v, causal=causal, window=window).double() - exact
                        ).abs().max())
-        errs = {tag: float((flash(libs, q, k, v, causal, window).double()
-                            - exact).abs().max())
+        outs = {tag: flash(libs, q, k, v, causal, window)
                 for tag, libs in trees.items()}
+        errs = {tag: float((o.double() - exact).abs().max())
+                for tag, o in outs.items()}
         ok = {tag: e <= ATTN_FACTOR * err_p + ATTN_FLOOR
               for tag, e in errs.items()}
+        same = {tag: torch.equal(o.view(torch.int32),
+                                 outs["this"].view(torch.int32))
+                for tag, o in outs.items()}
         print(json.dumps({"check": "B14", "shape": [b, h, kh, lq, s_len, d],
                           "causal": causal, "window": window,
-                          "plain_err": err_p, "errs": errs, "ok": ok}),
+                          "plain_err": err_p, "errs": errs, "ok": ok,
+                          "bits_as_this": same}),
               flush=True)
         if not ok["this"]:
             raise SystemExit("kernel_ab: B14 outside the f64 rule")

@@ -10,6 +10,8 @@ card.
         [--iters 5]
     python3 benchmarks_torch/step_profile.py --mesh ideal lossy partial \
         harsh [--m 100000] [--d 16] [--iters 5]
+    python3 benchmarks_torch/step_profile.py --train dense int8 \
+        [--iters 3] [--backend cuda reference]
 
 Builds the full-width task of ``chip_smoke.py``'s phase 5 (edge quadratics
 at the parameter count of ``chb-paper-lm-124m``, M=4, f32, chb with
@@ -43,6 +45,18 @@ warm-up run of 2 rounds, ``--iters`` traced rounds, one JSON line a
 scenario with the host time of the runtime's spans (``fed.mesh/draws``:
 the PRNG's threefry hashes; ``fed.mesh/shard_step``;
 ``fed.mesh/fold_server``) and their share of the window.
+With ``--train``, it profiles scan-strategy training steps of
+chb-paper-lm-124m at full width, ``chip_smoke.py``'s phase train
+(TRAIN_TC: M = 4, 16 x 256 tokens a step, dense or int8 uploads): after a
+warm-up step, ``--iters`` steps queued back to back between two CUDA
+events, ``--iters`` steps as ``train()`` runs them (the batch made and
+the metrics read to the host around each step; ``train_loop_ms``: events
+around each step alone), then ``--iters`` traced steps, on each backend,
+one JSON line each, with the
+device time also summed by group (f32 GEMMs, B14, the flash backward,
+the optimizer's kernels B1/B2 or B5/B6, the rest) and the idle share
+against the untraced steps' wall (the profiler's own host time stretches
+the traced window).
 Needs a CUDA card and fails without one; it fails too if the trace shows
 no device time.
 """
@@ -69,8 +83,8 @@ from repro_torch.kernels import fused_step  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 from chip_smoke import (EDGE_PATHS, FULL_ALPHA, FULL_RANK, LM_ARCH,  # noqa: E402
-                        MESH_SCENARIOS, MESH_SEED, SERVE_RUNS, edge_scenario,
-                        lm_tree_task)
+                        MESH_SCENARIOS, MESH_SEED, SERVE_RUNS, TRAIN_TC,
+                        edge_scenario, lm_tree_task)
 
 TRANSPORTS = ("dense", "int8", "topk", "lowrank", "dense_staged",
               "int8_staged", "per_tensor")
@@ -137,6 +151,103 @@ def _summary(prof, wall: float, iters: int, spans=(), **meta) -> dict:
             "per_iter_ms": wall / iters,
             "by_kernel": [{"name": k[:90], "ms": ms, "calls": n}
                           for k, ms, n in rows[:14]]}
+
+
+# device-time groups of a training step, by kernel name (first match)
+TRAIN_GROUPS = (("flash_backward", ("flash_bwd",)),
+                ("flash_forward", ("flash_fwd",)),
+                ("gemm_f32", ("gemm", "xmma", "cutlass")),
+                ("optimizer_kernels", ("delta_sqnorm", "finish_partials",
+                                       "fused_dense_step", "fused_int8_step",
+                                       "int8_stats", "fold_columns")))
+
+
+def _groups(prof) -> dict:
+    """Device ms of a trace summed by TRAIN_GROUPS (the rest: "other")."""
+    out = {name: 0.0 for name, _ in TRAIN_GROUPS}
+    out["other"] = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        key = evt.key.lower()
+        group = next((name for name, keys in TRAIN_GROUPS
+                      if any(k in key for k in keys)), "other")
+        out[group] += _device_ms(evt)
+    return out
+
+
+def profile_train(uploads: str, backend: str, iters: int) -> dict:
+    """``iters`` traced scan steps of chb-paper-lm-124m at full width
+    (``train``'s pieces: ``make_optimizer``, ``init_params``,
+    ``init_scan_state``, ``make_scan_step``, ``batch_iterator``) after one
+    warm-up step."""
+    from repro_torch.configs import get
+    from repro_torch.core import distributed
+    from repro_torch.data import lm_data
+    from repro_torch.launch.serve import full_f32
+    from repro_torch.models import model
+    from repro_torch.random import PRNGKey
+    from repro_torch.train import trainer
+    full_f32()
+    tc = trainer.TrainConfig(**TRAIN_TC, quantize=None if uploads == "dense"
+                             else uploads)
+    cfg = get(LM_ARCH)
+    o = trainer.make_optimizer(tc)
+    params = model.init_params(PRNGKey(tc.seed, device="cuda"), cfg)
+    state = distributed.init_scan_state(o, params)
+    step = distributed.make_scan_step(
+        o, lambda p, b: model.train_loss(p, cfg, b, remat=tc.remat,
+                                         backend=backend)[0],
+        backend=backend)
+    data = lm_data.batch_iterator(cfg, global_batch=tc.global_batch,
+                                  seq_len=tc.seq_len,
+                                  num_workers=tc.num_workers, seed=tc.seed,
+                                  device="cuda")
+    params, state, _ = step(params, state, next(data))       # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # the same number of steps without the profiler, whose own host time
+    # stretches the traced window
+    batches = [next(data) for _ in range(iters)]
+    torch.cuda.synchronize()
+    start.record()
+    for batch in batches:
+        params, state, _ = step(params, state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    unprofiled = start.elapsed_time(end)
+    # the same number of steps as train() runs them: each step's batch made
+    # after the last step, its metrics read to the host after it; events
+    # around each step alone
+    looped = []
+    for _ in range(iters):
+        batch = next(data)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, state, metrics = step(params, state, batch)
+        b.record()
+        looped.append((a, b))
+        {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    looped_ms = [a.elapsed_time(b) for a, b in looped]
+    batches = [next(data) for _ in range(iters)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for batch in batches:
+            params, state, _ = step(params, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+    out = _summary(prof, start.elapsed_time(end), iters, train=uploads,
+                   backend=backend,
+                   tokens_per_step=tc.global_batch * tc.seq_len)
+    out["by_group"] = _groups(prof)
+    out["unprofiled_per_iter_ms"] = unprofiled / iters
+    out["train_loop_ms"] = looped_ms
+    out["idle_share_unprofiled"] = 1.0 - out["busy_ms"] / unprofiled
+    return out
 
 
 def profile_serve(kind: str, iters: int) -> list:
@@ -272,9 +383,21 @@ def main() -> None:
     ap.add_argument("--mesh", nargs="+", choices=tuple(MESH_SCENARIOS),
                     help="profile fed.run_mesh's rounds instead (at --m "
                     "clients and --d)")
+    ap.add_argument("--train", nargs="+", choices=("dense", "int8"),
+                    help="profile training chb-paper-lm-124m's steps "
+                    "instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: needs a CUDA card")
+    if args.train:
+        print(json.dumps({"device": torch.cuda.get_device_name(0)}),
+              flush=True)
+        for uploads in args.train:
+            for backend in args.backend:
+                print(json.dumps(profile_train(uploads, backend,
+                                               args.iters)), flush=True)
+                torch.cuda.empty_cache()
+        return
     if args.mesh:
         print(json.dumps({"device": torch.cuda.get_device_name(0),
                           "d": args.d, "m": args.m}), flush=True)

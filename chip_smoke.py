@@ -42,7 +42,15 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  views, f32 and bf16; B13 over C in {1, 97, 2081}, empty slots, wrapped
                  rings and pos 0; both against an f64 plain version
                  (ATTN_FACTOR); B12a within SQNORM_RTOL and repeatable,
-                 B12b bitwise with -0.0 and NaN salted.
+                 B12b bitwise with -0.0 and NaN salted. B14 with its
+                 log-sum-exp on every B14 case: the output the same bits as
+                 without it, the lse against its plain version and an f64
+                 version; the flash backward (FLASH_BWD_CASES: GQA 1/2/4,
+                 L on and off its 64-row tiles, Lq != S, rows with no
+                 valid key, d in {33, 64, 80, 128, 256}, causal, windows,
+                 misaligned views, training's (4, 12, 256, 64) and L =
+                 2048) against its plain version and an f64 version
+                 (ATTN_FACTOR), its bits repeatable.
   4. golden   -- ``simulator.run`` of chb on the paper's linreg task
                  (m=5, n_per=30, d=20, seed=0) for 60 iterations, dense,
                  int8, top-k (k=8) and low-rank (rank 2), f64 and f32,
@@ -115,6 +123,21 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
   ops         -- the four single-tensor ``kernels.ops`` entry points
                  (B12a, B12b, B3 at n = 163,597,056 f32, B14) against their
                  plain versions.
+  train       -- ``train.trainer.train`` of chb-paper-lm-124m at full
+                 width (163,597,056 f32 parameters, init_params(PRNGKey(0)),
+                 M = 4 workers, global batch 16 x 256 tokens, TRAIN_TC):
+                 TRAIN_STEPS chb steps through B14 with its log-sum-exp,
+                 the flash backward, B1 and B2, each step's launches the
+                 scan step's, CUDA events around every step; int8 one step
+                 through B5 and B6. Then from one state the first step on
+                 both backends, and the second from the cuda backend's
+                 state after the first: masks, transmitted and counters
+                 equal (each eq.-(8) decision's margin reported), params
+                 and ghat within TRAIN_RTOL of the leaf's largest value.
+                 Ms a step, tokens a second, peak device memory.
+  train_cli   -- ``python -m repro_torch.launch.train --steps 2`` as a
+                 subprocess (full width on the card): exit 0 and one
+                 finite loss line a logged step.
   6. timing   -- each kernel, its plain version, its library call where
                  one exists and its bound at the main path's shape (B2 and
                  B6 also at the fed-mesh shape, on both designs, beside
@@ -124,8 +147,11 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  its worker threshold; B4, B5, B7a, B7b, B8, B9 (B5, B8
                  and B7a on both designs), B10 and B11 at M = 70,000 and
                  100,000, n = 16);
-                 then the ``{"kernels": [...]}`` line of all 17 kernels
-                 (16 ported, and fold_workers, which only the port has).
+                 B14 also with its log-sum-exp, the flash backward at
+                 training's shape (one worker's 4 x 256 tokens) beside
+                 SDPA's autograd backward; then the ``{"kernels": [...]}``
+                 line of all 18 kernels (16 ported, and fold_workers and
+                 flash_attention_bwd, which only the port has).
 
 The last line is ``{"ok": true, "device": {...}}``. Every failed check
 raises, so the script exits non-zero and prints no last line; without
@@ -136,6 +162,8 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -340,8 +368,14 @@ KERNEL_META = {
     "fold_workers": ("src/repro_torch/kernels/csrc/fused_step.cu",
                      "none (port-only; the JAX package's worker sum is "
                      "XLA's jnp.sum, src/repro/core/util.py:52)"),
+    # port-only: the JAX package's attention backward is the pure-JAX
+    # custom VJP of models/flash.py, which XLA compiles
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_backward.cu",
+                            "none (port-only; the JAX package's backward "
+                            "is the pure-JAX custom VJP "
+                            "src/repro/models/flash.py:96)"),
 }
-PORT_ONLY = ("fold_workers",)
+PORT_ONLY = ("fold_workers", "flash_attention_bwd")
 
 # B13/B14 against their plain versions: the kernel's max abs error against
 # an f64 plain version on the card (the same function without the f32
@@ -352,6 +386,19 @@ PORT_ONLY = ("fold_workers",)
 # rounding, never more.
 ATTN_FACTOR = 4.0
 ATTN_FLOOR = 1e-6
+
+# phase train: chb-paper-lm-124m at full width, TrainConfig's defaults (M =
+# 4 workers, global batch 16 of 256 tokens, alpha 3e-2, beta 0.4, remat
+# "none") but for eps1_scale, set so that the steps censor some workers
+TRAIN_TC = {"algorithm": "chb", "num_workers": 4, "global_batch": 16,
+            "seq_len": 256, "alpha": 3e-2, "beta": 0.4, "eps1_scale": 8.0}
+TRAIN_STEPS = 3
+# cuda against reference from one state: the backends sum the attention's
+# products (B14 and the backward against their blocked plain versions) and
+# the eq.-(8) norms (B1 against torch.sum) in other orders, about 1e-6
+# relative a step; each leaf of params and ghat within TRAIN_RTOL of its
+# largest magnitude
+TRAIN_RTOL = 1e-4
 
 # serving at full width: chb-paper-lm-124m (12 layers, d 768, 12/12 heads,
 # hd 64, vocab 32,768), weights from init_params(PRNGKey(0)), the JAX
@@ -1311,6 +1358,53 @@ def _flash_f64(q, k, v, causal, window):
                         v.double()).reshape(b, h, lq, d)
 
 
+def _lse_f64(q, k, causal, window):
+    """B14's log-sum-exp in f64: logsumexp of each row's masked, scaled
+    scores (-1e30 where masked)."""
+    b, h, lq, d = q.shape
+    kh, s_len = k.shape[1], k.shape[2]
+    q5 = q.double().reshape(b, kh, h // kh, lq, d)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q5, k.double()) * d ** -0.5
+    qpos = torch.arange(lq, device=q.device)[:, None]
+    kpos = torch.arange(s_len, device=q.device)[None, :]
+    m = torch.ones((lq, s_len), dtype=torch.bool, device=q.device)
+    if causal:
+        m = m & (kpos <= qpos)
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    return torch.logsumexp(torch.where(m, s, -1e30), dim=-1).reshape(b, h, lq)
+
+
+def flash_bwd_f64(q, k, v, do, causal, window):
+    """The flash backward's function (``repro/models/flash.py``'s custom
+    VJP) in f64: (dq, dk, dv). The probabilities are exp(s - lse), so a row
+    with no valid key has p = 1 on every key, as in flash.py."""
+    b, h, lq, d = q.shape
+    kh, s_len = k.shape[1], k.shape[2]
+    g, scale = h // kh, d ** -0.5
+    q5 = q.double().reshape(b, kh, g, lq, d)
+    do5 = do.double().reshape(b, kh, g, lq, d)
+    k64, v64 = k.double(), v.double()
+    s = torch.einsum("bkgqd,bksd->bkgqs", q5, k64) * scale
+    qpos = torch.arange(lq, device=q.device)[:, None]
+    kpos = torch.arange(s_len, device=q.device)[None, :]
+    m = torch.ones((lq, s_len), dtype=torch.bool, device=q.device)
+    if causal:
+        m = m & (kpos <= qpos)
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    s = torch.where(m, s, -1e30)
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", torch.softmax(s, dim=-1), v64)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bkgqd,bksd->bkgqs", do5, v64)
+    ds = p * (dp - torch.sum(do5 * o, dim=-1)[..., None])
+    dq = scale * torch.einsum("bkgqs,bksd->bkgqd", ds, k64)
+    dk = scale * torch.einsum("bkgqs,bkgqd->bksd", ds, q5)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, do5)
+    return dq.reshape(b, h, lq, d), dk, dv
+
+
 def _decode_f64(q, k, v, cpos, pos):
     """B13's function in f64."""
     b, h, d = q.shape
@@ -1380,6 +1474,28 @@ DECODE_CASES = [
     (3, 8, 4, 97, 64, 40, torch.bfloat16),
     (2, 8, 8, 2081, 64, 3000, torch.bfloat16),
 ]
+# the flash backward, f32 (b, h, kh, lq, s, d, causal, window, offset):
+# GQA 1, 2 and 4; L on and off its 64-row tiles (64, 65, 127, 129, 200,
+# 256), Lq < S, and Lq > S with rows that have no valid key (every tile
+# visited); d 33 (element loads), 64, 80 (zero-filled to 128), 128 and 256;
+# causal with and without a window, non-causal; operands one element off
+# their storage's alignment (offset 1); training's (4, 12, 256, 64) and an
+# L = 2048 case
+FLASH_BWD_CASES = [
+    (2, 4, 4, 64, 64, 64, True, None, 0),
+    (2, 4, 2, 65, 65, 64, True, None, 0),
+    (1, 8, 2, 129, 129, 80, True, None, 0),
+    (2, 4, 2, 200, 200, 33, True, None, 1),
+    (1, 8, 2, 256, 256, 64, True, 48, 0),
+    (1, 4, 4, 127, 127, 80, True, 30, 1),
+    (1, 8, 4, 256, 256, 64, False, None, 0),
+    (1, 4, 2, 100, 160, 80, False, 20, 0),
+    (1, 4, 2, 300, 140, 64, True, 30, 0),
+    (1, 4, 2, 100, 100, 128, True, None, 0),
+    (1, 4, 4, 65, 65, 256, True, 16, 0),
+    (4, 12, 12, 256, 256, 64, True, None, 0),
+    (1, 12, 12, 2048, 2048, 64, True, None, 0),
+]
 SINGLE_PAIRS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
                 (torch.float64, torch.float32), (torch.float32, torch.bfloat16),
                 (torch.bfloat16, torch.bfloat16)]
@@ -1396,7 +1512,7 @@ def phase_attention_kernels(device, max_err) -> None:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
 
-    async_cases = 0
+    async_cases = lse_cases = 0
     for b, h, kh, lq, s_len, d, causal, window, dtype, off in FLASH_CASES:
         tag = f"B14 b={b} h={h} kh={kh} lq={lq} s={s_len} d={d} " \
               f"causal={causal} window={window} {dtype} offset={off}"
@@ -1421,10 +1537,22 @@ def phase_attention_kernels(device, max_err) -> None:
                                  _flash_f64(q, k, v, causal, window), tag)
         check(same_bits(out, flash_attention.flash_attention(
             q, k, v, causal=causal, window=window)), f"{tag}: repeat")
+        # with its log-sum-exp (training's forward): the same output bits
+        out_l, lse = flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        check(same_bits(out_l, out), f"{tag}: the output with the "
+              "log-sum-exp is not the output without it")
+        _, lse_p = ref.flash_attention_fwd(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        check(lse.dtype == torch.float32 and lse.shape == lse_p.shape,
+              f"{tag} lse")
+        worst[f"{tag} lse"] = _attn_check(
+            lse, lse_p, _lse_f64(q, k, causal, window), f"{tag} lse")
+        lse_cases += 1
         if dtype == torch.float32:
             max_err["flash_attention"] = max(max_err["flash_attention"],
                                              max_diff(out, plain))
-        del q, k, v, out, plain
+        del q, k, v, out, plain, out_l, lse, lse_p
     for b, h, kh, c, d, pos, dtype in DECODE_CASES:
         tag = f"B13 b={b} h={h} kh={kh} c={c} d={d} pos={pos} {dtype}"
         q = randn(b, h, d).to(dtype)
@@ -1446,6 +1574,9 @@ def phase_attention_kernels(device, max_err) -> None:
         if dtype == torch.float32:
             max_err["decode_attention"] = max(max_err["decode_attention"],
                                               max_diff(out, plain))
+    max_err["flash_attention_bwd"] = 0.0
+    for case in FLASH_BWD_CASES:
+        worst.update(_check_flash_bwd(case, randn, max_err))
     single = 0
     for n in (1, 127, 2 ** 20 + 17):
         for dg, dh in SINGLE_PAIRS:
@@ -1474,7 +1605,8 @@ def phase_attention_kernels(device, max_err) -> None:
             single += 1
     max_err["censor_select"] = 0.0
     emit({"phase": "attention_kernels", "flash_cases": len(FLASH_CASES),
-          "flash_cases_cp_async": async_cases,
+          "flash_cases_cp_async": async_cases, "flash_lse_cases": lse_cases,
+          "flash_bwd_cases": len(FLASH_BWD_CASES),
           "decode_cases": len(DECODE_CASES), "single_tensor_cases": single,
           "rule": f"attention: error vs f64 <= {ATTN_FACTOR} x plain f32's "
           f"+ {ATTN_FLOOR}; B12a rel {SQNORM_RTOL}; B12b bitwise with -0.0 "
@@ -1483,6 +1615,44 @@ def phase_attention_kernels(device, max_err) -> None:
                              for ek, ep in worst.values()),
           "errors": {k: {"kernel": ek, "plain_f32": ep}
                      for k, (ek, ep) in worst.items()}})
+
+
+def _check_flash_bwd(case, randn, max_err) -> dict:
+    """The flash backward on one case against its plain version and the
+    f64 function (the B13/B14 rule), from B14's output and log-sum-exp;
+    repeatable bit for bit, one launch a call. Returns the rule's errors by
+    tag."""
+    from repro_torch.kernels import common, flash_attention, flash_backward
+    from repro_torch.kernels import ref
+    b, h, kh, lq, s_len, d, causal, window, off = case
+    tag = f"flash bwd b={b} h={h} kh={kh} lq={lq} s={s_len} d={d} " \
+          f"causal={causal} window={window} offset={off}"
+
+    def view(n, x):
+        flat = randn(off + b * n * x * d)
+        return flat[off:].view(b, n, x, d).transpose(1, 2)
+
+    q, k, v, do = view(lq, h), view(s_len, kh), view(s_len, kh), view(lq, h)
+    kw = {"causal": causal, "window": window}
+    o, lse = flash_attention.flash_attention(q, k, v, return_lse=True, **kw)
+    before = common.LAUNCHES["flash_attention_bwd"]
+    got = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    check(common.LAUNCHES["flash_attention_bwd"] == before + 1,
+          f"{tag}: launches")
+    plain = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    exact = flash_bwd_f64(q, k, v, do, causal, window)
+    out = {}
+    for name, g, p_, x, like in zip(("dq", "dk", "dv"), got, plain, exact,
+                                    (q, k, v)):
+        check(g.dtype == torch.float32 and g.shape == like.shape,
+              f"{tag}: {name} layout")
+        out[f"{tag} {name}"] = _attn_check(g, p_, x, f"{tag} {name}")
+        max_err["flash_attention_bwd"] = max(max_err["flash_attention_bwd"],
+                                             max_diff(g, p_))
+    again = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    check(all(same_bits(a, b_) for a, b_ in zip(got, again)),
+          f"{tag}: the backward is not repeatable")
+    return out
 
 
 # ------------------------------------------------------------ phase 4
@@ -2733,6 +2903,250 @@ def phase_ops(device, d=FULL_D) -> dict:
     return launches
 
 
+# ------------------------------------------------------- phase train
+def train_launches(cfg, m: int, leaves: int, int8: bool) -> dict:
+    """One scan step's launches on the cuda backend (remat "none"), from
+    the code of ``ComposedOptimizer._step_kernels`` that the step runs: B1
+    and B2 (dense) or B5 and B6 (int8) once a leaf; B14 with its
+    log-sum-exp and the flash backward once a layer a worker."""
+    from repro_torch.kernels import common
+    want = {name: 0 for name in common.KERNELS}
+    if int8:
+        want.update(int8_stats_batched=leaves, fused_int8_step=leaves)
+    else:
+        want.update(censor_delta_sqnorm_batched=leaves,
+                    fused_dense_step=leaves)
+    want.update(flash_attention=m * cfg.num_layers,
+                flash_attention_bwd=m * cfg.num_layers)
+    return want
+
+
+class _StepWatch:
+    """Wraps the scan step that ``train`` builds: CUDA events and the
+    launch counts around every step. It reads nothing from the card
+    inside a step, so the events time the step alone."""
+
+    def __init__(self, distributed):
+        self.dist = distributed
+        self.events, self.launches = [], []
+
+    def __enter__(self):
+        from repro_torch.kernels import common
+        make = self.dist.make_scan_step
+
+        def make_watched(*a, **kw):
+            step = make(*a, **kw)
+
+            def watched(*args):
+                before = dict(common.LAUNCHES)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(*args)
+                end.record()
+                self.events.append((start, end))
+                self.launches.append({k: common.LAUNCHES[k] - before[k]
+                                      for k in before})
+                return out
+            return watched
+
+        self.saved = make
+        self.dist.make_scan_step = make_watched
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.make_scan_step = self.saved
+        return False
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+class _DecisionWatch:
+    """Records each eq.-(8) decision's dsq / (eps1 ssq), worker by worker.
+    It reads the norms to the host inside the step, so it wraps only the
+    untimed steps."""
+
+    def __init__(self):
+        self.ratios = []
+
+    def __enter__(self):
+        from repro_torch.opt import censor
+        self.mod, self.saved = censor, censor.transmit_mask
+
+        def decide_watched(dsq, ssq, eps1):
+            thr = eps1 * float(ssq)
+            if thr > 0:
+                self.ratios.append([float(x) / thr for x in dsq])
+            return self.saved(dsq, ssq, eps1)
+
+        censor.transmit_mask = decide_watched
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.transmit_mask = self.saved
+        return False
+
+    def min_margin(self) -> float:
+        return min((abs(r - 1.0) for rs in self.ratios for r in rs),
+                   default=float("inf"))
+
+
+def _leaf_rel_diff(a_tree, b_tree) -> float:
+    """max over leaves of max|a - b| / max|b|."""
+    worst = 0.0
+    for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+        scale = float(b.abs().max())
+        diff = float((a.double() - b.double()).abs().max())
+        worst = max(worst, diff / scale if scale > 0 else diff)
+    return worst
+
+
+def _same_step(tag, out_c, out_r) -> dict:
+    """One scan step on both backends from one state: masks, transmitted
+    and counters equal; params and ghat within TRAIN_RTOL."""
+    (p_c, s_c, m_c), (p_r, s_r, m_r) = out_c, out_r
+    check(torch.equal(s_c.comm.uplink_count, s_r.comm.uplink_count)
+          and s_c.comm.uplink_bytes_exact() == s_r.comm.uplink_bytes_exact()
+          and float(m_c["transmitted"]) == float(m_r["transmitted"]),
+          f"{tag}: masks or counters differ: "
+          f"{s_c.comm.uplink_count.tolist()} {s_r.comm.uplink_count.tolist()}")
+    rel = {"params": _leaf_rel_diff(p_c, p_r),
+           "ghat": _leaf_rel_diff(s_c.ghat, s_r.ghat)}
+    if s_c.err != ():
+        rel["err"] = _leaf_rel_diff(s_c.err, s_r.err)
+    for what in ("params", "ghat"):
+        check(rel[what] <= TRAIN_RTOL,
+              f"{tag}: {what} differ by {rel[what]} of the leaf's largest")
+    for key in ("loss", "step_sqnorm", "agg_grad_sqnorm"):
+        a, b = float(m_c[key]), float(m_r[key])
+        check(math.isfinite(a) and abs(a - b) <= TRAIN_RTOL * abs(b),
+              f"{tag}: {key} {a} against {b}")
+    return {"uplinks": s_c.comm.uplink_count.tolist(),
+            "transmitted": float(m_c["transmitted"]),
+            "loss_cuda": float(m_c["loss"]),
+            "loss_reference": float(m_r["loss"]),
+            "rel_diff": rel}
+
+
+def phase_train(device) -> dict:
+    """``train.trainer.train`` of chb-paper-lm-124m at full width on the
+    cuda backend (TRAIN_STEPS chb steps; int8 one step), then one state's
+    first and second steps on both backends. Returns the main runs'
+    launch counts."""
+    import dataclasses
+
+    from repro_torch.core import distributed
+    from repro_torch.data import lm_data
+    from repro_torch.kernels import common
+    from repro_torch.models import model
+    from repro_torch.train import trainer
+    cfg = get_config(LM_ARCH)
+    tc = trainer.TrainConfig(**TRAIN_TC, steps=TRAIN_STEPS, log_every=1)
+    leaves = len(LM_LEAVES)
+    tokens = tc.global_batch * tc.seq_len
+    out, launches = {}, {}
+    for run, change in (("chb", {}), ("chb_int8", {"quantize": "int8",
+                                                   "steps": 1})):
+        rtc = dataclasses.replace(tc, **change)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        with _StepWatch(distributed) as watch:
+            params, state, hist = trainer.train(cfg, rtc, verbose=False,
+                                                device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = dict(common.LAUNCHES)
+        ms = watch.ms()
+        n = sum(x.numel() for x in tree_leaves(params))
+        check(n == FULL_D, f"train {run}: {n} parameters")
+        want = train_launches(cfg, tc.num_workers, leaves,
+                              rtc.quantize == "int8")
+        check(len(watch.launches) == rtc.steps, f"train {run}: steps")
+        for t, got in enumerate(watch.launches):
+            check(got == want, f"train {run} step {t}: launches "
+                  f"{ {k: c for k, c in got.items() if c} }, want "
+                  f"{ {k: c for k, c in want.items() if c} }")
+        check(total == {k: rtc.steps * c for k, c in want.items()},
+              f"train {run}: launches {total}")
+        check(len(hist) == rtc.steps and all(
+            math.isfinite(h[k]) for h in hist
+            for k in ("loss", "step_sqnorm", "agg_grad_sqnorm")),
+            f"train {run}: history {hist}")
+        check(int(state.step) == rtc.steps
+              and int(state.comm.total_uplinks) == hist[-1]["comms"],
+              f"train {run}: counters")
+        launches[f"train_{run}"] = total
+        med = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+        out[run] = {"steps": rtc.steps, "ms_steps": ms,
+                    "ms_per_step": med, "tokens_per_s": tokens / med * 1e3,
+                    "wall_s": wall,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "loss": [h["loss"] for h in hist],
+                    "transmitted": [h["transmitted"] for h in hist],
+                    "comms": hist[-1]["comms"],
+                    "launches_per_step": {k: c for k, c in want.items()
+                                          if c}}
+        del params, state
+    # cuda against reference from one state: the first step from the
+    # initial state, the second from the cuda backend's state after it
+    o = trainer.make_optimizer(tc)
+    params0 = model.init_params(PRNGKey(tc.seed, device=device), cfg)
+    state0 = distributed.init_scan_state(o, params0)
+    data = lm_data.batch_iterator(cfg, global_batch=tc.global_batch,
+                                  seq_len=tc.seq_len,
+                                  num_workers=tc.num_workers, seed=tc.seed,
+                                  device=device)
+    steps = {backend: distributed.make_scan_step(
+        o, lambda p, b, be=backend: model.train_loss(
+            p, cfg, b, remat=tc.remat, backend=be)[0], backend=backend)
+        for backend in ("cuda", "reference")}
+    compare = {}
+    state_in = (params0, state0)
+    for t in range(2):
+        batch = next(data)
+        with _DecisionWatch() as watch:
+            out_c = steps["cuda"](*state_in, batch)
+            out_r = steps["reference"](*state_in, batch)
+        compare[f"step{t}"] = {**_same_step(f"train step {t}", out_c, out_r),
+                               "ratios_dsq_over_threshold": watch.ratios,
+                               "min_margin": watch.min_margin()}
+        state_in = out_c[:2]
+        del out_r
+    del params0, state0, state_in, out_c
+    torch.cuda.empty_cache()
+    for run, r in out.items():
+        print(f"train {run}: {r['ms_per_step']:.2f} ms a step "
+              f"({r['ms_steps']}), {r['tokens_per_s']:.0f} tokens/s, peak "
+              f"{r['peak_gib']:.2f} GiB", flush=True)
+    emit({"phase": "train", "arch": LM_ARCH, "params": FULL_D,
+          "tokens_per_step": tokens, "config": TRAIN_TC,
+          "rtol": TRAIN_RTOL, "tf32": torch.backends.cuda.matmul.allow_tf32,
+          **out, "cuda_vs_reference": compare})
+    return launches
+
+
+def phase_train_cli() -> None:
+    """``python -m repro_torch.launch.train --steps 2`` in a subprocess: the
+    CLI at full width on the card, exit 0, a finite loss a logged step."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--steps", "2"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("step")]
+    losses = [float(re.search(r"loss=(\S+)", ln).group(1)) for ln in lines]
+    check(proc.returncode == 0 and len(losses) == 2
+          and all(math.isfinite(x) for x in losses),
+          f"train_cli: rc {proc.returncode}, stdout {proc.stdout[-2000:]}, "
+          f"stderr {proc.stderr[-2000:]}")
+    emit({"phase": "train_cli", "argv": ["--steps", "2"], "lines": lines,
+          "seconds": time.perf_counter() - t0})
+
+
 # ------------------------------------------------------------ phase 6
 # device cycles the card sleeps before a timed window, while the host
 # queues the window's calls: about 10 ms at an H100's 1.98 GHz, longer than
@@ -3083,12 +3497,16 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
 def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
     """B12a and B12b at n = d in f32; B13 at serve_long's last decode step
     and B14 at its prefill (batch 8, 12 heads, head dim 64, the model's
-    strided views). Bounds count what these inputs need: B12b reads only
-    the side it selects, B14 the causal band's products."""
+    strided views), also with its log-sum-exp there and at training's
+    shape; the flash backward at training's shape (one worker's 4 x 256
+    tokens, 12 heads of 64, causal) beside its plain version and SDPA's
+    autograd backward. Bounds count what these inputs need: B12b reads
+    only the side it selects, B14 the causal band's products, the
+    backward the band's five products (s again, dp, dq, dk, dv)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (censor, decode_attention,
-                                     flash_attention, ref)
+                                     flash_attention, flash_backward, ref)
     from repro_torch.models.kvcache import slot_positions
     gen = torch.Generator(device=device).manual_seed(17)
 
@@ -3107,6 +3525,17 @@ def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
     valid = (cpos >= 0) & (cpos <= pos)
     q, k, v = (randn(b, l, nh, hd).transpose(1, 2) for _ in range(3))
     pairs = l * (l + 1) // 2                      # causal (q, k) pairs
+    # training's shape: a worker's chunk of the global batch
+    tb, tl = TRAIN_TC["global_batch"] // TRAIN_TC["num_workers"], \
+        TRAIN_TC["seq_len"]
+    tq, tk, tv, tdo = (randn(tb, tl, nh, hd).transpose(1, 2)
+                       for _ in range(4))
+    to, tlse = flash_attention.flash_attention(tq, tk, tv, return_lse=True)
+    sq_, sk_, sv_ = (x.detach().clone().requires_grad_()
+                     for x in (tq, tk, tv))
+    sdpa = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True)
+    tpairs = tl * (tl + 1) // 2
+    operand = tb * nh * tl * hd * 4               # bytes of q (or k, v, o)
     work = {   # name: (kernel, plain, library, bytes, f32 operations, shape)
         "censor_delta_sqnorm": (
             lambda: censor.censor_delta_sqnorm(g, h),
@@ -3132,7 +3561,26 @@ def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
             4 * b * nh * l * hd * 4, 4 * b * nh * pairs * hd,
             f"B={b} H=K={nh} L={l} d={hd} float32, causal"),
+        # reads q, k, v, o, dO and lse, writes dq, dk and dv
+        "flash_attention_bwd": (
+            lambda: flash_backward.flash_attention_bwd(tq, tk, tv, to, tlse,
+                                                       tdo),
+            lambda: ref.flash_attention_bwd(tq, tk, tv, to, tlse, tdo),
+            lambda: torch.autograd.grad(sdpa, (sq_, sk_, sv_), tdo,
+                                        retain_graph=True),
+            8 * operand + tb * nh * tl * 4, 10 * tb * nh * tpairs * hd,
+            f"B={tb} H=K={nh} L={tl} d={hd} float32, causal (one worker's "
+            "chunk of training's batch)"),
     }
+    # B14 with its log-sum-exp (training's forward) beside its time
+    with_lse = {
+        "serve_long_prefill": _time_ms(lambda: flash_attention.flash_attention(
+            q, k, v, causal=True, return_lse=True), 10),
+        "train_shape": _time_ms(lambda: flash_attention.flash_attention(
+            tq, tk, tv, causal=True, return_lse=True), 10),
+        "train_shape_without": _time_ms(
+            lambda: flash_attention.flash_attention(tq, tk, tv, causal=True),
+            10)}
     rows = []
     for name, (kfn, pfn, lfn, nbytes, ops_, shape) in work.items():
         ms = _time_ms(kfn, 10)
@@ -3150,7 +3598,10 @@ def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "launches_by_path": by_path,
-            "bytes": nbytes, "operations": ops_, "shape": shape})
+            "bytes": nbytes, "operations": ops_, "shape": shape,
+            **({"port_only": True} if name in PORT_ONLY else {}),
+            **({"ms_with_lse": with_lse} if name == "flash_attention"
+               else {})})
         torch.cuda.empty_cache()
     return rows
 
@@ -3188,8 +3639,10 @@ def main() -> None:
     launches.update(phase_serve(dev))
     phase_pin(dev)
     launches["ops"] = phase_ops(dev)
+    launches.update(phase_train(dev))
+    phase_train_cli()
     rows = phase_timing(dev, launches, max_err)
-    check(len(rows) == len(KERNEL_META) == 17, f"{len(rows)} kernel rows")
+    check(len(rows) == len(KERNEL_META) == 18, f"{len(rows)} kernel rows")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,9 @@ The package mirrors ``repro``'s layout (``core/``, ``data/``, ``opt/``,
 counterpart of the same name; ``random`` is the part of ``jax.random``
 the package draws from, bit for bit. It runs Algorithm 1
 (``core.simulator.run`` -> ``opt.ComposedOptimizer.step``), the
-event-driven edge runtime (``fed.run_edge``) and the sweep engine
-(``sweep.run_sweep``, reporting through ``obs``) on an NVIDIA Hopper card
+event-driven edge runtime (``fed.run_edge``), the sweep engine
+(``sweep.run_sweep``, reporting through ``obs``), LM training
+(``train.trainer.train``) and serving on an NVIDIA Hopper card
 through hand-written CUDA kernels (``kernels/csrc/``), with a plain
 PyTorch version beside each kernel.
 

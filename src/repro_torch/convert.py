@@ -1,10 +1,11 @@
 """Carry state across from the JAX package.
 
-The JAX package's parameters and ``OptState``, given as numpy arrays (for
-example ``jax.tree_util.tree_map(np.asarray, state)``), become this
-package's tensors on a given device, so both packages can step from one
-state. :func:`to_numpy` goes the other way for comparisons;
-:func:`prng_key` carries a JAX PRNG key across and :func:`edge_history`
+The JAX package's parameters, ``OptState`` and the training strategies'
+``DistFedState``, given as numpy arrays (for example
+``jax.tree_util.tree_map(np.asarray, state)``), become this package's
+tensors on a given device, so both packages can step from one state.
+:func:`to_numpy` goes the other way for comparisons; :func:`prng_key`
+carries a JAX PRNG key across and :func:`edge_history`
 takes an ``EdgeHistory`` of either package to numpy.
 :func:`model_params` carries a JAX model's weights across, checked against
 this package's parameter tree, and :func:`numpy_model_params` makes one
@@ -42,6 +43,19 @@ def opt_state(state, device) -> OptState:
                     err=params(state.err, device),
                     comm=comm_stats(state.comm, device),
                     censor=params(state.censor, device))
+
+
+def dist_state(state, device):
+    """A JAX ``core.distributed.DistFedState`` with numpy leaves as this
+    package's (``repro_torch.core.distributed``), the step an int32."""
+    from .core.distributed import DistFedState
+    return DistFedState(prev_params=params(state.prev_params, device),
+                        ghat=params(state.ghat, device),
+                        nabla=params(state.nabla, device),
+                        err=params(state.err, device),
+                        comm=comm_stats(state.comm, device),
+                        step=torch.tensor(np.asarray(state.step),
+                                          dtype=torch.int32, device=device))
 
 
 def prng_key(key_data, device) -> torch.Tensor:

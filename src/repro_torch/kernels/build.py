@@ -23,7 +23,8 @@ from ..obs import compile_log
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("censor", "fused_step", "hb_update", "topk_pack", "lowrank_ef",
-           "quantize_ef", "flash_attention", "decode_attention")
+           "quantize_ef", "flash_attention", "decode_attention",
+           "flash_backward")
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
@@ -65,8 +66,11 @@ _PACK_ARGS = (_DEV,) + (_P,) * 6 + (_I64, _I64, _P)
 _RESIDUAL_ARGS = (_DEV,) + (_P,) * 5 + (_I64, _I64, _P)
 _SELECT_ARGS = (_DEV,) + (_P,) * 3 + (_I64, ctypes.c_int, _P)
 # the attention launchers take their sizes and strides as a host int64
-# array (a pointer) and the softmax scale as a double
-_FLASH_ARGS = (_DEV,) + (_P,) * 5 + (_F64, _P)
+# array (a pointer) and the softmax scale as a double; B14 takes q, k, v,
+# out and a nullable lse, the flash backward q, k, v, o, dO, lse, dq, dk
+# and dv
+_FLASH_ARGS = (_DEV,) + (_P,) * 6 + (_F64, _P)
+_FLASH_BWD_ARGS = (_DEV,) + (_P,) * 10 + (_F64, _P)
 _DECODE_ARGS = (_DEV,) + (_P,) * 8 + (_F64, _P)
 #: the dtypes of the single-tensor entry points B12a/B12b and of the
 #: attention kernels, by launcher suffix
@@ -114,6 +118,7 @@ SIGNATURES = {
                         for s in ATTENTION_DTYPES.values()},
     "decode_attention": {f"decode_attention_{s}": _DECODE_ARGS
                          for s in ATTENTION_DTYPES.values()},
+    "flash_backward": {"flash_attention_bwd_f32": _FLASH_BWD_ARGS},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

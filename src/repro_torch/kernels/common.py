@@ -23,7 +23,8 @@ KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
            "bank_advance", "hb_update", "select_pack_ef_batched",
            "residual_ef_batched", "censor_bank_advance", "absmax_batched",
            "quantize_ef_batched", "censor_delta_sqnorm", "censor_select",
-           "flash_attention", "decode_attention", "fold_workers")
+           "flash_attention", "decode_attention", "fold_workers",
+           "flash_attention_bwd")
 
 LAUNCHES: dict[str, int] = compile_log.namespace("kernels", KERNELS)
 

@@ -1,4 +1,4 @@
-// B14: the flash-attention forward pass of serving prefill, on Hopper.
+// B14: the flash-attention forward pass of serving prefill and training, on Hopper.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:flash_attention_pallas.
 //
@@ -10,6 +10,11 @@
 //   m' = max(m, rowmax s); p = exp(s - m'); alpha = exp(m - m');
 //   l' = l*alpha + rowsum p; acc' = acc*alpha + p v;  o = acc / max(l, 1e-37)
 // in f32, whatever the input dtype (f32 or bf16). Lq != S is allowed.
+// Given an lse pointer (training's forward) it also writes the (B, H, Lq)
+// f32 log-sum-exp lse = m + log(max(l, 1e-37)) of flash.py:77-79, which the
+// backward kernel (flash_backward.cu) reads. That is a second instantiation
+// (kLse): with a null pointer (serving's prefill) the launcher runs the
+// same code as before the log-sum-exp existed.
 //
 // Bound: operations. Causal prefill of batch 8, 12 heads, 2048 tokens,
 // head dim 64 does 2 * 2 * 8*12 * 2048*2049/2 * 64 = 51.6 GFLOP of
@@ -239,10 +244,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[RM][8], float (&m)[RM], 
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kLse>
 __global__ void __launch_bounds__(kFlashThreads, FlashTiles<DMAX>::MIN_BLOCKS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, FlashArgs a) {
+                 T* __restrict__ out, float* __restrict__ lse, FlashArgs a) {
   using L = FlashTiles<DMAX>;
   constexpr int RM = L::RM, BQ = L::BQ, NV = L::NV;
   constexpr int QP = L::QP, KP = L::KP, VP = L::VP, PP = L::PP;
@@ -377,6 +382,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int64_t row = q0 + ty + kTY * i;
     if (row < a.lq) {
       const float ls = maxval(l[i], 1e-37f);
+      // the 8 lanes of a row hold the same m and l; one writes the lse
+      if constexpr (kLse)
+        if (tx == 0) lse[(bi * a.h + hi) * a.lq + row] = __fadd_rn(m[i], logf(ls));
       T* o = out + ((bi * a.h + hi) * a.lq + row) * a.d;
 #pragma unroll
       for (int c4 = 0; c4 < NV; ++c4) {
@@ -398,8 +406,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int DMAX>
-static int launch_flash_d(const void* q, const void* k, const void* v, void* out,
+template <typename T, int DMAX, bool kLse>
+static int launch_flash_d(const void* q, const void* k, const void* v, void* out, float* lse,
                           const FlashArgs& a, cudaStream_t s) {
   using L = FlashTiles<DMAX>;
   static bool opted_in[kMaxDevices] = {};   // per device, once per instantiation
@@ -408,11 +416,11 @@ static int launch_flash_d(const void* q, const void* k, const void* v, void* out
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!opted_in[dev]) {
-    e = cudaFuncSetAttribute(flash_fwd_kernel<T, DMAX>,
+    e = cudaFuncSetAttribute(flash_fwd_kernel<T, DMAX, kLse>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
     if (e != cudaSuccess) return (int)e;
     // the largest shared-memory carveout, so MIN_BLOCKS blocks fit an SM
-    e = cudaFuncSetAttribute(flash_fwd_kernel<T, DMAX>,
+    e = cudaFuncSetAttribute(flash_fwd_kernel<T, DMAX, kLse>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
@@ -420,8 +428,8 @@ static int launch_flash_d(const void* q, const void* k, const void* v, void* out
   }
   const int64_t blocks = (a.lq + L::BQ - 1) / L::BQ * a.b * a.h;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  flash_fwd_kernel<T, DMAX><<<(unsigned)blocks, kFlashThreads, L::SMEM, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, a);
+  flash_fwd_kernel<T, DMAX, kLse><<<(unsigned)blocks, kFlashThreads, L::SMEM, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, a);
   return (int)cudaGetLastError();
 }
 
@@ -435,9 +443,10 @@ __host__ __forceinline__ bool vec_ok(const void* p, const int64_t* st, int64_t d
 }
 
 // dims: b, h, kh, lq, s, d, q strides (4), k strides (4), v strides (4),
-// causal, has_window, window, vec (1: copy q, k, v with 16-byte cp.async)
-template <typename T>
-static int launch_flash(const void* q, const void* k, const void* v, void* out,
+// causal, has_window, window, vec (1: copy q, k, v with 16-byte cp.async);
+// lse: null, or the (B, H, Lq) f32 log-sum-exp (kLse)
+template <typename T, bool kLse>
+static int launch_flash(const void* q, const void* k, const void* v, void* out, float* lse,
                         const int64_t* dims, double scale, void* stream) {
   FlashArgs a;
   a.b = dims[0]; a.h = dims[1]; a.kh = dims[2]; a.lq = dims[3]; a.s = dims[4]; a.d = dims[5];
@@ -456,28 +465,35 @@ static int launch_flash(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorInvalidValue;
   if (a.vec && !(is_f32 && vec_ok(q, a.qs, a.d) && vec_ok(k, a.ks, a.d) && vec_ok(v, a.vs, a.d)))
     return (int)cudaErrorMisalignedAddress;
+  if (kLse && lse == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (a.d <= 64) return launch_flash_d<T, 64>(q, k, v, out, a, s);
-  if (a.d <= 128) return launch_flash_d<T, 128>(q, k, v, out, a, s);
-  return launch_flash_d<T, 256>(q, k, v, out, a, s);
+  if (a.d <= 64) return launch_flash_d<T, 64, kLse>(q, k, v, out, lse, a, s);
+  if (a.d <= 128) return launch_flash_d<T, 128, kLse>(q, k, v, out, lse, a, s);
+  return launch_flash_d<T, 256, kLse>(q, k, v, out, lse, a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
+// lse: null (serving's prefill: the kernel it always ran), or the (B, H, Lq)
+// f32 log-sum-exp to write (training's forward)
 int flash_attention_f32(int device, const void* q, const void* k, const void* v, void* out,
-                        const int64_t* dims, double scale, void* stream) {
+                        void* lse, const int64_t* dims, double scale, void* stream) {
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
-  return launch_flash<float>(q, k, v, out, dims, scale, stream);
+  if (lse != nullptr)
+    return launch_flash<float, true>(q, k, v, out, (float*)lse, dims, scale, stream);
+  return launch_flash<float, false>(q, k, v, out, nullptr, dims, scale, stream);
 }
 
 int flash_attention_bf16(int device, const void* q, const void* k, const void* v, void* out,
-                         const int64_t* dims, double scale, void* stream) {
+                         void* lse, const int64_t* dims, double scale, void* stream) {
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
-  return launch_flash<__nv_bfloat16>(q, k, v, out, dims, scale, stream);
+  if (lse != nullptr)
+    return launch_flash<__nv_bfloat16, true>(q, k, v, out, (float*)lse, dims, scale, stream);
+  return launch_flash<__nv_bfloat16, false>(q, k, v, out, nullptr, dims, scale, stream);
 }
 
 }  // extern "C"

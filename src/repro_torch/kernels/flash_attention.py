@@ -1,9 +1,13 @@
-"""B14: the flash-attention forward pass of serving prefill, on the card.
+"""B14: the flash-attention forward pass of serving prefill and training,
+on the card.
 
 Wraps ``csrc/flash_attention.cu`` (port of
 ``repro/kernels/flash_attention.py:flash_attention_pallas``).
 ``models.layers.attention`` runs it on the ``cuda`` backend, once a layer
-per prefill. CPU tensors run ``ref.flash_attention_fwd``; CUDA tensors
+per prefill; ``models.flash.flash_attention`` once a layer a worker in a
+training step, with ``return_lse`` (the log-sum-exp its backward,
+``kernels.flash_backward``, reads). CPU tensors run
+``ref.flash_attention_fwd``; CUDA tensors
 launch the kernel or raise. The kernel reads q, k and v by strides, picks
 its own tiles and takes any Lq, S and head dim up to 256. Where
 :func:`async_copy_ok` holds it copies its tiles 16 bytes at a time with
@@ -51,19 +55,23 @@ def async_copy_ok(*ts: torch.Tensor) -> bool:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None, scale=None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window=None, scale=None,
+                    return_lse: bool = False):
     """Blocked attention: q (B, H, Lq, d), k/v (B, K, S, d) with H = K*G,
     kv head h // G, masks on absolute positions (kpos <= qpos if causal,
     kpos > qpos - window if a window is given). Returns (B, H, Lq, d) in
-    q's dtype, computed in f32."""
+    q's dtype, computed in f32; with ``return_lse`` the pair (out, lse),
+    lse the (B, H, Lq) f32 log-sum-exp ``m + log(max(l, 1e-37))`` of each
+    row. Without it the launch passes a null lse pointer and runs the
+    kernel serving's prefill always ran."""
     name = "flash_attention"
     b, h, kh, lq, s_len, d = _check(name, q, k, v)
     if scale is None:
         scale = d ** -0.5
     if not on_card(name, q, k, v, contiguous=False):
         return ref.flash_attention_fwd(q, k, v, causal=causal,
-                                       window=window, scale=scale)
+                                       window=window, scale=scale,
+                                       return_lse=return_lse)
     if q.dtype not in ATTENTION_DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} is not supported "
                         "(float32 and bfloat16 are)")
@@ -71,8 +79,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{name}: needs at least one key and a head dim "
                          f"up to 256, got S={s_len}, d={d}")
     out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     dims = (ctypes.c_int64 * 22)(
         b, h, kh, lq, s_len, d, *q.stride(), *k.stride(), *v.stride(),
         int(bool(causal)), int(window is not None),
@@ -80,5 +90,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     count_launch(name)
     launch("flash_attention", f"{name}_{ATTENTION_DTYPES[q.dtype]}",
            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           out.data_ptr(), ctypes.addressof(dims), float(scale))
-    return out
+           out.data_ptr(), None if lse is None else lse.data_ptr(),
+           ctypes.addressof(dims), float(scale))
+    return (out, lse) if return_lse else out

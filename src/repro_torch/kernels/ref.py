@@ -9,8 +9,13 @@ difference: the worker sum is a left fold from ``ghat'_0`` (``core.util.tree_sum
 ``jnp.sum(axis=0)``, because the CUDA kernels fold in that order and must
 equal these functions bit for bit on the card. The wrappers in
 ``censor.py``, ``fused_step.py``, ``hb_update.py``, ``topk_pack.py``,
-``lowrank_ef.py``, ``quantize_ef.py``, ``flash_attention.py`` and
-``decode_attention.py`` run these on CPU tensors.
+``lowrank_ef.py``, ``quantize_ef.py``, ``flash_attention.py``,
+``flash_backward.py`` and ``decode_attention.py`` run these on CPU
+tensors. ``flash_attention_blocked`` and ``flash_attention_bwd`` follow
+``repro/models/flash.py``'s blocked forward and custom-VJP backward line
+for line: the backward is the plain version of the port-only
+``flash_attention_bwd`` kernel, and both are what training's
+``reference`` backend runs.
 """
 from __future__ import annotations
 
@@ -162,10 +167,13 @@ def fold_workers(x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------- attention oracles
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window=None, scale=None
-                        ) -> torch.Tensor:
+                        *, causal: bool = True, window=None, scale=None,
+                        return_lse: bool = False):
     """Naive attention; q (B, H, Lq, d), k/v (B, K, S, d), H = K*G, kv head
-    h // G; masks on absolute positions (qpos = row, kpos = column)."""
+    h // G; masks on absolute positions (qpos = row, kpos = column). With
+    ``return_lse`` the pair (out, lse): lse the (B, H, Lq) f32 log-sum-exp
+    ``m + log(max(l, 1e-37))`` of each row, as ``repro/models/flash.py``
+    keeps it."""
     b, h, lq, d = q.shape
     kh, s_len = k.shape[1], k.shape[2]
     g = h // kh
@@ -184,7 +192,149 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(m, s, NEG)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    return o.reshape(b, h, lq, d).to(q.dtype)
+    o = o.reshape(b, h, lq, d).to(q.dtype)
+    if not return_lse:
+        return o
+    mx = s.amax(dim=-1)
+    lse = mx + torch.log(torch.clamp(
+        torch.exp(s - mx[..., None]).sum(dim=-1), min=1e-37))
+    return o, lse.reshape(b, h, lq)
+
+
+def divisor_block(n: int, target: int) -> int:
+    """The largest block up to ``target`` that divides ``n`` (``flash.py``'s
+    ``_divisor``)."""
+    for cand in range(min(target, n), 0, -1):
+        if n % cand == 0:
+            return cand
+    return 1
+
+
+def _block_mask(qi: int, kj: int, bq: int, bk: int, q_offset: int, causal,
+                window, device) -> torch.Tensor:
+    """Bool (bq, bk) mask of query block qi against kv block kj
+    (``flash.py``'s ``_block_mask``)."""
+    qpos = q_offset + qi * bq + torch.arange(bq, device=device)[:, None]
+    kpos = kj * bk + torch.arange(bk, device=device)[None, :]
+    m = torch.ones((bq, bk), dtype=torch.bool, device=device)
+    if causal:
+        m = m & (kpos <= qpos)
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    return m
+
+
+def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window=None, scale=None, q_block: int = 512,
+                            kv_block: int = 512, q_offset: int = 0):
+    """(o, lse) of ``flash.py``'s ``_fwd_blocks``: per query block of
+    ``divisor_block(Lq, q_block)`` rows, the online softmax over kv blocks
+    of ``divisor_block(S, kv_block)`` keys in f32; o in q's dtype, lse
+    (B, H, Lq) f32. Query row i sits at position q_offset + i."""
+    b, h, lq, d = q.shape
+    kh, s_len = k.shape[1], k.shape[2]
+    g = h // kh
+    if scale is None:
+        scale = d ** -0.5
+    bq, bk = divisor_block(lq, q_block), divisor_block(s_len, kv_block)
+    f32 = torch.float32
+    q5 = q.reshape(b, kh, g, lq, d)
+    k5, v5 = k[:, :, None], v[:, :, None]
+    outs, lses = [], []
+    for qi in range(lq // bq):
+        qblk = q5[:, :, :, qi * bq:(qi + 1) * bq]
+        acc = torch.zeros((b, kh, g, bq, d), dtype=f32, device=q.device)
+        m_run = torch.full((b, kh, g, bq), NEG, dtype=f32, device=q.device)
+        l_run = torch.zeros((b, kh, g, bq), dtype=f32, device=q.device)
+        for kj in range(s_len // bk):
+            kblk = k5[:, :, :, kj * bk:(kj + 1) * bk]
+            vblk = v5[:, :, :, kj * bk:(kj + 1) * bk]
+            s = torch.einsum("...qd,...kd->...qk", qblk.to(f32),
+                             kblk.to(f32)) * scale
+            mask = _block_mask(qi, kj, bq, bk, q_offset, causal, window,
+                               q.device)
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "...qk,...kd->...qd", p, vblk.to(f32))
+            m_run = m_new
+        l_safe = torch.clamp(l_run, min=1e-37)
+        outs.append((acc / l_safe[..., None]).to(q.dtype))
+        lses.append(m_run + torch.log(l_safe))
+    o = torch.cat(outs, dim=3).reshape(b, h, lq, d)
+    return o, torch.cat(lses, dim=3).reshape(b, h, lq)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window=None, scale=None,
+                        q_block: int = 512, kv_block: int = 512,
+                        q_offset: int = 0):
+    """(dq, dk, dv) of ``flash.py``'s custom-VJP ``bwd``, line for line:
+    D = rowsum(do * o); per query block a scan over the kv blocks for dq,
+    per kv block a scan over the query blocks for dk and dv, summed over
+    the G query heads of each kv head at the end. Blocks as
+    :func:`flash_attention_blocked`'s. dq, dk and dv come back in q's, k's
+    and v's dtypes."""
+    b, h, lq, d = q.shape
+    kh, s_len = k.shape[1], k.shape[2]
+    g = h // kh
+    if scale is None:
+        scale = d ** -0.5
+    bq, bk = divisor_block(lq, q_block), divisor_block(s_len, kv_block)
+    nq, nk = lq // bq, s_len // bk
+    f32 = torch.float32
+    q5 = q.reshape(b, kh, g, lq, d)
+    k5, v5 = k[:, :, None], v[:, :, None]
+    do_f = do.reshape(b, kh, g, lq, d).to(f32)
+    lse5 = lse.reshape(b, kh, g, lq)
+    delta = torch.sum(do_f * o.reshape(b, kh, g, lq, d).to(f32), dim=-1)
+
+    def rows(x, qi):
+        return x[:, :, :, qi * bq:(qi + 1) * bq]
+
+    def keys(x, kj):
+        return x[:, :, :, kj * bk:(kj + 1) * bk]
+
+    def probs(qi, kj):
+        s = torch.einsum("...qd,...kd->...qk", rows(q5, qi).to(f32),
+                         keys(k5, kj).to(f32)) * scale
+        mask = _block_mask(qi, kj, bq, bk, q_offset, causal, window,
+                           q.device)
+        s = torch.where(mask, s, NEG)
+        p = torch.exp(s - rows(lse5, qi)[..., None])
+        dp = torch.einsum("...qd,...kd->...qk", rows(do_f, qi),
+                          keys(v5, kj).to(f32))
+        return p, p * (dp - rows(delta, qi)[..., None])
+
+    dq_blocks = []
+    for qi in range(nq):
+        dq_acc = torch.zeros((b, kh, g, bq, d), dtype=f32, device=q.device)
+        for kj in range(nk):
+            _, ds = probs(qi, kj)
+            dq_acc = dq_acc + scale * torch.einsum(
+                "...qk,...kd->...qd", ds, keys(k5, kj).to(f32))
+        dq_blocks.append(dq_acc)
+    dq = torch.cat(dq_blocks, dim=3).reshape(b, h, lq, d).to(q.dtype)
+    dk_blocks, dv_blocks = [], []
+    for kj in range(nk):
+        dk_acc = torch.zeros((b, kh, g, bk, d), dtype=f32, device=q.device)
+        dv_acc = torch.zeros_like(dk_acc)
+        for qi in range(nq):
+            p, ds = probs(qi, kj)
+            dv_acc = dv_acc + torch.einsum("...qk,...qd->...kd", p,
+                                           rows(do_f, qi))
+            dk_acc = dk_acc + scale * torch.einsum(
+                "...qk,...qd->...kd", ds, rows(q5, qi).to(f32))
+        dk_blocks.append(dk_acc.sum(dim=2))
+        dv_blocks.append(dv_acc.sum(dim=2))
+    dk = torch.cat(dk_blocks, dim=2).to(k.dtype)
+    dv = torch.cat(dv_blocks, dim=2).to(v.dtype)
+    return dq, dk, dv
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

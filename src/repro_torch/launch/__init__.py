@@ -1,1 +1,2 @@
-"""Entry points: ``serve`` (batched prefill + greedy decode)."""
+"""Entry points: ``serve`` (batched prefill + greedy decode) and ``train``
+(CHB training of an LM, the scan strategy)."""

@@ -10,8 +10,9 @@ process on the CPU, ``["cuda:0"] * 8`` 8 shards on one card, the port's
 counterpart of ``--xla_force_host_platform_device_count``.
 
 The JAX package's model-parallel meshes (``make_auto_mesh``,
-``make_production_mesh``, ``make_local_mesh``, ``dp_axes``) belong to
-training and are not ported here (ROADMAP.md A13).
+``make_production_mesh``, ``make_local_mesh``, ``dp_axes``) are not
+ported: training here runs the scan strategy on one device, and a mesh
+raises (ROADMAP.md A13).
 """
 from __future__ import annotations
 

@@ -14,8 +14,8 @@ device, and these helpers move between it and the per-shard pieces:
   * ``stack_shards`` concatenates per-shard trees onto the server device
     (a shard already there is not copied before the concatenation).
 
-The model-parallel partition specs of ``repro.launch.sharding`` belong
-to training (ROADMAP.md A13).
+The model-parallel partition specs of ``repro.launch.sharding`` are not
+ported: training here runs on one device (ROADMAP.md A13).
 """
 from __future__ import annotations
 

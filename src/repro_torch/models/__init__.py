@@ -1,11 +1,14 @@
-"""The decoder LM of the JAX package's ``repro/models``, for serving.
+"""The decoder LM of the JAX package's ``repro/models``, for training and
+serving.
 
-``layers`` (norms, RoPE, GQA attention, MLPs), ``kvcache`` (ring caches)
-and ``model`` (``init_params``, ``prefill``, ``serve_step``). The ``cuda``
-backend runs the attention of prefill through B14 and of every decode step
-through B13; the ``reference`` backend runs their plain versions. Only the
-dense attention family is ported: mamba2 (``M``), cross-attention and
-frontends (``X``), MoE and sub-f32 configs raise ``NotImplementedError``
-(ROADMAP.md A13).
+``layers`` (norms, RoPE, GQA attention, MLPs), ``flash`` (attention with
+its gradient), ``kvcache`` (ring caches) and ``model`` (``init_params``,
+``forward``, ``chunked_xent``, ``train_loss``, ``prefill``,
+``serve_step``). The ``cuda`` backend runs the attention of prefill
+through B14, of a training step through B14 and the flash backward
+kernel, and of every decode step through B13; the ``reference`` backend
+runs their plain versions. Only the dense attention family is ported:
+mamba2 (``M``), cross-attention and frontends (``X``), MoE and sub-f32
+configs raise ``NotImplementedError`` (ROADMAP.md A13).
 """
-from . import kvcache, layers, model
+from . import flash, kvcache, layers, model

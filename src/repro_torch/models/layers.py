@@ -11,9 +11,12 @@ run in f32.
 
 ``backend`` picks the attention of ``attention`` and ``decode_attention``:
 ``"cuda"`` runs the kernels B14 and B13 (which run their plain versions on
-CPU tensors), ``"reference"`` their plain versions. The JAX package
-computes the same two functions in ``jnp`` (its blocked flash attention
-and an einsum), never through its Pallas kernels.
+CPU tensors), ``"reference"`` their plain versions. ``attention(...,
+train=True)`` (the training forward) runs ``models.flash.flash_attention``
+instead, whose gradient is B14 with its log-sum-exp and the port's flash
+backward kernel on ``"cuda"``. The JAX package computes the same
+functions in ``jnp`` (its blocked flash attention with a custom VJP, and
+an einsum), never through its Pallas kernels.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from .. import random as jrandom
 from ..configs.base import ModelConfig
 from ..kernels import decode_attention as decode_kernel
 from ..kernels import ops, ref
+from . import flash
 
 BACKENDS = ("cuda", "reference")
 
@@ -110,18 +114,25 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, window: Optional[int] = None,
-              backend: str = "cuda") -> torch.Tensor:
-    """Causal self-attention over x: (B, L, D); positions: (L,)."""
+              backend: str = "cuda", train: bool = False) -> torch.Tensor:
+    """Causal self-attention over x: (B, L, D); positions: (L,). ``train``
+    takes the route with a gradient (``models.flash``); serving's prefill
+    takes the forward alone."""
     check_backend(backend)
     b, l, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    # (B, H, L, d) views of (B, L, H, d): B14 reads them by strides
-    o = ops.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True,
-                                window=window,
-                                use_pallas=backend == "cuda")
+    # (B, H, L, d) views of (B, L, H, d): the kernels read them by strides
+    if train:
+        o = flash.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True,
+                                  window=window, backend=backend)
+    else:
+        o = ops.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=True,
+                                    window=window,
+                                    use_pallas=backend == "cuda")
     o = o.transpose(1, 2).reshape(b, l, -1)
     return o @ p["wo"]
 

@@ -1,19 +1,23 @@
-"""LM composition for serving: embeddings -> pattern-driven blocks -> head.
+"""LM composition: embeddings -> pattern-driven blocks -> head.
 
 A port of ``repro/models/model.py``'s ``init_params``, ``param_count``,
-``_lm_head``, ``prefill`` and ``serve_step``:
+``forward``, ``chunked_xent``, ``train_loss``, ``_lm_head``, ``prefill``
+and ``serve_step``:
 
+  * train_loss  -- the full sequence, flash attention with its gradient,
+                   the chunked cross-entropy (training)
   * prefill     -- the full prompt, returns (last_logits, populated cache)
   * serve_step  -- one token against the cache (decode shapes)
 
 The parameter tree is the JAX package's, with ``blocks`` stacked on a
 leading superblock axis, so a JAX tree carries across as it is
 (``convert.model_params``). A Python loop over superblocks stands in for
-``lax.scan``. ``backend="cuda"`` runs each layer's attention through B14
-(prefill) and B13 (decode); ``"reference"`` through their plain versions.
-``forward``, ``train_loss`` and ``chunked_xent`` wait for training, and
-mamba2, cross-attention, frontends, MoE and sub-f32 configs raise
-``NotImplementedError`` (ROADMAP.md A13).
+``lax.scan``, and ``torch.utils.checkpoint`` for ``jax.checkpoint``.
+``backend="cuda"`` runs each layer's attention through B14 (prefill, and
+training's forward with its log-sum-exp), the flash backward kernel
+(training) and B13 (decode); ``"reference"`` through their plain
+versions. mamba2, cross-attention, frontends, MoE, sub-f32 configs and
+``remat="dots"`` raise ``NotImplementedError`` (ROADMAP.md A13).
 """
 from __future__ import annotations
 
@@ -21,10 +25,11 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import random as jrandom
 from ..configs.base import ModelConfig
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from . import kvcache, layers
 from .kvcache import UNPORTED, effective_mixer
 
@@ -113,6 +118,121 @@ def _ffn(lp: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
         return h
     h2 = layers.rmsnorm(lp["norm2"], h, cfg.rmsnorm_eps)
     return h + layers.mlp(lp["ffn"], cfg, h2)
+
+
+# ---------------------------------------------------------------- forward
+#: the ``remat`` settings of ``forward``: none, or a checkpoint per
+#: superblock (``jax.checkpoint`` with ``nothing_saveable``)
+REMATS = ("none", "full")
+
+
+def _pick_block(l: int, target: int) -> int:
+    for b in range(min(target, l), 0, -1):
+        if l % b == 0:
+            return b
+    return 1
+
+
+def _superblock_forward(block: dict, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, long_mode: bool,
+                        backend: str) -> torch.Tensor:
+    """One superblock of ``forward`` (JAX's ``superblock`` scan body)."""
+    for i, (mixer, _) in enumerate(cfg.block_plan()):
+        lp = block[f"l{i}"]
+        _, window = effective_mixer(cfg, mixer, long_mode)
+        h = layers.rmsnorm(lp["norm1"], x, cfg.rmsnorm_eps)
+        mo = layers.attention(lp["mixer"], cfg, h, positions, window=window,
+                              backend=backend, train=True)
+        x = _ffn(lp, cfg, x + mo)
+    return x
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            enc_embeddings: Optional[torch.Tensor] = None, *,
+            long_mode: bool = False, moe_mode: str = "scan",
+            remat: str = "full", act_spec=None, backend: str = "cuda"):
+    """Returns (final hidden states (B, L, D), router aux loss ()).
+
+    The aux loss is the f32 zero of a model without MoE layers (the JAX
+    package adds MoE's there). ``remat="full"`` recomputes each superblock
+    in the backward pass, ``"none"`` keeps its activations. ``moe_mode`` is
+    taken for the JAX signature (no MoE layer runs); ``enc_embeddings``,
+    ``act_spec`` (a sharding hint) and ``remat="dots"`` raise."""
+    del moe_mode
+    check_supported(cfg)
+    layers.check_backend(backend)
+    if enc_embeddings is not None or act_spec is not None:
+        raise NotImplementedError(f"forward: enc_embeddings and act_spec "
+                                  f"(frontends, sharding hints) {UNPORTED}")
+    if remat == "dots":
+        raise NotImplementedError(f"forward: remat='dots' (saving the "
+                                  f"matmuls of a superblock) {UNPORTED}")
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS + ('dots',)}, got "
+                         f"{remat!r}")
+    x = params["embed"][tokens]
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    # one unbind a leaf, not a select a superblock: the gradient of the
+    # stacked leaf is then one stack of the superblocks' gradients, where
+    # selects would each add a zero-filled stacked tensor
+    stacked, treedef = tree_flatten(params["blocks"])
+    parts = [leaf.unbind(0) for leaf in stacked]
+    for s in range(cfg.num_superblocks):
+        block = tree_unflatten(treedef, [p[s] for p in parts])
+        if remat == "full":
+            x = checkpoint(_superblock_forward, block, cfg, x, positions,
+                           long_mode, backend, use_reentrant=False)
+        else:
+            x = _superblock_forward(block, cfg, x, positions, long_mode,
+                                    backend)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _xent_chunk(tot: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
+                w_head: torch.Tensor) -> torch.Tensor:
+    """One chunk of ``chunked_xent``: tot + sum(logsumexp - gold logit)."""
+    logits = (xb @ w_head).to(torch.float32)             # (B, ck, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    # the gold logit by a select over the vocabulary, as the JAX package
+    # picks it (an iota compare and a sum, no gather)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.sum(torch.where(iota == yb[..., None], logits, 0.0), dim=-1)
+    return tot + torch.sum(lse - gold)
+
+
+def chunked_xent(x: torch.Tensor, w_head: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """Mean cross-entropy without holding the (B, L, V) logits: the
+    sequence in chunks of the largest divisor of L up to ``chunk``, each
+    recomputed in the backward pass (``jax.checkpoint``'s
+    counterpart), the f32 logits of one chunk alive at a time."""
+    b, l, d = x.shape
+    ck = _pick_block(l, chunk)
+    nc = l // ck
+    xc = x.reshape(b, nc, ck, d).transpose(0, 1)          # (nc, B, ck, D)
+    yc = labels.reshape(b, nc, ck).transpose(0, 1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xb, yb in zip(xc.unbind(0), yc.unbind(0)):
+        tot = checkpoint(_xent_chunk, tot, xb, yb, w_head,
+                         use_reentrant=False)
+    return tot / (b * l)
+
+
+def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+               moe_mode: str = "scan", remat: str = "full", act_spec=None,
+               backend: str = "cuda"):
+    """(loss, {"xent", "router_aux"}) of one batch {"tokens", "labels"}."""
+    if "enc_embeddings" in batch:
+        raise NotImplementedError(f"train_loss: enc_embeddings (frontends) "
+                                  f"{UNPORTED}")
+    x, aux = forward(params, cfg, batch["tokens"], moe_mode=moe_mode,
+                     remat=remat, act_spec=act_spec,
+                     long_mode=batch.get("long_mode", False),
+                     backend=backend)
+    loss = chunked_xent(x, _lm_head(params, cfg), batch["labels"])
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"xent": loss, "router_aux": aux}
 
 
 # ---------------------------------------------------------------- prefill

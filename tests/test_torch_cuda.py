@@ -118,7 +118,7 @@ def test_kernels_match_plain_versions(card, m, n, dtype):
                                "quantize_ef_batched": 1,
                                "censor_delta_sqnorm": 0, "censor_select": 0,
                                "flash_attention": 0, "decode_attention": 0,
-                               "fold_workers": 0}
+                               "fold_workers": 0, "flash_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
