@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""B14, B9, B4, B7a, B7b, B2, B6 and B10 of two source trees, side by side
-on one card, and the bits of their sums B1, B5 and B8.
+"""B14, B9, B4, B7a, B7b, B2, B6, B10 and the flash backward of two source
+trees, side by side on one card, and the bits of their sums B1, B5 and B8.
 
     python3 benchmarks_torch/kernel_ab.py --other <dir> [<dir> ...]
-        [--only B14 B9 B4 B7a B7b sums fused B10] [--ablate] [--reps 10]
+        [--only B14 B9 B4 B7a B7b sums fused B10 bwd] [--ablate] [--reps 10]
 
 Each ``<dir>`` holds another checkout of this repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -17,7 +17,7 @@ whether its bits are this tree's), B9 and
 B7a also on tall banks up to M = 100,000 (it stops if this tree's fail
 and reports the others'), then times all at the main path's shapes in
 turns (the others, this, this, the others in reverse) beside their
-library calls: B14 at serve_long's prefill (B 8, H = K 12, L 2048, d 64,
+library calls (timed first and last): B14 at serve_long's prefill (B 8, H = K 12, L 2048, d 64,
 causal, the model's strided views) against
 ``scaled_dot_product_attention``, B9 at M = 4, n = 163,597,056 f32 and
 at the fed mesh's M = 70,000 and 100,000, n = 16 (f64) against
@@ -46,7 +46,17 @@ tall launchers where it has them and this tree picks the tall design,
 else its one design. ``B10`` checks that B10 of every tree gives the
 plain version's bits at M = 4, n = 163,597,056 (f32), at the fed mesh's
 M = 70,000 and 100,000, n = 16 (f64) and on a few short banks, and stops
-if it does not; then times it at the first three. One JSON line each,
+if it does not; then times it at the first three. ``bwd`` checks each
+tree's flash backward (``flash_backward.cu``, from this tree's B14 output
+and log-sum-exp) against the f64 rule of ``chip_smoke.py`` (dq, dk and
+dv) and for the same bits over three calls on a few shapes (training's,
+L = 2048, tile edges, GQA, a window, rows with no valid key, d = 80 and
+256), and stops if this tree's fail; then times it at training's shape (B
+4, H = K 12, L 256, d 64, causal) and at (1, 12, 12, 2048, 2048, 64)
+beside SDPA's autograd backward, with each tree's device time a call by
+grid (``torch.profiler``). A tree whose launcher takes a scratch pointer
+gets a scratch of this tree's ``flash_backward.plan``; a tree without one
+(before the key-tile design) runs as it is. One JSON line each,
 and the card's name and power limit. Needs a CUDA card and nvcc.
 
 A tree's B7a partial count is ceil(n / span), with the span its own
@@ -90,17 +100,19 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from benchmarks_torch.chain_floor import chain_floor_ms  # noqa: E402
 from chip_smoke import (ATTN_FACTOR, ATTN_FLOOR, FULL_D, LARGE_M,  # noqa: E402
-                        MANY_D, MANY_M, MANY_M_STAGED, _flash_f64, _time_ms, same_bits,
-                        same_or_nan)
+                        MANY_D, MANY_M, MANY_M_STAGED, _flash_f64, _time_ms, flash_bwd_f64,
+                        same_bits, same_or_nan)
 from repro_torch.core.quantize import int8_scale  # noqa: E402
-from repro_torch.kernels import build, common, flash_attention, ref  # noqa: E402
+from repro_torch.kernels import (build, common, flash_attention,  # noqa: E402
+                                 flash_backward, ref)
 
 OUT = ROOT / "build" / "kernel_ab"
 # the sources each choice of --only compiles
 SOURCES = {"B14": ("flash_attention",), "B9": ("censor",),
            "B4": ("censor",), "B7a": ("quantize_ef",),
            "B7b": ("quantize_ef",), "sums": ("censor", "fused_step"),
-           "fused": ("fused_step",), "B10": ("topk_pack",)}
+           "fused": ("fused_step",), "B10": ("topk_pack",),
+           "bwd": ("flash_backward",)}
 
 
 def compile_tree(tag: str, csrc: Path, names) -> dict:
@@ -135,10 +147,14 @@ def compile_tree(tag: str, csrc: Path, names) -> dict:
 def _tree_argtypes(source: Path, fn: str, argtypes: tuple) -> tuple:
     """This tree's argtypes for ``fn``, or, where another tree's source
     defines B14's launchers without the lse pointer (trees before it
-    existed), those launchers' shorter list."""
+    existed) or the flash backward's without the scratch pointer (trees
+    before the key-tile design), those launchers' shorter list."""
     found = re.search(rf"\bint {fn}\(([^)]*)\)", source.read_text())
-    if found and fn.startswith("flash_attention_") and \
-            len(found.group(1).split(",")) == len(argtypes) - 1:
+    if not found or len(found.group(1).split(",")) != len(argtypes) - 1:
+        return argtypes
+    if fn == "flash_attention_bwd_f32":
+        return argtypes[:10] + argtypes[11:]      # no scratch pointer
+    if fn.startswith("flash_attention_"):
         return argtypes[:5] + argtypes[6:]        # no lse pointer
     return argtypes
 
@@ -274,6 +290,83 @@ def check_flash(trees, randn) -> None:
               flush=True)
         if not ok["this"]:
             raise SystemExit("kernel_ab: B14 outside the f64 rule")
+
+
+def bwd(libs, q, k, v, o, lse, do, causal=True, window=None):
+    """One tree's flash backward: (dq, dk, dv)."""
+    b, h, lq, d = q.shape
+    kh, s_len = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lib = libs["flash_backward"]
+    scratch, nbytes = (), 0
+    if len(lib.flash_attention_bwd_f32.argtypes) == 14:
+        nbytes = flash_backward.plan(b, h, kh, lq, s_len, d, causal,
+                                     window).scratch_bytes
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+        scratch = (buf.data_ptr(),)
+    # a tree whose launcher reads 42 entries ignores the 43rd (the bytes)
+    dims = flash_backward._dims(q, k, v, o, do, dq, dk, dv, causal, window,
+                                nbytes)
+    run(lib, "flash_attention_bwd_f32", q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *scratch,
+        ctypes.addressof(dims), float(d ** -0.5))
+    return dq, dk, dv
+
+
+CHECK_BWD = [  # (b, h, kh, lq, s, d, causal, window)
+    (4, 12, 12, 256, 256, 64, True, None),
+    (1, 12, 12, 2048, 2048, 64, True, None),
+    (1, 4, 2, 129, 95, 64, True, None),
+    (1, 8, 2, 100, 100, 64, True, None),
+    (1, 4, 2, 200, 200, 64, True, 16),
+    (1, 4, 2, 150, 100, 64, True, 20),
+    (1, 4, 2, 77, 160, 80, False, 20),
+    (1, 4, 4, 65, 65, 256, True, 16),
+]
+
+
+def bwd_inputs(randn, b, h, kh, lq, s_len, d, causal, window):
+    """q, k, v, o, lse, dO: the model's strided views, o and lse from this
+    tree's B14."""
+    q, do = (randn(b, lq, h, d).transpose(1, 2) for _ in range(2))
+    k, v = (randn(b, s_len, kh, d).transpose(1, 2) for _ in range(2))
+    o, lse = flash_attention.flash_attention(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+def check_bwd(trees, randn) -> None:
+    for case in CHECK_BWD:
+        *shape, causal, window = case
+        q, k, v, o, lse, do = bwd_inputs(randn, *case)
+        kw = {"causal": causal, "window": window}
+        exact = flash_bwd_f64(q, k, v, do, causal, window)
+        plain = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        err_p = [float((p.double() - x).abs().max())
+                 for p, x in zip(plain, exact)]
+        outs = {tag: [bwd(libs, q, k, v, o, lse, do, **kw) for _ in range(3)]
+                for tag, libs in trees.items()}
+        errs = {tag: [float((g.double() - x).abs().max())
+                      for g, x in zip(runs[0], exact)]
+                for tag, runs in outs.items()}
+        ok = {tag: all(e <= ATTN_FACTOR * p + ATTN_FLOOR
+                       for e, p in zip(es, err_p)) for tag, es in errs.items()}
+        repeat = {tag: all(same_bits(a, b_) for again in runs[1:]
+                           for a, b_ in zip(runs[0], again))
+                  for tag, runs in outs.items()}
+        same = {tag: all(same_bits(a, b_) for a, b_ in
+                         zip(runs[0], outs["this"][0]))
+                for tag, runs in outs.items()}
+        print(json.dumps({"check": "bwd", "shape": shape, "causal": causal,
+                          "window": window, "plain_err_dq_dk_dv": err_p,
+                          "errs": errs, "ok": ok, "repeat_bits": repeat,
+                          "bits_as_this": same}), flush=True)
+        if not (ok["this"] and repeat["this"]):
+            raise SystemExit("kernel_ab: the flash backward outside the f64 "
+                             "rule or not repeatable")
+        del outs, exact, plain
+        torch.cuda.empty_cache()
 
 
 # B9's and B7a's tall shapes (the staged int8 and top-k steps of phase
@@ -697,6 +790,22 @@ def main() -> None:
             {tag: (lambda libs=libs: flash(libs, q, k, v))
              for tag, libs in having("flash_attention").items()},
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    if "bwd" in args.only:
+        check_bwd(having("flash_backward"), randn)
+        for case in ((4, 12, 12, 256, 256, 64, True, None),
+                     (1, 12, 12, 2048, 2048, 64, True, None)):
+            ins = bwd_inputs(randn, *case)
+            sq, sk, sv = (x.detach().clone().requires_grad_()
+                          for x in ins[:3])
+            sdpa = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+            key = "bwd B={} H={} K={} L={} S={} d={} causal".format(*case[:6])
+            fns = {tag: (lambda libs=libs, ins=ins: bwd(libs, *ins))
+                   for tag, libs in having("flash_backward").items()}
+            work[key] = (fns, lambda sdpa=sdpa, sq=sq, sk=sk, sv=sv,
+                         do=ins[5]: torch.autograd.grad(
+                             sdpa, (sq, sk, sv), do, retain_graph=True))
+            splits[key] = {tag: split(fn, args.reps)
+                           for tag, fn in fns.items()}
     if "B9" in args.only:
         check_bank(having("censor"), dev)
         for m, n, dtype in ((4, FULL_D, torch.float32),
@@ -779,10 +888,12 @@ def main() -> None:
         tags = [t for t in fns if t != "this"]
         order = tags + ["this", "this"] + tags[::-1]
         times = {tag: [] for tag in fns}
+        if lib_fn is not None:            # the library call first and last
+            fns = {**fns, "library": lib_fn}
+            times["library"] = []
+            order = ["library", *order, "library"]
         for tag in order:
             times[tag].append(_time_ms(fns[tag], args.reps))
-        if lib_fn is not None:
-            times["library"] = [_time_ms(lib_fn, args.reps)]
         line = {"kernel": name, "ms": times, "card": smi}
         if name in splits:
             line["device_us_per_call_by_kernel"] = splits[name]

@@ -45,12 +45,13 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  B12b bitwise with -0.0 and NaN salted. B14 with its
                  log-sum-exp on every B14 case: the output the same bits as
                  without it, the lse against its plain version and an f64
-                 version; the flash backward (FLASH_BWD_CASES: GQA 1/2/4,
-                 L on and off its 64-row tiles, Lq != S, rows with no
-                 valid key, d in {33, 64, 80, 128, 256}, causal, windows,
+                 version; the flash backward (FLASH_BWD_CASES: GQA 1/2/4/6,
+                 L on, one short of and one past its 64-row and 32-key
+                 tiles, Lq != S, rows with no valid key, d in {33, 64,
+                 80, 128, 256}, causal, windows (16 on 64-row tiles),
                  misaligned views, training's (4, 12, 256, 64) and L =
                  2048) against its plain version and an f64 version
-                 (ATTN_FACTOR), its bits repeatable.
+                 (ATTN_FACTOR), its bits the same over three calls.
   4. golden   -- ``simulator.run`` of chb on the paper's linreg task
                  (m=5, n_per=30, d=20, seed=0) for 60 iterations, dense,
                  int8, top-k (k=8) and low-rank (rank 2), f64 and f32,
@@ -1480,7 +1481,10 @@ DECODE_CASES = [
 # visited); d 33 (element loads), 64, 80 (zero-filled to 128), 128 and 256;
 # causal with and without a window, non-causal; operands one element off
 # their storage's alignment (offset 1); training's (4, 12, 256, 64) and an
-# L = 2048 case
+# L = 2048 case. Then the key-tile design's edges: L one short of and one
+# past each tile (64 query rows and 32 keys at d <= 64, 32 x 32 above), G
+# = 6, a window of 16 on 64-row tiles, rows with no valid key in a tile
+# that also holds valid rows, d = 33 off alignment with a window
 FLASH_BWD_CASES = [
     (2, 4, 4, 64, 64, 64, True, None, 0),
     (2, 4, 2, 65, 65, 64, True, None, 0),
@@ -1495,6 +1499,18 @@ FLASH_BWD_CASES = [
     (1, 4, 4, 65, 65, 256, True, 16, 0),
     (4, 12, 12, 256, 256, 64, True, None, 0),
     (1, 12, 12, 2048, 2048, 64, True, None, 0),
+    (1, 4, 2, 63, 63, 64, True, None, 0),
+    (1, 4, 2, 129, 95, 64, True, None, 0),
+    (1, 4, 4, 97, 97, 64, True, None, 0),
+    (1, 4, 2, 31, 33, 64, False, None, 0),
+    (1, 4, 2, 31, 31, 80, True, None, 0),
+    (1, 4, 2, 33, 33, 128, True, None, 0),
+    (1, 2, 2, 33, 31, 256, True, None, 0),
+    (1, 12, 2, 100, 100, 64, True, None, 0),
+    (1, 4, 2, 200, 200, 64, True, 16, 0),
+    (1, 4, 2, 200, 200, 64, False, 16, 0),
+    (1, 4, 2, 150, 100, 64, True, 20, 0),
+    (1, 4, 2, 97, 97, 33, True, 16, 1),
 ]
 SINGLE_PAIRS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
                 (torch.float64, torch.float32), (torch.float32, torch.bfloat16),
@@ -1649,9 +1665,10 @@ def _check_flash_bwd(case, randn, max_err) -> dict:
         out[f"{tag} {name}"] = _attn_check(g, p_, x, f"{tag} {name}")
         max_err["flash_attention_bwd"] = max(max_err["flash_attention_bwd"],
                                              max_diff(g, p_))
-    again = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    check(all(same_bits(a, b_) for a, b_ in zip(got, again)),
-          f"{tag}: the backward is not repeatable")
+    for _ in range(2):
+        again = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        check(all(same_bits(a, b_) for a, b_ in zip(got, again)),
+              f"{tag}: the backward is not repeatable")
     return out
 
 
@@ -3172,6 +3189,28 @@ def _time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _grids_a_call(fn):
+    """The device kernels one call of ``fn`` runs, by name, as
+    ``torch.profiler`` records them after one warm-up call; None where the
+    profiler records no device kernel (no CUPTI)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [evt.name for evt in prof.events()
+             if evt.device_type == DeviceType.CUDA]
+    if not names:
+        return None
+    return {"grids": len(names),
+            "names": sorted({re.sub(r"\(anonymous namespace\)::", "",
+                                    n).split("(")[0] for n in names})}
+
+
 # the fed mesh's shapes of phase 6: M of B10 and B11 (n = MANY_D, f64),
 # and of fold_workers and B1, up to the ladder's 10^6 clients
 TALL_MS = (MANY_M_STAGED, MANY_M)
@@ -3498,11 +3537,12 @@ def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
     """B12a and B12b at n = d in f32; B13 at serve_long's last decode step
     and B14 at its prefill (batch 8, 12 heads, head dim 64, the model's
     strided views), also with its log-sum-exp there and at training's
-    shape; the flash backward at training's shape (one worker's 4 x 256
-    tokens, 12 heads of 64, causal) beside its plain version and SDPA's
-    autograd backward. Bounds count what these inputs need: B12b reads
-    only the side it selects, B14 the causal band's products, the
-    backward the band's five products (s again, dp, dq, dk, dv)."""
+    shape (with its bound and SDPA's forward there); the flash backward at
+    training's shape (one worker's 4 x 256 tokens, 12 heads of 64, causal)
+    beside its plain version and SDPA's autograd backward. Bounds count
+    what these inputs need: B12b reads only the side it selects, B14 the
+    causal band's products, the backward the band's five products (s
+    again, dp, dq, dk, dv)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (censor, decode_attention,
@@ -3581,6 +3621,19 @@ def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
         "train_shape_without": _time_ms(
             lambda: flash_attention.flash_attention(tq, tk, tv, causal=True),
             10)}
+    # B14 at training's shape (192 of its launches in phase train): its
+    # bound there (four products of the causal band) and SDPA's forward
+    t_bytes, t_ops = 4 * operand, 4 * tb * nh * tpairs * hd
+    b14_train = {
+        "ms": with_lse["train_shape_without"],
+        "ms_with_lse": with_lse["train_shape"],
+        "bound_ms": max(t_bytes / HBM_BYTES_PER_S, t_ops / F32_FLOPS) * 1e3,
+        "bound_by": "bytes" if t_bytes / HBM_BYTES_PER_S
+        >= t_ops / F32_FLOPS else "operations",
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            tq, tk, tv, is_causal=True), 10),
+        "bytes": t_bytes, "operations": t_ops,
+        "shape": f"B={tb} H=K={nh} L={tl} d={hd} float32, causal"}
     rows = []
     for name, (kfn, pfn, lfn, nbytes, ops_, shape) in work.items():
         ms = _time_ms(kfn, 10)
@@ -3600,8 +3653,12 @@ def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
             "library_ms": library_ms, "launches_by_path": by_path,
             "bytes": nbytes, "operations": ops_, "shape": shape,
             **({"port_only": True} if name in PORT_ONLY else {}),
-            **({"ms_with_lse": with_lse} if name == "flash_attention"
-               else {})})
+            **({"ms_with_lse": with_lse, "train_shape": b14_train}
+               if name == "flash_attention" else {}),
+            # the CUDA grids one call runs behind its one count, as the
+            # profiler sees them in this run
+            **({"grids_a_call": _grids_a_call(kfn)}
+               if name == "flash_attention_bwd" else {})})
         torch.cuda.empty_cache()
     return rows
 

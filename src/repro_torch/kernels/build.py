@@ -67,10 +67,10 @@ _RESIDUAL_ARGS = (_DEV,) + (_P,) * 5 + (_I64, _I64, _P)
 _SELECT_ARGS = (_DEV,) + (_P,) * 3 + (_I64, ctypes.c_int, _P)
 # the attention launchers take their sizes and strides as a host int64
 # array (a pointer) and the softmax scale as a double; B14 takes q, k, v,
-# out and a nullable lse, the flash backward q, k, v, o, dO, lse, dq, dk
-# and dv
+# out and a nullable lse, the flash backward q, k, v, o, dO, lse, dq, dk,
+# dv and its scratch
 _FLASH_ARGS = (_DEV,) + (_P,) * 6 + (_F64, _P)
-_FLASH_BWD_ARGS = (_DEV,) + (_P,) * 10 + (_F64, _P)
+_FLASH_BWD_ARGS = (_DEV,) + (_P,) * 11 + (_F64, _P)
 _DECODE_ARGS = (_DEV,) + (_P,) * 8 + (_F64, _P)
 #: the dtypes of the single-tensor entry points B12a/B12b and of the
 #: attention kernels, by launcher suffix
