@@ -36,6 +36,14 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  other and their M=1 calls, B1 against B8 on g - ghat, B5
                  against B8 and B7a on its pending delta, bit for bit (NaN
                  where NaN); B7a and B9 also on misaligned views;
+                 (phase fused_bf16_banks) the 20 launchers of B1, B2, B5
+                 and B6 on bf16 banks (bf16 params, f32 params, and B5/B6
+                 with an f32 err), both designs of each, M in {1, 4, 9,
+                 70,000}, odd n, views one element off, salted with -0.0,
+                 NaN and +-inf, against their plain versions (B2, B6 and
+                 B5's abs-max bit for bit, the sums within SQNORM_RTOL),
+                 the designs against each other, repeats and M=1 slices
+                 bitwise;
                  (phase attention_kernels) B14 over GQA 1/2/4/6,
                  causal, window and non-causal rectangular shapes on and
                  off its tiles, head dims 32-256, strided and misaligned
@@ -68,7 +76,12 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  single-shard ``shard_step`` + ``apply_server`` anchor on
                  one leaf, per_tensor on the 12 leaves; kernel backend
                  against reference backend, staged and sharded against the
-                 fused steps, the launch counts read per path.
+                 fused steps, the launch counts read per path. Also dense
+                 and int8 with ``bank_dtype=torch.bfloat16`` (f32 params:
+                 masks, counts, bytes and theta equal to the reference
+                 backend's) and on the task in bf16, held step by step
+                 against the reference backend from one state (Lockstep:
+                 eq. (4) runs in f32 in the kernels, in bf16 there).
   many_workers -- benchmarks/fed_mesh.py's edge quadratics (d=16, f64)
                  at its frontier M = 100,000 (fused dense and int8) and at
                  M = 70,000 (the staged routes and top-k, whose worker sum
@@ -150,9 +163,12 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  100,000, n = 16);
                  B14 also with its log-sum-exp, the flash backward at
                  training's shape (one worker's 4 x 256 tokens) beside
-                 SDPA's autograd backward; then the ``{"kernels": [...]}``
-                 line of all 18 kernels (16 ported, and fold_workers and
-                 flash_attention_bwd, which only the port has).
+                 SDPA's autograd backward; B1, B2, B5 and B6 also on bf16
+                 banks of bf16 and of f32 params; then the ``{"kernels":
+                 [...]}`` line of all 18 kernels (16 ported, and
+                 fold_workers and flash_attention_bwd, which only the port
+                 has) and the 8 rows of the sub-f32 launchers
+                 (``<kernel>_bf16``, ``<kernel>_f32_bf16``).
 
 The last line is ``{"ok": true, "device": {...}}``. Every failed check
 raises, so the script exits non-zero and prints no last line; without
@@ -1340,6 +1356,171 @@ def phase_tall_paths(device, dtypes=(torch.float32, torch.float64)) -> None:
           "ghat', B7b's err' to B6's"})
 
 
+# ------------------------------------------------- phase fused_bf16_banks
+#: (params P, bank H, err E) of the sub-f32 launchers of B1, B2, B5 and B6
+#: (B1 and B2 take no err): all bf16, f32 on a bf16 bank, and that with
+#: the f32 err transport.init makes
+BF16_COMBOS = [(torch.bfloat16, torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16, torch.float32)]
+#: (M, n, off): M in {1, 4, 9, 70,000}, odd n (a row of 2049 is two
+#: reduction chunks: no warp design there), views one element off
+BF16_CASES = [(m, n, off) for m in (1, 4, 9) for n in (1, 33, 2049)
+              for off in (0, 1)] + [(4, 128 * 257 + 3, 0), (LARGE_M, 33, 0),
+                                    (LARGE_M, 33, 1), (LARGE_M, 2049, 0)]
+
+
+def _bf16_inputs(m, n, combo, off, device, seed):
+    """B2/B6's salted operands (``_fold_inputs``: -0.0 columns, NaN and
+    +-inf) with g, theta, theta_prev in P, ghat in H and err in E, each
+    ``off`` elements into its storage; rows past the first salted with NaN
+    and -inf in g, +inf in ghat."""
+    p_dt, h_dt, e_dt = combo
+    g, h, e, t, p = _fold_inputs(m, n, torch.float32, device, seed)
+    if m > 2 and n > 3:
+        g[1, 2], g[2, 3], h[1, 3] = float("nan"), float("-inf"), float("inf")
+    return (_offset_copy(g.to(p_dt), off), _offset_copy(h.to(h_dt), off),
+            _offset_copy(e.to(e_dt), off), _offset_copy(t.to(p_dt), off),
+            _offset_copy(p.to(p_dt), off))
+
+
+def phase_fused_bf16_banks(device) -> None:
+    """The sub-f32 launchers of B1, B2, B5 and B6 (BF16_COMBOS) on
+    BF16_CASES, both designs of each, against their plain versions on the
+    card: B2's and B6's outputs and B5's abs-max NaN where the plain
+    version gives NaN and the same bits elsewhere (-0.0 included), the
+    sums of B1 and B5 within SQNORM_RTOL; the designs against each other,
+    a repeat launch and the M=1 calls of sample_workers bitwise, every
+    mask."""
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import censor, common, fused_step, ref
+    sms = common.sm_count(device.index or 0)
+    alpha, beta = 0.0123, 0.4
+    cases, err, names = 0, {}, set()
+    for combo in BF16_COMBOS:
+        pair = common.FUSED_DTYPES[combo[:2]]     # B1's and B2's suffix
+        suffix = pair + ("" if combo[2] == combo[1] else "_f32")
+        for m, n, off in BF16_CASES:
+            g, h, e, t, p = _bf16_inputs(m, n, combo, off, device, m + n)
+            tag = f"{suffix} M={m} n={n} off={off}"
+            sq_designs = ("two_pass", "warp") if n <= 2048 else ("two_pass",)
+            # B1 and B5: both designs, the plain version, M=1 slices
+            b1_p = ref.censor_delta_sqnorm_batched(g, h)
+            sq_p, am_p = ref.int8_stats_batched(g, h, e)
+            first = None
+            for design in sq_designs:
+                b1 = censor.delta_sqnorm_on_card(g, h, design)
+                sq, am = fused_step.int8_stats_on_card(g, h, e, design)
+                check(_within_or_nan(b1, b1_p), f"B1 {design} {tag}")
+                check(_within_or_nan(sq, sq_p) and same_or_nan(am, am_p),
+                      f"B5 {design} {tag}")
+                check(am.dtype == h.dtype, f"B5 amax dtype {tag}")
+                if first is None:
+                    first = (b1, sq, am)
+                check(all(same_or_nan(a, b) for a, b in
+                          zip((b1, sq, am), first)),
+                      f"B1/B5 {design} against two_pass {tag}")
+                again = (censor.delta_sqnorm_on_card(g, h, design),
+                         *fused_step.int8_stats_on_card(g, h, e, design))
+                check(all(same_bits(a, b) for a, b in zip(again,
+                                                          (b1, sq, am))),
+                      f"B1/B5 {design} repeat {tag}")
+                for w in sample_workers(m):
+                    r = slice(w, w + 1)
+                    one = (censor.delta_sqnorm_on_card(g[r], h[r], design),
+                           *fused_step.int8_stats_on_card(g[r], h[r], e[r],
+                                                          design))
+                    check(all(same_or_nan(a, b[r]) for a, b in
+                              zip(one, (b1, sq, am))),
+                          f"B1/B5 {design} M=1 slice {w} {tag}")
+                for name, got, plain, suf in (
+                        ("censor_delta_sqnorm_batched", b1, b1_p, pair),
+                        ("int8_stats_batched", sq, sq_p, suffix)):
+                    key = f"{name}{'_warp' if design == 'warp' else ''}_{suf}"
+                    names.add(key)
+                    fin = torch.isfinite(plain)
+                    if fin.any():
+                        err[key] = max(err.get(key, 0.0),
+                                       _rel_err(got[fin], plain[fin]))
+            scale = int8_scale(first[2])
+            del first, b1, sq, am, again, b1_p, sq_p, am_p
+            masks = _masks(m, device)
+            if m == LARGE_M:   # the plain fold is 70,000 eager adds a call
+                masks = {"mixed": masks["mixed"]}
+            for mname, mask in masks.items():
+                mtag = f"{tag} mask={mname}"
+                outs = {}
+                for path in fused_step.FOLD_PATHS:
+                    if combo[2] == combo[1]:
+                        outs["B2", path] = fused_step.dense_on_card(
+                            g, h, t, p, mask, alpha, beta, path)
+                        names.add(fused_step._launcher(
+                            "fused_dense_step", path, suffix=pair))
+                    outs["B6", path] = fused_step.int8_on_card(
+                        g, h, e, t, p, mask, scale, alpha, beta, path)
+                    names.add(fused_step._launcher("fused_int8_step", path,
+                                                   suffix=suffix))
+                plain = {"B2": ref.fused_dense_step(g, h, t, p, mask, alpha,
+                                                    beta),
+                         "B6": ref.fused_int8_step(g, h, e, t, p, mask,
+                                                   scale, alpha, beta)}
+                for (kern, path), out in outs.items():
+                    dts = [x.dtype for x in out]
+                    want = ([h.dtype, h.dtype, t.dtype] if kern == "B2"
+                            else [h.dtype, h.dtype, h.dtype, t.dtype])
+                    check(dts == want, f"{kern} {path} dtypes {dts} {mtag}")
+                    check(all(same_or_nan(a, b) for a, b in
+                              zip(out, plain[kern])),
+                          f"{kern} {path} against the plain version {mtag}")
+                    if kern == "B2" and mname == "zeros" and n > 1:
+                        check(bool((bits(out[1][1:2]) == bits(torch.tensor(
+                            [-0.0], dtype=h.dtype, device=device))).all()),
+                              f"B2 {path} -0.0 column's agg {mtag}")
+                for kern in ("B2", "B6"):
+                    if (kern, "one_pass") not in outs:
+                        continue
+                    again = (fused_step.dense_on_card(g, h, t, p, mask, alpha,
+                                                      beta, "one_pass")
+                             if kern == "B2" else fused_step.int8_on_card(
+                                 g, h, e, t, p, mask, scale, alpha, beta,
+                                 "one_pass"))
+                    check(all(same_bits(a, b) for a, b in
+                              zip(again, outs[kern, "one_pass"])),
+                          f"{kern} repeat {mtag}")
+                    check(all(same_or_nan(a, b) for a, b in
+                              zip(outs[kern, "tall"],
+                                  outs[kern, "one_pass"])),
+                          f"{kern} tall against one_pass {mtag}")
+                for w in sample_workers(m):
+                    r = slice(w, w + 1)
+                    for path in fused_step.FOLD_PATHS:
+                        one = fused_step.int8_on_card(
+                            g[r], h[r], e[r], t, p, mask[r], scale[r], alpha,
+                            beta, path)
+                        full = outs["B6", path]
+                        check(same_or_nan(one[0], full[0][r])
+                              and same_or_nan(one[1], full[1][r]),
+                              f"B6 {path} M=1 slice {w} {mtag}")
+                        if ("B2", path) in outs:
+                            one = fused_step.dense_on_card(
+                                g[r], h[r], t, p, mask[r], alpha, beta, path)
+                            check(same_or_nan(one[0], outs["B2", path][0][r]),
+                                  f"B2 {path} M=1 slice {w} {mtag}")
+                del outs, plain
+                cases += 1
+            del g, h, e, t, p
+            torch.cuda.empty_cache()
+    check(len(names) == 20, f"{len(names)} sub-f32 launchers checked")
+    emit({"phase": "fused_bf16_banks", "cases": cases, "sms": sms,
+          "combos": [[str(d) for d in c] for c in BF16_COMBOS],
+          "launchers": sorted(names),
+          "max_rel_err_sqnorm": err,
+          "rule": "B2, B6 (both designs) and B5's abs-max against the "
+          "plain version NaN where it gives NaN, the same bits elsewhere "
+          "(-0.0 included); B1's and B5's sums within SQNORM_RTOL; the "
+          "designs against each other, repeats and M=1 slices bitwise"})
+
+
 # ----------------------------------------------------------- phase 3b
 def _flash_f64(q, k, v, causal, window):
     """B14's function in f64 (the plain version without its f32 casts)."""
@@ -1906,6 +2087,11 @@ PATH_KERNELS = {
                     "fold_workers", "hb_update"),
     "shard_int8": ("sqnorm_batched", "absmax_batched", "quantize_ef_batched",
                    "bank_advance", "fold_workers", "hb_update"),
+    # sub-f32 banks: the fused route only
+    "dense_bf16bank": ("censor_delta_sqnorm_batched", "fused_dense_step"),
+    "int8_bf16bank": ("int8_stats_batched", "fused_int8_step"),
+    "dense_bf16": ("censor_delta_sqnorm_batched", "fused_dense_step"),
+    "int8_bf16": ("int8_stats_batched", "fused_int8_step"),
 }
 # the path each staged or sharded path must equal bit for bit
 SAME_AS = {"dense_staged": "dense", "int8_staged": "int8",
@@ -2021,6 +2207,10 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
         "per_tensor": ({"granularity": "per_tensor"}, tree, None),
         "shard_dense": ({}, flat, 4 * d),
         "shard_int8": (int8, flat, d + 4),
+        # f32 params on a bf16 bank: the uploads are the f32 payload's
+        "dense_bf16bank": ({"bank_dtype": torch.bfloat16}, flat, 4 * d),
+        "int8_bf16bank": ({**int8, "bank_dtype": torch.bfloat16}, flat,
+                          d + 4),
     }
 
     def one_run(kind, kw, task, backend, keep_state=False):
@@ -2138,10 +2328,120 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
         torch.cuda.empty_cache()
     del paths, tree, fused
     torch.cuda.empty_cache()
+    bf16_summary, bf16_launches = _full_bf16_paths(d, m, iters)
+    summary.update(bf16_summary)
+    launches.update(bf16_launches)
     emit({"phase": "full", "d": d, "m": m, "iters": iters,
           "topk_k": FULL_TOPK_K, "lowrank_rank": FULL_RANK,
           "setup_s": setup_s, **summary})
     return launches
+
+
+#: phase full's all-bf16 paths (make_edge_quadratics in bf16): eq. (4)
+#: runs in f32 in B2 and B6 (compute_dtype, as the JAX kernels run it) and
+#: in bf16 on the reference backend (as the JAX reference step does), so
+#: the two are held step by step from one state. Each cuda theta' lies
+#: within BF16_EQ4_UNITS bf16 unit roundoffs (2^-8) of the sum of the
+#: magnitudes of eq. (4)'s terms of the reference's: the reference rounds
+#: alpha, beta and each of its five operations to bf16, the kernel once
+BF16_FULL_PATHS = {"dense_bf16": {}, "int8_bf16": {"quantize": "int8"}}
+BF16_EQ4_UNITS = 8
+
+
+class Lockstep:
+    """Both backends from one state at every step; the run goes on from
+    the cuda step. Masks, the comm counters, ghat', err' and the worker
+    sum bit for bit; theta' within BF16_EQ4_UNITS of eq. (4)'s terms."""
+
+    def __init__(self, cuda_opt, ref_opt, tag):
+        self.cuda, self.ref, self.tag = StepRecorder(cuda_opt), \
+            StepRecorder(ref_opt), tag
+        self.alpha, self.beta = cuda_opt.alpha, cuda_opt.beta
+        self.theta_units = 0.0
+
+    def init(self, params):
+        return self.cuda.init(params)
+
+    def step(self, state, params, grads):
+        from repro_torch.core.util import sum_leading
+        out_c = self.cuda.step(state, params, grads)
+        out_r = self.ref.step(state, params, grads)
+        (sc, tc, stc), (sr, tr, str_) = out_c, out_r
+        k, tag = len(self.cuda.events), self.tag
+        check(torch.equal(stc.mask, str_.mask), f"{tag} step {k}: masks")
+        check(all(torch.equal(a, b) for a, b in zip(sc.comm, sr.comm)),
+              f"{tag} step {k}: comm counters")
+        check(all(same_bits(a, b) for a, b in zip(
+            tree_leaves([sc.ghat, sc.err]), tree_leaves([sr.ghat, sr.err]))),
+              f"{tag} step {k}: ghat' or err'")
+        agg = sum_leading(sc.ghat).float()
+        t, tp = params.float(), state.prev_params.float()
+        terms = t.abs() + abs(self.alpha) * agg.abs() \
+            + abs(self.beta) * (t - tp).abs()
+        gap = (tc.float() - tr.float()).abs()
+        units = float((gap / (terms * 2.0 ** -8).clamp_min(
+            torch.finfo(torch.float32).tiny)).max())
+        check(units <= BF16_EQ4_UNITS and tc.dtype == tr.dtype,
+              f"{tag} step {k}: theta' {units} bf16 units from the "
+              f"reference's")
+        self.theta_units = max(self.theta_units, units)
+        del agg, t, tp, terms, gap
+        return out_c
+
+
+def _full_bf16_paths(d, m, iters, device="cuda") -> tuple:
+    """BF16_FULL_PATHS at full width: chb on make_edge_quadratics in bf16
+    through the cuda backend, in lockstep with the reference backend
+    (Lockstep); launches as PATH_KERNELS says, bytes 2d a dense upload and
+    d + 4 an int8 one. Returns (summary, launches) by path."""
+    from repro_torch import opt
+    from repro_torch.core import simulator
+    from repro_torch.data import edge_tasks
+    from repro_torch.kernels import common
+    t0 = time.perf_counter()
+    task = edge_tasks.make_edge_quadratics(m=m, d=d, seed=0,
+                                           dtype=torch.bfloat16, device=device)
+    setup_s = time.perf_counter() - t0
+    summary, launches = {}, {}
+    for kind, kw in BF16_FULL_PATHS.items():
+        lock = Lockstep(*(opt.make("chb", FULL_ALPHA, m, eps1=FULL_EPS1,
+                                   backend=b, **kw)
+                          for b in ("cuda", "reference")), f"full {kind}")
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = simulator.run(lock, task, iters, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches[kind] = dict(common.LAUNCHES)
+        want = {name: iters if name in PATH_KERNELS[kind] else 0
+                for name in common.KERNELS}
+        check(launches[kind] == want,
+              f"full {kind}: launches {launches[kind]}, want {want}")
+        comm = hist.final_state.comm
+        sent = int(hist.mask.sum())
+        payload = 2 * d if kind.startswith("dense") else d + 4
+        check(comm.uplink_bytes_exact() == sent * payload,
+              f"full {kind}: uplink bytes {comm.uplink_bytes_exact()}")
+        objective = float(hist.objective[-1])
+        check(math.isfinite(objective) and hist.final_params.dtype
+              == torch.bfloat16, f"full {kind}: objective {objective}")
+        margins = [x.min_margin(FULL_EPS1) for x in (lock.cuda, lock.ref)]
+        summary[kind] = {
+            "uploads": sent, "uplink_bytes": comm.uplink_bytes_exact(),
+            "payload_bytes": payload, "leaves": 1, "lockstep": True,
+            "theta_max_bf16_units": lock.theta_units,
+            "theta_bound_units": BF16_EQ4_UNITS,
+            "min_eq8_margin": min(margins), "objective": objective,
+            "step_ms_cuda": lock.cuda.median_ms(),
+            "step_ms_reference": lock.ref.median_ms(), "wall_s_both": wall,
+            "setup_s": setup_s,
+            "launches": {n: c for n, c in launches[kind].items() if c}}
+        del hist, lock
+        torch.cuda.empty_cache()
+    del task
+    torch.cuda.empty_cache()
+    return summary, launches
 
 
 # ------------------------------------------------- phase many_workers
@@ -3514,7 +3814,7 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
         ops_ms = ops / F32_FLOPS * 1e3
         src, replaces = KERNEL_META[name]
         by_path = {path: c[name] for path, c in launches.items()
-                   if c[name]}
+                   if c[name] and path not in SUB_F32_PATHS}
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3530,7 +3830,91 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
         torch.cuda.empty_cache()
     del g, h, e, t, p, keep, pend, nab
     torch.cuda.empty_cache()
+    rows += bf16_timing_rows(device, launches, d, m)
     return rows + model_timing_rows(device, launches, max_err, d)
+
+
+#: phase full's paths on sub-f32 banks, by the launcher suffix they run
+SUB_F32_PATHS = {"dense_bf16bank": "f32_bf16", "int8_bf16bank": "f32_bf16",
+                 "dense_bf16": "bf16", "int8_bf16": "bf16"}
+
+
+def bf16_timing_rows(device, launches, d=FULL_D, m=FULL_M) -> list:
+    """B1, B2, B5 and B6 at the full-width shape on a bf16 bank, of bf16
+    params (``_bf16``) and of f32 params (``_f32_bf16``, err in bf16 as
+    after the first step): time, plain version, bound from the bytes each
+    reads and writes once, the launches of phase full's sub-f32 paths, and
+    the largest absolute difference from the plain version in this run
+    (B1's and B5's sums in another order; B2 and B6 bit for bit)."""
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import censor, fused_step, ref
+    gen = torch.Generator(device=device).manual_seed(7)
+    mask = torch.tensor([1.0, 0.0] * (m // 2) + [1.0] * (m % 2),
+                        device=device)
+    rows = []
+    for suffix, p_dt in (("bf16", torch.bfloat16),
+                         ("f32_bf16", torch.float32)):
+        h_dt = torch.bfloat16
+
+        def randn(*shape, dtype, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=device)
+                    * scale).to(dtype)
+
+        g, h = randn(m, d, dtype=p_dt), randn(m, d, dtype=h_dt)
+        e = randn(m, d, dtype=h_dt, scale=0.01)
+        t, p = randn(d, dtype=p_dt), randn(d, dtype=p_dt)
+        scale = int8_scale(ref.int8_stats_batched(g, h, e)[1])
+        sp, sh = g.element_size(), h.element_size()
+        work = {  # name: (kernel, plain, bytes moved, f32 operations)
+            "censor_delta_sqnorm_batched": (
+                lambda: censor.censor_delta_sqnorm_batched(g, h),
+                lambda: ref.censor_delta_sqnorm_batched(g, h),
+                m * d * (sp + sh) + 4 * m, 3 * m * d),
+            "fused_dense_step": (
+                lambda: fused_step.fused_dense_step(g, h, t, p, mask, 0.1,
+                                                    0.4),
+                lambda: ref.fused_dense_step(g, h, t, p, mask, 0.1, 0.4),
+                m * d * (sp + 2 * sh) + d * (3 * sp + sh) + 4 * m,
+                (4 * m + 5) * d),
+            "int8_stats_batched": (
+                lambda: fused_step.int8_stats_batched(g, h, e),
+                lambda: ref.int8_stats_batched(g, h, e),
+                m * d * (sp + 2 * sh) + (4 + sh) * m, 6 * m * d),
+            "fused_int8_step": (
+                lambda: fused_step.fused_int8_step(g, h, e, t, p, mask, scale,
+                                                   0.1, 0.4),
+                lambda: ref.fused_int8_step(g, h, e, t, p, mask, scale, 0.1,
+                                            0.4),
+                m * d * (sp + 4 * sh) + d * (3 * sp + sh) + 8 * m,
+                (16 * m + 5) * d),
+        }
+        for name, (kfn, pfn, nbytes, ops) in work.items():
+            got, want = kfn(), pfn()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(max_diff(a[torch.isfinite(b)], b[torch.isfinite(b)])
+                      for a, b in zip(got, want))
+            del got, want
+            ms = _time_ms(kfn, 10)
+            plain_ms = _time_ms(pfn, 3)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / F32_FLOPS * 1e3
+            src, replaces = KERNEL_META[name]
+            by_path = {path: c[name] for path, c in launches.items()
+                       if c[name] and SUB_F32_PATHS.get(path) == suffix}
+            rows.append({
+                "name": f"{name}_{suffix}", "route": "cuda", "source": src,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None, "launches_by_path": by_path,
+                "bytes": nbytes,
+                "shape": f"M={m} n={d} params {p_dt} bank bfloat16"})
+            torch.cuda.empty_cache()
+        del g, h, e, t, p, scale, work
+        torch.cuda.empty_cache()
+    return rows
 
 
 def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
@@ -3683,6 +4067,7 @@ def main() -> None:
     phase_absmax_paths(dev)
     phase_fused_fold_paths(dev)
     phase_tall_paths(dev)
+    phase_fused_bf16_banks(dev)
     phase_attention_kernels(dev, max_err)
     phase_golden(dev)
     flat, setup_s = full_task(dev)
@@ -3699,7 +4084,8 @@ def main() -> None:
     launches.update(phase_train(dev))
     phase_train_cli()
     rows = phase_timing(dev, launches, max_err)
-    check(len(rows) == len(KERNEL_META) == 18, f"{len(rows)} kernel rows")
+    check(len(KERNEL_META) == 18 and len(rows) == 18 + 8,
+          f"{len(rows)} kernel rows")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -69,13 +69,16 @@ def tree_worker_slice(tree, m):
 def sum_leading(x: torch.Tensor) -> torch.Tensor:
     """Left fold over the worker axis in index order: ((x0 + x1) + x2)...
 
-    Starting from ``x[0]`` (not from zeros) keeps a leaf whose every
-    worker slice is -0.0 at -0.0, exactly like the fused kernels' fold.
+    The fold runs in f32 for a sub-f32 bank and rounds once to its dtype,
+    as the JAX package's ``jnp.sum(axis=0)`` accumulates bf16 (its bits on
+    such a bank); an f32 or f64 bank folds in its own dtype. Starting from
+    ``x[0]`` (not from zeros) keeps a leaf whose every worker slice is
+    -0.0 at -0.0, exactly like the fused kernels' fold.
     """
-    acc = x[0].clone()
+    acc = x[0].to(torch.promote_types(x.dtype, torch.float32), copy=True)
     for m in range(1, x.shape[0]):
         acc = acc + x[m]
-    return acc
+    return acc.to(x.dtype)
 
 
 def tree_sum_leading(tree):

@@ -84,6 +84,21 @@ def _both(name: str, argtypes: tuple) -> dict:
     return {f"{name}_{s}": argtypes for s in ("f32", "f64")}
 
 
+#: the launcher suffixes of B1, B2, B5 and B6 past f32 and f64 (the pairs
+#: of ``common.FUSED_DTYPES``); B5 and B6 also take an f32 err on the bf16
+#: bank of f32 params (``_f32``: the err ``transport.init`` makes)
+SUB_F32_SUFFIXES = ("bf16", "f32_bf16")
+SUB_F32_ERR_SUFFIXES = SUB_F32_SUFFIXES + ("f32_bf16_f32",)
+
+
+def _fused(name: str, argtypes: tuple, err: bool = False) -> dict:
+    """The launchers of one design of B1, B2, B5 or B6: f32, f64 and the
+    sub-f32 banks."""
+    subs = SUB_F32_ERR_SUFFIXES if err else SUB_F32_SUFFIXES
+    return {**_both(name, argtypes),
+            **{f"{name}_{s}": argtypes for s in subs}}
+
+
 def _pairs(name: str, argtypes: tuple) -> dict:
     """The launchers of one single-tensor kernel, one per (g, ghat) dtype
     pair."""
@@ -92,20 +107,21 @@ def _pairs(name: str, argtypes: tuple) -> dict:
 
 
 SIGNATURES = {
-    "censor": {**_both("censor_delta_sqnorm_batched", _REDUCE_ARGS),
-               **_both("censor_delta_sqnorm_batched_warp", _WARP_ARGS),
+    "censor": {**_fused("censor_delta_sqnorm_batched", _REDUCE_ARGS),
+               **_fused("censor_delta_sqnorm_batched_warp", _WARP_ARGS),
                **_both("sqnorm_batched", _SQNORM_ARGS),
                **_both("sqnorm_batched_warp", _FOLD_ARGS),
                **_both("bank_advance", _BANK_ARGS),
                **_both("censor_bank_advance", _BANK_ARGS),
                **_pairs("censor_delta_sqnorm", _REDUCE_ARGS),
                **_pairs("censor_select", _SELECT_ARGS)},
-    "fused_step": {**_both("fused_dense_step", _DENSE_ARGS),
-                   **_both("fused_dense_step_tall", _DENSE_ARGS),
-                   **_both("int8_stats_batched", _STATS_ARGS),
-                   **_both("int8_stats_batched_warp", _STATS_WARP_ARGS),
-                   **_both("fused_int8_step", _INT8_ARGS),
-                   **_both("fused_int8_step_tall", _INT8_ARGS),
+    "fused_step": {**_fused("fused_dense_step", _DENSE_ARGS),
+                   **_fused("fused_dense_step_tall", _DENSE_ARGS),
+                   **_fused("int8_stats_batched", _STATS_ARGS, err=True),
+                   **_fused("int8_stats_batched_warp", _STATS_WARP_ARGS,
+                            err=True),
+                   **_fused("fused_int8_step", _INT8_ARGS, err=True),
+                   **_fused("fused_int8_step_tall", _INT8_ARGS, err=True),
                    **_both("fold_workers", _FOLD_ARGS),
                    **_both("fold_workers_tall", _FOLD_ARGS)},
     "hb_update": _both("hb_update", _HB_ARGS),

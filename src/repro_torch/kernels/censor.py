@@ -14,8 +14,9 @@ import torch
 from . import ref
 from .build import REDUCE_CHUNK, ROW_TILE, SINGLE_DTYPES, launch
 from .common import (BLOCK_THREADS, KERNEL_DTYPES, check_leaves,
-                     check_worker_vector, count_launch, grid_chunks, on_card,
-                     sm_count, sqnorm_path)
+                     check_shapes, check_worker_vector, count_launch,
+                     fused_suffix, grid_chunks, on_card, sm_count,
+                     sqnorm_path)
 
 #: the designs of B1, B8, B5 and B7a (``common.sqnorm_path`` picks one by
 #: shape)
@@ -42,14 +43,16 @@ def censor_delta_sqnorm_batched(g: torch.Tensor, ghat: torch.Tensor
                                 ) -> torch.Tensor:
     """(M,) f32 ``sum_j (g[m, j] - ghat[m, j])^2`` of one (M, ...) leaf.
 
-    The subtraction runs in the bank dtype and the sum in f32, in a fixed
-    order: two launches give the same bits, and the M=1 call on one
-    worker equals that worker's entry of the batched call. Of its two
-    designs, ``common.sqnorm_path`` picks one by shape; they give the same
-    bits.
+    g is cast to the bank dtype and the subtraction runs there (a bf16
+    bank rounds it to bf16), the sum in f32, in a fixed order: two
+    launches give the same bits, and the M=1 call on one worker equals
+    that worker's entry of the batched call. The (g, ghat) dtypes are a
+    pair of ``common.FUSED_DTYPES``. Of its two designs,
+    ``common.sqnorm_path`` picks one by shape; they give the same bits.
     """
     name = "censor_delta_sqnorm_batched"
-    check_leaves(name, g, ghat)
+    check_shapes(name, g, ghat)
+    fused_suffix(name, (g,), ghat)
     m, n = g.shape[0], g[0].numel()
     if n == 0:
         return torch.zeros((m,), dtype=torch.float32, device=g.device)
@@ -90,7 +93,7 @@ def delta_sqnorm_on_card(g: torch.Tensor, ghat: torch.Tensor,
     input."""
     name = "censor_delta_sqnorm_batched"
     m, n = g.shape[0], g[0].numel()
-    suffix = KERNEL_DTYPES[g.dtype]
+    suffix = fused_suffix(name, (g,), ghat)
     ptrs = (_ptr(g), _ptr(ghat))
     if warp_design(name, path, n):
         return _warp_launch(name, f"{name}_warp_{suffix}", g.device, ptrs,

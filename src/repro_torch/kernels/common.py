@@ -28,8 +28,20 @@ KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
 
 LAUNCHES: dict[str, int] = compile_log.namespace("kernels", KERNELS)
 
-#: bank dtypes the kernels are built for (sub-f32 banks are not ported)
+#: bank dtypes of the kernels that take one dtype: the worker fold, B3, B4,
+#: B7a/b and B8-B11 (their sub-f32 banks are ROADMAP queue B). B1, B2, B5
+#: and B6 take the pairs of ``FUSED_DTYPES``
 KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+#: (params dtype P, bank dtype H) of the fused CHB step's kernels (B1, B2,
+#: B5, B6), by launcher suffix: P is the gradients' and theta's dtype, H
+#: ghat's, as ``opt.make(..., bank_dtype=H)`` gives it. A bf16 bank
+#: computes each element operation in f32 and rounds it to bf16; its worker
+#: sum and eq. (4) run in f32 (``compute_dtype``)
+FUSED_DTYPES = {(torch.float32, torch.float32): "f32",
+                (torch.float64, torch.float64): "f64",
+                (torch.bfloat16, torch.bfloat16): "bf16",
+                (torch.float32, torch.bfloat16): "f32_bf16"}
 
 
 def reset_launches() -> None:
@@ -79,13 +91,44 @@ def check_bank(name: str, *tensors: torch.Tensor) -> str:
     return KERNEL_DTYPES[dtype]
 
 
+def fused_suffix(name: str, params, bank: torch.Tensor,
+                 err: torch.Tensor | None = None) -> str:
+    """The launcher suffix of B1, B2, B5 or B6: ``params`` (the gradients,
+    theta and theta_prev) share one dtype P, ``bank`` has dtype H, and
+    (P, H) is a pair of ``FUSED_DTYPES``. ``err``, the EF residual, is in
+    H or in P (``transport.init`` makes it in P; the steps leave it in H):
+    an f32 err on a bf16 bank adds ``_f32``. Raises ``TypeError`` on
+    anything else, before any launch."""
+    dtypes = {t.dtype for t in params}
+    pair = (dtypes.pop() if len(dtypes) == 1 else None, bank.dtype)
+    errs = (pair[1], pair[0]) if err is None else (err.dtype,)
+    if dtypes or pair not in FUSED_DTYPES or not set(errs) & set(pair):
+        got = sorted(str(d) for d in {t.dtype for t in params})
+        extra = "" if err is None else f", err {err.dtype}"
+        raise TypeError(
+            f"{name}: params {got} on bank dtype {bank.dtype}{extra} is not "
+            "supported: the kernels take one dtype (float32, float64 or "
+            "bfloat16), or float32 params on a torch.bfloat16 bank, with "
+            "err in the bank's or the params' dtype; float16 and other "
+            "pairs are ROADMAP queue B")
+    suffix = FUSED_DTYPES[pair]
+    if err is not None and err.dtype != bank.dtype:
+        suffix += "_" + KERNEL_DTYPES[err.dtype]
+    return suffix
+
+
 def check_leaves(name: str, *xs: torch.Tensor) -> str:
     """Operands share one (M, ...) shape and one kernel dtype; returns its
     suffix."""
+    check_shapes(name, *xs)
+    return check_bank(name, *xs)
+
+
+def check_shapes(name: str, *xs: torch.Tensor) -> None:
+    """Operands share one (M, ...) shape."""
     if xs[0].dim() < 1 or any(x.shape != xs[0].shape for x in xs):
         raise ValueError(f"{name}: operands must share one (M, ...) shape, "
                          f"got {[tuple(x.shape) for x in xs]}")
-    return check_bank(name, *xs)
 
 
 def check_worker_vector(name: str, what: str, v: torch.Tensor,

@@ -8,7 +8,10 @@
 //   B12b censor_select             replaces src/repro/kernels/censor.py:censor_select
 //
 // B1 gives the per-worker eq.-(8) norms sum_j (g[m,j] - ghat[m,j])^2, the
-// subtraction in the bank dtype and the square-sum in f32. B8 gives the
+// subtraction in the bank dtype and the square-sum in f32. Its banks are
+// f32, f64 and bf16; a bf16 bank takes bf16 or f32 gradients, cast to
+// bf16 before the subtraction, which rounds to bf16 (reduce.cuh), as the
+// JAX kernel's g.astype(h.dtype) - h (censor.py:127-130) and ref.py state. B8 gives the
 // same sum of a pending delta already in memory (the stateful transports'
 // staged step), B9 advances the bank by an encoded payload,
 // ghat + m*payload, and B4 by the raw gradient, ghat + m*(g - ghat) (the
@@ -77,9 +80,11 @@
 
 using namespace repro;
 
-template <typename T>
+// TG the gradients' dtype, TH the bank's: g is cast to TH before the
+// subtraction (reduce.cuh's Cast, exact for TG = TH)
+template <typename TG, typename TH>
 __global__ void __launch_bounds__(kThreads)
-delta_sqnorm_partials(const T* __restrict__ g, const T* __restrict__ h,
+delta_sqnorm_partials(const TG* __restrict__ g, const TH* __restrict__ h,
                       float* __restrict__ part, int64_t m, int64_t n, int64_t nchunks) {
   __shared__ float scratch[kThreads / 32];
   const int64_t c = blockIdx.x;
@@ -87,14 +92,14 @@ delta_sqnorm_partials(const T* __restrict__ g, const T* __restrict__ h,
   for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
     // the last worker's block_reduce is done with scratch
     if (w != blockIdx.y) __syncthreads();
-    const T* gw = g + w * n;
-    const T* hw = h + w * n;
+    const TG* gw = g + w * n;
+    const TH* hw = h + w * n;
     float acc = 0.0f;
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const int64_t j = base + (int64_t)k * kThreads;
       if (j < n) {
-        const float d = (float)sub(gw[j], hw[j]);
+        const float d = to_f32(sub(Cast<TH>::of(gw[j]), hw[j]));
         acc = add(acc, mul(d, d));
       }
     }
@@ -103,13 +108,13 @@ delta_sqnorm_partials(const T* __restrict__ g, const T* __restrict__ h,
   }
 }
 
-template <typename T>
+template <typename TG, typename TH = TG>
 static int launch_delta_sqnorm(const void* g, const void* h, void* part, void* out,
                                int64_t m, int64_t n, int64_t nchunks, void* stream) {
   if (!reduction_shape_ok(m, n, nchunks)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  delta_sqnorm_partials<T><<<dim3((unsigned)nchunks, worker_blocks(m)), kThreads, 0, s>>>(
-      (const T*)g, (const T*)h, (float*)part, m, n, nchunks);
+  delta_sqnorm_partials<TG, TH><<<dim3((unsigned)nchunks, worker_blocks(m)), kThreads, 0, s>>>(
+      (const TG*)g, (const TH*)h, (float*)part, m, n, nchunks);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   finish_partials<float, SumOp><<<(unsigned)m, kThreads, 0, s>>>(
@@ -120,14 +125,14 @@ static int launch_delta_sqnorm(const void* g, const void* h, void* part, void* o
 // B1 and B8 on rows of one chunk (n <= kChunk), a warp a worker, the
 // workers on grid x (kWarps a block): reduce.cuh's warp_row_reduce, which
 // gives the two-pass design's bits.
-template <typename T, int kN>
+template <typename TG, typename TH, int kN>
 __global__ void __launch_bounds__(kThreads)
-delta_sqnorm_warp_rows(const T* __restrict__ g, const T* __restrict__ h, float* __restrict__ out,
-                       int64_t m, int64_t n) {
+delta_sqnorm_warp_rows(const TG* __restrict__ g, const TH* __restrict__ h,
+                       float* __restrict__ out, int64_t m, int64_t n) {
   const int64_t w = warp_row();
   if (w >= m) return;
   float sq;
-  warp_row_reduce<DeltaRow<T>, false, kN>(DeltaRow<T>{g, h}, w, n, &sq, nullptr);
+  warp_row_reduce<DeltaRow<TG, TH>, false, kN>(DeltaRow<TG, TH>{g, h}, w, n, &sq, nullptr);
   if ((threadIdx.x & 31) == 0) out[w] = sq;
 }
 
@@ -141,17 +146,17 @@ sqnorm_warp_rows(const T* __restrict__ x, float* __restrict__ out, int64_t m, in
   if ((threadIdx.x & 31) == 0) out[w] = sq;
 }
 
-template <typename T>
+template <typename TG, typename TH = TG>
 static int launch_delta_sqnorm_warp(const void* g, const void* h, void* out, int64_t m,
                                     int64_t n, void* stream) {
   if (!warp_rows_ok(m, n)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (warp_rows_one_item(n))
-    delta_sqnorm_warp_rows<T, 1><<<warp_row_blocks(m), kThreads, 0, s>>>(
-        (const T*)g, (const T*)h, (float*)out, m, n);
+    delta_sqnorm_warp_rows<TG, TH, 1><<<warp_row_blocks(m), kThreads, 0, s>>>(
+        (const TG*)g, (const TH*)h, (float*)out, m, n);
   else
-    delta_sqnorm_warp_rows<T, kItems><<<warp_row_blocks(m), kThreads, 0, s>>>(
-        (const T*)g, (const T*)h, (float*)out, m, n);
+    delta_sqnorm_warp_rows<TG, TH, kItems><<<warp_row_blocks(m), kThreads, 0, s>>>(
+        (const TG*)g, (const TH*)h, (float*)out, m, n);
   return (int)cudaGetLastError();
 }
 
@@ -277,32 +282,6 @@ static int launch_tall_pair(const void* a, const void* b, const void* mask, void
   return (int)cudaGetLastError();
 }
 
-// conversions of B12a and B12b, rounding as torch's .to() does (a double
-// goes to bf16 through float, as c10::BFloat16 converts it)
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(double x) { return __double2float_rn(x); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename TO>
-struct Cast;
-template <>
-struct Cast<float> {
-  template <typename TI>
-  __device__ __forceinline__ static float of(TI x) { return to_f32(x); }
-};
-template <>
-struct Cast<double> {
-  __device__ __forceinline__ static double of(double x) { return x; }
-  __device__ __forceinline__ static double of(float x) { return (double)x; }
-  __device__ __forceinline__ static double of(__nv_bfloat16 x) { return (double)__bfloat162float(x); }
-};
-template <>
-struct Cast<__nv_bfloat16> {
-  __device__ __forceinline__ static __nv_bfloat16 of(__nv_bfloat16 x) { return x; }
-  template <typename TI>
-  __device__ __forceinline__ static __nv_bfloat16 of(TI x) { return __float2bfloat16_rn(to_f32(x)); }
-};
-
 template <typename TG, typename TH>
 __global__ void __launch_bounds__(kThreads)
 delta_sqnorm_f32_partials(const TG* __restrict__ g, const TH* __restrict__ h,
@@ -425,6 +404,37 @@ int censor_delta_sqnorm_batched_warp_f64(int device, const void* g, const void* 
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
   return launch_delta_sqnorm_warp<double>(g, h, out, m, n, stream);
+}
+
+// B1 on a bf16 bank: of bf16 gradients, and of f32 ones (cast to bf16 first)
+int censor_delta_sqnorm_batched_bf16(int device, const void* g, const void* h, void* part,
+                                     void* out, int64_t m, int64_t n, int64_t nchunks,
+                                     void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_delta_sqnorm<bf16>(g, h, part, out, m, n, nchunks, stream);
+}
+
+int censor_delta_sqnorm_batched_f32_bf16(int device, const void* g, const void* h, void* part,
+                                         void* out, int64_t m, int64_t n, int64_t nchunks,
+                                         void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_delta_sqnorm<float, bf16>(g, h, part, out, m, n, nchunks, stream);
+}
+
+int censor_delta_sqnorm_batched_warp_bf16(int device, const void* g, const void* h, void* out,
+                                          int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_delta_sqnorm_warp<bf16>(g, h, out, m, n, stream);
+}
+
+int censor_delta_sqnorm_batched_warp_f32_bf16(int device, const void* g, const void* h,
+                                              void* out, int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_delta_sqnorm_warp<float, bf16>(g, h, out, m, n, stream);
 }
 
 int sqnorm_batched_f32(int device, const void* x, void* part, void* out, int64_t m, int64_t n,

@@ -15,8 +15,17 @@
 // passes a barrier before its second worker (block_reduce's scratch is
 // reused), never after its last: a block that has one worker, as every
 // block has for M <= 65535, runs what it ran before the walk.
+//
+// bf16 banks (B1, B2, B5, B6): each element operation on bf16 operands
+// runs in f32 and rounds to bf16 (__float2bfloat16_rn), as a PyTorch eager
+// op on bf16 tensors does, never as a native bf16 instruction (which
+// rounds the exact result once, where PyTorch rounds it to f32 and then
+// to bf16, and the two can differ). Sums, abs-maxes and eq. (4) run in the compute
+// dtype, calc_t (kernels/common.py:compute_dtype): f32 for a bf16 bank, a
+// bank's own dtype otherwise, so the f32 and f64 code is what it was.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,6 +47,61 @@ __device__ __forceinline__ double absval(double a) { return fabs(a); }
 // max that keeps a NaN, as torch.amax and jnp.max do (fmaxf/fmax drop it)
 template <typename T>
 __device__ __forceinline__ T maxval(T a, T b) { return (a > b || isnan(a)) ? a : b; }
+
+using bf16 = __nv_bfloat16;
+
+// the compute dtype of a bank dtype
+template <typename T>
+struct Calc {
+  using type = T;
+};
+template <>
+struct Calc<bf16> {
+  using type = float;
+};
+template <typename T>
+using calc_t = typename Calc<T>::type;
+
+// conversions rounding as torch's .to() does (a double goes to bf16
+// through float, as c10::BFloat16 converts it)
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(double x) { return __double2float_rn(x); }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+// a bank element in its compute dtype (exact)
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+
+template <typename TO>
+struct Cast;
+template <>
+struct Cast<float> {
+  template <typename TI>
+  __device__ __forceinline__ static float of(TI x) { return to_f32(x); }
+};
+template <>
+struct Cast<double> {
+  __device__ __forceinline__ static double of(double x) { return x; }
+  __device__ __forceinline__ static double of(float x) { return (double)x; }
+  __device__ __forceinline__ static double of(bf16 x) { return (double)__bfloat162float(x); }
+};
+template <>
+struct Cast<bf16> {
+  __device__ __forceinline__ static bf16 of(bf16 x) { return x; }
+  template <typename TI>
+  __device__ __forceinline__ static bf16 of(TI x) { return __float2bfloat16_rn(to_f32(x)); }
+};
+
+// the element operations of a bf16 bank: f32, then one rounding
+__device__ __forceinline__ bf16 add(bf16 a, bf16 b) {
+  return __float2bfloat16_rn(__fadd_rn(widen(a), widen(b)));
+}
+__device__ __forceinline__ bf16 sub(bf16 a, bf16 b) {
+  return __float2bfloat16_rn(__fsub_rn(widen(a), widen(b)));
+}
+__device__ __forceinline__ bf16 mul(bf16 a, bf16 b) {
+  return __float2bfloat16_rn(__fmul_rn(widen(a), widen(b)));
+}
 // clip(x, lo, hi) with NaN in, NaN out, as torch.clamp and jnp.clip do
 // (fminf/fmaxf would turn a NaN into a bound)
 __device__ __forceinline__ float clampval(float x, float lo, float hi) {
@@ -79,16 +143,18 @@ __device__ __forceinline__ T block_reduce(T v, T identity, Op op, T* scratch) {
 
 // Pass 2 of the reductions: one block per worker folds that worker's
 // pass-1 partials in a fixed order (a strided walk, then block_reduce).
+// Partials of a bf16 bank (B5's abs-maxes) fold in f32 (exact for a max).
 template <typename T, typename Op>
 __global__ void __launch_bounds__(kThreads)
-finish_partials(const T* __restrict__ part, T* __restrict__ out, int64_t nchunks, T identity) {
-  __shared__ T scratch[kThreads / 32];
+finish_partials(const T* __restrict__ part, T* __restrict__ out, int64_t nchunks,
+                calc_t<T> identity) {
+  __shared__ calc_t<T> scratch[kThreads / 32];
   const T* p = part + (int64_t)blockIdx.x * nchunks;
   const Op op{};
-  T acc = identity;
-  for (int64_t i = threadIdx.x; i < nchunks; i += kThreads) acc = op(acc, p[i]);
+  calc_t<T> acc = identity;
+  for (int64_t i = threadIdx.x; i < nchunks; i += kThreads) acc = op(acc, widen(p[i]));
   acc = block_reduce(acc, identity, op, scratch);
-  if (threadIdx.x == 0) out[blockIdx.x] = acc;
+  if (threadIdx.x == 0) out[blockIdx.x] = Cast<T>::of(acc);
 }
 
 // The warp-rows design of the sum-of-squares reductions (B1, B8, B5) on
@@ -97,7 +163,7 @@ finish_partials(const T* __restrict__ part, T* __restrict__ out, int64_t nchunks
 // offset into the (M, n) operands) and gives the element in the bank
 // dtype (`value`): B1 g - ghat, B8 x, B5 (g - ghat) + e. Each lane sums
 // the squares of (float)value; with kAbsmax (B5) it also takes the
-// abs-max in the bank dtype.
+// abs-max of the bank dtype's values, in its compute dtype (exact).
 //
 // Lane l runs the two-pass design's threads l, l + 32, ..., l + 224 of the
 // worker's one block ("virtual warps" 0-7): each virtual thread's fold,
@@ -121,16 +187,17 @@ template <typename Row, bool kAbsmax, int kN>
 __device__ __forceinline__ void warp_row_reduce(const Row& row, int64_t w, int64_t n, float* sq,
                                                 typename Row::T* am) {
   using T = typename Row::T;
+  using A = calc_t<T>;
   using Item = typename Row::Item;
   const int lane = threadIdx.x & 31;
   const int64_t off = w * n;
   const int held = (int)(((n < kThreads ? n : kThreads) + 31) / 32);   // virtual warps with data
   float s[kWarps];
-  T a[kWarps];
+  A a[kWarps];
 #pragma unroll
   for (int v = 0; v < kWarps; ++v) {
     float acc = 0.0f;
-    T mx = T(0);
+    A mx = A(0);
     if (v < held) {          // the same for every lane of the warp
       const int64_t base = (int64_t)v * 32 + lane;
       Item it[kN];
@@ -143,9 +210,9 @@ __device__ __forceinline__ void warp_row_reduce(const Row& row, int64_t w, int64
       for (int k = 0; k < kN; ++k) {
         if (base + (int64_t)k * kThreads < n) {
           const T p = row.value(it[k]);
-          const float x = (float)p;
+          const float x = to_f32(p);
           acc = add(acc, mul(x, x));
-          if constexpr (kAbsmax) mx = maxval(mx, absval(p));
+          if constexpr (kAbsmax) mx = maxval(mx, absval(widen(p)));
         }
       }
       acc = warp_reduce(acc, SumOp());
@@ -158,8 +225,8 @@ __device__ __forceinline__ void warp_row_reduce(const Row& row, int64_t w, int64
   // offsets 4, 2, 1)
   *sq = add(add(add(s[0], s[4]), add(s[2], s[6])), add(add(s[1], s[5]), add(s[3], s[7])));
   if constexpr (kAbsmax)
-    *am = maxval(maxval(maxval(a[0], a[4]), maxval(a[2], a[6])),
-                 maxval(maxval(a[1], a[5]), maxval(a[3], a[7])));
+    *am = Cast<T>::of(maxval(maxval(maxval(a[0], a[4]), maxval(a[2], a[6])),
+                             maxval(maxval(a[1], a[5]), maxval(a[3], a[7]))));
 }
 
 // A warp-rows kernel's worker: the warp's index over the grid; a whole
@@ -168,16 +235,16 @@ __device__ __forceinline__ int64_t warp_row() {
   return (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
 }
 
-// The rows of B1 (g - ghat) and B8 (its one operand); B5's, (g - ghat) +
-// e, are fused_step.cu's.
-template <typename TT>
+// The rows of B1 (g cast to the bank dtype, minus ghat) and B8 (its one
+// operand); B5's, (g - ghat) + e, are fused_step.cu's.
+template <typename TG, typename TH = TG>
 struct DeltaRow {
-  using T = TT;
-  struct Item { T g, h; };
-  const T* __restrict__ g;
-  const T* __restrict__ h;
+  using T = TH;
+  struct Item { TG g; TH h; };
+  const TG* __restrict__ g;
+  const TH* __restrict__ h;
   __device__ __forceinline__ Item load(int64_t i) const { return {g[i], h[i]}; }
-  __device__ __forceinline__ T value(const Item& x) const { return sub(x.g, x.h); }
+  __device__ __forceinline__ T value(const Item& x) const { return sub(Cast<TH>::of(x.g), x.h); }
 };
 template <typename TT>
 struct PlainRow {

@@ -14,7 +14,9 @@ the per-element work on the whole card, then the worker fold per column
 tile from shared memory (two launches, one count). Both give the same bits.
 B5, like B1 and B8, has two designs too (``common.sqnorm_path``): two
 passes, or a warp a worker in one launch for rows of one reduction chunk
-on many workers; both give the same bits.
+on many workers; both give the same bits. B1, B2, B5 and B6 take the
+dtype pairs of ``common.FUSED_DTYPES``: f32 and f64, and bf16 banks of
+bf16 or f32 params (``common.fused_suffix`` names each pair's launcher).
 
 :func:`fold_workers` is that worker fold as a launch of its own, for the
 routes whose bank advance runs in other kernels (the staged steps,
@@ -39,8 +41,8 @@ from . import ref
 from .build import REDUCE_CHUNK, launch
 from .censor import _ptr, warp_design
 from .common import (KERNEL_DTYPES, check_bank, check_worker_vector,
-                     count_launch, fold_path, grid_chunks, on_card, sm_count,
-                     sqnorm_path)
+                     count_launch, fold_path, fused_suffix, grid_chunks,
+                     on_card, sm_count, sqnorm_path)
 
 FOLD_PATHS = ("one_pass", "tall")
 
@@ -72,15 +74,18 @@ def force_staged():
         _FUSION_ENABLED = prev
 
 
-def _check_step(name, g, ghat, theta, theta_prev, *banks):
+def _check_step(name, g, ghat, theta, theta_prev, err=None):
+    """Shapes, and the dtypes of ``common.fused_suffix``; returns the
+    launcher suffix."""
     shape = tuple(g.shape)
-    if g.dim() < 1 or any(tuple(x.shape) != shape for x in (ghat, *banks)):
+    banks = (ghat,) if err is None else (ghat, err)
+    if g.dim() < 1 or any(tuple(x.shape) != shape for x in banks):
         raise ValueError(f"{name}: bank operands must share one (M, ...) "
-                         f"shape, got {[tuple(x.shape) for x in (g, ghat, *banks)]}")
+                         f"shape, got {[tuple(x.shape) for x in (g, *banks)]}")
     if tuple(theta.shape) != shape[1:] or tuple(theta_prev.shape) != shape[1:]:
         raise ValueError(f"{name}: theta and theta_prev must have shape "
                          f"{shape[1:]}")
-    return check_bank(name, g, ghat, theta, theta_prev, *banks)
+    return fused_suffix(name, (g, theta, theta_prev), ghat, err)
 
 
 def fused_dense_step(g: torch.Tensor, ghat: torch.Tensor,
@@ -90,13 +95,17 @@ def fused_dense_step(g: torch.Tensor, ghat: torch.Tensor,
 
     Returns ``(new_ghat, agg, new_theta)``: ``ghat + mask*(g - ghat)``,
     its left-fold worker sum, and ``(t - alpha*agg) + beta*(t - t_prev)``.
+    g and theta share the params dtype P, ghat has the bank dtype H, a
+    pair of ``common.FUSED_DTYPES``: the advance runs in H (g cast to it
+    first), the worker sum in f32 for a bf16 bank (rounded once to H, its
+    dtype), eq. (4) in ``common.compute_dtype(P)``, cast back to P.
     """
     name = "fused_dense_step"
     _check_step(name, g, ghat, theta, theta_prev)
     m, n = g.shape[0], theta.numel()
     check_worker_vector(name, "mask", mask, m)
     if n == 0:
-        return ghat.clone(), theta.clone(), theta.clone()
+        return ghat.clone(), theta.to(ghat.dtype, copy=True), theta.clone()
     if not on_card(name, g, ghat, theta, theta_prev, mask):
         return ref.fused_dense_step(g, ghat, theta, theta_prev, mask,
                                     alpha, beta)
@@ -108,12 +117,15 @@ def _path(g: torch.Tensor, m: int, n: int) -> str:
     return fold_path(m, n, sm_count(g.device.index))
 
 
-def _launcher(name: str, path: str, dtype: torch.dtype) -> str:
+def _launcher(name: str, path: str, dtype: torch.dtype | None = None,
+              suffix: str | None = None) -> str:
+    """The C launcher of ``path``, by the bank's dtype or (B2, B6) the
+    suffix of ``common.fused_suffix``."""
     if path not in FOLD_PATHS:
         raise ValueError(f"{name}: path must be one of {FOLD_PATHS}, got "
                          f"{path!r}")
     tall = "_tall" if path == "tall" else ""
-    return f"{name}{tall}_{KERNEL_DTYPES[dtype]}"
+    return f"{name}{tall}_{suffix or KERNEL_DTYPES[dtype]}"
 
 
 def dense_on_card(g, ghat, theta, theta_prev, mask, alpha, beta,
@@ -123,10 +135,11 @@ def dense_on_card(g, ghat, theta, theta_prev, mask, alpha, beta,
     the card's checks call both on one input."""
     name = "fused_dense_step"
     m, n = g.shape[0], theta.numel()
+    fn = _launcher(name, path,
+                   suffix=fused_suffix(name, (g, theta, theta_prev), ghat))
     new_ghat = torch.empty_like(ghat)
-    agg = torch.empty_like(theta)
+    agg = torch.empty_like(theta, dtype=ghat.dtype)
     new_theta = torch.empty_like(theta)
-    fn = _launcher(name, path, g.dtype)
     count_launch(name)
     launch("fused_step", fn, g.device, _ptr(g), _ptr(ghat), _ptr(theta),
            _ptr(theta_prev), _ptr(mask), _ptr(new_ghat), _ptr(agg),
@@ -139,8 +152,10 @@ def int8_stats_batched(g: torch.Tensor, ghat: torch.Tensor,
     """Per-worker eq.-(8) sqnorms and abs-max of one int8+EF leaf.
 
     ``pending = (g - ghat) + err`` is recomputed in registers and never
-    written. Returns ``(sqnorms, amax)``: (M,) f32 and (M,) in the bank
-    dtype (the max is exact, so its order does not matter). Of its two
+    written, in the bank dtype (g and err cast to it first; the dtypes as
+    ``common.fused_suffix`` takes them). Returns ``(sqnorms, amax)``: (M,)
+    f32 and (M,) in the bank dtype (the max is exact, so its order does
+    not matter). Of its two
     designs, ``common.sqnorm_path`` picks one by shape, as for B1 and B8;
     they give the same bits, and ``sqnorms`` equals B8's on ``pending``.
     """
@@ -148,7 +163,7 @@ def int8_stats_batched(g: torch.Tensor, ghat: torch.Tensor,
     if g.dim() < 1 or not (g.shape == ghat.shape == err.shape):
         raise ValueError(f"{name}: g, ghat and err must share one (M, ...) "
                          "shape")
-    check_bank(name, g, ghat, err)
+    fused_suffix(name, (g,), ghat, err)
     m, n = g.shape[0], g[0].numel()
     if n == 0:
         return (torch.zeros((m,), dtype=torch.float32, device=g.device),
@@ -169,7 +184,7 @@ def int8_stats_on_card(g: torch.Tensor, ghat: torch.Tensor,
     input."""
     name = "int8_stats_batched"
     m, n = g.shape[0], g[0].numel()
-    suffix = KERNEL_DTYPES[g.dtype]
+    suffix = fused_suffix(name, (g,), ghat, err)
     warp = warp_design(name, path, n)    # raises before any allocation
     sq = torch.empty((m,), dtype=torch.float32, device=g.device)
     am = torch.empty((m,), dtype=ghat.dtype, device=g.device)
@@ -195,7 +210,10 @@ def fused_int8_step(g: torch.Tensor, ghat: torch.Tensor, err: torch.Tensor,
 
     ``scale`` is the (M,) f32 per-worker scale from
     :func:`int8_stats_batched`'s abs-max (``core.quantize.int8_scale``).
-    Returns ``(new_ghat, new_err, agg, new_theta)``.
+    Returns ``(new_ghat, new_err, agg, new_theta)``. The dtypes as
+    :func:`fused_dense_step`'s, err as ``common.fused_suffix`` takes it:
+    the codes come from pending's f32 value, the payload, the EF blend and
+    the advance run in the bank dtype, and new_err comes back in it.
     """
     name = "fused_int8_step"
     _check_step(name, g, ghat, theta, theta_prev, err)
@@ -203,7 +221,8 @@ def fused_int8_step(g: torch.Tensor, ghat: torch.Tensor, err: torch.Tensor,
     check_worker_vector(name, "mask", mask, m)
     check_worker_vector(name, "scale", scale, m)
     if n == 0:
-        return ghat.clone(), err.clone(), theta.clone(), theta.clone()
+        return (ghat.clone(), err.to(ghat.dtype, copy=True),
+                theta.to(ghat.dtype, copy=True), theta.clone())
     if not on_card(name, g, ghat, err, theta, theta_prev, mask, scale):
         return ref.fused_int8_step(g, ghat, err, theta, theta_prev, mask,
                                    scale, alpha, beta)
@@ -216,11 +235,12 @@ def int8_on_card(g, ghat, err, theta, theta_prev, mask, scale, alpha, beta,
     """B6 on checked CUDA operands by ``path``, as :func:`dense_on_card`."""
     name = "fused_int8_step"
     m, n = g.shape[0], theta.numel()
+    fn = _launcher(name, path, suffix=fused_suffix(
+        name, (g, theta, theta_prev), ghat, err))
     new_ghat = torch.empty_like(ghat)
-    new_err = torch.empty_like(err)
-    agg = torch.empty_like(theta)
+    new_err = torch.empty_like(err, dtype=ghat.dtype)
+    agg = torch.empty_like(theta, dtype=ghat.dtype)
     new_theta = torch.empty_like(theta)
-    fn = _launcher(name, path, g.dtype)
     count_launch(name)
     launch("fused_step", fn, g.device, _ptr(g), _ptr(ghat), _ptr(err),
            _ptr(theta), _ptr(theta_prev), _ptr(mask), _ptr(scale),

@@ -5,9 +5,11 @@ operation order and dtypes, of the attention oracles B13
 (``repro/kernels/decode_attention.py:decode_attention_ref``) and B14
 (``repro/models/flash.py:reference_attention``), with the same -1e30 mask
 value and f32 upcasts, and the port-only ``fold_workers``. One deliberate
-difference: the worker sum is a left fold from ``ghat'_0`` (``core.util.tree_sum_leading``), not
-``jnp.sum(axis=0)``, because the CUDA kernels fold in that order and must
-equal these functions bit for bit on the card. The wrappers in
+difference: the worker sum is a left fold from ``ghat'_0``
+(``core.util.sum_leading``: in f32 for a bf16 bank, rounded once, which
+gives ``jnp.sum(axis=0)``'s bits there), not ``jnp.sum(axis=0)``, because
+the CUDA kernels fold in that order and must equal these functions bit for
+bit on the card. The wrappers in
 ``censor.py``, ``fused_step.py``, ``hb_update.py``, ``topk_pack.py``,
 ``lowrank_ef.py``, ``quantize_ef.py``, ``flash_attention.py``,
 ``flash_backward.py`` and ``decode_attention.py`` run these on CPU

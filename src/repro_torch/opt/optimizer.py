@@ -11,7 +11,9 @@ Two backends:
     censor decision, then one fused pass (B2 / B6) advances the bank, sums
     the workers and applies eq. (4). Inside ``fused_step.force_staged()``
     they take the staged route instead, as top-k, low-rank and any other
-    stateful transport with ``encode_feedback_cuda`` always do: dense runs
+    stateful transport with ``encode_feedback_cuda`` always do (a bank
+    below f32, ``bank_dtype=torch.bfloat16`` or bf16 params, runs the
+    fused route only: the staged kernels take f32 and f64): dense runs
     B1, the bank advance B4, the worker fold (``fold_workers``) and
     ``apply_server`` (B3); a stateful transport runs the pending tree in
     plain torch, its norms (B8), the transport's encode + EF tail (B7a +
@@ -80,8 +82,12 @@ class ComposedOptimizer:
         tensor; it needs an ``Eq8Censor`` with a host-scalar eps1 and a
         stateless transport, and degenerates to the global path for
         eps1 = 0 and for any other censor).
-      bank_dtype: optional dtype of the stale-gradient bank (the reference
-        backend only; the kernels take the bank in the gradients' dtype).
+      bank_dtype: optional dtype of the stale-gradient bank (bf16 halves
+        it). On ``cuda`` the fused dense and int8 route runs f32, f64 and
+        bf16 params with a bank in their dtype, and f32 params with a bf16
+        bank (``kernels.common.FUSED_DTYPES``); a sub-f32 bank refuses the
+        staged route, top-k, low-rank, ``per_tensor`` and ``shard_step``
+        before any launch (ROADMAP queue B).
       backend: ``"reference"`` or ``"cuda"`` (see the module docstring).
     """
 
@@ -221,6 +227,18 @@ class ComposedOptimizer:
             return self._step_kernels(state, params, worker_grads)
         return self._step(state, params, worker_grads)
 
+    def _refuse_sub_f32_bank(self, bank, route: str) -> None:
+        """On ``cuda`` a bank below f32 runs the fused dense and int8 route
+        only; ``route`` names another, which raises here, before any
+        launch."""
+        low = sorted({str(x.dtype) for x in tree_leaves(bank)
+                      if x.dtype.itemsize < 4})
+        if low:
+            raise TypeError(
+                f"backend='cuda' runs a {', '.join(low)} bank on the fused "
+                f"dense and int8 route only; {route} takes float32 and "
+                "float64 banks (sub-f32 banks there are ROADMAP queue B)")
+
     def _step(self, state: OptState, params, worker_grads):
         pending = self._pending(state, worker_grads)
         dsq = delta_sqnorms(pending)
@@ -245,6 +263,10 @@ class ComposedOptimizer:
         quantized = self.transport.stateful
         int8_fused = fusion and type(self.transport) is Int8Transport
         fused = int8_fused or (fusion and not quantized)
+        if not fused:
+            self._refuse_sub_f32_bank(
+                state.ghat, "the staged route" if not fusion else
+                f"the {type(self.transport).__name__} transport")
         pending = scales = None
         if int8_fused:
             # sweep 1: sqnorms + abs-max from pending recomputed in
@@ -356,6 +378,8 @@ class ComposedOptimizer:
                 "shard_step supports global granularity only (per_tensor "
                 "byte accounting is host-side and unsharded)")
         kernels = self.backend == "cuda"
+        if kernels:
+            self._refuse_sub_f32_bank(state.ghat, "shard_step")
         quantized = self.transport.stateful
         pending = None
         if kernels and not quantized:
@@ -436,6 +460,8 @@ class ComposedOptimizer:
                 f"({type(self.transport).__name__}) is not supported")
         eps1 = self.censor.eps1
         kernels = self.backend == "cuda"
+        if kernels:
+            self._refuse_sub_f32_bank(state.ghat, "per_tensor granularity")
         pending = self._pending(state, worker_grads)
         leaves_d, treedef = tree_flatten(pending)
         leaves_t = tree_leaves(params)

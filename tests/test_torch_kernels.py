@@ -310,7 +310,7 @@ def test_size_zero_leaves_return_what_jax_returns(shape):
 def test_wrappers_reject_what_the_kernels_do_not_take():
     g, h, e, t, p, mask = _t(*_inputs(2, (8,), np.float32))
     with pytest.raises(TypeError, match="bank dtype"):
-        censor.censor_delta_sqnorm_batched(g.bfloat16(), h.bfloat16())
+        censor.censor_delta_sqnorm_batched(g.half(), h.half())
     with pytest.raises(TypeError, match="one dtype"):
         fused_step.int8_stats_batched(g, h.double(), e)
     with pytest.raises(ValueError, match="mask"):

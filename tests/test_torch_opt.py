@@ -240,12 +240,12 @@ def test_unported_routes_raise():
                      quantize="int8", backend=backend)
         with pytest.raises(NotImplementedError, match="stateful transport"):
             o.step(o.init(params), params, grads)
-    # the kernels take f32 and f64 banks only
+    # the kernels take f32, f64 and bf16 banks, not f16 ones
     o = opt.make("chb", 0.1, M, eps1=EPS1, backend="cuda")
-    half = tree.tree_map(lambda x: x.to(torch.bfloat16), params)
+    half = tree.tree_map(lambda x: x.to(torch.float16), params)
     with pytest.raises(TypeError, match="bfloat16"):
         o.step(o.init(half), half,
-               tree.tree_map(lambda x: x.to(torch.bfloat16), grads))
+               tree.tree_map(lambda x: x.to(torch.float16), grads))
     with pytest.raises(ValueError, match="unknown granularity"):
         opt.make("chb", 0.1, M, granularity="per_leaf")
     # the routes that used to raise here now run
