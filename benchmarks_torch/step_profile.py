@@ -6,6 +6,7 @@ card.
         [--transport dense int8 topk lowrank dense_staged int8_staged
          per_tensor] [--backend cuda reference]
     python3 benchmarks_torch/step_profile.py --serve default long [--iters 5]
+        [--arch chb-paper-lm-124m|qwen3-4b|gemma3-12b|...]
     python3 benchmarks_torch/step_profile.py --edge chb chb_int8 csgd \
         [--iters 5]
     python3 benchmarks_torch/step_profile.py --mesh ideal lossy partial \
@@ -26,13 +27,15 @@ kernel and the reference backend (or those ``--backend`` names: at
 iteration), it prints one JSON line: device time by
 kernel name, the window's wall time (CUDA events), the device's busy time
 (the sum of its kernels and copies) and its idle share (1 - busy / wall).
-With ``--serve``, it profiles chb-paper-lm-124m at full width instead,
+With ``--serve``, it profiles serving ``--arch`` (default
+chb-paper-lm-124m; the dense bf16 configs too) at full width instead,
 at ``chip_smoke.py``'s serving shapes (default: batch 4, prompt 64; long:
 batch 8, prompt 2048), with the JAX package's PRNGKey(0) weights: after
 a warm-up prefill and step, one traced prefill, then ``--iters`` traced
 decode steps, each window on the cuda and the reference backend, one JSON
-line each (idle share and top device ops: whether B13, the LM head or the
-weight reads set a decode step's pace).
+line each (idle share, device kernels an iteration, top device ops and
+device time by group (SERVE_GROUPS): whether B13, B14, the GEMMs or the
+host set the pace).
 With ``--edge``, it profiles ``fed.run_edge`` at phase 5's width on the
 paths of ``chip_smoke.py``'s phase edge: after a warm-up run of 2 rounds,
 ``--iters`` traced rounds under ``sync_config(m)`` and under the phase's
@@ -162,15 +165,21 @@ TRAIN_GROUPS = (("flash_backward", ("flash_bwd",)),
                                        "int8_stats", "fold_columns")))
 
 
-def _groups(prof) -> dict:
-    """Device ms of a trace summed by TRAIN_GROUPS (the rest: "other")."""
-    out = {name: 0.0 for name, _ in TRAIN_GROUPS}
+# device-time groups of a serving window, by kernel name (first match)
+SERVE_GROUPS = (("flash_forward", ("flash_fwd",)),
+                ("decode_attention", ("decode_partials", "decode_combine")),
+                ("gemm", ("gemm", "xmma", "cutlass", "nvjet")))
+
+
+def _groups(prof, groups=TRAIN_GROUPS) -> dict:
+    """Device ms of a trace summed by ``groups`` (the rest: "other")."""
+    out = {name: 0.0 for name, _ in groups}
     out["other"] = 0.0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
         key = evt.key.lower()
-        group = next((name for name, keys in TRAIN_GROUPS
+        group = next((name for name, keys in groups
                       if any(k in key for k in keys)), "other")
         out[group] += _device_ms(evt)
     return out
@@ -250,10 +259,10 @@ def profile_train(uploads: str, backend: str, iters: int) -> dict:
     return out
 
 
-def profile_serve(kind: str, iters: int) -> list:
-    """One traced prefill and ``iters`` traced decode steps of
-    chb-paper-lm-124m at ``chip_smoke.SERVE_RUNS["serve_" + kind]``, on
-    each backend."""
+def profile_serve(kind: str, iters: int, arch: str = LM_ARCH) -> list:
+    """One traced prefill and ``iters`` traced decode steps of ``arch`` at
+    full width at ``chip_smoke.SERVE_RUNS["serve_" + kind]``, on each
+    backend."""
     from repro_torch.configs import get
     from repro_torch.launch.serve import full_f32, prompts_of
     from repro_torch.models import model
@@ -262,7 +271,7 @@ def profile_serve(kind: str, iters: int) -> list:
     shape = SERVE_RUNS[f"serve_{kind}"]
     b, l = shape["batch"], shape["prompt"]
     cache_len = l + max(shape["gen"], iters + 2) + 1
-    cfg = get(LM_ARCH)
+    cfg = get(arch)
     params = model.init_params(PRNGKey(0, device="cuda"), cfg)
     prompts = prompts_of(cfg, b, l, "cuda")
     out = []
@@ -289,10 +298,15 @@ def profile_serve(kind: str, iters: int) -> list:
                         tok = torch.argmax(logits, -1)[:, None]
                 end.record()
                 torch.cuda.synchronize()
-            out.append(_summary(prof, start.elapsed_time(end),
-                                1 if window == "prefill" else iters,
-                                serve=kind, window=window, backend=backend,
-                                batch=b, prompt=l))
+            n = 1 if window == "prefill" else iters
+            row = _summary(prof, start.elapsed_time(end), n, arch=arch,
+                           serve=kind, window=window, backend=backend,
+                           batch=b, prompt=l)
+            row["by_group"] = _groups(prof, SERVE_GROUPS)
+            row["device_kernels_per_iter"] = sum(
+                evt.count for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA) / n
+            out.append(row)
         del cache
         torch.cuda.empty_cache()
     return out
@@ -377,7 +391,9 @@ def main() -> None:
     ap.add_argument("--backend", nargs="+", choices=("cuda", "reference"),
                     default=["cuda", "reference"])
     ap.add_argument("--serve", nargs="+", choices=("default", "long"),
-                    help="profile serving chb-paper-lm-124m instead")
+                    help="profile serving --arch instead")
+    ap.add_argument("--arch", default=LM_ARCH,
+                    help="the config --serve serves at full width")
     ap.add_argument("--edge", nargs="+", choices=tuple(EDGE_PATHS),
                     help="profile fed.run_edge's rounds instead")
     ap.add_argument("--mesh", nargs="+", choices=tuple(MESH_SCENARIOS),
@@ -410,7 +426,7 @@ def main() -> None:
         print(json.dumps({"device": torch.cuda.get_device_name(0)}),
               flush=True)
         for kind in args.serve:
-            for row in profile_serve(kind, args.iters):
+            for row in profile_serve(kind, args.iters, args.arch):
                 print(json.dumps(row), flush=True)
         return
     task = edge_tasks.make_edge_quadratics(m=args.m, d=args.d, seed=0,

@@ -47,8 +47,12 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  (phase attention_kernels) B14 over GQA 1/2/4/6,
                  causal, window and non-causal rectangular shapes on and
                  off its tiles, head dims 32-256, strided and misaligned
-                 views, f32 and bf16; B13 over C in {1, 97, 2081}, empty slots, wrapped
-                 rings and pos 0; both against an f64 plain version
+                 views, f32 and bf16 (also one batch row of qwen3-4b's and
+                 gemma3-12b's serve_long prefill in bf16: d 128, and d 256
+                 causal and at window 1024); B13 over C in {1, 97, 2081},
+                 empty slots, wrapped rings and pos 0 (also both models'
+                 last serve_long step in bf16, full caches and gemma3's
+                 1024-slot ring); both against an f64 plain version
                  (ATTN_FACTOR); B12a within SQNORM_RTOL and repeatable,
                  B12b bitwise with -0.0 and NaN salted. B14 with its
                  log-sum-exp on every B14 case: the output the same bits as
@@ -131,9 +135,19 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  tokens, logits within SERVE_LOGIT_TOL and argmax equal
                  where the gap is clear; prefill ms, decode ms a step,
                  tok/s; B14 12 launches a prefill, B13 12 a step.
+  serve_bf16  -- the same two runs of qwen3-4b (4,022,468,096 parameters)
+                 and gemma3-12b (8,934,264,576) at full width in bf16, one
+                 after the other, with the JAX package's
+                 init_params(PRNGKey(0)) weights (their draw timed): logits
+                 within SERVE_BF16_LOGIT_ULPS, B14 once a layer a prefill
+                 and B13 once a layer a step, TF32 and bf16
+                 reduced-precision GEMM reductions off; peak memory.
   jax_pin     -- the reduced and GQA configs with numpy weights on the
                  cuda backend: the JAX package's greedy tokens exactly and
-                 its prefill-logit checksums (SERVE_PIN).
+                 its prefill-logit checksums (SERVE_PIN); qwen3-4b and
+                 gemma3-12b reduced in bf16 with GQA (SERVE_BF16_PIN):
+                 teacher-forced with JAX's tokens, argmax equal where the
+                 gap is clear, checksums within SERVE_BF16_PIN_RTOL.
   ops         -- the four single-tensor ``kernels.ops`` entry points
                  (B12a, B12b, B3 at n = 163,597,056 f32, B14) against their
                  plain versions.
@@ -167,8 +181,10 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  banks of bf16 and of f32 params; then the ``{"kernels":
                  [...]}`` line of all 18 kernels (16 ported, and
                  fold_workers and flash_attention_bwd, which only the port
-                 has) and the 8 rows of the sub-f32 launchers
-                 (``<kernel>_bf16``, ``<kernel>_f32_bf16``).
+                 has), the 8 rows of the sub-f32 launchers
+                 (``<kernel>_bf16``, ``<kernel>_f32_bf16``) and B14's and
+                 B13's bf16 builds at serve_bf16's serve_long shapes beside
+                 bf16 SDPA, bound at the bf16 tensor-core rate.
 
 The last line is ``{"ok": true, "device": {...}}``. Every failed check
 raises, so the script exits non-zero and prints no last line; without
@@ -338,6 +354,53 @@ SERVE_PIN = {
 SERVE_PIN_RTOL = 1e-4
 SERVE_PIN_SHAPE = {"batch": 2, "prompt": 24, "gen": 16, "cache": 41}
 
+# The bf16 pin of serving: qwen3-4b and gemma3-12b reduced (d 256, vocab
+# 512) in bf16 with GQA kept (bf16_pin_config), weights from
+# convert.numpy_model_params(cfg, seed) (bf16 values), SERVE_PIN_SHAPE: the
+# JAX package's greedy tokens of 16 steps and the sum and abs-sum of its
+# logits over all 16 steps (f32 of its bf16 products), computed with the
+# JAX package on the CPU (models.model.prefill / serve_step, jitted as its
+# launch.serve runs them). The port runs teacher-forced with these tokens;
+# its argmax must be the JAX package's wherever its own top-2 gap exceeds
+# twice SERVE_BF16_LOGIT_ULPS ulps of its largest |logit|, and both sums
+# lie within SERVE_BF16_PIN_RTOL of the abs-sum. tests/test_torch_serve_
+# bf16.py recomputes the pins with JAX and holds the port on the CPU to
+# the same comparisons:
+#   PYTHONPATH=src python -m pytest -q tests/test_torch_serve_bf16.py -k pins
+SERVE_BF16_PIN_SEEDS = {"qwen3-4b": 0, "gemma3-12b": 0}
+SERVE_BF16_PIN = {
+    "qwen3-4b": (
+        [[392, 242, 268, 354, 436, 35, 35, 35, 168, 115, 20, 46, 242, 48, 509,
+          48],
+         [128, 76, 413, 128, 76, 413, 128, 212, 180, 338, 487, 487, 487, 487,
+          487, 487]],
+        7.34910917468369, 13112.766818156466),
+    "gemma3-12b": (
+        [[139, 139, 139, 249, 249, 249, 249, 249, 139, 29, 249, 249, 249, 249,
+          249, 371],
+         [68, 68, 68, 68, 68, 456, 456, 456, 456, 456, 456, 456, 456, 456,
+          284, 284]],
+        -359.4987201411277, 13173.777987236157),
+}
+# a per-logit difference that is random in sign moves a sum of 16 x 2 x
+# 512 logits by about 128 times its typical size (about 1e-4 of the
+# abs-sum for a typical size of 0.01); 1e-3 also holds a one-sided drift
+# of 8e-4 a logit
+SERVE_BF16_PIN_RTOL = 1e-3
+
+
+def bf16_pin_config(get_fn, arch: str):
+    """``arch`` reduced in bf16 with GQA kept: 4 heads over 2 kv heads of
+    the model's head dim (128, or gemma3's 256), window 16 (gemma3's "S"
+    rings wrap in a pin run), superblocks of 2 layers (gemma3: 4 layers,
+    "SASA"). ``get_fn`` is either package's ``configs.get``."""
+    import dataclasses
+    full = get_fn(arch)
+    return dataclasses.replace(
+        full.reduced(num_layers=4 if "S" in full.layer_pattern else 2),
+        dtype="bfloat16", num_kv_heads=2, head_dim=full.head_dim,
+        sliding_window=16, scan_period=2).validate()
+
 # H100 SXM device-memory rate (NVIDIA data sheet); the bound of every
 # kernel here is its bytes over this rate
 HBM_BYTES_PER_S = 3.35e12
@@ -430,6 +493,30 @@ SERVE_RUNS = {"serve_default": {"batch": 4, "prompt": 64, "gen": 32},
 # argmax must then agree wherever the reference's top-2 gap exceeds twice
 # it (an order that no pair of errors within the tolerance can flip)
 SERVE_LOGIT_TOL = 1e-3
+
+# serving the dense bf16 configs at full width (phase serve_bf16): every
+# layer of qwen3-4b and gemma3-12b at their published widths, with the JAX
+# package's launch.serve weights, init_params(PRNGKey(0)) in bf16; the
+# parameter counts are the JAX package's param_count. The runs are
+# SERVE_RUNS' (gemma3's serve_long wraps its 1024-slot "S" rings).
+SERVE_BF16_ARCHS = {"qwen3-4b": 4_022_468_096, "gemma3-12b": 8_934_264_576}
+# The bf16 logits of the cuda and reference backends (prefill and every
+# teacher-forced step) agree within SERVE_BF16_LOGIT_ULPS bf16 ulps of the
+# run's largest |logit| (bf16_ulp). The backends share every GEMM (cuBLAS,
+# f32 accumulation, one rounding); they part where B14 or B13 sums in
+# another order than the plain version and an attention output rounds to
+# the other bf16 neighbour, a flip that the later layers carry to the
+# logits. tests/test_torch_serve_bf16.py measures that carry on the CPU at
+# these depths (36 and 48 layers, d 256), attention summed in f64 against
+# the plain f32 version: at most 3 ulps (the test's bound); this leaves
+# about 2.7x that for the wider layers here. Argmax must agree wherever
+# the reference's top-2 gap exceeds twice the tolerance.
+SERVE_BF16_LOGIT_ULPS = 8
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
 
 
 def emit(obj) -> None:
@@ -1615,7 +1702,9 @@ def _attn_check(kernel, plain, exact, tag) -> tuple:
 # visit every tile and give the mean of v), head dims 32-256 (33: the
 # element-wise loads; 80: zero-filled up to 128), bf16, operands one
 # element off their storage's alignment (offset 1: the element-wise
-# loads), and one batch row of serve_long's prefill
+# loads), and one batch row of serve_long's prefill: chb-paper-lm-124m's in
+# f32, qwen3-4b's (GQA 32/8, d 128) and gemma3-12b's (16/8, d 256, causal
+# and its "S" layers' window 1024) in bf16
 FLASH_CASES = [
     (2, 8, 8, 100, 100, 64, True, None, torch.float32, 0),
     (2, 8, 4, 130, 130, 64, True, 48, torch.float32, 0),
@@ -1638,10 +1727,15 @@ FLASH_CASES = [
     (1, 4, 2, 300, 140, 64, True, 30, torch.float32, 0),
     (2, 4, 2, 129, 129, 64, True, None, torch.bfloat16, 0),
     (1, 4, 2, 129, 129, 33, True, 50, torch.bfloat16, 1),
+    (1, 32, 8, 2048, 2048, 128, True, None, torch.bfloat16, 0),
+    (1, 16, 8, 2048, 2048, 256, True, None, torch.bfloat16, 0),
+    (1, 16, 8, 2048, 2048, 256, True, 1024, torch.bfloat16, 0),
 ]
 # (b, h, kh, c, d, pos, dtype; pos None: every slot empty): C 1, 97 and
 # 2081, pos 0, empty slots, wrapped rings, G 1/2/4/8/16 (two head groups),
-# head dims 64-256, bf16, and serve_long's last decode step
+# head dims 64-256, bf16, and serve_long's last decode step: chb-paper-lm-
+# 124m's in f32, qwen3-4b's and gemma3-12b's in bf16 (gemma3's "S" ring of
+# 1024 slots wrapped twice)
 DECODE_CASES = [
     (2, 8, 8, 1, 64, 0, torch.float32),
     (3, 8, 4, 97, 64, 0, torch.float32),
@@ -1655,6 +1749,9 @@ DECODE_CASES = [
     (2, 4, 2, 97, 256, 120, torch.float32),
     (3, 8, 4, 97, 64, 40, torch.bfloat16),
     (2, 8, 8, 2081, 64, 3000, torch.bfloat16),
+    (8, 32, 8, 2081, 128, 2078, torch.bfloat16),
+    (8, 16, 8, 2081, 256, 2078, torch.bfloat16),
+    (8, 16, 8, 1024, 256, 2078, torch.bfloat16),
 ]
 # the flash backward, f32 (b, h, kh, lq, s, d, causal, window, offset):
 # GQA 1, 2 and 4; L on and off its 64-row tiles (64, 65, 127, 129, 200,
@@ -3063,13 +3160,77 @@ def _gap(logits: torch.Tensor) -> torch.Tensor:
     return top[..., 0] - top[..., 1]
 
 
-def phase_serve(device) -> dict:
-    """chb-paper-lm-124m at full width through ``launch.serve.generate``:
-    the reference backend, then the cuda backend teacher-forced with the
-    reference's tokens; logits, argmax and launch counts. Returns each
-    run's launch counts."""
+def _serve_run(params, cfg, shape, device, tol_of) -> tuple:
+    """One run of ``launch.serve.generate``: the reference backend twice
+    (the first warms up), then the cuda backend twice teacher-forced with
+    the reference's tokens (the first warms up); logits within
+    ``tol_of(reference logits)``, argmax equal where the reference's top-2
+    gap exceeds twice that, the launch counts of one prefill and gen - 1
+    steps, TF32 and bf16 reduced-precision reductions off. Returns (what
+    the phase emits of the run, the launch counts)."""
     from repro_torch.kernels import common
     from repro_torch.launch import serve
+    b, l, gen = shape["batch"], shape["prompt"], shape["gen"]
+    prompts = serve.prompts_of(cfg, b, l, device)
+
+    def timed(**kw):
+        torch.cuda.reset_peak_memory_stats()
+        g = serve.generate(params, cfg, prompts, gen, device=device, **kw)
+        torch.cuda.synchronize()
+        return g, torch.cuda.max_memory_allocated() / 2 ** 30
+    ref_runs = [timed(backend="reference") for _ in range(2)]
+    ref, ref_gib = ref_runs[-1]
+    check(torch.equal(ref.tokens, ref_runs[0][0].tokens),
+          f"{cfg.name}: the reference backend is not repeatable")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          f"{cfg.name}: TF32 matmuls are on")
+    check(not torch.backends.cuda.matmul
+          .allow_bf16_reduced_precision_reduction,
+          f"{cfg.name}: bf16 GEMMs may reduce in bf16")
+    timed(feed=ref.tokens)                                  # warm-up
+    common.reset_launches()
+    cud, cud_gib = timed(feed=ref.tokens)
+    launches = dict(common.LAUNCHES)
+    want = {name: 0 for name in common.KERNELS}
+    want["flash_attention"] = cfg.num_layers
+    want["decode_attention"] = cfg.num_layers * (gen - 1)
+    check(launches == want, f"{cfg.name}: launches {launches}, want {want}")
+    check(all(bool(torch.isfinite(x).all()) for x in cud.logits)
+          and tuple(cud.logits[0].shape) == (b, cfg.vocab_size)
+          and all(x.dtype == torch.float32 for x in cud.logits),
+          f"{cfg.name}: logits not finite f32 of the wrong shape")
+    diff = max(max_diff(a, r) for a, r in zip(cud.logits, ref.logits))
+    tol = tol_of(ref.logits)
+    check(diff <= tol, f"{cfg.name}: logits differ between backends by "
+          f"{diff}, more than {tol}")
+    gaps = torch.stack([_gap(r) for r in ref.logits], dim=1)
+    clear = gaps > 2 * tol
+    check(torch.equal(cud.tokens[clear], ref.tokens[clear]),
+          f"{cfg.name}: argmax differs where the top-2 gap is clear")
+
+    def rate(g):
+        return b * gen / ((g.prefill_ms + sum(g.step_ms)) / 1e3)
+    out = {
+        "batch": b, "prompt": l, "gen": gen, "cache": l + gen + 1,
+        "max_logit_diff": diff, "logit_tol": tol,
+        "max_abs_logit": max(float(r.abs().max()) for r in ref.logits),
+        "argmax_compared": int(clear.sum()),
+        "argmax_total": int(clear.numel()),
+        "argmax_equal_all": bool(torch.equal(cud.tokens, ref.tokens)),
+        "prefill_ms_cuda": cud.prefill_ms,
+        "prefill_ms_reference": ref.prefill_ms,
+        "decode_ms_per_step_cuda": statistics.median(cud.step_ms),
+        "decode_ms_per_step_reference": statistics.median(ref.step_ms),
+        "tok_per_s_cuda": rate(cud), "tok_per_s_reference": rate(ref),
+        "peak_gib_cuda": cud_gib, "peak_gib_reference": ref_gib,
+        "launches": {k: c for k, c in launches.items() if c},
+    }
+    return out, launches
+
+
+def phase_serve(device) -> dict:
+    """chb-paper-lm-124m at full width through ``launch.serve.generate``
+    (``_serve_run``). Returns each run's launch counts."""
     cfg = get_config(LM_ARCH)
     # the JAX package's launch.serve weights: init_params(PRNGKey(0), cfg)
     params = init_params(PRNGKey(0, device=device), cfg)
@@ -3081,60 +3242,58 @@ def phase_serve(device) -> dict:
           and cfg.vocab_size == 32768, f"serve: {cfg}")
     out, launches = {}, {}
     for run, shape in SERVE_RUNS.items():
-        b, l, gen = shape["batch"], shape["prompt"], shape["gen"]
-        prompts = serve.prompts_of(cfg, b, l, device)
-        ref_runs = [serve.generate(params, cfg, prompts, gen,
-                                   backend="reference", device=device)
-                    for _ in range(2)]          # the first warms up
-        ref = ref_runs[-1]
-        check(torch.equal(ref.tokens, ref_runs[0].tokens),
-              f"{run}: the reference backend is not repeatable")
-        check(not torch.backends.cuda.matmul.allow_tf32,
-              f"{run}: TF32 matmuls are on")
-        serve.generate(params, cfg, prompts, gen, feed=ref.tokens,
-                       device=device)            # warm-up
-        common.reset_launches()
-        cud = serve.generate(params, cfg, prompts, gen, feed=ref.tokens,
-                             device=device)
-        torch.cuda.synchronize()
-        launches[run] = dict(common.LAUNCHES)
-        want = {name: 0 for name in common.KERNELS}
-        want["flash_attention"] = cfg.num_layers
-        want["decode_attention"] = cfg.num_layers * (gen - 1)
-        check(launches[run] == want,
-              f"{run}: launches {launches[run]}, want {want}")
-        diff = max(max_diff(a, r) for a, r in zip(cud.logits, ref.logits))
-        check(all(bool(torch.isfinite(x).all()) for x in cud.logits)
-              and tuple(cud.logits[0].shape) == (b, cfg.vocab_size),
-              f"{run}: logits not finite or of the wrong shape")
-        check(diff <= SERVE_LOGIT_TOL,
-              f"{run}: logits differ between backends by {diff}")
-        gaps = torch.stack([_gap(r) for r in ref.logits], dim=1)
-        clear = gaps > 2 * SERVE_LOGIT_TOL
-        check(torch.equal(cud.tokens[clear], ref.tokens[clear]),
-              f"{run}: argmax differs where the top-2 gap is clear")
-
-        def rate(g):
-            return b * gen / ((g.prefill_ms + sum(g.step_ms)) / 1e3)
-        out[run] = {
-            "batch": b, "prompt": l, "gen": gen, "cache": l + gen + 1,
-            "max_logit_diff": diff,
-            "argmax_compared": int(clear.sum()),
-            "argmax_total": int(clear.numel()),
-            "argmax_equal_all": bool(torch.equal(cud.tokens, ref.tokens)),
-            "prefill_ms_cuda": cud.prefill_ms,
-            "prefill_ms_reference": ref.prefill_ms,
-            "decode_ms_per_step_cuda": statistics.median(cud.step_ms),
-            "decode_ms_per_step_reference": statistics.median(ref.step_ms),
-            "tok_per_s_cuda": rate(cud), "tok_per_s_reference": rate(ref),
-            "launches": {k: c for k, c in launches[run].items() if c},
-        }
-        del ref_runs, ref, cud, prompts
+        out[run], launches[run] = _serve_run(
+            params, cfg, shape, device, lambda _: SERVE_LOGIT_TOL)
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     emit({"phase": "serve", "arch": LM_ARCH, "params": FULL_D,
           "logit_tol": SERVE_LOGIT_TOL, "tf32": False, **out})
+    return launches
+
+
+def phase_serve_bf16(device) -> dict:
+    """qwen3-4b and gemma3-12b at full width in bf16 through
+    ``launch.serve.generate`` (``_serve_run``, SERVE_BF16_LOGIT_ULPS), one
+    model on the card at a time. Returns each run's launch counts."""
+    import gc
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    for arch, n_want in SERVE_BF16_ARCHS.items():
+        cfg = get_config(arch)
+        check(cfg.dtype == "bfloat16" and cfg.num_layers in (36, 48),
+              f"serve_bf16: {cfg}")
+        t = time.perf_counter()
+        params = init_params(PRNGKey(0, device=device), cfg)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t
+        leaves = tree_leaves(params)
+        n_params = sum(x.numel() for x in leaves)
+        check(n_params == n_want and all(x.dtype == torch.bfloat16
+                                         for x in leaves),
+              f"serve_bf16 {arch}: {n_params} parameters, want {n_want} "
+              "in bf16")
+        res = {"params": n_params, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "heads": cfg.num_heads,
+               "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+               "layer_pattern": cfg.layer_pattern,
+               "weights_gib": sum(x.numel() * x.element_size()
+                                  for x in leaves) / 2 ** 30,
+               "weights_draw_s": draw_s}
+        del leaves
+        for run, shape in SERVE_RUNS.items():
+            res[run], launches[f"{arch}_{run}"] = _serve_run(
+                params, cfg, shape, device,
+                lambda logits: SERVE_BF16_LOGIT_ULPS * bf16_ulp(
+                    max(float(x.abs().max()) for x in logits)))
+            torch.cuda.empty_cache()
+        out[arch] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_bf16", "logit_ulps": SERVE_BF16_LOGIT_ULPS,
+          "tf32": False, "bf16_reduced_precision_reduction": False, **out,
+          "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -3171,7 +3330,42 @@ def phase_pin(device) -> None:
               f"{(total, abs_total)}")
         out[name] = {"tokens_equal": True, "sum": got[0], "abs_sum": got[1],
                      "jax_sum": total, "jax_abs_sum": abs_total}
-    emit({"phase": "jax_pin", **out})
+    for arch, seed in SERVE_BF16_PIN_SEEDS.items():
+        cfg = bf16_pin_config(get_config, arch)
+        params = model_params(numpy_model_params(cfg, seed), cfg, device)
+        out[f"{arch}_bf16"] = bf16_pin_check(
+            params, cfg, SERVE_BF16_PIN[arch], device)
+    emit({"phase": "jax_pin", "bf16_logit_ulps": SERVE_BF16_LOGIT_ULPS,
+          "bf16_rtol": SERVE_BF16_PIN_RTOL, **out})
+
+
+def bf16_pin_check(params, cfg, pin, device) -> dict:
+    """One bf16 pin (SERVE_BF16_PIN): ``generate`` teacher-forced with the
+    JAX package's tokens; its argmax where its top-2 gap is clear, and the
+    two checksums of every step's logits. Returns what was compared."""
+    from repro_torch.launch import serve
+    toks, total, abs_total = pin
+    sh = SERVE_PIN_SHAPE
+    prompts = serve.prompts_of(cfg, sh["batch"], sh["prompt"], device)
+    feed = torch.tensor(toks, dtype=torch.int64, device=device)
+    g = serve.generate(params, cfg, prompts, sh["gen"], cache_len=sh["cache"],
+                       feed=feed, device=device)
+    logits = torch.stack(g.logits, dim=1).double()          # (B, gen, V)
+    tol = SERVE_BF16_LOGIT_ULPS * bf16_ulp(float(logits.abs().max()))
+    clear = _gap(logits) > 2 * tol
+    check(bool(clear.any()) and torch.equal(g.tokens[clear], feed[clear]),
+          f"pin {cfg.name}: argmax {g.tokens.cpu().tolist()} where the gap "
+          f"is clear ({clear.cpu().tolist()}), the JAX package's {toks}")
+    got = (float(logits.sum()), float(logits.abs().sum()))
+    rtol = SERVE_BF16_PIN_RTOL * abs_total
+    check(abs(got[0] - total) <= rtol and abs(got[1] - abs_total) <= rtol,
+          f"pin {cfg.name}: checksums {got}, the JAX package's "
+          f"{(total, abs_total)}")
+    return {"argmax_compared": int(clear.sum()),
+            "argmax_total": int(clear.numel()),
+            "argmax_equal_all": bool(torch.equal(g.tokens, feed)),
+            "logit_tol": tol, "sum": got[0], "abs_sum": got[1],
+            "jax_sum": total, "jax_abs_sum": abs_total}
 
 
 def phase_ops(device, d=FULL_D) -> dict:
@@ -4047,6 +4241,120 @@ def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
     return rows
 
 
+# the H100 SXM's dense bf16 tensor-core rate (NVIDIA data sheet): the
+# bound of the bf16 attention rows is their products at this rate, the
+# least time the card could take for them, though B13 and B14 run them as
+# f32 FMAs on the CUDA cores
+BF16_FLOPS = 989e12
+
+
+def _valid_pairs(l: int, window) -> int:
+    """The (query, key) pairs of a causal L x L mask, banded by ``window``
+    (kpos > qpos - window)."""
+    w = l if window is None else min(window, l)
+    return w * (w + 1) // 2 + (l - w) * w
+
+
+def attention_bf16_rows(device, launches) -> list:
+    """B14 and B13 in bf16 at the dense bf16 configs' serve_long shapes,
+    the first of each list in the row and the others under ``at``: B14 at
+    the full prefill (batch 8, L 2048: qwen3-4b causal at head dim 128;
+    gemma3-12b at 256, causal and window 1024), B13 at the last decode
+    step (slot 2078 of 2081; gemma3's "S" ring of 1024 slots wrapped). Each
+    with its largest difference from the plain version, the plain
+    version's time, bf16 SDPA's on the same (B, H, L, d) views (k and v
+    expanded to H heads before the clock), and the bound: bytes read and
+    written once at HBM_BYTES_PER_S, or the products of the valid pairs at
+    BF16_FLOPS, the larger. ``launches`` are phase serve_bf16's counts."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+    from repro_torch.models.kvcache import slot_positions
+    gen = torch.Generator(device=device).manual_seed(19)
+    run = SERVE_RUNS["serve_long"]
+    b, l = run["batch"], run["prompt"]
+    c_full, pos = l + run["gen"] + 1, l + run["gen"] - 2
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(bf)
+
+    def timed(kfn, pfn, lfn, nbytes, ops_, shape):
+        got, want = kfn(), pfn()
+        err = max_diff(got, want)
+        del got, want
+        ms, plain_ms, library_ms = (_time_ms(kfn, 10), _time_ms(pfn, 3),
+                                    _time_ms(lfn, 10))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_ / BF16_FLOPS * 1e3
+        torch.cuda.empty_cache()
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": library_ms, "bytes": nbytes,
+                "operations": ops_, "shape": shape}
+
+    def flash_case(arch, h, kh, d, window):
+        q = randn(b, l, h, d).transpose(1, 2)
+        k, v = (randn(b, l, kh, d).transpose(1, 2) for _ in range(2))
+        ke, ve = (x.repeat_interleave(h // kh, dim=1) for x in (k, v))
+        mask = None
+        if window is not None:
+            i = torch.arange(l, device=device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+        return timed(
+            lambda: flash_attention.flash_attention(q, k, v, causal=True,
+                                                    window=window),
+            lambda: ref.flash_attention_fwd(q, k, v, causal=True,
+                                            window=window),
+            lambda: F.scaled_dot_product_attention(
+                q, ke, ve, attn_mask=mask, is_causal=mask is None),
+            2 * (2 * b * h * l * d + 2 * b * kh * l * d),
+            4 * b * h * _valid_pairs(l, window) * d,
+            f"{arch}: B={b} H={h} K={kh} L={l} d={d} bfloat16, causal"
+            + ("" if window is None else f", window {window}"))
+
+    def decode_case(arch, h, kh, d, c):
+        q = randn(b, h, d)
+        kc, vc = (randn(b, c, kh, d) for _ in range(2))
+        kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+        ke, ve = (x.repeat_interleave(h // kh, dim=1) for x in (kt, vt))
+        cpos = slot_positions(pos + 1, c, device)
+        valid = (cpos >= 0) & (cpos <= pos)
+        n_valid = int(valid.sum())
+        return timed(
+            lambda: decode_attention.decode_attention(q, kt, vt, cpos, pos),
+            lambda: ref.decode_attention_ref(q, kt, vt, cpos, pos),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], ke, ve, attn_mask=valid[None, None, None]),
+            2 * (2 * b * c * kh * d + 2 * b * h * d) + 4 * c,
+            4 * b * h * n_valid * d,
+            f"{arch}: B={b} H={h} K={kh} C={c} d={d} bfloat16, pos={pos}")
+
+    cases = {
+        "flash_attention": [
+            lambda: flash_case("qwen3-4b", 32, 8, 128, None),
+            lambda: flash_case("gemma3-12b 'A'", 16, 8, 256, None),
+            lambda: flash_case("gemma3-12b 'S'", 16, 8, 256, 1024)],
+        "decode_attention": [
+            lambda: decode_case("qwen3-4b", 32, 8, 128, c_full),
+            lambda: decode_case("gemma3-12b 'A'", 16, 8, 256, c_full),
+            lambda: decode_case("gemma3-12b 'S' ring", 16, 8, 256, 1024)],
+    }
+    rows = []
+    for name, fns in cases.items():
+        first, *rest = (fn() for fn in fns)
+        src, replaces = KERNEL_META[name]
+        by_path = {path: cnt[name] for path, cnt in launches.items()
+                   if cnt[name]}
+        rows.append({"name": f"{name}_bf16", "route": "cuda",
+                     "source": src, "replaces": replaces,
+                     "launches": sum(by_path.values()), **first,
+                     "launches_by_path": by_path, "at": rest})
+    return rows
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
@@ -4079,12 +4387,14 @@ def main() -> None:
     del flat
     torch.cuda.empty_cache()
     launches.update(phase_serve(dev))
+    serve_bf16 = phase_serve_bf16(dev)
     phase_pin(dev)
     launches["ops"] = phase_ops(dev)
     launches.update(phase_train(dev))
     phase_train_cli()
     rows = phase_timing(dev, launches, max_err)
-    check(len(KERNEL_META) == 18 and len(rows) == 18 + 8,
+    rows += attention_bf16_rows(dev, serve_bf16)
+    check(len(KERNEL_META) == 18 and len(rows) == 18 + 8 + 2,
           f"{len(rows)} kernel rows")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

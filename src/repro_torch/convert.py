@@ -20,8 +20,8 @@ from .core.accounting import CommStats
 from .opt.api import OptState
 from .tree import tree_map
 
-BF16_TODO = ("bf16 model weights are not ported yet (ROADMAP.md A13, bf16 "
-             "configs)")
+F16_TODO = ("f16 model weights are not ported yet (ROADMAP.md A13, sub-f32 "
+             "configs other than bf16)")
 
 
 def params(tree, device) -> object:
@@ -99,38 +99,81 @@ def _model_shapes(cfg) -> dict:
                                     device="meta"))
 
 
+def _is_bf16(x: np.ndarray) -> bool:
+    """A bf16 array as numpy sees the JAX package's (``ml_dtypes``, which
+    this package does not import): named ``bfloat16``, two bytes an item."""
+    return x.dtype.name == "bfloat16" and x.dtype.itemsize == 2
+
+
+def _bf16_tensor(bits: np.ndarray, device) -> torch.Tensor:
+    """A ``torch.bfloat16`` tensor of the given uint16 bit patterns."""
+    return torch.tensor(np.ascontiguousarray(bits).view(np.int16),
+                        device=device).view(torch.bfloat16)
+
+
+def bf16_values(x) -> np.ndarray:
+    """``x`` rounded to f32 and then to the nearest bf16 value, ties to
+    even (what ``.astype(bfloat16)`` gives from f32), as an f32 array:
+    integer arithmetic on the bits, no ``ml_dtypes``. Finite inputs only."""
+    u = np.asarray(x, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16
+    return u.astype(np.uint32).view(np.float32)
+
+
 def model_params(tree, cfg, device) -> dict:
     """A JAX ``models.model.init_params`` tree of numpy arrays as this
     package's parameter tree on ``device``.
 
     Every leaf must sit where this package's ``init_params`` for ``cfg``
-    puts one, with the same shape: ``ValueError`` otherwise.
-    ``NotImplementedError`` on a bf16 leaf, and for a config the model does
-    not run yet.
+    puts one, with the same shape: ``ValueError`` otherwise. A bf16 leaf
+    becomes a ``torch.bfloat16`` tensor of the same bits. For a bf16
+    config an f32 leaf must hold bf16 values (as :func:`numpy_model_params`
+    gives them) and becomes that bf16 tensor; ``ValueError`` if it does
+    not. ``NotImplementedError`` on an f16 leaf, and for a config the model
+    does not run yet.
     """
     want = _model_shapes(cfg)
     got = named_leaves(tree)
     if set(got) != set(want):
         raise ValueError(f"model_params: leaves {sorted(set(got) ^ set(want))}"
                          f" are in one tree and not the other")
+    to_bf16 = cfg.torch_dtype == torch.bfloat16
     for name, x in got.items():
         x = np.asarray(x)
-        if x.dtype.name == "bfloat16":
-            raise NotImplementedError(f"model_params: {name}: {BF16_TODO}")
+        if x.dtype == np.float16:
+            raise NotImplementedError(f"model_params: {name}: {F16_TODO}")
         if tuple(x.shape) != tuple(want[name].shape):
             raise ValueError(f"model_params: {name} has shape {x.shape}, "
                              f"the model wants {tuple(want[name].shape)}")
-    return params(tree, device)
+        if to_bf16 and x.dtype == np.float32 and np.any(x.view(np.uint32)
+                                                        & 0xFFFF):
+            raise ValueError(f"model_params: {name} is f32 with values that "
+                             f"are not bf16 values, for the bf16 config "
+                             f"{cfg.name}")
+
+    def leaf(x):
+        x = np.asarray(x)
+        if _is_bf16(x):
+            return _bf16_tensor(x.view(np.uint16), device)
+        if to_bf16 and x.dtype == np.float32:
+            return _bf16_tensor((x.view(np.uint32) >> 16).astype(np.uint16),
+                                device)
+        return torch.tensor(x, device=device)
+    return tree_map(leaf, tree)
 
 
 def numpy_model_params(cfg, seed: int) -> dict:
     """Weights for ``cfg`` drawn with ``numpy.random.default_rng(seed)``, as
-    a tree of numpy arrays in the config's dtype that the JAX model takes as
-    it is and :func:`model_params` carries here. Leaves in sorted path
-    order: the embedding normal * d_model^-0.5, each matrix normal *
-    fan_in^-0.5, each norm scale 1 + 0.1 * normal (so the scales matter)."""
+    a tree of numpy arrays that the JAX model takes as it is and
+    :func:`model_params` carries here. Leaves in sorted path order: the
+    embedding normal * d_model^-0.5, each matrix normal * fan_in^-0.5, each
+    norm scale 1 + 0.1 * normal (so the scales matter). In the config's
+    dtype; for a bf16 config f32 arrays of bf16 values (:func:`bf16_values`:
+    numpy has no bf16 without ``ml_dtypes``), which the JAX package takes
+    exactly after ``.astype(jnp.bfloat16)``."""
     rng = np.random.default_rng(seed)
-    dtype = np.dtype(cfg.dtype)
+    bf16 = cfg.dtype == "bfloat16"
+    dtype = np.float32 if bf16 else np.dtype(cfg.dtype)
     out: dict = {}
     for name, leaf in _model_shapes(cfg).items():
         shape = tuple(leaf.shape)
@@ -143,5 +186,5 @@ def numpy_model_params(cfg, seed: int) -> dict:
         *parents, last = name.split(".")
         for p in parents:
             node = node.setdefault(p, {})
-        node[last] = x.astype(dtype)
+        node[last] = bf16_values(x) if bf16 else x.astype(dtype)
     return out

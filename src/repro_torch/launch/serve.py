@@ -13,8 +13,13 @@ prompts are the JAX package's (``MarkovLM(vocab, seed=0)`` sampled with
 ``init_params(PRNGKey(0), cfg)`` weights (``--seed`` picks another key),
 drawn through the port of the JAX PRNG (``repro_torch.random``).
 
-On the card, prefill runs each layer's attention through B14 and every
-decode step through B13; f32 matmuls run in full f32, never TF32.
+Any config that ``models.model.check_supported`` passes is served: the
+f32 ``chb-paper-lm-124m`` and the dense bf16 configs (``--arch qwen3-4b``,
+``gemma3-12b``, ``phi3-medium-14b``, ``nemotron-4-15b``). On the card,
+prefill runs each layer's attention through B14 and every decode step
+through B13 (both compute in f32 and round their output to the config's
+dtype); f32 matmuls run in full f32, never TF32, and bf16 matmuls
+accumulate in f32 (``full_f32``).
 """
 from __future__ import annotations
 
@@ -42,9 +47,11 @@ class Generation(NamedTuple):
 
 def full_f32() -> None:
     """f32 matmuls in full f32: TF32 would not hold the port's f32
-    tolerances."""
+    tolerances. bf16 matmuls sum their products in f32 and round once, as
+    XLA's do: no reduced-precision reduction in cuBLAS."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _clock(device: torch.device) -> float:

@@ -7,7 +7,10 @@ waits for the frontends, ROADMAP.md A13) and without the sharding hints of
 (``repro_torch.random``), splitting it as the JAX package does, so the
 weights are the JAX package's; the other functions apply one. Parameters
 and activations stay in the config's dtype; softmax and norm statistics
-run in f32.
+run in f32. In bf16 every op rounds once to bf16, as the JAX package's
+ops do one by one: the norms, RoPE and attention compute in f32 and round
+at the end, the matmuls accumulate in f32, and the activations follow
+JAX's chains of bf16 ops (``_silu``, ``_gelu``).
 
 ``backend`` picks the attention of ``attention`` and ``decode_attention``:
 ``"cuda"`` runs the kernels B14 and B13 (which run their plain versions on
@@ -20,6 +23,7 @@ an einsum), never through its Pallas kernels.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -195,13 +199,43 @@ def init_mlp(key: torch.Tensor, cfg: ModelConfig,
     return p
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``. In bf16 the JAX package's chain, ``x * (1 / (1 +
+    exp(-x)))`` (``lax.logistic`` as XLA expands it), each op rounded to
+    bf16 as XLA rounds it, where ``F.silu`` rounds once and moves many
+    outputs by one bf16 ulp. In f32 and f64 ``F.silu``, within an ulp of
+    the chain, one saved tensor for training's backward."""
+    if x.dtype in (torch.float32, torch.float64):
+        return F.silu(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+# jax.nn.gelu's constants in bf16, as it rounds them (sqrt(2/pi) by
+# .astype(bf16), 0.044715 as a weak-typed scalar): 0.796875 and
+# 0.044677734375. Both are bf16 values, so a bf16 tensor times one, done
+# in f32 and rounded once, is XLA's bf16 product; Python floats keep the
+# constants off the card (a host copy would wait for the stream).
+_GELU_BF16 = tuple(torch.tensor(c, dtype=torch.bfloat16).item()
+                   for c in (math.sqrt(2 / math.pi), 0.044715))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh approximation). In bf16 its chain op by op,
+    with its constants in bf16 (``_GELU_BF16``) and ``x ** 3`` as two
+    products; in f32 and f64 ``F.gelu``, within an ulp of it."""
+    if x.dtype in (torch.float32, torch.float64):
+        return F.gelu(x, approximate="tanh")
+    c1, c2 = _GELU_BF16
+    return x * (0.5 * (1.0 + torch.tanh(c1 * (x + c2 * (x * x * x)))))
+
+
 def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.activation == "swiglu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+        h = _silu(x @ p["wg"]) * (x @ p["wi"])
     elif cfg.activation == "squared_relu":
         h = torch.square(torch.relu(x @ p["wi"]))
     elif cfg.activation == "gelu":
-        h = F.gelu(x @ p["wi"], approximate="tanh")
+        h = _gelu(x @ p["wi"])
     else:
         raise ValueError(cfg.activation)
     return h @ p["wo"]

@@ -16,8 +16,11 @@ leading superblock axis, so a JAX tree carries across as it is
 ``backend="cuda"`` runs each layer's attention through B14 (prefill, and
 training's forward with its log-sum-exp), the flash backward kernel
 (training) and B13 (decode); ``"reference"`` through their plain
-versions. mamba2, cross-attention, frontends, MoE, sub-f32 configs and
-``remat="dots"`` raise ``NotImplementedError`` (ROADMAP.md A13).
+versions. Serving runs f32, f64 and bf16 configs (bf16 as the JAX package
+rounds it: f32 statistics, softmax and attention, one rounding to bf16 an
+op), training f32 and f64. mamba2, cross-attention, frontends, MoE, bf16
+training, other dtypes and ``remat="dots"`` raise ``NotImplementedError``
+(ROADMAP.md A13).
 """
 from __future__ import annotations
 
@@ -34,8 +37,17 @@ from . import kvcache, layers
 from .kvcache import UNPORTED, effective_mixer
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+#: the dtypes of the configs ``prefill`` and ``serve_step`` run, and of
+#: those ``forward`` and ``train_loss`` run (training a bf16 config needs a
+#: bf16 build of the flash backward: ROADMAP.md A13)
+SERVE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+TRAIN_DTYPES = (torch.float32, torch.float64)
+
+
+def check_supported(cfg: ModelConfig, train: bool = False) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    mamba2, cross-attention, MoE and frontends, checked first; then a dtype
+    outside ``SERVE_DTYPES``, or with ``train`` outside ``TRAIN_DTYPES``."""
     mixers = set(cfg.layer_pattern) - {"A", "S"}
     if mixers:
         raise NotImplementedError(
@@ -46,9 +58,10 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
                                   f"{UNPORTED}")
-    if cfg.torch_dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(f"{cfg.name}: dtype {cfg.dtype} (bf16 "
-                                  f"configs) {UNPORTED}")
+    if cfg.torch_dtype not in (TRAIN_DTYPES if train else SERVE_DTYPES):
+        what = f"training in {cfg.dtype} (forward, train_loss)" \
+            if cfg.torch_dtype in SERVE_DTYPES else f"dtype {cfg.dtype}"
+        raise NotImplementedError(f"{cfg.name}: {what} {UNPORTED}")
 
 
 # ------------------------------------------------------------------- init
@@ -159,7 +172,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     taken for the JAX signature (no MoE layer runs); ``enc_embeddings``,
     ``act_spec`` (a sharding hint) and ``remat="dots"`` raise."""
     del moe_mode
-    check_supported(cfg)
+    check_supported(cfg, train=True)
     layers.check_backend(backend)
     if enc_embeddings is not None or act_spec is not None:
         raise NotImplementedError(f"forward: enc_embeddings and act_spec "

@@ -377,12 +377,24 @@ def test_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
 @pytest.mark.parametrize("arch", sorted(a for a in J_ARCHS
                                         if a != "chb-paper-lm-124m"))
 def test_unported_configs_raise_naming_the_roadmap(arch):
-    """bf16 configs, and (also when reduced to f32) mamba2, cross-attention,
-    frontends and MoE."""
+    """mamba2, cross-attention, frontends and MoE (also when reduced to
+    f32) raise; the dense bf16 configs serve (their parameter count is the
+    JAX package's) and raise on bf16 ``forward`` and ``train_loss``."""
     cfg = get(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-        model.init_params(jrandom.PRNGKey(0, device="cpu"), cfg,
-                          device="meta")
+    if set(cfg.layer_pattern) <= {"A", "S"} and not cfg.num_experts \
+            and not cfg.frontend:
+        assert cfg.dtype == "bfloat16"
+        assert model.param_count(cfg) == j_model.param_count(j_get(arch))
+        tokens = torch.zeros((1, 4), dtype=torch.int64)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
+            model.forward(None, cfg, tokens)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
+            model.train_loss(None, cfg, {"tokens": tokens,
+                                         "labels": tokens})
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
+            model.init_params(jrandom.PRNGKey(0, device="cpu"), cfg,
+                              device="meta")
     small = cfg.reduced()
     if set(small.layer_pattern) - {"A", "S"} or small.num_experts \
             or small.frontend:
@@ -404,5 +416,10 @@ def test_model_params_rejects_other_trees():
                               if k != "lm_head"}, cfg, "cpu")
     import ml_dtypes
     half = dict(tree, embed=tree["embed"].astype(ml_dtypes.bfloat16))
+    got = convert.model_params(half, cfg, "cpu")["embed"]
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(got.view(torch.int16).numpy(),
+                          half["embed"].view(np.int16))
+    f16 = dict(tree, embed=tree["embed"].astype(np.float16))
     with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-        convert.model_params(half, cfg, "cpu")
+        convert.model_params(f16, cfg, "cpu")
