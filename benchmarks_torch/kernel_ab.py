@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""B14, B9, B4, B7a, B7b, B2, B6, B10 and the flash backward of two source
-trees, side by side on one card, and the bits of their sums B1, B5 and B8.
+"""B14, B13, B9, B4, B7a, B7b, B2, B6, B10 and the flash backward of two
+source trees, side by side on one card, and the bits of their sums B1, B5
+and B8.
 
     python3 benchmarks_torch/kernel_ab.py --other <dir> [<dir> ...]
-        [--only B14 B9 B4 B7a B7b sums fused B10 bwd] [--ablate] [--reps 10]
+        [--only B14 B14bf16 B13 B9 B4 B7a B7b sums fused B10 bwd]
+        [--ablate] [--reps 10]
 
 Each ``<dir>`` holds another checkout of this repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -19,7 +21,17 @@ and reports the others'), then times all at the main path's shapes in
 turns (the others, this, this, the others in reverse) beside their
 library calls (timed first and last): B14 at serve_long's prefill (B 8, H = K 12, L 2048, d 64,
 causal, the model's strided views) against
-``scaled_dot_product_attention``, B9 at M = 4, n = 163,597,056 f32 and
+``scaled_dot_product_attention``; ``B14bf16`` B14 in bf16 at the dense
+bf16 configs' serve_long prefill (B 8, L 2048: qwen3-4b's H 32, K 8, d 128
+causal; gemma3-12b's 16/8 at d 256, causal and at window 1024) against
+bf16 SDPA (k and v expanded to H heads, the window as a mask), after the
+f64 rule on a few bf16 shapes; ``B13`` B13 in f32 at chb-paper-lm-124m's
+last serve_long step (B 8, H = K 12, C 2081, d 64: each tree's bits must
+be this tree's) and in bf16 at qwen3-4b's and gemma3-12b's (C 2081, and
+gemma3's 1024-slot ring), after the f64 rule, against SDPA; a tree's
+bf16 B14 gets the 16-byte copy flag where its launcher takes it (one probe
+call tells) and its B13 the chunks its library plans where it exports
+``decode_attention_bf16_chunk``; B9 at M = 4, n = 163,597,056 f32 and
 at the fed mesh's M = 70,000 and 100,000, n = 16 (f64) against
 ``addcmul``, B7a at the same shapes against ``linalg.vector_norm(inf)``.
 ``B4`` and ``B7b`` check each tree's B4 (``censor_bank_advance``) and B7b
@@ -82,6 +94,7 @@ from __future__ import annotations
 import argparse
 import ast
 import ctypes
+import functools
 import json
 import math
 import re
@@ -100,15 +113,16 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from benchmarks_torch.chain_floor import chain_floor_ms  # noqa: E402
 from chip_smoke import (ATTN_FACTOR, ATTN_FLOOR, FULL_D, LARGE_M,  # noqa: E402
-                        MANY_D, MANY_M, MANY_M_STAGED, _flash_f64, _time_ms, flash_bwd_f64,
-                        same_bits, same_or_nan)
+                        MANY_D, MANY_M, MANY_M_STAGED, _decode_f64, _flash_f64, _time_ms,
+                        flash_bwd_f64, same_bits, same_or_nan)
 from repro_torch.core.quantize import int8_scale  # noqa: E402
-from repro_torch.kernels import (build, common, flash_attention,  # noqa: E402
-                                 flash_backward, ref)
+from repro_torch.kernels import (build, common, decode_attention,  # noqa: E402
+                                 flash_attention, flash_backward, ref)
 
 OUT = ROOT / "build" / "kernel_ab"
 # the sources each choice of --only compiles
-SOURCES = {"B14": ("flash_attention",), "B9": ("censor",),
+SOURCES = {"B14": ("flash_attention",), "B14bf16": ("flash_attention",),
+           "B13": ("decode_attention",), "B9": ("censor",),
            "B4": ("censor",), "B7a": ("quantize_ef",),
            "B7b": ("quantize_ef",), "sums": ("censor", "fused_step"),
            "fused": ("fused_step",), "B10": ("topk_pack",),
@@ -225,22 +239,79 @@ def run(lib, fn: str, device, *args) -> None:
         raise RuntimeError(f"{fn}: CUDA error {rc}")
 
 
+@functools.cache
+def _bf16_copies(lib) -> bool:
+    """Whether this tree's bf16 B14 takes the 16-byte copy flag: a
+    launcher without the tensor-core design refuses it (a CUDA error
+    before any launch), so one call on an aligned (1, 1, 8, 8) tensor
+    tells."""
+    x = torch.zeros((1, 1, 8, 8), dtype=torch.bfloat16, device="cuda")
+    dims = (ctypes.c_int64 * 22)(1, 1, 1, 8, 8, 8, *x.stride(), *x.stride(),
+                                 *x.stride(), 1, 0, 0, 1)
+    lse = (None,) if _takes_lse(lib) else ()
+    rc = lib.flash_attention_bf16(0, x.data_ptr(), x.data_ptr(),
+                                  x.data_ptr(), torch.empty_like(x).data_ptr(),
+                                  *lse, ctypes.addressof(dims), 1.0,
+                                  torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return rc == 0
+
+
 def flash(libs, q, k, v, causal=True, window=None):
     b, h, lq, d = q.shape
     kh, s_len = k.shape[1], k.shape[2]
     out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
-    # a tree whose launcher reads 21 entries ignores the 22nd (the copy flag)
+    lib = libs["flash_attention"]
+    # a tree whose launcher reads 21 entries ignores the 22nd (the copy
+    # flag); a tree without the bf16 tensor-core design refuses it for bf16
+    copy = flash_attention.copy_flag(q, k, v) \
+        if q.dtype == torch.float32 or _bf16_copies(lib) else 0
     dims = (ctypes.c_int64 * 22)(
         b, h, kh, lq, s_len, d, *q.stride(), *k.stride(), *v.stride(),
         int(causal), int(window is not None),
-        0 if window is None else int(window),
-        int(flash_attention.async_copy_ok(q, k, v)))
+        0 if window is None else int(window), copy)
     suffix = "f32" if q.dtype == torch.float32 else "bf16"
-    lib = libs["flash_attention"]
     # serving's call: a null lse pointer where the launcher takes one
     lse = (None,) if _takes_lse(lib) else ()
     run(lib, f"flash_attention_{suffix}", q.device, q.data_ptr(),
         k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse,
+        ctypes.addressof(dims), float(d ** -0.5))
+    return out
+
+
+def decode(libs, q, k, v, cpos, pos):
+    """One tree's B13: in bf16 the chunks its library plans, where it
+    exports the plan (``decode_attention_bf16_chunk``), else its
+    launcher's 32-slot partials."""
+    b, h, d = q.shape
+    kh, c = k.shape[1], k.shape[2]
+    lib = libs["decode_attention"]
+    if q.dtype == torch.bfloat16 and hasattr(lib,
+                                             "decode_attention_bf16_chunk"):
+        sizes = (ctypes.c_int64 * 5)(b, h, kh, c, d)
+        got = ctypes.c_int64(0)
+        if lib.decode_attention_bf16_chunk(q.device.index or 0,
+                                           ctypes.addressof(sizes),
+                                           ctypes.addressof(got)) != 0:
+            raise RuntimeError("decode_attention_bf16_chunk failed")
+        chunk, vec = got.value, int(decode_attention.cache_copy_ok(k, v))
+    else:
+        chunk, vec = 32, 0
+    nchunks = -(-c // chunk)
+    dev = q.device
+    out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
+    part_ml = torch.empty((b * h, nchunks, 2), dtype=torch.float32,
+                          device=dev)
+    part_acc = torch.empty((b * h, nchunks, d), dtype=torch.float32,
+                           device=dev)
+    # a launcher that reads 18 entries ignores the last two
+    dims = (ctypes.c_int64 * 20)(
+        b, h, kh, c, d, *q.stride(), *k.stride(), *v.stride(), pos, nchunks,
+        chunk, vec)
+    suffix = "f32" if q.dtype == torch.float32 else "bf16"
+    run(lib, f"decode_attention_{suffix}", dev,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cpos.data_ptr(),
+        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
         ctypes.addressof(dims), float(d ** -0.5))
     return out
 
@@ -266,10 +337,13 @@ CHECK_FLASH = [  # (b, h, kh, lq, s, d, causal, window)
 ]
 
 
-def check_flash(trees, randn) -> None:
+def check_flash(trees, randn, dtype=torch.float32) -> None:
+    """Each tree's B14 against the f64 rule (and whether its bits are this
+    tree's) on CHECK_FLASH; in bf16 also the same bits twice."""
     for b, h, kh, lq, s_len, d, causal, window in CHECK_FLASH:
-        q = randn(b, lq, h, d).transpose(1, 2)
-        k, v = (randn(b, s_len, kh, d).transpose(1, 2) for _ in range(2))
+        q = randn(b, lq, h, d).to(dtype).transpose(1, 2)
+        k, v = (randn(b, s_len, kh, d).to(dtype).transpose(1, 2)
+                for _ in range(2))
         exact = _flash_f64(q, k, v, causal, window)
         err_p = float((ref.flash_attention_fwd(
             q, k, v, causal=causal, window=window).double() - exact
@@ -280,16 +354,58 @@ def check_flash(trees, randn) -> None:
                 for tag, o in outs.items()}
         ok = {tag: e <= ATTN_FACTOR * err_p + ATTN_FLOOR
               for tag, e in errs.items()}
-        same = {tag: torch.equal(o.view(torch.int32),
-                                 outs["this"].view(torch.int32))
-                for tag, o in outs.items()}
-        print(json.dumps({"check": "B14", "shape": [b, h, kh, lq, s_len, d],
+        same = {tag: same_bits(o, outs["this"]) for tag, o in outs.items()}
+        if dtype != torch.float32:
+            ok["this"] = ok["this"] and same_bits(
+                outs["this"], flash(trees["this"], q, k, v, causal, window))
+        print(json.dumps({"check": f"B14 {str(dtype)[6:]}",
+                          "shape": [b, h, kh, lq, s_len, d],
                           "causal": causal, "window": window,
                           "plain_err": err_p, "errs": errs, "ok": ok,
                           "bits_as_this": same}),
               flush=True)
         if not ok["this"]:
             raise SystemExit("kernel_ab: B14 outside the f64 rule")
+
+
+CHECK_DECODE = [  # (b, h, kh, c, d, pos)
+    (8, 12, 12, 2081, 64, 2078),
+    (3, 8, 4, 97, 128, 40),
+    (2, 8, 2, 257, 256, 300),
+    (8, 32, 8, 2081, 128, 2078),
+]
+
+
+def check_decode(trees, randn, dtype) -> None:
+    """Each tree's B13 against the f64 rule on CHECK_DECODE, and whether
+    its bits are this tree's (f32: they must be); this tree's the same
+    bits twice."""
+    from repro_torch.models.kvcache import slot_positions
+    for b, h, kh, c, d, pos in CHECK_DECODE:
+        q = randn(b, h, d).to(dtype)
+        k, v = (randn(b, c, kh, d).to(dtype).transpose(1, 2)
+                for _ in range(2))
+        cpos = slot_positions(pos + 1, c, q.device)
+        exact = _decode_f64(q, k, v, cpos, pos)
+        err_p = float((ref.decode_attention_ref(q, k, v, cpos, pos).double()
+                       - exact).abs().max())
+        outs = {tag: decode(libs, q, k, v, cpos, pos)
+                for tag, libs in trees.items()}
+        errs = {tag: float((o.double() - exact).abs().max())
+                for tag, o in outs.items()}
+        ok = {tag: e <= ATTN_FACTOR * err_p + ATTN_FLOOR
+              for tag, e in errs.items()}
+        same = {tag: same_bits(o, outs["this"]) for tag, o in outs.items()}
+        repeat = same_bits(outs["this"], decode(trees["this"], q, k, v, cpos,
+                                                pos))
+        print(json.dumps({"check": f"B13 {str(dtype)[6:]}",
+                          "shape": [b, h, kh, c, d, pos], "plain_err": err_p,
+                          "errs": errs, "ok": ok, "bits_as_this": same,
+                          "repeat_bits": repeat}), flush=True)
+        if not (ok["this"] and repeat) or (
+                dtype == torch.float32 and not all(same.values())):
+            raise SystemExit("kernel_ab: B13 outside the f64 rule, not "
+                             "repeatable, or f32 bits moved")
 
 
 def bwd(libs, q, k, v, o, lse, do, causal=True, window=None):
@@ -787,9 +903,55 @@ def main() -> None:
         b, h, l, d = 8, 12, 2048, 64
         q, k, v = (randn(b, l, h, d).transpose(1, 2) for _ in range(3))
         work["B14"] = (
-            {tag: (lambda libs=libs: flash(libs, q, k, v))
+            {tag: (lambda libs=libs, q=q, k=k, v=v: flash(libs, q, k, v))
              for tag, libs in having("flash_attention").items()},
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+    if "B14bf16" in args.only:
+        check_flash(having("flash_attention"), randn, torch.bfloat16)
+        b, l = 8, 2048
+        for h, kh, d, window in ((32, 8, 128, None), (16, 8, 256, None),
+                                 (16, 8, 256, 1024)):
+            q = randn(b, l, h, d).to(torch.bfloat16).transpose(1, 2)
+            k, v = (randn(b, l, kh, d).to(torch.bfloat16).transpose(1, 2)
+                    for _ in range(2))
+            ke, ve = (x.repeat_interleave(h // kh, dim=1) for x in (k, v))
+            mask = None
+            if window is not None:
+                i = torch.arange(l, device=dev)
+                mask = (i[None, :] <= i[:, None]) \
+                    & (i[None, :] > i[:, None] - window)
+            work[f"B14 bf16 B={b} H={h} K={kh} L={l} d={d} causal"
+                 f"{'' if window is None else f' window {window}'}"] = (
+                {tag: (lambda libs=libs, q=q, k=k, v=v, w=window:
+                       flash(libs, q, k, v, window=w))
+                 for tag, libs in having("flash_attention").items()},
+                lambda q=q, ke=ke, ve=ve, mask=mask:
+                F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask,
+                                               is_causal=mask is None))
+    if "B13" in args.only:
+        from repro_torch.models.kvcache import slot_positions
+        for dtype in (torch.float32, torch.bfloat16):
+            check_decode(having("decode_attention"), randn, dtype)
+        b, c_full, pos = 8, 2081, 2078
+        for h, kh, d, c, dtype in ((12, 12, 64, c_full, torch.float32),
+                                   (32, 8, 128, c_full, torch.bfloat16),
+                                   (16, 8, 256, c_full, torch.bfloat16),
+                                   (16, 8, 256, 1024, torch.bfloat16)):
+            q = randn(b, h, d).to(dtype)
+            k, v = (randn(b, c, kh, d).to(dtype).transpose(1, 2)
+                    for _ in range(2))
+            ke, ve = (x.repeat_interleave(h // kh, dim=1) for x in (k, v))
+            cpos = slot_positions(pos + 1, c, dev)
+            valid = (cpos >= 0) & (cpos <= pos)
+            work[f"B13 {str(dtype)[6:]} B={b} H={h} K={kh} C={c} d={d} "
+                 f"pos={pos}"] = (
+                {tag: (lambda libs=libs, q=q, k=k, v=v, cpos=cpos:
+                       decode(libs, q, k, v, cpos, pos))
+                 for tag, libs in having("decode_attention").items()},
+                lambda q=q, ke=ke, ve=ve, valid=valid:
+                F.scaled_dot_product_attention(
+                    q[:, :, None], ke, ve, attn_mask=valid[None, None, None]))
     if "bwd" in args.only:
         check_bwd(having("flash_backward"), randn)
         for case in ((4, 12, 12, 256, 256, 64, True, None),

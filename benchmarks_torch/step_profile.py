@@ -31,11 +31,12 @@ With ``--serve``, it profiles serving ``--arch`` (default
 chb-paper-lm-124m; the dense bf16 configs too) at full width instead,
 at ``chip_smoke.py``'s serving shapes (default: batch 4, prompt 64; long:
 batch 8, prompt 2048), with the JAX package's PRNGKey(0) weights: after
-a warm-up prefill and step, one traced prefill, then ``--iters`` traced
-decode steps, each window on the cuda and the reference backend, one JSON
-line each (idle share, device kernels an iteration, top device ops and
-device time by group (SERVE_GROUPS): whether B13, B14, the GEMMs or the
-host set the pace).
+a warm-up prefill and step and ``--iters`` untraced decode steps (their
+wall a step, ``untraced_ms_per_iter``), one traced prefill, then
+``--iters`` traced decode steps, each window on the cuda and the reference
+backend, one JSON line each (idle share, device kernels an iteration, top
+device ops and device time by group (SERVE_GROUPS): whether B13, B14, the
+GEMMs or the host set the pace).
 With ``--edge``, it profiles ``fed.run_edge`` at phase 5's width on the
 paths of ``chip_smoke.py``'s phase edge: after a warm-up run of 2 rounds,
 ``--iters`` traced rounds under ``sync_config(m)`` and under the phase's
@@ -165,9 +166,13 @@ TRAIN_GROUPS = (("flash_backward", ("flash_bwd",)),
                                        "int8_stats", "fold_columns")))
 
 
-# device-time groups of a serving window, by kernel name (first match)
-SERVE_GROUPS = (("flash_forward", ("flash_fwd",)),
-                ("decode_attention", ("decode_partials", "decode_combine")),
+# device-time groups of a serving window, by kernel name (first match):
+# B14's f32 (flash_fwd) and bf16 (flash_tc) designs, B13's partials (f32,
+# bf16) and its combine pass
+SERVE_GROUPS = (("flash_forward", ("flash_fwd", "flash_tc")),
+                ("decode_attention", ("decode_partials",
+                                      "decode_bf16_partials",
+                                      "decode_combine")),
                 ("gemm", ("gemm", "xmma", "cutlass", "nvjet")))
 
 
@@ -280,6 +285,18 @@ def profile_serve(kind: str, iters: int, arch: str = LM_ARCH) -> list:
                                       cache_len=cache_len, backend=backend)
         tok = torch.argmax(logits, -1)[:, None]
         model.serve_step(params, cfg, cache, tok, l, backend=backend)
+        # the decode steps' wall without the profiler's own host time
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            logits, cache = model.serve_step(params, cfg, cache, tok,
+                                             l + 1 + i, backend=backend)
+            tok = torch.argmax(logits, -1)[:, None]
+        end.record()
+        torch.cuda.synchronize()
+        untraced = start.elapsed_time(end) / iters
         for window in ("prefill", "decode"):
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -302,6 +319,8 @@ def profile_serve(kind: str, iters: int, arch: str = LM_ARCH) -> list:
             row = _summary(prof, start.elapsed_time(end), n, arch=arch,
                            serve=kind, window=window, backend=backend,
                            batch=b, prompt=l)
+            if window == "decode":
+                row["untraced_ms_per_iter"] = untraced
             row["by_group"] = _groups(prof, SERVE_GROUPS)
             row["device_kernels_per_iter"] = sum(
                 evt.count for evt in prof.key_averages()

@@ -49,11 +49,15 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  off its tiles, head dims 32-256, strided and misaligned
                  views, f32 and bf16 (also one batch row of qwen3-4b's and
                  gemma3-12b's serve_long prefill in bf16: d 128, and d 256
-                 causal and at window 1024); B13 over C in {1, 97, 2081},
-                 empty slots, wrapped rings and pos 0 (also both models'
-                 last serve_long step in bf16, full caches and gemma3's
-                 1024-slot ring); both against an f64 plain version
-                 (ATTN_FACTOR); B12a within SQNORM_RTOL and repeatable,
+                 causal and at window 1024; the bf16 tensor-core design
+                 at L in {1, 63, 64, 65, 127, 129, 2047}, d 33-256, GQA
+                 1-8, bands across its 64-key tiles, rows with no valid
+                 key, misaligned views); B13 over C in {1, 31, 97, 257,
+                 2081}, empty slots, wrapped rings and pos 0 (also both
+                 models' last serve_long step in bf16, full caches and
+                 gemma3's 1024-slot ring, and a strided bf16 cache); both
+                 against an f64 plain version (ATTN_FACTOR; bf16 outputs
+                 also row by row); B12a within SQNORM_RTOL and repeatable,
                  B12b bitwise with -0.0 and NaN salted. B14 with its
                  log-sum-exp on every B14 case: the output the same bits as
                  without it, the lse against its plain version and an f64
@@ -193,6 +197,7 @@ CUDA it stops before any phase.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -466,6 +471,13 @@ PORT_ONLY = ("fold_workers", "flash_attention_bwd")
 # rounding, never more.
 ATTN_FACTOR = 4.0
 ATTN_FLOOR = 1e-6
+# A bf16 output is held to the same rule row by row too: each row's (each
+# query's) max abs error against f64 at most ATTN_FACTOR times the plain
+# version's on that row, plus ATTN_FLOOR. bf16 rounds to 2^-9 of each
+# value, and rows differ in size (a causal row over n keys of random data
+# holds values of about sqrt(e / n)), so the whole tensor's max is the
+# rounding of the largest early rows and would pass a fault confined to
+# the late, small rows (a dropped key tile, a wrong stage of a ring).
 
 # phase train: chb-paper-lm-124m at full width, TrainConfig's defaults (M =
 # 4 workers, global batch 16 of 256 tokens, alpha 3e-2, beta 0.4, remat
@@ -1686,12 +1698,23 @@ def _decode_f64(q, k, v, cpos, pos):
 
 
 def _attn_check(kernel, plain, exact, tag) -> tuple:
-    """The B13/B14 rule; returns (kernel's error, plain version's error)."""
+    """The B13/B14 rule, on bf16 outputs row by row too; returns (kernel's
+    error, plain version's error) over the whole tensor."""
     err_k = float((kernel.double() - exact).abs().max())
     err_p = float((plain.double() - exact).abs().max())
     check(math.isfinite(err_k) and err_k <= ATTN_FACTOR * err_p + ATTN_FLOOR,
           f"{tag}: kernel error {err_k} against the f64 version, the f32 "
           f"plain version's {err_p}")
+    if kernel.dtype == torch.bfloat16:
+        row_k = (kernel.double() - exact).abs().amax(-1).flatten()
+        row_p = (plain.double() - exact).abs().amax(-1).flatten()
+        excess = row_k - (ATTN_FACTOR * row_p + ATTN_FLOOR)
+        i = int(torch.nan_to_num(excess, nan=math.inf).argmax())
+        check(bool((excess <= 0).all()),
+              f"{tag}: row {i} (of {row_k.numel()}): kernel error "
+              f"{float(row_k[i])} against the f64 version, the plain "
+              f"version's {float(row_p[i])} on that row (whole tensor: "
+              f"{err_k} and {err_p})")
     return err_k, err_p
 
 
@@ -1704,7 +1727,11 @@ def _attn_check(kernel, plain, exact, tag) -> tuple:
 # element off their storage's alignment (offset 1: the element-wise
 # loads), and one batch row of serve_long's prefill: chb-paper-lm-124m's in
 # f32, qwen3-4b's (GQA 32/8, d 128) and gemma3-12b's (16/8, d 256, causal
-# and its "S" layers' window 1024) in bf16
+# and its "S" layers' window 1024) in bf16. Then the bf16 tensor-core
+# design's edges (128-row blocks, 64-key tiles): L one short of, on and one
+# past a tile (1, 63, 64, 65, 127, 129, 2047), d 72 (zero-filled to 128,
+# 16-byte copies) and 256, G 8, a band of 65 keys across tile edges, rows
+# with no valid key, a view off alignment at d 128
 FLASH_CASES = [
     (2, 8, 8, 100, 100, 64, True, None, torch.float32, 0),
     (2, 8, 4, 130, 130, 64, True, 48, torch.float32, 0),
@@ -1730,12 +1757,20 @@ FLASH_CASES = [
     (1, 32, 8, 2048, 2048, 128, True, None, torch.bfloat16, 0),
     (1, 16, 8, 2048, 2048, 256, True, None, torch.bfloat16, 0),
     (1, 16, 8, 2048, 2048, 256, True, 1024, torch.bfloat16, 0),
+    *[(1, 8, 2, n, n, 128, True, None, torch.bfloat16, 0)
+      for n in (1, 63, 64, 65, 127, 2047)],
+    (2, 4, 2, 129, 129, 72, True, None, torch.bfloat16, 0),
+    (1, 8, 1, 257, 257, 256, True, 65, torch.bfloat16, 0),
+    (1, 4, 2, 150, 80, 64, True, 16, torch.bfloat16, 0),
+    (2, 8, 4, 130, 130, 128, True, None, torch.bfloat16, 1),
 ]
 # (b, h, kh, c, d, pos, dtype; pos None: every slot empty): C 1, 97 and
 # 2081, pos 0, empty slots, wrapped rings, G 1/2/4/8/16 (two head groups),
 # head dims 64-256, bf16, and serve_long's last decode step: chb-paper-lm-
 # 124m's in f32, qwen3-4b's and gemma3-12b's in bf16 (gemma3's "S" ring of
-# 1024 slots wrapped twice)
+# 1024 slots wrapped twice); then the bf16 design at C 1, 31 (one partial
+# sub-tile) and 257 (a wrapped ring), two head groups, and on a strided
+# cache (STRIDED_DECODE: the element loads)
 DECODE_CASES = [
     (2, 8, 8, 1, 64, 0, torch.float32),
     (3, 8, 4, 97, 64, 0, torch.float32),
@@ -1752,7 +1787,13 @@ DECODE_CASES = [
     (8, 32, 8, 2081, 128, 2078, torch.bfloat16),
     (8, 16, 8, 2081, 256, 2078, torch.bfloat16),
     (8, 16, 8, 1024, 256, 2078, torch.bfloat16),
+    (2, 8, 8, 1, 128, 0, torch.bfloat16),
+    (3, 8, 4, 31, 128, 40, torch.bfloat16),
+    (2, 8, 2, 257, 128, 300, torch.bfloat16),
+    (1, 32, 2, 97, 64, 50, torch.bfloat16),
+    (2, 8, 2, 257, 256, 120, torch.bfloat16),
 ]
+STRIDED_DECODE = (2, 8, 2, 257, 256, 120, torch.bfloat16)
 # the flash backward, f32 (b, h, kh, lq, s, d, causal, window, offset):
 # GQA 1, 2 and 4; L on and off its 64-row tiles (64, 65, 127, 129, 200,
 # 256), Lq < S, and Lq > S with rows that have no valid key (every tile
@@ -1806,7 +1847,7 @@ def phase_attention_kernels(device, max_err) -> None:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
 
-    async_cases = lse_cases = 0
+    async_cases = tc_cases = lse_cases = 0
     for b, h, kh, lq, s_len, d, causal, window, dtype, off in FLASH_CASES:
         tag = f"B14 b={b} h={h} kh={kh} lq={lq} s={s_len} d={d} " \
               f"causal={causal} window={window} {dtype} offset={off}"
@@ -1821,7 +1862,11 @@ def phase_attention_kernels(device, max_err) -> None:
         path = flash_attention.async_copy_ok(q, k, v)
         check(path == (dtype == torch.float32 and d % 4 == 0 and off == 0),
               f"{tag}: cp.async path {path}")
+        tc_path = flash_attention.tc_copy_ok(q, k, v)
+        check(tc_path == (dtype == torch.bfloat16 and d % 8 == 0
+                          and off == 0), f"{tag}: bf16 16-byte path {tc_path}")
         async_cases += path
+        tc_cases += tc_path
         out = flash_attention.flash_attention(q, k, v, causal=causal,
                                               window=window)
         plain = ref.flash_attention_fwd(q, k, v, causal=causal,
@@ -1847,12 +1892,17 @@ def phase_attention_kernels(device, max_err) -> None:
             max_err["flash_attention"] = max(max_err["flash_attention"],
                                              max_diff(out, plain))
         del q, k, v, out, plain, out_l, lse, lse_p
-    for b, h, kh, c, d, pos, dtype in DECODE_CASES:
-        tag = f"B13 b={b} h={h} kh={kh} c={c} d={d} pos={pos} {dtype}"
+    for case, strided in ([(c, False) for c in DECODE_CASES]
+                          + [(STRIDED_DECODE, True)]):
+        b, h, kh, c, d, pos, dtype = case
+        tag = f"B13 b={b} h={h} kh={kh} c={c} d={d} pos={pos} {dtype}" \
+              + (" strided" if strided else "")
         q = randn(b, h, d).to(dtype)
-        # (B, K, C, d) views of the model's (B, C, K, d) cache
-        k = randn(b, c, kh, d).to(dtype).transpose(1, 2)
-        v = randn(b, c, kh, d).to(dtype).transpose(1, 2)
+        # (B, K, C, d) views of the model's (B, C, K, d) cache; the strided
+        # case every other element of a (B, C, K, 2d) one
+        k, v = ((randn(b, c, kh, 2 * d).to(dtype)[..., ::2]
+                 if strided else randn(b, c, kh, d).to(dtype)).transpose(1, 2)
+                for _ in range(2))
         if pos is None:
             cpos, pos = torch.full((c,), -1, dtype=torch.int32,
                                    device=device), 10
@@ -1899,12 +1949,13 @@ def phase_attention_kernels(device, max_err) -> None:
             single += 1
     max_err["censor_select"] = 0.0
     emit({"phase": "attention_kernels", "flash_cases": len(FLASH_CASES),
-          "flash_cases_cp_async": async_cases, "flash_lse_cases": lse_cases,
+          "flash_cases_cp_async": async_cases,
+          "flash_cases_bf16_16_byte": tc_cases, "flash_lse_cases": lse_cases,
           "flash_bwd_cases": len(FLASH_BWD_CASES),
-          "decode_cases": len(DECODE_CASES), "single_tensor_cases": single,
+          "decode_cases": len(DECODE_CASES) + 1, "single_tensor_cases": single,
           "rule": f"attention: error vs f64 <= {ATTN_FACTOR} x plain f32's "
-          f"+ {ATTN_FLOOR}; B12a rel {SQNORM_RTOL}; B12b bitwise with -0.0 "
-          "and NaN",
+          f"+ {ATTN_FLOOR}, over the tensor and (bf16) each row; B12a rel "
+          f"{SQNORM_RTOL}; B12b bitwise with -0.0 and NaN",
           "worst_ratio": max(ek / (ep + ATTN_FLOOR)
                              for ek, ep in worst.values()),
           "errors": {k: {"kernel": ek, "plain_f32": ep}
@@ -3256,9 +3307,9 @@ def phase_serve_bf16(device) -> dict:
     """qwen3-4b and gemma3-12b at full width in bf16 through
     ``launch.serve.generate`` (``_serve_run``, SERVE_BF16_LOGIT_ULPS), one
     model on the card at a time. Returns each run's launch counts."""
-    import gc
     t0 = time.perf_counter()
     out, launches = {}, {}
+    start_gib = torch.cuda.memory_allocated() / 2 ** 30
     for arch, n_want in SERVE_BF16_ARCHS.items():
         cfg = get_config(arch)
         check(cfg.dtype == "bfloat16" and cfg.num_layers in (36, 48),
@@ -3292,6 +3343,7 @@ def phase_serve_bf16(device) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     emit({"phase": "serve_bf16", "logit_ulps": SERVE_BF16_LOGIT_ULPS,
+          "allocated_gib_at_start": start_gib,
           "tf32": False, "bf16_reduced_precision_reduction": False, **out,
           "seconds": time.perf_counter() - t0})
     return launches
@@ -4243,8 +4295,8 @@ def model_timing_rows(device, launches, max_err, d=FULL_D) -> list:
 
 # the H100 SXM's dense bf16 tensor-core rate (NVIDIA data sheet): the
 # bound of the bf16 attention rows is their products at this rate, the
-# least time the card could take for them, though B13 and B14 run them as
-# f32 FMAs on the CUDA cores
+# least time the card could take for them (B14 runs them on the tensor
+# cores, with P V as two products; B13 as f32 FMAs on the CUDA cores)
 BF16_FLOPS = 989e12
 
 
@@ -4385,7 +4437,6 @@ def main() -> None:
     launches.update(phase_edge(dev, flat))
     launches.update(phase_sweep(dev, flat))
     del flat
-    torch.cuda.empty_cache()
     launches.update(phase_serve(dev))
     serve_bf16 = phase_serve_bf16(dev)
     phase_pin(dev)

@@ -42,9 +42,9 @@ ROW_TILE = 1024
 #: per-worker kernels put the worker on grid y and walk any M with a
 #: stride, and pass 2 of a reduction runs one block per worker on grid x
 GRID_X_MAX = 2 ** 31 - 1
-#: cache slots of one partial of the decode-attention kernel (kDecodeSlots
-#: in csrc/decode_attention.cu); its launcher rejects partial buffers of
-#: another length
+#: cache slots of one partial of the f32 decode-attention kernel
+#: (kDecodeSlots in csrc/decode_attention.cu); its launcher rejects partial
+#: buffers of another length
 DECODE_SLOTS = 32
 
 # every launcher takes (device index, operands..., stream) and returns a
@@ -72,6 +72,8 @@ _SELECT_ARGS = (_DEV,) + (_P,) * 3 + (_I64, ctypes.c_int, _P)
 _FLASH_ARGS = (_DEV,) + (_P,) * 6 + (_F64, _P)
 _FLASH_BWD_ARGS = (_DEV,) + (_P,) * 11 + (_F64, _P)
 _DECODE_ARGS = (_DEV,) + (_P,) * 8 + (_F64, _P)
+# B13 bf16's plan: (device index, sizes, the int64 it writes), no stream
+_DECODE_PLAN_ARGS = (_DEV, _P, _P)
 #: the dtypes of the single-tensor entry points B12a/B12b and of the
 #: attention kernels, by launcher suffix
 SINGLE_DTYPES = {torch.float32: "f32", torch.float64: "f64",
@@ -132,8 +134,9 @@ SIGNATURES = {
                     **_both("quantize_ef_batched", _PACK_ARGS)},
     "flash_attention": {f"flash_attention_{s}": _FLASH_ARGS
                         for s in ATTENTION_DTYPES.values()},
-    "decode_attention": {f"decode_attention_{s}": _DECODE_ARGS
-                         for s in ATTENTION_DTYPES.values()},
+    "decode_attention": {**{f"decode_attention_{s}": _DECODE_ARGS
+                            for s in ATTENTION_DTYPES.values()},
+                         "decode_attention_bf16_chunk": _DECODE_PLAN_ARGS},
     "flash_backward": {"flash_attention_bwd_f32": _FLASH_BWD_ARGS},
 }
 
@@ -216,7 +219,18 @@ def launch(lib_name: str, fn_name: str, device: torch.device, *args
     later synchronize would not report it)."""
     lib = library(lib_name)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, fn_name)(device.index, *args, stream)
+    _raise_on(lib, fn_name, getattr(lib, fn_name)(device.index, *args,
+                                                  stream))
+
+
+def launch_query(lib_name: str, fn_name: str, index: int, *args) -> None:
+    """Call one C query (it launches nothing and takes no stream) on CUDA
+    device ``index``; raise if it reports a CUDA error."""
+    lib = library(lib_name)
+    _raise_on(lib, fn_name, getattr(lib, fn_name)(index, *args))
+
+
+def _raise_on(lib: ctypes.CDLL, fn_name: str, rc: int) -> None:
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{fn_name}: CUDA error {rc}: {msg}")

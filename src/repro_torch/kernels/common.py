@@ -203,6 +203,15 @@ def sqnorm_path(m: int, n: int, sms: int) -> str:
     return "two_pass"
 
 
+def copy16_ok(ts, elems: int) -> bool:
+    """Whether a kernel may copy each of these operands 16 bytes (``elems``
+    elements) at a time: a unit last stride, the last dim and every other
+    stride multiples of ``elems``, and a 16-byte aligned base address."""
+    return all(t.stride(-1) == 1 and t.shape[-1] % elems == 0
+               and all(st % elems == 0 for st in t.stride()[:-1])
+               and t.data_ptr() % 16 == 0 for t in ts)
+
+
 @functools.cache
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``."""

@@ -10,13 +10,15 @@
 //   m' = max(m, rowmax s); p = exp(s - m'); alpha = exp(m - m');
 //   l' = l*alpha + rowsum p; acc' = acc*alpha + p v;  o = acc / max(l, 1e-37)
 // in f32, whatever the input dtype (f32 or bf16). Lq != S is allowed.
+// f32 runs the SIMT design below; bf16 the tensor-core design further down
+// (flash_tc_kernel), with its own note.
 // Given an lse pointer (training's forward) it also writes the (B, H, Lq)
 // f32 log-sum-exp lse = m + log(max(l, 1e-37)) of flash.py:77-79, which the
 // backward kernel (flash_backward.cu) reads. That is a second instantiation
 // (kLse): with a null pointer (serving's prefill) the launcher runs the
 // same code as before the log-sum-exp existed.
 //
-// Bound: operations. Causal prefill of batch 8, 12 heads, 2048 tokens,
+// f32. Bound: operations. Causal prefill of batch 8, 12 heads, 2048 tokens,
 // head dim 64 does 2 * 2 * 8*12 * 2048*2049/2 * 64 = 51.6 GFLOP of
 // products against 201 MB of q, k, v and o: 0.77 ms at an H100 SXM's
 // 67 TFLOP/s of f32 outside the tensor cores, 0.06 ms at 3.35 TB/s. The
@@ -53,10 +55,9 @@
 //     unit last stride, the head dim and every other stride a multiple of
 //     4 and 16-byte aligned base pointers; the wrapper checks that on the
 //     host (flash_attention.async_copy_ok) and passes a flag, which the
-//     launcher checks again. Otherwise (bf16, d = 33, a view off by one
-//     element) the same kernel loads by strides element by element,
-//     converting to f32, at the same points. Past S and past the head dim
-//     the tiles are zero-filled.
+//     launcher checks again. Otherwise (d = 33, a view off by one
+//     element) the same kernel loads by strides element by element at the
+//     same points. Past S and past the head dim the tiles are zero-filled.
 //  3. Masks. Each key tile is classified against the block's rows: wholly
 //     inside the causal/window band and before S, its scores get no
 //     compare; a tile crossing an edge gets the per-score test, as int32
@@ -90,6 +91,7 @@
 // a window narrower than the gap) visits every tile, as the TPU kernel
 // does, and such a row comes out as the mean of v, as in JAX. Keys past S
 // in the last tile score -inf, so they add nothing in any case.
+#include <cuda.h>          // CUtensorMap (the bf16 design's TMA copies)
 #include <cuda_bf16.h>
 
 #include <type_traits>
@@ -131,9 +133,7 @@ struct FlashArgs {
 };
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
@@ -435,19 +435,18 @@ static int launch_flash_d(const void* q, const void* k, const void* v, void* out
 
 __host__ __forceinline__ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
-// The 16-byte path's conditions on one operand (checked again here: the
-// wrapper decides, a misaligned cp.async would fault).
-__host__ __forceinline__ bool vec_ok(const void* p, const int64_t* st, int64_t d) {
-  return aligned16(p) && st[3] == 1 && d % 4 == 0 && st[0] % 4 == 0 && st[1] % 4 == 0 &&
-         st[2] % 4 == 0;
+// The 16-byte path's conditions on one operand, n elements to 16 bytes
+// (checked again here: the wrapper decides, a misaligned cp.async would
+// fault and TMA refuses a map off them): unit last stride, the head dim and
+// every other stride multiples of n, a 16-byte aligned base.
+__host__ __forceinline__ bool vec_ok(const void* p, const int64_t* st, int64_t d, int64_t n) {
+  return aligned16(p) && st[3] == 1 && d % n == 0 && st[0] % n == 0 && st[1] % n == 0 &&
+         st[2] % n == 0;
 }
 
 // dims: b, h, kh, lq, s, d, q strides (4), k strides (4), v strides (4),
-// causal, has_window, window, vec (1: copy q, k, v with 16-byte cp.async);
-// lse: null, or the (B, H, Lq) f32 log-sum-exp (kLse)
-template <typename T, bool kLse>
-static int launch_flash(const void* q, const void* k, const void* v, void* out, float* lse,
-                        const int64_t* dims, double scale, void* stream) {
+// causal, has_window, window, vec (1: copy q, k, v 16 bytes at a time)
+__host__ FlashArgs flash_args(const int64_t* dims, double scale) {
   FlashArgs a;
   a.b = dims[0]; a.h = dims[1]; a.kh = dims[2]; a.lq = dims[3]; a.s = dims[4]; a.d = dims[5];
   for (int i = 0; i < 4; ++i) {
@@ -458,18 +457,753 @@ static int launch_flash(const void* q, const void* k, const void* v, void* out, 
   a.causal = dims[18]; a.has_window = dims[19]; a.window = dims[20];
   a.vec = dims[21] != 0;
   a.scale = (float)scale;
+  return a;
+}
+
+__host__ bool flash_args_ok(const FlashArgs& a) {
+  return a.b >= 1 && a.h >= 1 && a.kh >= 1 && a.h % a.kh == 0 && a.lq >= 1 && a.s >= 1 &&
+         a.d >= 1 && a.d <= 256;
+}
+
+// lse: null, or the (B, H, Lq) f32 log-sum-exp (kLse)
+template <typename T, bool kLse>
+static int launch_flash(const void* q, const void* k, const void* v, void* out, float* lse,
+                        const int64_t* dims, double scale, void* stream) {
+  FlashArgs a = flash_args(dims, scale);
   constexpr bool is_f32 = std::is_same<T, float>::value;
   a.out_vec = is_f32 && a.d % 4 == 0 && aligned16(out);
-  if (a.b < 1 || a.h < 1 || a.kh < 1 || a.h % a.kh != 0 || a.lq < 1 || a.s < 1 || a.d < 1 ||
-      a.d > 256)
-    return (int)cudaErrorInvalidValue;
-  if (a.vec && !(is_f32 && vec_ok(q, a.qs, a.d) && vec_ok(k, a.ks, a.d) && vec_ok(v, a.vs, a.d)))
+  if (!flash_args_ok(a)) return (int)cudaErrorInvalidValue;
+  if (a.vec &&
+      !(is_f32 && vec_ok(q, a.qs, a.d, 4) && vec_ok(k, a.ks, a.d, 4) && vec_ok(v, a.vs, a.d, 4)))
     return (int)cudaErrorMisalignedAddress;
   if (kLse && lse == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (a.d <= 64) return launch_flash_d<T, 64, kLse>(q, k, v, out, lse, a, s);
   if (a.d <= 128) return launch_flash_d<T, 128, kLse>(q, k, v, out, lse, a, s);
   return launch_flash_d<T, 256, kLse>(q, k, v, out, lse, a, s);
+}
+
+// ------------------------------------------------------------------------
+// B14 in bf16: the tensor-core design.
+//
+// Same function as above, bf16 in and out: s = (q . k) * scale in f32 (the
+// scale after the product, as JAX applies it; prescaling q in bf16 would
+// round), the -1e30 mask on absolute positions, JAX's online softmax in f32
+// (m, l, alpha; l summed from the f32 p), o = acc / max(l, 1e-37) rounded
+// once to bf16, and with an lse pointer the f32 m + log(max(l, 1e-37)).
+//
+// Bound: operations. qwen3-4b's serve_long prefill (B 8, H 32, K 8, L 2048,
+// d 128, causal) needs 2 * 2 * 8*32 * 2048*2049/2 * 128 = 275 GFLOP of
+// products against 67 MB of q, k, v and o: 0.278 ms at an H100 SXM's 989
+// TFLOP/s of dense bf16 tensor-core products, 0.02 ms at 3.35 TB/s.
+//
+// Arithmetic. Both products run on the bf16 tensor cores (wgmma) with f32
+// accumulation:
+//   S = Q K^T: q and k are bf16, so every product is exact in f32; only the
+//     order of the f32 sums differs from the plain version.
+//   O += P V: JAX keeps p in f32. One bf16 rounding of p (relative error up
+//     to 2^-8) would be a larger change than summation order, so p is split
+//     p_hi = bf16(p), p_lo = bf16(p - p_hi) (p - p_hi is exact in f32) and
+//     both products go into the same f32 accumulator. p_hi + p_lo differs
+//     from p by at most 2^-8 |p - p_hi| <= 2^-16 |p|, 2^-8 of the output's
+//     own bf16 rounding. The cost is three products instead of two: 412
+//     GFLOP at qwen3-4b's shape, 0.417 ms at 989 TFLOP/s.
+//   The softmax is the f32 design's: IEEE-rounded f32 operations (the
+//     build's -fmad=false) and expf, CUDA's f32 exp (within 2 ulps), not
+//     ex2.approx on x log2(e), whose rounding of the product alone costs up
+//     to 2^-24 |x| relative and which flushes subnormal results to zero.
+//
+// Design (one block of two consumer warpgroups, 256 threads, per (b, h,
+// tile of kTcBM = 128 query rows); warpgroup w owns rows 64 w .. 64 w + 63):
+//  1. Tiles. q (128 x DMAX) stays in shared memory for the block's life;
+//     key tiles of kTcBN = 64 keys of k and of v go through two rings of
+//     NST stages each (4 at DMAX <= 128; 2 at 256, where 3 do not fit).
+//     Every tile is bf16 in wgmma's 128-byte-swizzled layout: rows of 64
+//     elements (128 bytes), 16-byte chunk c of row r stored at chunk c ^
+//     (r % 8), DMAX / 64 such column blocks one after another, each tile
+//     1024-byte aligned. Past S, past Lq and past the head dim the tiles
+//     are zero-filled (DMAX = 64, 128 or 256; d = 72 runs as 128).
+//  2. Copies. Where every operand has unit last stride, a head dim and
+//     strides that are multiples of 8 elements and 16-byte aligned bases
+//     (the wrapper's flash_attention.tc_copy_ok, checked again here), TMA:
+//     one thread copies each tile as boxes of 64 columns of a 4-D tensor
+//     map (d, L, heads, batch) of the model's strided view, swizzled on the
+//     way and zero-filled past S, Lq and d, completing the stage's "full"
+//     mbarrier by its bytes. Otherwise the same kernel gathers 8 elements
+//     at a time by strides and stores the 16 bytes itself (every thread,
+//     then a proxy fence and an arrive). The copies of k's tile t + NST - 1
+//     and v's tile t + NST - 2 (v is read one tile later than k, item 3)
+//     start at tile t. Each stage's "empty" mbarrier completes when every
+//     thread has read it (an arrive after the wgmma that read it); no
+//     block barrier orders the loop, so the warpgroups need not meet.
+//     Measured: with 16-byte cp.async from every thread the copies alone
+//     took as long as the whole kernel with TMA (PERF.md §6).
+//  3. Products. S (64 x 64 a warpgroup, 32 f32 registers a thread) by
+//     wgmma m64n64k16 with q and k both K-major from shared memory, DMAX / 16
+//     steps; then the softmax in registers (a row's 64 scores lie on the 4
+//     lanes of a quad: two xor shuffles for its max and sum, every lane the
+//     same bits); p_hi and p_lo converted in place, since the accumulator's
+//     fragment of 16 keys is the A-register fragment of m64nDMAXk16; O +=
+//     P_hi V + P_lo V by wgmma with A from registers and v MN-major from
+//     shared memory (4 key steps x 2). O (64 x DMAX) stays in registers:
+//     DMAX / 2 f32 a thread, 128 at d = 256. The tensor cores and the
+//     softmax overlap inside a warpgroup: tile t issues S(t) and then the
+//     P V of tile t - 1, waits for S(t) alone, runs the softmax of tile t
+//     while P V(t - 1) runs, then waits for it, rescales O by alpha(t) and
+//     converts P(t), whose P V tile t + 1 issues (the first tile's softmax
+//     runs alone, the last tile's P V after the loop). Making the two
+//     warpgroups issue their wgmmas in turn (named barriers, so that one's
+//     softmax runs during the other's products) measured slower at all
+//     three serving shapes, and is not done.
+//  4. Masks. The block visits only the key tiles that meet the band of its
+//     128 rows (heaviest query tile first under causal; a tile outside is
+//     skipped, see the note on skipped tiles above). A visited tile is
+//     classified against each warpgroup's 64 rows: inside the band and
+//     before S (no compare) or not (the per-score test). A tile wholly
+//     outside one warpgroup's band adds exactly nothing to its rows, so the
+//     warpgroup runs it masked rather than branch around its wgmmas: ptxas
+//     serializes wgmmas issued under a branch it cannot prove uniform, and
+//     the warpgroup index reaches it through a shuffle for the same reason.
+// Registers: ptxas reports them per DMAX (-Xptxas=-v, kept by build.py's
+// log): at most 255 a thread, one block of 256 threads an SM.
+// Shared memory: 1024 bytes of alignment slack, q 16 KB per column block,
+// NST tiles each of k and v at 8 KB per column block, 4 NST mbarriers:
+// 83,072 bytes at DMAX 64, 164,992 at 128, 197,696 at 256. No atomics:
+// the same bits on every call.
+
+constexpr int kTcBM = 128;            // query rows of a block
+constexpr int kTcBN = 64;             // keys of a tile
+constexpr int kTcThreads = 256;       // two warpgroups
+constexpr int kSwRow = 128;           // bytes of one swizzled row (64 bf16)
+
+template <int DMAX>
+struct TcTiles {
+  static constexpr int CB = DMAX / 64;                        // column blocks
+  static constexpr int Q_CB = kTcBM * kSwRow;                 // bytes of q's column block
+  static constexpr int KV_CB = kTcBN * kSwRow;                // bytes of k's (or v's)
+  static constexpr int Q_BYTES = CB * Q_CB;
+  static constexpr int KV_BYTES = CB * KV_CB;                 // one k (or v) tile
+  // stages of each ring: as many as fit (3 do not at DMAX 256)
+  static constexpr int NST = DMAX <= 128 ? 4 : 2;
+  // alignment slack, q, the k and v rings and their 4 NST mbarriers
+  static constexpr size_t SMEM =
+      1024 + (size_t)Q_BYTES + 2 * NST * (size_t)KV_BYTES + 32 * NST;
+};
+
+// Byte offset of 16-byte chunk c of row r in a swizzled tile of `rows` rows.
+__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
+  return (uint32_t)((c >> 3) * rows * kSwRow + r * kSwRow + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// One box (64 columns x the map's rows) of a 4-D tensor map (d, L, heads,
+// batch) into shared memory at dst, 128-byte swizzled, completing `bar`'s
+// transaction count; columns and rows past the tensor are zero-filled.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map, int col, int64_t row,
+                                        int64_t head, int64_t batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(col), "r"((int)row), "r"((int)head),
+      "r"((int)batch), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t a, uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+
+// generic-proxy writes to shared memory (cp.async, st.shared) before the
+// async proxy (wgmma) reads them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers in shared memory: init (one thread), arrive, and the wait for
+// the phase of the given parity to complete
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Rows row0 .. row0 + ROWS - 1 of one (rows, d) bf16 operand, gathered
+// by strides into a swizzled tile at shared address dst, zero past nrows
+// and past d (the element path). Thread e moves 16-byte chunk e % (DMAX /
+// 8) of row e / (DMAX / 8).
+template <int ROWS, int DMAX>
+__device__ __forceinline__ void tc_gather(uint32_t dst, const __nv_bfloat16* src, int64_t row0,
+                                          int64_t nrows, int64_t rs, int64_t cs, int64_t d) {
+  constexpr int CPR = DMAX / 8;       // chunks of a row
+  const unsigned short* raw = reinterpret_cast<const unsigned short*>(src);
+  for (int e = threadIdx.x; e < ROWS * CPR; e += kTcThreads) {
+    const int r = e / CPR, c = e % CPR;
+    const int64_t row = row0 + r;
+    const uint32_t sp = dst + swz(r, c, ROWS);
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t lo = 0, hi = 0;
+      const int64_t col = c * 8 + 2 * i;
+      if (row < nrows && col < d) lo = raw[row * rs + col * cs];
+      if (row < nrows && col + 1 < d) hi = raw[row * rs + (col + 1) * cs];
+      w[i] = lo | (hi << 16);
+    }
+    st_shared16(sp, w[0], w[1], w[2], w[3]);
+  }
+}
+
+// wgmma shared-memory descriptors of 128-byte-swizzled tiles: K-major (q,
+// k: the leading offset unused, 1024 bytes between 8-row groups) and
+// MN-major (v: `lbo` bytes between 64-column blocks, 1024 between 8-key
+// groups)
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// ties registers to this point of the program, so the compiler neither
+// reads an accumulator before wgmma_wait nor writes it after an issue
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// D (64 x 64, f32) {+}= A (64 x 16, shared, K-major) B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, f32) += A (64 x 16, registers) B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, registers) B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256, f32) += A (64 x 16, registers) B (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int DMAX>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DMAX / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DMAX == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (DMAX == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n256(o, a, db);
+}
+
+// O += P_hi V + P_lo V of one key tile: 4 steps of 16 keys, 2048 bytes
+// apart in the v tile at vt
+template <int DMAX>
+__device__ __forceinline__ void pv_tile(float (&o)[DMAX / 2], const uint32_t (&ph)[4][4],
+                                        const uint32_t (&pl)[4][4], uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_mnmajor(vt + kk * 16 * kSwRow, TcTiles<DMAX>::KV_CB);
+    wgmma_pv<DMAX>(o, ph[kk], db);
+    wgmma_pv<DMAX>(o, pl[kk], db);
+  }
+}
+
+// p_hi = bf16(x), p_lo = bf16(x - p_hi) of two neighbouring scores, packed
+// as wgmma's A registers take them (the lower column in the low half)
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);        // one cvt.rn.bf16x2.f32
+  hi = reinterpret_cast<const uint32_t&>(h);
+  const float h0 = __uint_as_float(hi << 16), h1 = __uint_as_float(hi & 0xffff0000u);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(__fsub_rn(x0, h0), __fsub_rn(x1, h1));
+  lo = reinterpret_cast<const uint32_t&>(r);
+}
+
+// One key tile's step of the online softmax for the two rows row0 and
+// row0 + 8 of a thread, whose scores of keys k0 + 8 n + 2 tq + j lie in
+// s[4 n + 2 i + j] (wgmma's accumulator fragment): scale (and under MASK,
+// mask) them, update m and l, return alpha and leave p in s. The mask
+// compares int32 offsets in the tile, as softmax_tile does.
+template <bool MASK>
+__device__ __forceinline__ void tc_softmax(float (&s)[32], float (&m)[2], float (&l)[2],
+                                           float (&alpha)[2], const FlashArgs& a, int64_t row0,
+                                           int64_t k0, int tq) {
+  const int past = (int)imin(a.s - k0, kTcBN);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + 8 * i;
+    int lo = 0, hi = kTcBN - 1;
+    if (MASK) {
+      if (a.causal) hi = (int)imax(imin(row - k0, kTcBN - 1), -1);
+      if (a.has_window) lo = (int)imin(imax(row - a.window + 1 - k0, 0), kTcBN);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float x = s[4 * n + 2 * i + j] * a.scale;
+        if (MASK) {
+          const int kk = 8 * n + 2 * tq + j;
+          if (kk >= past) x = -INFINITY;                 // no key here: adds nothing
+          else if (kk < lo || kk > hi) x = kNeg;
+        }
+        s[4 * n + 2 * i + j] = x;
+        mx = maxval(mx, x);
+      }
+    mx = maxval(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = maxval(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mn = maxval(m[i], mx);
+    alpha[i] = expf(m[i] - mn);
+    float rs = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float p = expf(s[4 * n + 2 * i + j] - mn);
+        s[4 * n + 2 * i + j] = p;
+        rs += p;
+      }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l[i] = l[i] * alpha[i] + rs;
+    m[i] = mn;
+  }
+}
+
+template <int DMAX, bool kLse>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ lse, FlashArgs a, const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v) {
+  using L = TcTiles<DMAX>;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const uint32_t qs = ((uint32_t)__cvta_generic_to_shared(tc_smem) + 1023u) & ~1023u;
+  constexpr int NST = L::NST;
+  const uint32_t kring = qs + L::Q_BYTES;            // NST k tiles
+  const uint32_t vring = kring + NST * L::KV_BYTES;  // NST v tiles
+
+  // the warpgroup's index through a shuffle, so the compiler sees it (and
+  // every branch on it) uniform over each warp: a branch it may take as
+  // divergent makes ptxas serialize every wgmma (C7520)
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int wi = (tid % 128) / 32, lane = tid % 32;
+  const int tq = lane % 4;
+  const int64_t nbh = a.b * a.h;
+  const int64_t bh = (int64_t)blockIdx.x % nbh, rank = (int64_t)blockIdx.x / nbh;
+  const int64_t nq = (a.lq + kTcBM - 1) / kTcBM;
+  const int64_t bi = bh / a.h, hi = bh % a.h;
+  const int64_t q0 = (a.causal ? nq - 1 - rank : rank) * kTcBM;   // heaviest first
+  const int64_t khi = hi / (a.h / a.kh);
+  const __nv_bfloat16* qb = q + bi * a.qs[0] + hi * a.qs[1];
+  const __nv_bfloat16* kb = k + bi * a.ks[0] + khi * a.ks[1];
+  const __nv_bfloat16* vb = v + bi * a.vs[0] + khi * a.vs[1];
+  const bool vec = a.vec != 0;
+
+  // The rows without a valid key in [0, S) form a suffix of all rows
+  // (qpos >= S + window - 1, or every row for a window below 1), so rows
+  // r0 .. r1 all have one iff r1 has: the block visits the key tiles that
+  // meet the band of its rows if its last row has a valid key, else every
+  // tile (see the note on skipped tiles above).
+  const int64_t qlast = imin(q0 + kTcBM, a.lq) - 1;
+  int64_t t_lo = 0, t_hi = (a.s + kTcBN - 1) / kTcBN;
+  if (row_has_key(a, qlast)) {
+    int64_t lo = 0, hi_key = a.s - 1;
+    if (a.causal) hi_key = imin(hi_key, qlast);
+    if (a.has_window) lo = imax(lo, q0 - a.window + 1);
+    t_lo = lo / kTcBN;
+    t_hi = hi_key / kTcBN + 1;
+  }
+  // this warpgroup's rows w0 .. w1 and this thread's two, row0 and row0 + 8
+  const int64_t w0 = q0 + 64 * wg, w1 = imin(w0 + 63, a.lq - 1);
+  const int64_t row0 = w0 + 16 * wi + lane / 4;
+
+  // The rings' barriers: full_k[j] / full_v[j] complete when the copies
+  // into stage j have landed (TMA: thread 0's arrive with the tile's bytes,
+  // which the copies complete; element path: 256 arrivals after each
+  // thread's stores and a proxy fence); empty_k[j] / empty_v[j] when every
+  // thread is done reading it (256 arrivals after the wgmma that read it).
+  // Fill n of a stage waits for use n - 1 to be over; use n for fill n.
+  const uint32_t bars = kring + 2 * NST * L::KV_BYTES;
+  const uint32_t full_k = bars, full_v = bars + 8 * NST, empty_k = bars + 16 * NST,
+                 empty_v = bars + 24 * NST;
+  if (tid == 0) {
+    for (int j = 0; j < 2 * NST; ++j) mbar_init(bars + 8 * j, vec ? 1 : kTcThreads);
+    for (int j = 2 * NST; j < 4 * NST; ++j) mbar_init(bars + 8 * j, kTcThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // one key tile of k or v into stage j of its ring, once the stage's
+  // previous tile is read: TMA boxes from thread 0, or every thread's
+  // gather
+  auto fill = [&](uint32_t ring, uint32_t full, uint32_t empty, const CUtensorMap& map,
+                  const __nv_bfloat16* base, const int64_t* st, int64_t head, int64_t kt) {
+    const int64_t rel = kt - t_lo;
+    const uint32_t j = (uint32_t)(rel % NST);
+    const uint32_t dst = ring + j * L::KV_BYTES;
+    if (vec) {
+      if (tid != 0) return;
+      if (rel >= NST) mbar_wait(empty + 8 * j, (uint32_t)((rel / NST - 1) & 1));
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                       full + 8 * j),
+                   "r"((uint32_t)L::KV_BYTES)
+                   : "memory");
+#pragma unroll
+      for (int cb = 0; cb < L::CB; ++cb)
+        tma_box(dst + cb * L::KV_CB, map, 64 * cb, kt * kTcBN, head, bi, full + 8 * j);
+      return;
+    }
+    if (rel >= NST) mbar_wait(empty + 8 * j, (uint32_t)((rel / NST - 1) & 1));
+    tc_gather<kTcBN, DMAX>(dst, base, kt * kTcBN, a.s, st[2], st[3], a.d);
+    fence_proxy_async();
+    mbar_arrive(full + 8 * j);
+  };
+  auto load_k = [&](int64_t kt) { fill(kring, full_k, empty_k, map_k, kb, a.ks, khi, kt); };
+  auto load_v = [&](int64_t kt) { fill(vring, full_v, empty_v, map_v, vb, a.vs, khi, kt); };
+  // use of a stage: wait for its fill (the element path's writers fenced
+  // their stores for wgmma's async proxy before arriving; TMA writes
+  // through that proxy), and after the wgmma that read it release it
+  auto wait_k = [&](int64_t kt) {
+    const int64_t rel = kt - t_lo;
+    mbar_wait(full_k + 8 * (uint32_t)(rel % NST), (uint32_t)((rel / NST) & 1));
+  };
+  auto wait_v = [&](int64_t kt) {
+    const int64_t rel = kt - t_lo;
+    mbar_wait(full_v + 8 * (uint32_t)(rel % NST), (uint32_t)((rel / NST) & 1));
+  };
+  auto free_k = [&](int64_t kt) { mbar_arrive(empty_k + 8 * (uint32_t)((kt - t_lo) % NST)); };
+  auto free_v = [&](int64_t kt) { mbar_arrive(empty_v + 8 * (uint32_t)((kt - t_lo) % NST)); };
+
+  // prologue: q (behind k's first barrier), k's tiles t_lo .. t_lo + NST - 2
+  // and v's tiles t_lo .. t_lo + NST - 3
+  if (!vec) {
+    tc_gather<kTcBM, DMAX>(qs, qb, q0, a.lq, a.qs[2], a.qs[3], a.d);
+  } else if (tid == 0) {
+    mbar_expect(full_k, (uint32_t)L::Q_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < L::CB; ++cb)
+      tma_box(qs + cb * L::Q_CB, map_q, 64 * cb, q0, hi, bi, full_k);
+  }
+  for (int i = 0; i < NST - 1; ++i)
+    if (t_lo + i < t_hi) load_k(t_lo + i);
+  for (int i = 0; i < NST - 2; ++i)
+    if (t_lo + i < t_hi) load_v(t_lo + i);
+
+  float o[DMAX / 2], s[32], m[2], l[2], alpha[2];
+  uint32_t ph[4][4], pl[4][4];        // p_hi, p_lo of the tile whose P V is next
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.0f;
+  }
+
+  // The start of tile kt: the copies of k's tile kt + NST - 1 and v's tile
+  // kt + NST - 2 start (each thread its share), NST - 1 tiles ahead of use.
+  auto next_tile = [&](int64_t kt) {
+    if (kt + NST - 1 < t_hi) load_k(kt + NST - 1);
+    if (kt + NST - 2 < t_hi) load_v(kt + NST - 2);
+  };
+  // S = Q K^T of tile kt: DMAX / 16 steps of 16 columns, 32 bytes apart in
+  // a swizzled row, 64 columns a column block
+  auto issue_s = [&](int64_t kt) {
+    const uint32_t ks = kring + (uint32_t)((kt - t_lo) % NST) * L::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      const uint32_t col = (uint32_t)(kk % 4) * 32;
+      wgmma_ss_n64(s, desc_kmajor(qs + (kk / 4) * L::Q_CB + wg * 64 * kSwRow + col),
+                   desc_kmajor(ks + (kk / 4) * L::KV_CB + col), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // the softmax of tile kt on s (the tile's class against this warpgroup's
+  // rows, uniform over it: inside the band and before S, no compare)
+  auto softmax = [&](int64_t kt) {
+    const int64_t k0 = kt * kTcBN;
+    if (k0 + kTcBN <= a.s && (!a.causal || k0 + kTcBN - 1 <= w0) &&
+        (!a.has_window || k0 > w1 - a.window))
+      tc_softmax<false>(s, m, l, alpha, a, row0, k0, tq);
+    else
+      tc_softmax<true>(s, m, l, alpha, a, row0, k0, tq);
+  };
+  // keys 16 kk .. 16 kk + 15: registers (g, c), (g + 8, c), (g, c + 8),
+  // (g + 8, c + 8) of m64nNk16's A fragment are s[8 kk + 2 r], r = 0..3
+  auto split_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_pair(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
+  };
+  auto v_tile = [&](int64_t kt) {
+    return vring + (uint32_t)((kt - t_lo) % NST) * L::KV_BYTES;
+  };
+
+  // tile t_lo: S and its softmax (O is still zero)
+  next_tile(t_lo);
+  wait_k(t_lo);
+  reg_fence(s);
+  wgmma_fence();
+  issue_s(t_lo);
+  wgmma_wait<0>();
+  reg_fence(s);
+  free_k(t_lo);
+  softmax(t_lo);
+  split_p();
+  // the steady state: tile kt issues S(kt), then P V of tile kt - 1, which
+  // runs during the softmax of tile kt; the same wgmma sequence in every
+  // warpgroup and tile, so ptxas keeps it asynchronous
+  for (int64_t kt = t_lo + 1; kt < t_hi; ++kt) {
+    next_tile(kt);
+    wait_k(kt);
+    wait_v(kt - 1);
+    reg_fence(s);
+    reg_fence(o);
+      wgmma_fence();
+    issue_s(kt);
+    pv_tile<DMAX>(o, ph, pl, v_tile(kt - 1));
+    wgmma_commit();
+      wgmma_wait<1>();                  // S(kt) landed; P V(kt - 1) may still run
+    reg_fence(s);
+    free_k(kt);
+    softmax(kt);
+    wgmma_wait<0>();                  // P V(kt - 1) is done with o, ph and pl
+    reg_fence(o);
+    free_v(kt - 1);
+#pragma unroll
+    for (int i = 0; i < DMAX / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    split_p();
+  }
+  // the last tile's P V, once its v tile has landed
+  wait_v(t_hi - 1);
+  reg_fence(o);
+  wgmma_fence();
+  pv_tile<DMAX>(o, ph, pl, v_tile(t_hi - 1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(o);
+
+  const bool active = w0 < a.lq;
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + 8 * i;
+    if (row >= a.lq) continue;
+    const float ls = maxval(l[i], 1e-37f);
+    // the 4 lanes of a row hold the same m and l; one writes the lse
+    if constexpr (kLse)
+      if (tq == 0) lse[(bi * a.h + hi) * a.lq + row] = __fadd_rn(m[i], logf(ls));
+    __nv_bfloat16* op = out + ((bi * a.h + hi) * a.lq + row) * a.d;
+#pragma unroll
+    for (int n = 0; n < DMAX / 8; ++n) {
+      const int col = 8 * n + 2 * tq;
+      const float y0 = o[4 * n + 2 * i] / ls, y1 = o[4 * n + 2 * i + 1] / ls;
+      if (a.d % 2 == 0) {               // 4-byte aligned pairs: out is contiguous
+        if (col < a.d)
+          *reinterpret_cast<__nv_bfloat162*>(op + col) = __floats2bfloat162_rn(y0, y1);
+      } else {
+        if (col < a.d) op[col] = __float2bfloat16_rn(y0);
+        if (col + 1 < a.d) op[col + 1] = __float2bfloat16_rn(y1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's
+// cudaGetDriverEntryPoint (no link against libcuda); null where missing
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (d, L, heads, batch) of one (B, heads, L, d) bf16 operand with
+// element strides st, boxes of 64 columns x `rows` rows, 128-byte swizzle.
+// A dimension of size 1 gets a stride TMA accepts (it is never stepped).
+static bool tensor_map(CUtensorMap* map, const void* base, const int64_t* st, int64_t batch,
+                       int64_t heads, int64_t len, int64_t d, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const int64_t size[3] = {len, heads, batch};
+  const int64_t es[3] = {st[2], st[1], st[0]};
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)len, (cuuint64_t)heads, (cuuint64_t)batch};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)(size[i] == 1 ? 16 : 2 * es[i]);
+  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DMAX, bool kLse>
+static int launch_flash_tc_d(const void* q, const void* k, const void* v, void* out, float* lse,
+                             const FlashArgs& a, cudaStream_t s) {
+  using L = TcTiles<DMAX>;
+  static bool opted_in[kMaxDevices] = {};   // per device, once per instantiation
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    e = cudaFuncSetAttribute(flash_tc_kernel<DMAX, kLse>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(flash_tc_kernel<DMAX, kLse>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    opted_in[dev] = true;
+  }
+  const int64_t blocks = (a.lq + kTcBM - 1) / kTcBM * a.b * a.h;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3] = {};             // unused on the element path
+  if (a.vec && !(tensor_map(&maps[0], q, a.qs, a.b, a.h, a.lq, a.d, kTcBM) &&
+                 tensor_map(&maps[1], k, a.ks, a.b, a.kh, a.s, a.d, kTcBN) &&
+                 tensor_map(&maps[2], v, a.vs, a.b, a.kh, a.s, a.d, kTcBN)))
+    return (int)cudaErrorInvalidValue;
+  flash_tc_kernel<DMAX, kLse><<<(unsigned)blocks, kTcThreads, L::SMEM, s>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)out, lse, a, maps[0], maps[1], maps[2]);
+  return (int)cudaGetLastError();
+}
+
+template <bool kLse>
+static int launch_flash_tc(const void* q, const void* k, const void* v, void* out, float* lse,
+                           const int64_t* dims, double scale, void* stream) {
+  FlashArgs a = flash_args(dims, scale);
+  a.out_vec = 0;
+  if (!flash_args_ok(a)) return (int)cudaErrorInvalidValue;
+  if (a.vec && !(vec_ok(q, a.qs, a.d, 8) && vec_ok(k, a.ks, a.d, 8) && vec_ok(v, a.vs, a.d, 8)))
+    return (int)cudaErrorMisalignedAddress;
+  if (kLse && lse == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (a.d <= 64) return launch_flash_tc_d<64, kLse>(q, k, v, out, lse, a, s);
+  if (a.d <= 128) return launch_flash_tc_d<128, kLse>(q, k, v, out, lse, a, s);
+  return launch_flash_tc_d<256, kLse>(q, k, v, out, lse, a, s);
 }
 
 }  // namespace
@@ -492,8 +1226,8 @@ int flash_attention_bf16(int device, const void* q, const void* k, const void* v
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
   if (lse != nullptr)
-    return launch_flash<__nv_bfloat16, true>(q, k, v, out, (float*)lse, dims, scale, stream);
-  return launch_flash<__nv_bfloat16, false>(q, k, v, out, nullptr, dims, scale, stream);
+    return launch_flash_tc<true>(q, k, v, out, (float*)lse, dims, scale, stream);
+  return launch_flash_tc<false>(q, k, v, out, nullptr, dims, scale, stream);
 }
 
 }  // extern "C"

@@ -7,16 +7,45 @@ layer per decode step, on the model's (B, C, K, hd) cache seen as
 (B, K, C, hd) through a transposed view: the kernel reads k and v by
 strides, so no step copies the cache. CPU tensors run
 ``ref.decode_attention_ref``; CUDA tensors launch the kernel or raise.
+f32 runs partials of ``DECODE_SLOTS`` slots; bf16 its own design, whose
+partials the kernel's library sizes for the card (:func:`plan`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import ref
-from .build import ATTENTION_DTYPES, DECODE_SLOTS, launch
-from .common import count_launch, on_card
+from .build import ATTENTION_DTYPES, DECODE_SLOTS, launch, launch_query
+from .common import copy16_ok, count_launch, on_card
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, h: int, kh: int, c: int, d: int, index: int) -> int:
+    """Cache slots of one partial of the bf16 kernel on CUDA device
+    ``index``, from the kernel's own launch configuration
+    (``decode_attention_bf16_chunk`` in csrc/decode_attention.cu): the
+    fewest chunks that fill one wave of resident blocks (the SM count times
+    the blocks an SM holds, by the occupancy calculator), spread over the
+    (b, kv head, head group) triples, in whole sub-tiles of 32 slots.
+    qwen3-4b's last serve_long step (B 8, K 8, G 4, C 2081, d 128) on an
+    H100's 132 SMs: 6 blocks an SM, 192 slots, 11 partials. Asked once a
+    shape: a decode step's 36-48 calls reuse the answer."""
+    dims = (ctypes.c_int64 * 5)(b, h, kh, c, d)
+    chunk = ctypes.c_int64(0)
+    launch_query("decode_attention", "decode_attention_bf16_chunk", index,
+                 ctypes.addressof(dims), ctypes.addressof(chunk))
+    return chunk.value
+
+
+def cache_copy_ok(*ts: torch.Tensor) -> bool:
+    """Whether the bf16 kernel may copy these cache views 16 bytes at a
+    time: a unit last stride, the head dim and every other stride a
+    multiple of 8 elements, 16-byte aligned bases. The models' (B, K, C, d)
+    views of contiguous (B, C, K, d) caches qualify."""
+    return copy16_ok(ts, 8)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -55,14 +84,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    nchunks = -(-c // DECODE_SLOTS)
+    if q.dtype == torch.float32:
+        chunk, vec = DECODE_SLOTS, 0
+    else:
+        chunk = plan(b, h, kh, c, d, q.device.index or 0)
+        vec = int(cache_copy_ok(k_cache, v_cache))
+    nchunks = -(-c // chunk)
     part_ml = torch.empty((b * h, nchunks, 2), dtype=torch.float32,
                           device=q.device)
     part_acc = torch.empty((b * h, nchunks, d), dtype=torch.float32,
                            device=q.device)
-    dims = (ctypes.c_int64 * 18)(
+    # the f32 launcher reads the first 18 entries
+    dims = (ctypes.c_int64 * 20)(
         b, h, kh, c, d, *q.stride(), *k_cache.stride(), *v_cache.stride(),
-        int(pos), nchunks)
+        int(pos), nchunks, chunk, vec)
     count_launch(name)
     launch("decode_attention", f"{name}_{ATTENTION_DTYPES[q.dtype]}",
            q.device, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

@@ -9,9 +9,11 @@ training step, with ``return_lse`` (the log-sum-exp its backward,
 ``kernels.flash_backward``, reads). CPU tensors run
 ``ref.flash_attention_fwd``; CUDA tensors
 launch the kernel or raise. The kernel reads q, k and v by strides, picks
-its own tiles and takes any Lq, S and head dim up to 256. Where
-:func:`async_copy_ok` holds it copies its tiles 16 bytes at a time with
-``cp.async``; otherwise it loads them element by element.
+its own tiles and takes any Lq, S and head dim up to 256. f32 runs the
+SIMT design, bf16 the tensor-core (``wgmma``) design. Where
+:func:`async_copy_ok` (f32) or :func:`tc_copy_ok` (bf16) holds it copies
+its tiles 16 bytes at a time (f32: ``cp.async``; bf16: TMA); otherwise it
+loads them element by element.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 
 from . import ref
 from .build import ATTENTION_DTYPES, launch
-from .common import count_launch, on_card
+from .common import copy16_ok, count_launch, on_card
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -48,10 +50,25 @@ def async_copy_ok(*ts: torch.Tensor) -> bool:
     (B, L, H, 64) tensors qualify; d = 33, a view one float off its
     storage's alignment, a non-unit last stride or bf16 take the kernel's
     element-by-element loads."""
-    return all(t.dtype == torch.float32 and t.stride(-1) == 1
-               and t.shape[-1] % 4 == 0
-               and all(st % 4 == 0 for st in t.stride()[:-1])
-               and t.data_ptr() % 16 == 0 for t in ts)
+    return all(t.dtype == torch.float32 for t in ts) and copy16_ok(ts, 4)
+
+
+def tc_copy_ok(*ts: torch.Tensor) -> bool:
+    """Whether the bf16 (tensor-core) kernel may copy these operands by
+    TMA: bfloat16, a unit last stride, the head dim and every other stride
+    a multiple of 8 elements (16 bytes), and each base address 16-byte
+    aligned. The models' (B, H, L, d) views of contiguous (B, L, H, d)
+    tensors at d = 64, 128 and 256 qualify; d = 33, a view off its
+    storage's alignment or a non-unit last stride take the same kernel's
+    element-by-element loads."""
+    return all(t.dtype == torch.bfloat16 for t in ts) and copy16_ok(ts, 8)
+
+
+def copy_flag(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The launcher's copy flag: 1 where the kernel of q's dtype may copy
+    16 bytes at a time."""
+    ok = async_copy_ok if q.dtype == torch.float32 else tc_copy_ok
+    return int(ok(q, k, v))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -86,7 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dims = (ctypes.c_int64 * 22)(
         b, h, kh, lq, s_len, d, *q.stride(), *k.stride(), *v.stride(),
         int(bool(causal)), int(window is not None),
-        0 if window is None else int(window), int(async_copy_ok(q, k, v)))
+        0 if window is None else int(window), copy_flag(q, k, v))
     count_launch(name)
     launch("flash_attention", f"{name}_{ATTENTION_DTYPES[q.dtype]}",
            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

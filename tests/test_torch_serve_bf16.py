@@ -73,6 +73,18 @@ PROMPT, GEN, BATCH = 24, 16, 2
 CACHE = PROMPT + GEN + 1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the port's CPU work here: in a parallel test
+    run a pool of threads in every worker process contends for the same
+    cores, and the weights' PRNG and the full-depth runs then run dozens
+    of times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(get_fn, arch):
     return {"reduced": dataclasses.replace(get_fn(arch).reduced(),
                                            dtype="bfloat16").validate(),
