@@ -43,6 +43,12 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  NaN and +-inf, against their plain versions (B2, B6 and
                  B5's abs-max bit for bit, the sums within SQNORM_RTOL),
                  the designs against each other, repeats and M=1 slices
+                 bitwise; (phase staged_bf16_banks) the 10 launchers of B3,
+                 B4, B8, B9 and the worker fold on bf16 banks (bf16 and f32
+                 operands), each design, the same shapes and rows of 16
+                 and 2048 (B4's and B9's 16-byte tiles), against their
+                 plain versions (B3, B4, B9 and the fold bit for bit, B8
+                 within SQNORM_RTOL), the designs, repeats and M=1 slices
                  bitwise;
                  (phase attention_kernels) B14 over GQA 1/2/4/6,
                  causal, window and non-causal rectangular shapes on and
@@ -89,7 +95,11 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  masks, counts, bytes and theta equal to the reference
                  backend's) and on the task in bf16, held step by step
                  against the reference backend from one state (Lockstep:
-                 eq. (4) runs in f32 in the kernels, in bf16 there).
+                 eq. (4) runs in f32 in the kernels, in bf16 there); and
+                 the staged dense route, the sharded anchor and per_tensor
+                 on both (B3, B4, B8, B9 and the fold on bf16 banks), the
+                 staged and sharded runs equal to the fused bf16 ones bit
+                 for bit.
   many_workers -- benchmarks/fed_mesh.py's edge quadratics (d=16, f64)
                  at its frontier M = 100,000 (fused dense and int8) and at
                  M = 70,000 (the staged routes and top-k, whose worker sum
@@ -105,7 +115,10 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  K; the ideal scenario at K = 1 equal to ``simulator.run``
                  bit for bit; the harsh one equal on both backends over
                  MESH_REF_ROUNDS rounds; B1, B4 and fold_workers once a
-                 shard a round, B3 once a round. Ms a round.
+                 shard a round, B3 once a round. Also the ideal scenario
+                 on a bf16 bank of f32 params at K = 1: equal to
+                 ``simulator.run`` and, over two rounds, to the reference
+                 backend bit for bit. Ms a round.
   edge        -- ``fed.run_edge`` at phase 5's width (M = 4, one leaf of
                  163,597,056 f32), chb dense and int8 and csgd, 10 rounds
                  each: (a) under ``sync_config(4)`` it equals
@@ -114,7 +127,9 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  loss, quorum 3/4) gives the same masks, counters, wall
                  clock, energy and theta on both backends; (c) B8's M = 1
                  row equals the batched slice; (d) B8 launches once per
-                 client evaluation, B3 once per round, nothing else. Also
+                 client evaluation, B3 once per round, nothing else; the
+                 deployment of chb on a bf16 bank of the f32 params equal
+                 on both backends too. Also
                  the JAX PRNG's draws on the card against the CPU's. Ms a
                  round and client evaluations a second.
   sweep       -- the sweep engine: (a) ``sweep.run_sweep`` of a 6-point
@@ -181,12 +196,15 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  100,000, n = 16);
                  B14 also with its log-sum-exp, the flash backward at
                  training's shape (one worker's 4 x 256 tokens) beside
-                 SDPA's autograd backward; B1, B2, B5 and B6 also on bf16
-                 banks of bf16 and of f32 params; then the ``{"kernels":
+                 SDPA's autograd backward; B1-B6, B8, B9 and the fold
+                 also on bf16 banks of bf16 and of f32 params; then the
+                 ``{"kernels":
                  [...]}`` line of all 18 kernels (16 ported, and
                  fold_workers and flash_attention_bwd, which only the port
-                 has), the 8 rows of the sub-f32 launchers
-                 (``<kernel>_bf16``, ``<kernel>_f32_bf16``) and B14's and
+                 has), the 18 rows of the sub-f32 launchers
+                 (``<kernel>_bf16``, ``<kernel>_f32_bf16`` of B1-B6, B8,
+                 B9 and the fold; B8's warp and the fold's tall design at
+                 the fed mesh's shape) and B14's and
                  B13's bf16 builds at serve_bf16's serve_long shapes beside
                  bf16 SDPA, bound at the bf16 tensor-core rate.
 
@@ -1620,6 +1638,120 @@ def phase_fused_bf16_banks(device) -> None:
           "designs against each other, repeats and M=1 slices bitwise"})
 
 
+# ------------------------------------------------ phase staged_bf16_banks
+#: (operand P, bank H) of the sub-f32 launchers of B3, B4 and B9 (B8 and
+#: the fold take the bf16 pending leaf or bank of either)
+STAGED_BF16_PAIRS = [(torch.bfloat16, torch.bfloat16),
+                     (torch.float32, torch.bfloat16)]
+#: BF16_CASES and rows of a multiple of 8 elements (B4's and B9's 16-byte
+#: tiles where aligned, elements one element off)
+STAGED_BF16_CASES = BF16_CASES + [(m, n, off) for m in (4, 9)
+                                  for n in (16, 2048) for off in (0, 1)] \
+    + [(LARGE_M, 16, 0), (LARGE_M, 16, 1)]
+
+
+def phase_staged_bf16_banks(device) -> None:
+    """The sub-f32 launchers of B3, B4, B8, B9 and the worker fold on
+    STAGED_BF16_CASES, each design, against their plain versions on the
+    card: B3, B4, B9 and the fold NaN where the plain version gives NaN and
+    the same bits elsewhere (-0.0 included), B8 within SQNORM_RTOL; the
+    designs against each other, repeats and the M=1 calls of
+    sample_workers bitwise; B3 on the fold's sum."""
+    from repro_torch.kernels import censor, common, fused_step, hb_update, ref
+    t0 = time.perf_counter()
+    alpha, beta = 0.0123, 0.4
+    cases, err, names = 0, {}, set()
+    for m, n, off in STAGED_BF16_CASES:
+        tag = f"M={m} n={n} off={off}"
+        # B8 and the fold: one bf16 leaf of the case
+        g, h, _, t, p = _bf16_inputs(m, n, (torch.bfloat16,) * 3, off,
+                                     device, m + n + 1)
+        x = _offset_copy(g - h, off)
+        sq_p = ref.sqnorm_batched(x)
+        sq_designs = censor.SQNORM_PATHS if n <= 2048 else ("two_pass",)
+        first = None
+        for design in sq_designs:
+            sq = censor.sqnorm_on_card(x, design)
+            check(sq.dtype == torch.float32 and _within_or_nan(sq, sq_p),
+                  f"B8 bf16 {design} against the plain version {tag}")
+            first = sq if first is None else first
+            check(same_or_nan(sq, first), f"B8 bf16 {design} against "
+                  f"two_pass {tag}")
+            check(same_bits(censor.sqnorm_on_card(x, design), sq),
+                  f"B8 bf16 {design} repeat {tag}")
+            for w in sample_workers(m):
+                check(same_or_nan(censor.sqnorm_on_card(x[w:w + 1], design),
+                                  sq[w:w + 1]),
+                      f"B8 bf16 {design} M=1 slice {w} {tag}")
+            key = f"sqnorm_batched{'_warp' if design == 'warp' else ''}_bf16"
+            names.add(key)
+            fin = torch.isfinite(sq_p)
+            if fin.any():
+                err[key] = max(err.get(key, 0.0),
+                               _rel_err(sq[fin], sq_p[fin]))
+        fold_p = ref.fold_workers(h)
+        folds = {}
+        for design in fused_step.FOLD_PATHS:
+            folds[design] = fused_step.fold_on_card(h, design)
+            check(folds[design].dtype == torch.bfloat16
+                  and same_or_nan(folds[design], fold_p),
+                  f"fold bf16 {design} against the plain version {tag}")
+            check(same_bits(fused_step.fold_on_card(h, design),
+                            folds[design]), f"fold bf16 {design} repeat {tag}")
+            names.add(fused_step._launcher("fold_workers", design,
+                                           torch.bfloat16))
+        del x, sq_p, first, sq, fold_p
+        # B4, B9 and B3 on each (operand, bank) pair
+        for p_dt, h_dt in STAGED_BF16_PAIRS:
+            suffix = common.FUSED_DTYPES[(p_dt, h_dt)]
+            g, h, _, t, p = _bf16_inputs(m, n, (p_dt, h_dt, h_dt), off,
+                                         device, m + n)
+            agg = folds["tall"]
+            b3 = hb_update.hb_update(t, agg, p, alpha, beta)
+            check(b3.dtype == p_dt and same_or_nan(
+                b3, ref.hb_update(t, agg, p, alpha, beta)),
+                  f"B3 {suffix} against the plain version {tag}")
+            check(same_bits(hb_update.hb_update(t, agg, p, alpha, beta), b3),
+                  f"B3 {suffix} repeat {tag}")
+            names.add(f"hb_update_{suffix}")
+            masks = _masks(m, device)
+            for mname, mask in masks.items():
+                mtag = f"{suffix} {tag} mask={mname}"
+                for label, fn, plain, ops in (
+                        ("B4", censor.censor_bank_advance,
+                         ref.censor_bank_advance, (g, h)),
+                        ("B9", censor.bank_advance, ref.bank_advance,
+                         (h, g))):
+                    out = fn(*ops, mask)
+                    check(out.dtype == h_dt and same_or_nan(
+                        out, plain(*ops, mask)),
+                          f"{label} against the plain version {mtag}")
+                    check(same_bits(fn(*ops, mask), out),
+                          f"{label} repeat {mtag}")
+                    for w in sample_workers(m):
+                        r = slice(w, w + 1)
+                        check(same_or_nan(fn(*(o[r] for o in ops), mask[r]),
+                                          out[r]),
+                              f"{label} M=1 slice {w} {mtag}")
+                    del out
+                cases += 1
+            names.update({f"censor_bank_advance_{suffix}",
+                          f"bank_advance_{suffix}"})
+            del g, h, t, p, b3
+        del folds
+        torch.cuda.empty_cache()
+    check(len(names) == 10, f"{len(names)} staged sub-f32 launchers checked")
+    emit({"phase": "staged_bf16_banks", "cases": cases,
+          "shapes": len(STAGED_BF16_CASES),
+          "pairs": [[str(d) for d in c] for c in STAGED_BF16_PAIRS],
+          "launchers": sorted(names), "max_rel_err_sqnorm": err,
+          "rule": "B3, B4, B9 and the fold (both designs) against the plain "
+          "version NaN where it gives NaN, the same bits elsewhere (-0.0 "
+          "included); B8 within SQNORM_RTOL; the designs against each "
+          "other, repeats and M=1 slices bitwise",
+          "seconds": time.perf_counter() - t0})
+
+
 # ----------------------------------------------------------- phase 3b
 def _flash_f64(q, k, v, causal, window):
     """B14's function in f64 (the plain version without its f32 casts)."""
@@ -2235,15 +2367,22 @@ PATH_KERNELS = {
                     "fold_workers", "hb_update"),
     "shard_int8": ("sqnorm_batched", "absmax_batched", "quantize_ef_batched",
                    "bank_advance", "fold_workers", "hb_update"),
-    # sub-f32 banks: the fused route only
+    # sub-f32 banks: f32 params on a bf16 bank ("_bf16bank") and bf16
+    # params; int8 on the fused route only
     "dense_bf16bank": ("censor_delta_sqnorm_batched", "fused_dense_step"),
     "int8_bf16bank": ("int8_stats_batched", "fused_int8_step"),
     "dense_bf16": ("censor_delta_sqnorm_batched", "fused_dense_step"),
     "int8_bf16": ("int8_stats_batched", "fused_int8_step"),
 }
+for _bf16 in ("_bf16bank", "_bf16"):
+    for _path in ("dense_staged", "shard_dense", "per_tensor"):
+        PATH_KERNELS[_path + _bf16] = PATH_KERNELS[_path]
 # the path each staged or sharded path must equal bit for bit
 SAME_AS = {"dense_staged": "dense", "int8_staged": "int8",
-           "shard_dense": "dense", "shard_int8": "int8"}
+           "shard_dense": "dense", "shard_int8": "int8",
+           "dense_staged_bf16bank": "dense_bf16bank",
+           "shard_dense_bf16bank": "dense_bf16bank",
+           "dense_staged_bf16": "dense_bf16", "shard_dense_bf16": "dense_bf16"}
 
 
 class ShardAnchor:
@@ -2253,6 +2392,7 @@ class ShardAnchor:
 
     def __init__(self, opt):
         self.opt = opt
+        self.alpha, self.beta = opt.alpha, opt.beta
 
     def init(self, params):
         return self.opt.init(params)
@@ -2356,9 +2496,16 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
         "shard_dense": ({}, flat, 4 * d),
         "shard_int8": (int8, flat, d + 4),
         # f32 params on a bf16 bank: the uploads are the f32 payload's
+        # (per_tensor's the bf16 pending leaves', at most 2d)
         "dense_bf16bank": ({"bank_dtype": torch.bfloat16}, flat, 4 * d),
         "int8_bf16bank": ({**int8, "bank_dtype": torch.bfloat16}, flat,
                           d + 4),
+        "dense_staged_bf16bank": ({"bank_dtype": torch.bfloat16}, flat,
+                                  4 * d),
+        "shard_dense_bf16bank": ({"bank_dtype": torch.bfloat16}, flat,
+                                 4 * d),
+        "per_tensor_bf16bank": ({"granularity": "per_tensor",
+                                 "bank_dtype": torch.bfloat16}, tree, None),
     }
 
     def one_run(kind, kw, task, backend, keep_state=False):
@@ -2366,7 +2513,7 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
                      **kw)
         rec = StepRecorder(ShardAnchor(o) if kind.startswith("shard")
                            else o)
-        staged = fused_step.force_staged() if kind.endswith("_staged") \
+        staged = fused_step.force_staged() if "_staged" in kind \
             else contextlib.nullcontext()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2383,7 +2530,7 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
             "objective": float(hist.objective[-1]),
             "step_ms": rec.median_ms(), "wall_s": wall,
             # eq. (8) per leaf has no one global margin
-            "min_margin": (None if kind == "per_tensor"
+            "min_margin": (None if kind.startswith("per_tensor")
                            else rec.min_margin(FULL_EPS1)),
         }
         if keep_state:
@@ -2421,7 +2568,8 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
         sent = int(k["mask"].sum())
         if payload is None:
             want = r["uplink_bytes"]
-            check(0 < want <= sent * 4 * d and want % 4 == 0,
+            el = 2 if kind.endswith("_bf16bank") else 4   # pending's bytes
+            check(0 < want <= sent * el * d and want % el == 0,
                   f"full {kind}: uplink bytes {want} for {sent} uploads")
         else:
             want = sent * payload
@@ -2485,14 +2633,19 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
     return launches
 
 
-#: phase full's all-bf16 paths (make_edge_quadratics in bf16): eq. (4)
-#: runs in f32 in B2 and B6 (compute_dtype, as the JAX kernels run it) and
-#: in bf16 on the reference backend (as the JAX reference step does), so
-#: the two are held step by step from one state. Each cuda theta' lies
-#: within BF16_EQ4_UNITS bf16 unit roundoffs (2^-8) of the sum of the
-#: magnitudes of eq. (4)'s terms of the reference's: the reference rounds
-#: alpha, beta and each of its five operations to bf16, the kernel once
-BF16_FULL_PATHS = {"dense_bf16": {}, "int8_bf16": {"quantize": "int8"}}
+#: phase full's all-bf16 paths (make_edge_quadratics in bf16; per_tensor
+#: on its view as the model's 12 leaves): eq. (4) runs in f32 in B2, B6
+#: and B3 (compute_dtype, as the JAX kernels run it) and in bf16 on the
+#: reference backend (as the JAX reference step does), so the two are held
+#: step by step from one state. Each cuda theta' lies within
+#: BF16_EQ4_UNITS bf16 unit roundoffs (2^-8) of the sum of the magnitudes
+#: of eq. (4)'s terms of the reference's: the reference rounds alpha, beta
+#: and each of its five operations to bf16, the kernel once. The staged and
+#: sharded paths run B1, B4, the fold and B3 and equal dense_bf16's run
+#: bit for bit (SAME_AS)
+BF16_FULL_PATHS = {"dense_bf16": {}, "int8_bf16": {"quantize": "int8"},
+                   "dense_staged_bf16": {}, "shard_dense_bf16": {},
+                   "per_tensor_bf16": {"granularity": "per_tensor"}}
 BF16_EQ4_UNITS = 8
 
 
@@ -2522,72 +2675,108 @@ class Lockstep:
         check(all(same_bits(a, b) for a, b in zip(
             tree_leaves([sc.ghat, sc.err]), tree_leaves([sr.ghat, sr.err]))),
               f"{tag} step {k}: ghat' or err'")
-        agg = sum_leading(sc.ghat).float()
-        t, tp = params.float(), state.prev_params.float()
-        terms = t.abs() + abs(self.alpha) * agg.abs() \
-            + abs(self.beta) * (t - tp).abs()
-        gap = (tc.float() - tr.float()).abs()
-        units = float((gap / (terms * 2.0 ** -8).clamp_min(
-            torch.finfo(torch.float32).tiny)).max())
-        check(units <= BF16_EQ4_UNITS and tc.dtype == tr.dtype,
-              f"{tag} step {k}: theta' {units} bf16 units from the "
-              f"reference's")
-        self.theta_units = max(self.theta_units, units)
-        del agg, t, tp, terms, gap
+        for t, tp, h, a, b in zip(*(tree_leaves(x) for x in (
+                params, state.prev_params, sc.ghat, tc, tr))):
+            agg = sum_leading(h).float()
+            t, tp = t.float(), tp.float()
+            terms = t.abs() + abs(self.alpha) * agg.abs() \
+                + abs(self.beta) * (t - tp).abs()
+            gap = (a.float() - b.float()).abs()
+            units = float((gap / (terms * 2.0 ** -8).clamp_min(
+                torch.finfo(torch.float32).tiny)).max())
+            check(units <= BF16_EQ4_UNITS and a.dtype == b.dtype,
+                  f"{tag} step {k}: theta' {units} bf16 units from the "
+                  f"reference's")
+            self.theta_units = max(self.theta_units, units)
+            del agg, t, tp, terms, gap
         return out_c
 
 
 def _full_bf16_paths(d, m, iters, device="cuda") -> tuple:
     """BF16_FULL_PATHS at full width: chb on make_edge_quadratics in bf16
     through the cuda backend, in lockstep with the reference backend
-    (Lockstep); launches as PATH_KERNELS says, bytes 2d a dense upload and
-    d + 4 an int8 one. Returns (summary, launches) by path."""
+    (Lockstep); launches as PATH_KERNELS says, bytes 2d a dense upload, d +
+    4 an int8 one, at most 2d a per_tensor one; the staged and sharded
+    runs equal to dense_bf16's bit for bit (masks, counters, theta, the
+    state). Returns (summary, launches) by path."""
     from repro_torch import opt
     from repro_torch.core import simulator
     from repro_torch.data import edge_tasks
-    from repro_torch.kernels import common
+    from repro_torch.kernels import common, fused_step
     t0 = time.perf_counter()
     task = edge_tasks.make_edge_quadratics(m=m, d=d, seed=0,
                                            dtype=torch.bfloat16, device=device)
+    tree = lm_tree_task(task)
     setup_s = time.perf_counter() - t0
-    summary, launches = {}, {}
+    summary, launches, kept = {}, {}, {}
     for kind, kw in BF16_FULL_PATHS.items():
-        lock = Lockstep(*(opt.make("chb", FULL_ALPHA, m, eps1=FULL_EPS1,
-                                   backend=b, **kw)
-                          for b in ("cuda", "reference")), f"full {kind}")
+        ops = [opt.make("chb", FULL_ALPHA, m, eps1=FULL_EPS1, backend=b,
+                        **kw) for b in ("cuda", "reference")]
+        if kind.startswith("shard"):
+            ops = [ShardAnchor(o) for o in ops]
+        lock = Lockstep(*ops, f"full {kind}")
+        on = tree if kind.startswith("per_tensor") else task
+        leaves = len(tree_leaves(on.init_params))
+        staged = fused_step.force_staged() if "_staged" in kind \
+            else contextlib.nullcontext()
         common.reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        hist = simulator.run(lock, task, iters, device=device)
+        with staged:
+            hist = simulator.run(lock, on, iters, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches[kind] = dict(common.LAUNCHES)
-        want = {name: iters if name in PATH_KERNELS[kind] else 0
+        want = {name: iters * leaves if name in PATH_KERNELS[kind] else 0
                 for name in common.KERNELS}
         check(launches[kind] == want,
               f"full {kind}: launches {launches[kind]}, want {want}")
         comm = hist.final_state.comm
         sent = int(hist.mask.sum())
-        payload = 2 * d if kind.startswith("dense") else d + 4
-        check(comm.uplink_bytes_exact() == sent * payload,
-              f"full {kind}: uplink bytes {comm.uplink_bytes_exact()}")
+        got_bytes = comm.uplink_bytes_exact()
+        if kind.startswith("per_tensor"):
+            payload = None
+            check(0 < got_bytes <= sent * 2 * d and got_bytes % 2 == 0,
+                  f"full {kind}: uplink bytes {got_bytes} for {sent} uploads")
+        else:
+            payload = d + 4 if kind.startswith("int8") else 2 * d
+            check(got_bytes == sent * payload,
+                  f"full {kind}: uplink bytes {got_bytes}")
         objective = float(hist.objective[-1])
-        check(math.isfinite(objective) and hist.final_params.dtype
-              == torch.bfloat16, f"full {kind}: objective {objective}")
+        check(math.isfinite(objective) and all(
+            x.dtype == torch.bfloat16 for x in tree_leaves(hist.final_params)),
+              f"full {kind}: objective {objective}")
+        res = {"mask": hist.mask.cpu(), "comm_cum": hist.comm_cum.cpu(),
+               "theta": tree_leaves(hist.final_params),
+               "state": tree_leaves([hist.final_state.ghat,
+                                     list(hist.final_state.comm)])}
+        if kind in SAME_AS:
+            f = kept[SAME_AS[kind]]
+            check(torch.equal(res["mask"], f["mask"])
+                  and torch.equal(res["comm_cum"], f["comm_cum"])
+                  and all(same_bits(a, b) if a.is_floating_point()
+                          else torch.equal(a, b) for a, b in zip(
+                              res["theta"] + res["state"],
+                              f["theta"] + f["state"])),
+                  f"full {kind}: differs from {SAME_AS[kind]}'s run")
+        if kind in SAME_AS.values():
+            kept[kind] = res
         margins = [x.min_margin(FULL_EPS1) for x in (lock.cuda, lock.ref)]
         summary[kind] = {
-            "uploads": sent, "uplink_bytes": comm.uplink_bytes_exact(),
-            "payload_bytes": payload, "leaves": 1, "lockstep": True,
+            "uploads": sent, "uplink_bytes": got_bytes,
+            "payload_bytes": payload, "leaves": leaves, "lockstep": True,
+            "equals": SAME_AS.get(kind),
             "theta_max_bf16_units": lock.theta_units,
             "theta_bound_units": BF16_EQ4_UNITS,
-            "min_eq8_margin": min(margins), "objective": objective,
+            "min_eq8_margin": (None if kind.startswith("per_tensor")
+                               else min(margins)), "objective": objective,
             "step_ms_cuda": lock.cuda.median_ms(),
             "step_ms_reference": lock.ref.median_ms(), "wall_s_both": wall,
             "setup_s": setup_s,
             "launches": {n: c for n, c in launches[kind].items() if c}}
-        del hist, lock
+        del hist, lock, ops, res
         torch.cuda.empty_cache()
-    del task
+    del task, tree, kept
     torch.cuda.empty_cache()
     return summary, launches
 
@@ -2764,6 +2953,7 @@ def phase_mesh(device) -> dict:
           "mesh: the harsh scenario differs between backends")
     del by_backend, hk, hr, task
     torch.cuda.empty_cache()
+    bf16bank, launches["mesh_bf16bank"] = _mesh_bf16bank(device)
     line = ", ".join(f"{n} {r['ms_per_round']['K=1']:.3f}"
                      for n, r in summary.items())
     print(f"mesh: ms a round at M={m}, one shard on the card: {line}",
@@ -2777,8 +2967,67 @@ def phase_mesh(device) -> dict:
                              "ms_per_round_reference": msr},
           "bitwise": "across K: masks, cohort, attempted, delivered, "
           "quorum, comm and bytes; K=1 ideal == simulator.run; cuda == "
-          "reference", "seconds": time.perf_counter() - t0})
+          "reference", "bf16bank": bf16bank,
+          "seconds": time.perf_counter() - t0})
     return launches
+
+
+#: rounds of phase mesh's bf16-bank case on the reference backend (its
+#: worker sum is 10^5 eager adds a round); the first transmits everywhere
+#: (theta^0 = theta^-1), the second decides 10^5 eq.-(8) tests
+MESH_BF16_REF_ROUNDS = 2
+
+
+def _mesh_bf16bank(device) -> tuple:
+    """The ideal scenario at 10^5 clients on a bf16 bank of f32 params, one
+    shard: MESH_ROUNDS rounds equal to ``simulator.run`` on the card bit
+    for bit, and MESH_BF16_REF_ROUNDS rounds equal on both backends (B1 on
+    the bf16 bank, B4, the fold of the bf16 bank and B3 against the
+    reference step); B1, B4 and the fold once a round, B3 once a round.
+    Returns (summary, the cuda run's launches)."""
+    from repro_torch import fed, opt
+    from repro_torch.core import simulator
+    from repro_torch.data import edge_tasks
+    from repro_torch.kernels import common
+    m = MANY_M
+    task = edge_tasks.make_edge_quadratics(m=m, d=MANY_D, seed=0,
+                                           dtype=torch.float32, device=device)
+
+    def make(backend):
+        return opt.make("chb", 0.5 / m, m, eps1=FULL_EPS1, backend=backend,
+                        bank_dtype=torch.bfloat16)
+
+    ideal = fed.MeshScenario()
+    h, lk, ms = _mesh_run(make("cuda"), task, ideal, 1, MESH_ROUNDS, device)
+    want = {n: (MESH_ROUNDS if n in MESH_SHARD_KERNELS + ("hb_update",)
+                else 0) for n in common.KERNELS}
+    check(lk == want, f"mesh bf16bank: launches {lk}, want {want}")
+    sim = simulator.run(make("cuda"), task, MESH_ROUNDS, device=device)
+    check(np.array_equal(h.objective, sim.objective.cpu().numpy())
+          and np.array_equal(h.comm_cum, sim.comm_cum.cpu().numpy())
+          and np.array_equal(h.mask, sim.mask.cpu().numpy().astype(np.int8))
+          and same_bits(h.final_params, sim.final_params),
+          "mesh bf16bank: the ideal scenario differs from simulator.run")
+    check(0 < int(h.comm_cum[-1]) < MESH_ROUNDS * m,
+          f"mesh bf16bank: {int(h.comm_cum[-1])} uploads")
+    del sim
+    runs = {b: _mesh_run(make(b), task, ideal, 1, MESH_BF16_REF_ROUNDS,
+                         device) for b in ("cuda", "reference")}
+    (hk, _, msk), (hr, lr, msr) = runs["cuda"], runs["reference"]
+    check(not any(lr.values()),
+          "mesh bf16bank: the reference backend launched a kernel")
+    check(all(np.array_equal(getattr(hk, f), getattr(hr, f))
+              for f in MESH_EXACT + ("objective", "agg_grad_sqnorm"))
+          and same_bits(hk.final_params, hr.final_params),
+          "mesh bf16bank: the backends differ")
+    out = {"rounds": MESH_ROUNDS, "uploads": int(h.comm_cum[-1]),
+           "ref_uploads_by_round": np.diff(hk.comm_cum, prepend=0).tolist(),
+           "ms_per_round_cuda": ms, "ref_rounds": MESH_BF16_REF_ROUNDS,
+           "ms_per_round_cuda_short": msk, "ms_per_round_reference": msr,
+           "bitwise": "simulator.run; cuda == reference"}
+    del h, runs, hk, hr, task
+    torch.cuda.empty_cache()
+    return out, lk
 
 
 # --------------------------------------------------------- phase edge
@@ -2944,10 +3193,52 @@ def phase_edge(device, task) -> dict:
                            "bitwise": True}}
         del runs, hk, hr
         torch.cuda.empty_cache()
+    summary["chb_bf16bank"], launches["edge_bf16bank"] = _edge_bf16bank(
+        task, device, leaves)
     emit({"phase": "edge", "d": FULL_D, "m": FULL_M, "rounds": EDGE_ROUNDS,
           "dtype": "float32", **summary,
           "seconds": time.perf_counter() - t0})
     return launches
+
+
+def _edge_bf16bank(task, device, leaves) -> tuple:
+    """chb's deployment on a bf16 bank of the f32 params, on both backends:
+    masks, counters, wall clock, energy, theta and the bank bit for bit
+    (B8 sums the bf16 pending row, B3 runs eq. (4) in f32 on the bf16
+    worker sum, as HeavyBall.apply does); B8 once per client evaluation, B3
+    once per round. Returns (summary, the cuda run's launches)."""
+    from repro_torch import opt
+    algo, kw = EDGE_PATHS["chb"]
+    runs = {b: _edge_run(opt.make(algo, FULL_ALPHA, FULL_M, backend=b,
+                                  bank_dtype=torch.bfloat16, **kw),
+                         task, edge_scenario(), device)
+            for b in ("cuda", "reference")}
+    (hk, tk), (hr, tr) = runs["cuda"], runs["reference"]
+    for f in ("mask", "comm_cum", "bytes_cum", "energy_cum", "wall_clock"):
+        check(np.array_equal(getattr(hk, f), getattr(hr, f)),
+              f"edge chb_bf16bank: {f} differs between backends")
+    check(hk.stats.as_dict() == hr.stats.as_dict(),
+          "edge chb_bf16bank: the deployment accounting differs")
+    check(all(same_bits(a, b) for a, b in zip(
+        tree_leaves([hk.final_params, hk.final_bank]),
+        tree_leaves([hr.final_params, hr.final_bank])))
+          and tree_leaves(hk.final_bank)[0].dtype == torch.bfloat16,
+          "edge chb_bf16bank: theta or the bank differs between backends")
+    check(tk["launches"] == _want_edge_launches(tk["client_evals"], leaves),
+          f"edge chb_bf16bank: launches {tk['launches']}")
+    check(not any(tr["launches"].values()),
+          "edge chb_bf16bank: the reference backend launched a kernel")
+    check(int(hk.comm_cum[-1]) > 0 and bool(np.isfinite(hk.objective).all()),
+          "edge chb_bf16bank: no uploads or a non-finite objective")
+    launches = tk.pop("launches")
+    tr.pop("launches")
+    d = hk.stats.as_dict()
+    del runs, hk, hr
+    torch.cuda.empty_cache()
+    return {"deployment": {"cuda": tk, "reference": tr,
+                           "uploads": d["uplinks"], "censored": d["censored"],
+                           "bank_dtype": "bfloat16", "bitwise": True}}, \
+        launches
 
 
 # -------------------------------------------------------- phase sweep
@@ -4080,86 +4371,168 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
     return rows + model_timing_rows(device, launches, max_err, d)
 
 
-#: phase full's paths on sub-f32 banks, by the launcher suffix they run
-SUB_F32_PATHS = {"dense_bf16bank": "f32_bf16", "int8_bf16bank": "f32_bf16",
-                 "dense_bf16": "bf16", "int8_bf16": "bf16"}
+#: the paths on sub-f32 banks (phases full, edge and mesh), by the suffix
+#: of their (params, bank) pair, which B1-B6 and B3 run; B8, B9 and the
+#: fold take the bf16 pending leaf, payload and bank of either (``_bf16``)
+SUB_F32_PATHS = {
+    **{p: "f32_bf16" for p in ("dense_bf16bank", "int8_bf16bank",
+                               "dense_staged_bf16bank",
+                               "shard_dense_bf16bank", "per_tensor_bf16bank",
+                               "edge_bf16bank", "mesh_bf16bank")},
+    **{p: "bf16" for p in ("dense_bf16", "int8_bf16", "dense_staged_bf16",
+                           "shard_dense_bf16", "per_tensor_bf16")}}
+ONE_DTYPE_KERNELS = ("sqnorm_batched", "bank_advance", "fold_workers")
+#: the sub-f32 paths at the fed mesh's shape (M = 10^5, n = 16), whose
+#: worker fold runs its tall design
+TALL_SUB_F32_PATHS = ("mesh_bf16bank",)
+
+
+def sub_f32_row(path: str, name: str) -> str:
+    """The row of the kernels line that kernel ``name``'s launches on the
+    sub-f32 ``path`` belong to."""
+    suffix = "bf16" if name in ONE_DTYPE_KERNELS else SUB_F32_PATHS[path]
+    tall = "_tall" if (name == "fold_workers"
+                       and path in TALL_SUB_F32_PATHS) else ""
+    return f"{name}{tall}_{suffix}"
+
+
+def _bf16_row(name, row, kfn, pfn, lfn, nbytes, ops, launches, shape,
+              **extra) -> dict:
+    """One sub-f32 row of the kernels line: the largest absolute difference
+    from the plain version on its finite entries in this run, the kernel's,
+    the plain version's and the library call's ms, the bound, and the
+    launches of the paths whose launches sub_f32_row assigns to ``row``."""
+    got, want = kfn(), pfn()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(max_diff(a[torch.isfinite(b)], b[torch.isfinite(b)])
+              for a, b in zip(got, want))
+    del got, want
+    ms = _time_ms(kfn, 10)
+    plain_ms = _time_ms(pfn, 3)
+    library_ms = None if lfn is None else _time_ms(lfn, 10)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS * 1e3
+    src, replaces = KERNEL_META[name]
+    by_path = {path: c[name] for path, c in launches.items()
+               if c[name] and path in SUB_F32_PATHS
+               and sub_f32_row(path, name) == row}
+    torch.cuda.empty_cache()
+    return {"name": row, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "launches_by_path": by_path,
+            "bytes": nbytes, "shape": shape, **extra}
 
 
 def bf16_timing_rows(device, launches, d=FULL_D, m=FULL_M) -> list:
-    """B1, B2, B5 and B6 at the full-width shape on a bf16 bank, of bf16
-    params (``_bf16``) and of f32 params (``_f32_bf16``, err in bf16 as
-    after the first step): time, plain version, bound from the bytes each
-    reads and writes once, the launches of phase full's sub-f32 paths, and
-    the largest absolute difference from the plain version in this run
-    (B1's and B5's sums in another order; B2 and B6 bit for bit)."""
+    """B1-B6, B8, B9 and the worker fold at the full-width shape on a bf16
+    bank, of bf16 params (``_bf16``) and of f32 params (``_f32_bf16``, err
+    in bf16 as after the first step; B4's g, B9's payload and B3's theta
+    f32), B8 and the fold on a bf16 leaf; B8's warp design and the fold's
+    tall one at the fed mesh's shape: time, plain version, library call
+    in bf16 where one computes the same function, bound from the bytes each
+    reads and writes once, the launches of the sub-f32 paths, and the
+    largest absolute difference from the plain version in this run (B1's,
+    B5's and B8's sums in another order; the rest bit for bit)."""
     from repro_torch.core.quantize import int8_scale
-    from repro_torch.kernels import censor, fused_step, ref
+    from repro_torch.kernels import censor, fused_step, hb_update, ref
     gen = torch.Generator(device=device).manual_seed(7)
     mask = torch.tensor([1.0, 0.0] * (m // 2) + [1.0] * (m % 2),
                         device=device)
+    h_dt = torch.bfloat16
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
     rows = []
     for suffix, p_dt in (("bf16", torch.bfloat16),
                          ("f32_bf16", torch.float32)):
-        h_dt = torch.bfloat16
-
-        def randn(*shape, dtype, scale=1.0):
-            return (torch.randn(shape, generator=gen, device=device)
-                    * scale).to(dtype)
-
         g, h = randn(m, d, dtype=p_dt), randn(m, d, dtype=h_dt)
         e = randn(m, d, dtype=h_dt, scale=0.01)
         t, p = randn(d, dtype=p_dt), randn(d, dtype=p_dt)
         scale = int8_scale(ref.int8_stats_batched(g, h, e)[1])
+        agg = h[0]
+        mk = mask[:, None].to(h_dt)
+        same = p_dt == h_dt        # a library call takes one dtype
         sp, sh = g.element_size(), h.element_size()
-        work = {  # name: (kernel, plain, bytes moved, f32 operations)
+        shape = f"M={m} n={d} params {p_dt} bank bfloat16"
+        work = {  # name: (kernel, plain, library, bytes moved, operations)
             "censor_delta_sqnorm_batched": (
                 lambda: censor.censor_delta_sqnorm_batched(g, h),
-                lambda: ref.censor_delta_sqnorm_batched(g, h),
+                lambda: ref.censor_delta_sqnorm_batched(g, h), None,
                 m * d * (sp + sh) + 4 * m, 3 * m * d),
             "fused_dense_step": (
                 lambda: fused_step.fused_dense_step(g, h, t, p, mask, 0.1,
                                                     0.4),
                 lambda: ref.fused_dense_step(g, h, t, p, mask, 0.1, 0.4),
-                m * d * (sp + 2 * sh) + d * (3 * sp + sh) + 4 * m,
+                None, m * d * (sp + 2 * sh) + d * (3 * sp + sh) + 4 * m,
                 (4 * m + 5) * d),
             "int8_stats_batched": (
                 lambda: fused_step.int8_stats_batched(g, h, e),
-                lambda: ref.int8_stats_batched(g, h, e),
+                lambda: ref.int8_stats_batched(g, h, e), None,
                 m * d * (sp + 2 * sh) + (4 + sh) * m, 6 * m * d),
             "fused_int8_step": (
                 lambda: fused_step.fused_int8_step(g, h, e, t, p, mask, scale,
                                                    0.1, 0.4),
                 lambda: ref.fused_int8_step(g, h, e, t, p, mask, scale, 0.1,
-                                            0.4),
+                                            0.4), None,
                 m * d * (sp + 4 * sh) + d * (3 * sp + sh) + 8 * m,
                 (16 * m + 5) * d),
+            "hb_update": (
+                lambda: hb_update.hb_update(t, agg, p, 0.1, 0.4),
+                lambda: ref.hb_update(t, agg, p, 0.1, 0.4), None,
+                d * (3 * sp + sh), 5 * d),
+            "censor_bank_advance": (
+                lambda: censor.censor_bank_advance(g, h, mask),
+                lambda: ref.censor_bank_advance(g, h, mask),
+                # rounds otherwise (one rounding, h + 1*(g - h) is not g)
+                (lambda: torch.lerp(h, g, mk)) if same else None,
+                m * d * (sp + 2 * sh) + 4 * m, 3 * m * d),
+            "bank_advance": (
+                lambda: censor.bank_advance(h, g, mask),
+                lambda: ref.bank_advance(h, g, mask),
+                (lambda: torch.addcmul(h, mk, g)) if same else None,
+                m * d * (sp + 2 * sh) + 4 * m, 2 * m * d),
         }
-        for name, (kfn, pfn, nbytes, ops) in work.items():
-            got, want = kfn(), pfn()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = max(max_diff(a[torch.isfinite(b)], b[torch.isfinite(b)])
-                      for a, b in zip(got, want))
-            del got, want
-            ms = _time_ms(kfn, 10)
-            plain_ms = _time_ms(pfn, 3)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / F32_FLOPS * 1e3
-            src, replaces = KERNEL_META[name]
-            by_path = {path: c[name] for path, c in launches.items()
-                       if c[name] and SUB_F32_PATHS.get(path) == suffix}
-            rows.append({
-                "name": f"{name}_{suffix}", "route": "cuda", "source": src,
-                "replaces": replaces, "launches": sum(by_path.values()),
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None, "launches_by_path": by_path,
-                "bytes": nbytes,
-                "shape": f"M={m} n={d} params {p_dt} bank bfloat16"})
-            torch.cuda.empty_cache()
-        del g, h, e, t, p, scale, work
+        if same:     # B8 and the fold take the bf16 leaf of either pair
+            work["sqnorm_batched"] = (
+                lambda: censor.sqnorm_batched(h),
+                lambda: ref.sqnorm_batched(h),
+                lambda: torch.linalg.vecdot(h, h), m * d * sh + 4 * m,
+                2 * m * d)
+            # torch.sum groups the workers otherwise (not its bits): a time
+            work["fold_workers"] = (
+                lambda: fused_step.fold_workers(h),
+                lambda: ref.fold_workers(h),
+                lambda: torch.sum(h, dim=0), (m + 1) * d * sh, (m - 1) * d)
+        for name, (kfn, pfn, lfn, nbytes, ops) in work.items():
+            rows.append(_bf16_row(name, f"{name}_{suffix}", kfn, pfn, lfn,
+                                  nbytes, ops, launches, shape))
+        del g, h, e, t, p, scale, agg, mk, work
         torch.cuda.empty_cache()
+    # the other designs of B8 and the fold, at the fed mesh's shape
+    mm, nn = MANY_M, MANY_D
+    x = randn(mm, nn, dtype=h_dt)
+    shape = f"M={mm} n={nn} bfloat16"
+    rows.append(_bf16_row(
+        "sqnorm_batched", "sqnorm_batched_warp_bf16",
+        lambda: censor.sqnorm_on_card(x, "warp"),
+        lambda: ref.sqnorm_batched(x), lambda: torch.linalg.vecdot(x, x),
+        mm * nn * 2 + 4 * mm, 2 * mm * nn, launches, shape,
+        design="warp"))
+    rows.append(_bf16_row(
+        "fold_workers", "fold_workers_tall_bf16",
+        lambda: fused_step.fold_on_card(x, "tall"),
+        lambda: ref.fold_workers(x), lambda: torch.sum(x, dim=0),
+        (mm + 1) * nn * 2, (mm - 1) * nn, launches, shape, design="tall",
+        # the fold is a chain of M - 1 dependent adds a column
+        floor="chain of M - 1 dependent f32 adds (chain_floor.py)"))
+    del x
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -4428,6 +4801,7 @@ def main() -> None:
     phase_fused_fold_paths(dev)
     phase_tall_paths(dev)
     phase_fused_bf16_banks(dev)
+    phase_staged_bf16_banks(dev)
     phase_attention_kernels(dev, max_err)
     phase_golden(dev)
     flat, setup_s = full_task(dev)
@@ -4445,7 +4819,7 @@ def main() -> None:
     phase_train_cli()
     rows = phase_timing(dev, launches, max_err)
     rows += attention_bf16_rows(dev, serve_bf16)
-    check(len(KERNEL_META) == 18 and len(rows) == 18 + 8 + 2,
+    check(len(KERNEL_META) == 18 and len(rows) == 18 + 8 + 10 + 2,
           f"{len(rows)} kernel rows")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

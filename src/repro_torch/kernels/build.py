@@ -86,19 +86,26 @@ def _both(name: str, argtypes: tuple) -> dict:
     return {f"{name}_{s}": argtypes for s in ("f32", "f64")}
 
 
-#: the launcher suffixes of B1, B2, B5 and B6 past f32 and f64 (the pairs
-#: of ``common.FUSED_DTYPES``); B5 and B6 also take an f32 err on the bf16
-#: bank of f32 params (``_f32``: the err ``transport.init`` makes)
+#: the launcher suffixes of B1-B6 and B9 past f32 and f64 (the pairs of
+#: ``common.FUSED_DTYPES``, ``common.STAGED_PAIRS``); B5 and B6 also take
+#: an f32 err on the bf16 bank of f32 params (``_f32``: the err
+#: ``transport.init`` makes)
 SUB_F32_SUFFIXES = ("bf16", "f32_bf16")
 SUB_F32_ERR_SUFFIXES = SUB_F32_SUFFIXES + ("f32_bf16_f32",)
 
 
 def _fused(name: str, argtypes: tuple, err: bool = False) -> dict:
-    """The launchers of one design of B1, B2, B5 or B6: f32, f64 and the
-    sub-f32 banks."""
+    """The launchers of one design of B1-B6 or B9: f32, f64 and the sub-f32
+    banks."""
     subs = SUB_F32_ERR_SUFFIXES if err else SUB_F32_SUFFIXES
     return {**_both(name, argtypes),
             **{f"{name}_{s}": argtypes for s in subs}}
+
+
+def _one_dtype(name: str, argtypes: tuple) -> dict:
+    """The launchers of a kernel of one input dtype (B8, the worker fold):
+    f32, f64 and bf16."""
+    return {**_both(name, argtypes), f"{name}_bf16": argtypes}
 
 
 def _pairs(name: str, argtypes: tuple) -> dict:
@@ -111,10 +118,10 @@ def _pairs(name: str, argtypes: tuple) -> dict:
 SIGNATURES = {
     "censor": {**_fused("censor_delta_sqnorm_batched", _REDUCE_ARGS),
                **_fused("censor_delta_sqnorm_batched_warp", _WARP_ARGS),
-               **_both("sqnorm_batched", _SQNORM_ARGS),
-               **_both("sqnorm_batched_warp", _FOLD_ARGS),
-               **_both("bank_advance", _BANK_ARGS),
-               **_both("censor_bank_advance", _BANK_ARGS),
+               **_one_dtype("sqnorm_batched", _SQNORM_ARGS),
+               **_one_dtype("sqnorm_batched_warp", _FOLD_ARGS),
+               **_fused("bank_advance", _BANK_ARGS),
+               **_fused("censor_bank_advance", _BANK_ARGS),
                **_pairs("censor_delta_sqnorm", _REDUCE_ARGS),
                **_pairs("censor_select", _SELECT_ARGS)},
     "fused_step": {**_fused("fused_dense_step", _DENSE_ARGS),
@@ -124,9 +131,9 @@ SIGNATURES = {
                             err=True),
                    **_fused("fused_int8_step", _INT8_ARGS, err=True),
                    **_fused("fused_int8_step_tall", _INT8_ARGS, err=True),
-                   **_both("fold_workers", _FOLD_ARGS),
-                   **_both("fold_workers_tall", _FOLD_ARGS)},
-    "hb_update": _both("hb_update", _HB_ARGS),
+                   **_one_dtype("fold_workers", _FOLD_ARGS),
+                   **_one_dtype("fold_workers_tall", _FOLD_ARGS)},
+    "hb_update": _fused("hb_update", _HB_ARGS),
     "topk_pack": _both("select_pack_ef_batched", _PACK_ARGS),
     "lowrank_ef": _both("residual_ef_batched", _RESIDUAL_ARGS),
     "quantize_ef": {**_both("absmax_batched", _SQNORM_ARGS),

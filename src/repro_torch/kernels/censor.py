@@ -13,10 +13,9 @@ import torch
 
 from . import ref
 from .build import REDUCE_CHUNK, ROW_TILE, SINGLE_DTYPES, launch
-from .common import (BLOCK_THREADS, KERNEL_DTYPES, check_leaves,
-                     check_shapes, check_worker_vector, count_launch,
-                     fused_suffix, grid_chunks, on_card, sm_count,
-                     sqnorm_path)
+from .common import (BLOCK_THREADS, STAGED_DTYPES, check_bank, check_shapes,
+                     check_worker_vector, count_launch, fused_suffix,
+                     grid_chunks, on_card, sm_count, sqnorm_path)
 
 #: the designs of B1, B8, B5 and B7a (``common.sqnorm_path`` picks one by
 #: shape)
@@ -108,10 +107,12 @@ def sqnorm_batched(x: torch.Tensor) -> torch.Tensor:
     B1's designs, chunks and trees on ``x`` in place of ``g - ghat``: on
     ``x = g - ghat`` it equals :func:`censor_delta_sqnorm_batched` bit for
     bit, and the M=1 call equals the batched slice. ``common.sqnorm_path``
-    picks the design by shape, as for B1.
+    picks the design by shape, as for B1. x is f32, f64 or bf16
+    (``common.STAGED_DTYPES``: a bf16 row is squared and summed in f32).
     """
     name = "sqnorm_batched"
-    check_leaves(name, x)
+    check_shapes(name, x)
+    check_bank(name, x, dtypes=STAGED_DTYPES)
     m, n = x.shape[0], x[0].numel()
     if n == 0:
         return torch.zeros((m,), dtype=torch.float32, device=x.device)
@@ -125,7 +126,7 @@ def sqnorm_on_card(x: torch.Tensor, path: str) -> torch.Tensor:
     :func:`delta_sqnorm_on_card`."""
     name = "sqnorm_batched"
     m, n = x.shape[0], x[0].numel()
-    suffix = KERNEL_DTYPES[x.dtype]
+    suffix = STAGED_DTYPES[x.dtype]
     if warp_design(name, path, n):
         return _warp_launch(name, f"{name}_warp_{suffix}", x.device,
                             (_ptr(x),), m, n)
@@ -140,10 +141,13 @@ def bank_advance(ghat: torch.Tensor, payload: torch.Tensor,
     On the card, one design for every shape: B10's tiling over workers and
     columns (a block covers up to 256 columns of several rows), so a tall
     bank of short rows runs on the whole card and a wide one as the row
-    tiles did.
+    tiles did. (payload, ghat) is a dtype pair of ``common.FUSED_DTYPES``:
+    a bf16 bank takes a bf16 or an f32 payload, cast to bf16 first, and
+    rounds each operation to bf16.
     """
     name = "bank_advance"
-    suffix = check_leaves(name, ghat, payload)
+    check_shapes(name, ghat, payload)
+    suffix = fused_suffix(name, (payload,), ghat, what="payload")
     m, n = ghat.shape[0], ghat[0].numel()
     check_worker_vector(name, "mask", mask, m)
     if n == 0:
@@ -165,10 +169,12 @@ def censor_bank_advance(g: torch.Tensor, ghat: torch.Tensor,
     The arithmetic-mask form, not a select (``h + (g - h) != g`` in
     floating point): it equals B2's ``new_ghat`` for the same operands.
     On the card, B9's one design for every shape (B10's tiling over
-    workers and columns), with B4's element operation.
+    workers and columns), with B4's element operation. (g, ghat) is a
+    dtype pair of ``common.FUSED_DTYPES``, as B9's.
     """
     name = "censor_bank_advance"
-    suffix = check_leaves(name, g, ghat)
+    check_shapes(name, g, ghat)
+    suffix = fused_suffix(name, (g,), ghat, what="g")
     m, n = ghat.shape[0], ghat[0].numel()
     check_worker_vector(name, "mask", mask, m)
     if n == 0:

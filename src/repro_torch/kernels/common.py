@@ -28,20 +28,29 @@ KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
 
 LAUNCHES: dict[str, int] = compile_log.namespace("kernels", KERNELS)
 
-#: bank dtypes of the kernels that take one dtype: the worker fold, B3, B4,
-#: B7a/b and B8-B11 (their sub-f32 banks are ROADMAP queue B). B1, B2, B5
-#: and B6 take the pairs of ``FUSED_DTYPES``
+#: bank dtypes of the kernels that stay at f32 and f64: B7a, B7b, B10 and
+#: B11 (their sub-f32 banks are ROADMAP queue B). B1-B6 and B9 take the
+#: pairs of ``FUSED_DTYPES``, B8 and the worker fold ``STAGED_DTYPES``
 KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 #: (params dtype P, bank dtype H) of the fused CHB step's kernels (B1, B2,
 #: B5, B6), by launcher suffix: P is the gradients' and theta's dtype, H
 #: ghat's, as ``opt.make(..., bank_dtype=H)`` gives it. A bf16 bank
 #: computes each element operation in f32 and rounds it to bf16; its worker
-#: sum and eq. (4) run in f32 (``compute_dtype``)
+#: sum and eq. (4) run in f32 (``compute_dtype``). The staged kernels take
+#: the same pairs: B3 (theta in P, the worker sum in H), B4 (g in P) and B9
+#: (the payload in P), an f32 operand cast to bf16 first (B4, B9) or the
+#: bf16 sum to f32 (B3)
 FUSED_DTYPES = {(torch.float32, torch.float32): "f32",
                 (torch.float64, torch.float64): "f64",
                 (torch.bfloat16, torch.bfloat16): "bf16",
                 (torch.float32, torch.bfloat16): "f32_bf16"}
+
+#: input dtypes of B8 (a pending tree) and the worker fold (a bank), by
+#: launcher suffix: B8 squares and sums a bf16 row in f32, the fold sums a
+#: bf16 bank in f32 and rounds once (``core.util.sum_leading``)
+STAGED_DTYPES = {torch.float32: "f32", torch.float64: "f64",
+                 torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
@@ -78,27 +87,33 @@ def on_card(name: str, *tensors: torch.Tensor,
     return True
 
 
-def check_bank(name: str, *tensors: torch.Tensor) -> str:
-    """All operands share one kernel dtype; returns its suffix."""
-    dtypes = {t.dtype for t in tensors}
-    if len(dtypes) != 1:
+def check_bank(name: str, *tensors: torch.Tensor,
+               dtypes: dict = KERNEL_DTYPES) -> str:
+    """All operands share one kernel dtype of ``dtypes`` (``KERNEL_DTYPES``,
+    or ``STAGED_DTYPES`` for B8 and the fold); returns its suffix."""
+    got = {t.dtype for t in tensors}
+    if len(got) != 1:
         raise TypeError(f"{name}: operands must share one dtype, got "
-                        f"{sorted(str(d) for d in dtypes)}")
-    dtype = dtypes.pop()
-    if dtype not in KERNEL_DTYPES:
+                        f"{sorted(str(d) for d in got)}")
+    dtype = got.pop()
+    if dtype not in dtypes:
+        also = ", and bfloat16" if torch.bfloat16 in dtypes else ""
         raise TypeError(f"{name}: bank dtype {dtype} is not supported "
-                        "(the kernels take float32 and float64)")
-    return KERNEL_DTYPES[dtype]
+                        f"(the kernels take float32 and float64{also}; "
+                        "other dtypes are ROADMAP queue B)")
+    return dtypes[dtype]
 
 
 def fused_suffix(name: str, params, bank: torch.Tensor,
-                 err: torch.Tensor | None = None) -> str:
-    """The launcher suffix of B1, B2, B5 or B6: ``params`` (the gradients,
-    theta and theta_prev) share one dtype P, ``bank`` has dtype H, and
-    (P, H) is a pair of ``FUSED_DTYPES``. ``err``, the EF residual, is in
-    H or in P (``transport.init`` makes it in P; the steps leave it in H):
-    an f32 err on a bf16 bank adds ``_f32``. Raises ``TypeError`` on
-    anything else, before any launch."""
+                 err: torch.Tensor | None = None,
+                 what: str = "params") -> str:
+    """The launcher suffix of B1-B6 or B9: ``params`` (the gradients,
+    theta and theta_prev; B9's payload) share one dtype P, ``bank`` has
+    dtype H (B3: the worker sum), and (P, H) is a pair of
+    ``FUSED_DTYPES``. ``err``, the EF residual, is in H or in P
+    (``transport.init`` makes it in P; the steps leave it in H): an f32 err
+    on a bf16 bank adds ``_f32``. ``what`` names ``params`` in the error.
+    Raises ``TypeError`` on anything else, before any launch."""
     dtypes = {t.dtype for t in params}
     pair = (dtypes.pop() if len(dtypes) == 1 else None, bank.dtype)
     errs = (pair[1], pair[0]) if err is None else (err.dtype,)
@@ -106,9 +121,9 @@ def fused_suffix(name: str, params, bank: torch.Tensor,
         got = sorted(str(d) for d in {t.dtype for t in params})
         extra = "" if err is None else f", err {err.dtype}"
         raise TypeError(
-            f"{name}: params {got} on bank dtype {bank.dtype}{extra} is not "
+            f"{name}: {what} {got} on bank dtype {bank.dtype}{extra} is not "
             "supported: the kernels take one dtype (float32, float64 or "
-            "bfloat16), or float32 params on a torch.bfloat16 bank, with "
+            f"bfloat16), or float32 {what} on a torch.bfloat16 bank, with "
             "err in the bank's or the params' dtype; float16 and other "
             "pairs are ROADMAP queue B")
     suffix = FUSED_DTYPES[pair]

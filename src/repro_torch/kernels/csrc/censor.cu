@@ -17,12 +17,21 @@
 // ghat + m*payload, and B4 by the raw gradient, ghat + m*(g - ghat) (the
 // staged dense step and shard_step).
 //
+// B8, B9 and B4 take bf16 banks too: B8 a bf16 pending tree (each element
+// cast to f32 and squared there, the chunks and trees of the f32 build),
+// B9 and B4 a bf16 bank with a bf16 or an f32 payload or gradient, cast to
+// bf16 first; each element operation of the advance rounds to bf16
+// (reduce.cuh), as the JAX kernels' bodies (censor.py:195-200, :240-246)
+// and ref.py state them.
+//
 // Bound: bytes, for all four (a handful of flops an element). At M=4,
 // n=163,597,056 in f32 on an H100 SXM (3.35 TB/s):
 //   B1 reads 2*M*n elements and writes M floats:   5.23 GB, >= 1.56 ms;
 //   B8 reads M*n elements and writes M floats:     2.62 GB, >= 0.78 ms;
 //   B9 reads 2*M*n elements and writes M*n:        7.85 GB, >= 2.34 ms;
 //   B4 reads 2*M*n elements and writes M*n:        7.85 GB, >= 2.34 ms.
+// On a bf16 bank: B8 1.31 GB, >= 0.39 ms; B9 and B4 with a bf16 operand
+// 3.93 GB, >= 1.17 ms, with an f32 one 5.24 GB, >= 1.56 ms.
 // and for one f32 tensor of n elements:
 //   B12a reads 2*n elements and writes one float:  1.31 GB, >= 0.39 ms;
 //   B12b reads n elements (the selected side only) and writes n:
@@ -61,7 +70,8 @@
 // multiple of the elements in 16 bytes and ghat, the other operand and
 // out are 16-byte aligned (every row then is), it tiles the row's float4s
 // (f32) or double2s (f64): 16-byte loads and stores, two rows of each
-// operand in flight a thread. Otherwise (an odd n misaligns every row
+// operand in flight a thread; a bf16 bank tiles 8 elements (Pack<bf16, 8>,
+// its f32 operand's 8 in two 16-byte loads). Otherwise (an odd n misaligns every row
 // after the first, or a view starts off alignment) it tiles elements. The
 // launcher decides. Its grid walks any M (reduce.cuh's tall_grid).
 //
@@ -189,13 +199,13 @@ sqnorm_partials(const T* __restrict__ x, float* __restrict__ part, int64_t m, in
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const int64_t j = base + (int64_t)k * kThreads;
-      v[k] = j < n ? xw[j] : T(0);
+      v[k] = j < n ? xw[j] : T{};
     }
     float acc = 0.0f;
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       if (base + (int64_t)k * kThreads < n) {
-        const float d = (float)v[k];
+        const float d = to_f32(v[k]);
         acc = add(acc, mul(d, d));
       }
     }
@@ -205,18 +215,20 @@ sqnorm_partials(const T* __restrict__ x, float* __restrict__ part, int64_t m, in
 }
 
 // The tall tiling of a two-operand elementwise pass out = op(a, mk, b)
-// over an (M, ncols) bank of E: elements (E = T) or 16-byte vectors of
-// them (E = Vec16<T>::type). As B10's (topk_pack.cu) and B2/B6's pass 1,
+// over an (M, ncols) bank of EA, b of EB: elements (EA = T) or 16-byte
+// vectors of them (Vec16<T>::type; on a bf16 bank Pack<T, 8>, b then the
+// Pack of its 8 elements, bf16 or f32). As B10's (topk_pack.cu) and B2/B6's pass 1,
 // reduce.cuh's tall_grid: a block covers 2^shift columns, the power of
 // two >= min(ncols, kThreads), and kThreads >> shift rows a sweep, kRows
 // sweeps; a thread issues the loads of all its rows, and reads mask[w]
 // once a row, before it computes any. B9 runs it with AdvanceOp, B4 with
 // CensorAdvanceOp; nothing in it is either's but the operation. Its
 // launcher takes kRows = kAdvanceRows (reduce.cuh gives the reason).
-template <typename T, typename E, typename Op, int kRows>
+template <typename T, typename EA, typename EB, typename Op, int kRows>
 __global__ void __launch_bounds__(kThreads)
-tall_pair_kernel(const E* __restrict__ a, const E* __restrict__ b, const float* __restrict__ mask,
-                 E* __restrict__ out, int64_t m, int64_t ncols, int shift) {
+tall_pair_kernel(const EA* __restrict__ a, const EB* __restrict__ b,
+                 const float* __restrict__ mask, EA* __restrict__ out, int64_t m, int64_t ncols,
+                 int shift) {
   const int64_t j = ((int64_t)blockIdx.x << shift) + (threadIdx.x & ((1 << shift) - 1));
   if (j >= ncols) return;
   const int64_t sweep = kThreads >> shift;     // rows a sweep of the block covers
@@ -224,7 +236,8 @@ tall_pair_kernel(const E* __restrict__ a, const E* __restrict__ b, const float* 
   const Op op{};
   for (int64_t w0 = (int64_t)blockIdx.y * tile + (threadIdx.x >> shift); w0 < m;
        w0 += (int64_t)gridDim.y * tile) {
-    E av[kRows], bv[kRows];
+    EA av[kRows];
+    EB bv[kRows];
     float mk[kRows];
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
@@ -238,7 +251,7 @@ tall_pair_kernel(const E* __restrict__ a, const E* __restrict__ b, const float* 
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const int64_t w = w0 + k * sweep;
-      if (w < m) out[w * ncols + j] = apply_op(op, av[k], (T)mk[k], bv[k]);
+      if (w < m) out[w * ncols + j] = apply_op(op, av[k], Cast<T>::of(mk[k]), bv[k]);
     }
   }
 }
@@ -257,27 +270,48 @@ static int launch_sqnorm(const void* x, void* part, void* out, int64_t m, int64_
   return (int)cudaGetLastError();
 }
 
+// The 16-byte tiles of the tall pair pass: a bank row's 16 bytes (A) and
+// the other operand's same elements (B): float4s, double2s, or on a bf16
+// bank 8 elements, of b in bf16 or f32 (16 or 32 bytes)
+template <typename T, typename TB>
+struct Tile16 {
+  using A = Pack<T, 16 / sizeof(T)>;
+  using B = Pack<TB, 16 / sizeof(T)>;
+};
+template <>
+struct Tile16<float, float> {
+  using A = float4;
+  using B = float4;
+};
+template <>
+struct Tile16<double, double> {
+  using A = double2;
+  using B = double2;
+};
+
 // B9 (Op = AdvanceOp, b = payload) and B4 (CensorAdvanceOp, b = g) on the
-// tall tiling, a = ghat: 16-byte vectors where every row of a, b and out
-// starts on a 16-byte boundary, elements otherwise.
-template <typename T, typename Op>
+// tall tiling, a = ghat in T, b in TB (T, or f32 on a bf16 bank): 16-byte
+// tiles where n is a multiple of their elements and a, b and out start on
+// 16-byte boundaries (every row then does), elements otherwise.
+template <typename T, typename Op, typename TB = T>
 static int launch_tall_pair(const void* a, const void* b, const void* mask, void* out,
                             int64_t m, int64_t n, void* stream) {
   if (!tall_grid_ok(m, n)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   constexpr int64_t per_vec = 16 / sizeof(T);
   if (n % per_vec == 0 && aligned16(a) && aligned16(b) && aligned16(out)) {
-    using V = typename Vec16<T>::type;
+    using A = typename Tile16<T, TB>::A;
+    using B = typename Tile16<T, TB>::B;
     const int64_t nv = n / per_vec;
     const int shift = pow2_shift(nv, kThreads);
-    tall_pair_kernel<T, V, Op, kAdvanceRows>
+    tall_pair_kernel<T, A, B, Op, kAdvanceRows>
         <<<tall_grid(m, nv, shift, kAdvanceRows), kThreads, 0, s>>>(
-            (const V*)a, (const V*)b, (const float*)mask, (V*)out, m, nv, shift);
+            (const A*)a, (const B*)b, (const float*)mask, (A*)out, m, nv, shift);
   } else {
     const int shift = pow2_shift(n, kThreads);
-    tall_pair_kernel<T, T, Op, kAdvanceRows>
+    tall_pair_kernel<T, T, TB, Op, kAdvanceRows>
         <<<tall_grid(m, n, shift, kAdvanceRows), kThreads, 0, s>>>(
-            (const T*)a, (const T*)b, (const float*)mask, (T*)out, m, n, shift);
+            (const T*)a, (const TB*)b, (const float*)mask, (T*)out, m, n, shift);
   }
   return (int)cudaGetLastError();
 }
@@ -491,6 +525,51 @@ int censor_bank_advance_f64(int device, const void* g, const void* h, const void
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
   return launch_tall_pair<double, CensorAdvanceOp>(h, g, mask, out, m, n, stream);
+}
+
+// B8 on a bf16 pending tree (the sum in f32, the chunks and trees of f32's)
+int sqnorm_batched_bf16(int device, const void* x, void* part, void* out, int64_t m, int64_t n,
+                        int64_t nchunks, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_sqnorm<bf16>(x, part, out, m, n, nchunks, stream);
+}
+
+int sqnorm_batched_warp_bf16(int device, const void* x, void* out, int64_t m, int64_t n,
+                             void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_sqnorm_warp<bf16>(x, out, m, n, stream);
+}
+
+// B9 and B4 on a bf16 bank: of a bf16 payload or gradient, and of an f32
+// one (_f32_bf16), cast to bf16 first
+int bank_advance_bf16(int device, const void* h, const void* q, const void* mask, void* out,
+                      int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_tall_pair<bf16, AdvanceOp>(h, q, mask, out, m, n, stream);
+}
+
+int bank_advance_f32_bf16(int device, const void* h, const void* q, const void* mask, void* out,
+                          int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_tall_pair<bf16, AdvanceOp, float>(h, q, mask, out, m, n, stream);
+}
+
+int censor_bank_advance_bf16(int device, const void* g, const void* h, const void* mask,
+                             void* out, int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_tall_pair<bf16, CensorAdvanceOp>(h, g, mask, out, m, n, stream);
+}
+
+int censor_bank_advance_f32_bf16(int device, const void* g, const void* h, const void* mask,
+                                 void* out, int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_tall_pair<bf16, CensorAdvanceOp, float>(h, g, mask, out, m, n, stream);
 }
 
 }  // extern "C"

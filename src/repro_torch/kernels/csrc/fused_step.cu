@@ -61,7 +61,9 @@
 // shape (fold_path) a thread a column walks the M rows from -0.0 (B2's
 // one-pass loop without its bank advance); on a tall one the tiled fold of
 // pass 2, instantiated without its eq.-(4) epilogue. Either way the sum has
-// the bits of core.util's sum_leading.
+// the bits of core.util's sum_leading. Its banks are f32, f64 and bf16; a
+// bf16 bank folds in f32 and rounds once (2(M + 1)n bytes, >= 0.49 ms at
+// M = 4, n = 163,597,056).
 //
 // A bf16 bank's tall fold copies its strided rows (n > 32) with plain
 // loads and stores: cp.async moves 4, 8 or 16 bytes, not a 2-byte element.
@@ -238,15 +240,16 @@ fused_int8_step_kernel(const P* __restrict__ g, const H* __restrict__ h,
 }
 
 // fold_workers on a one-pass shape: each thread folds one column over the
-// M workers in index order, from -0.0, so a column of -0.0 stays -0.0
+// M workers in index order, from -0.0, so a column of -0.0 stays -0.0; a
+// bf16 bank folds in f32 and rounds once (calc_t, as B2's one pass)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fold_workers_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t m, int64_t n) {
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   for (int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x; j < n; j += stride) {
-    T acc = T(-0.0);
-    for (int64_t w = 0; w < m; ++w) acc = add(acc, x[w * n + j]);
-    out[j] = acc;
+    calc_t<T> acc = -0.0;
+    for (int64_t w = 0; w < m; ++w) acc = add(acc, widen(x[w * n + j]));
+    out[j] = Cast<T>::of(acc);
   }
 }
 
@@ -820,6 +823,20 @@ int fold_workers_tall_f64(int device, const void* x, void* out, int64_t m, int64
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
   return launch_fold_workers_tall<double>(x, out, m, n, stream);
+}
+
+// the worker fold of a bf16 bank: in f32 from -0.0, rounded once to bf16
+int fold_workers_bf16(int device, const void* x, void* out, int64_t m, int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_fold_workers<bf16>(x, out, m, n, stream);
+}
+
+int fold_workers_tall_bf16(int device, const void* x, void* out, int64_t m, int64_t n,
+                           void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_fold_workers_tall<bf16>(x, out, m, n, stream);
 }
 
 

@@ -16,13 +16,14 @@
 // reused), never after its last: a block that has one worker, as every
 // block has for M <= 65535, runs what it ran before the walk.
 //
-// bf16 banks (B1, B2, B5, B6): each element operation on bf16 operands
-// runs in f32 and rounds to bf16 (__float2bfloat16_rn), as a PyTorch eager
-// op on bf16 tensors does, never as a native bf16 instruction (which
-// rounds the exact result once, where PyTorch rounds it to f32 and then
-// to bf16, and the two can differ). Sums, abs-maxes and eq. (4) run in the compute
-// dtype, calc_t (kernels/common.py:compute_dtype): f32 for a bf16 bank, a
-// bank's own dtype otherwise, so the f32 and f64 code is what it was.
+// bf16 banks (B1-B6, B8, B9 and the worker fold): each element operation
+// on bf16 operands runs in f32 and rounds to bf16 (__float2bfloat16_rn), as
+// a PyTorch eager op on bf16 tensors does, never as a native bf16
+// instruction (which rounds the exact result once, where PyTorch rounds it
+// to f32 and then to bf16, and the two can differ). Sums, abs-maxes and
+// eq. (4) (B3 too) run in the compute dtype, calc_t
+// (kernels/common.py:compute_dtype): f32 for a bf16 bank, a bank's own
+// dtype otherwise, so the f32 and f64 code is what it was.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -303,11 +304,33 @@ struct Vec16<double> {
   }
 };
 
+// kV elements of T on a 16-byte boundary: the 16-byte tile of a bf16 bank
+// (kV = 8), and the same kV elements of its f32 operand (32 bytes, two
+// 16-byte accesses)
+template <typename T, int kV>
+struct __align__(16) Pack {
+  T v[kV];
+};
+
 // One operation of a pass that runs on elements (E = T) or on 16-byte
-// vectors of them (E = Vec16<T>::type): out = op(a, mk, b) on each
-// element, and the fold of |v| into a running abs-max.
+// vectors of them (E = Vec16<T>::type, or a Pack on a bf16 bank): out =
+// op(a, mk, b) on each element, and the fold of |v| into a running
+// abs-max. On a bf16 bank b may be in f32 (B4's g, B9's payload): it is
+// cast to the bank dtype first, as the JAX kernels' astype(h.dtype).
 template <typename T, typename Op>
 __device__ __forceinline__ T apply_op(const Op& op, T a, T mk, T b) { return op(a, mk, b); }
+template <typename T, typename TB, typename Op>
+__device__ __forceinline__ T apply_op(const Op& op, T a, T mk, TB b) {
+  return op(a, mk, Cast<T>::of(b));
+}
+template <typename Op, typename T, typename TB, int kV>
+__device__ __forceinline__ Pack<T, kV> apply_op(const Op& op, const Pack<T, kV>& a, T mk,
+                                                const Pack<TB, kV>& b) {
+  Pack<T, kV> r;
+#pragma unroll
+  for (int i = 0; i < kV; ++i) r.v[i] = op(a.v[i], mk, Cast<T>::of(b.v[i]));
+  return r;
+}
 template <typename Op>
 __device__ __forceinline__ float4 apply_op(const Op& op, float4 a, float mk, float4 b) {
   return make_float4(op(a.x, mk, b.x), op(a.y, mk, b.y), op(a.z, mk, b.z), op(a.w, mk, b.w));

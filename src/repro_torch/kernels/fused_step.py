@@ -40,7 +40,7 @@ import torch
 from . import ref
 from .build import REDUCE_CHUNK, launch
 from .censor import _ptr, warp_design
-from .common import (KERNEL_DTYPES, check_bank, check_worker_vector,
+from .common import (STAGED_DTYPES, check_bank, check_worker_vector,
                      count_launch, fold_path, fused_suffix, grid_chunks,
                      on_card, sm_count, sqnorm_path)
 
@@ -125,7 +125,7 @@ def _launcher(name: str, path: str, dtype: torch.dtype | None = None,
         raise ValueError(f"{name}: path must be one of {FOLD_PATHS}, got "
                          f"{path!r}")
     tall = "_tall" if path == "tall" else ""
-    return f"{name}{tall}_{suffix or KERNEL_DTYPES[dtype]}"
+    return f"{name}{tall}_{suffix or STAGED_DTYPES[dtype]}"
 
 
 def dense_on_card(g, ghat, theta, theta_prev, mask, alpha, beta,
@@ -254,12 +254,14 @@ def fold_workers(x: torch.Tensor) -> torch.Tensor:
     leading axis in index order, ``((x_0 + x_1) + x_2) + ...``, in x's
     dtype. Its bits are ``ref.fold_workers``'s (``core.util.sum_leading``):
     the kernel folds from -0.0, and -0.0 + v is v for every v, so a column
-    of -0.0 stays -0.0 and a NaN or inf propagates as in the plain fold."""
+    of -0.0 stays -0.0 and a NaN or inf propagates as in the plain fold.
+    x is f32, f64 or bf16 (``common.STAGED_DTYPES``): a bf16 bank folds in
+    f32 and rounds once."""
     name = "fold_workers"
     if x.dim() < 1 or x.shape[0] < 1:
         raise ValueError(f"{name}: x must be (M, ...) with M >= 1, got "
                          f"{tuple(x.shape)}")
-    check_bank(name, x)
+    check_bank(name, x, dtypes=STAGED_DTYPES)
     m, n = x.shape[0], x[0].numel()
     if n == 0:
         return x[0].clone()

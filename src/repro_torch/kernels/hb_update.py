@@ -13,22 +13,25 @@ import torch
 from . import ref
 from .build import launch
 from .censor import _ptr
-from .common import check_bank, count_launch, on_card
+from .common import count_launch, fused_suffix, on_card
 
 
 def hb_update(theta: torch.Tensor, nabla: torch.Tensor,
               theta_prev: torch.Tensor, alpha, beta) -> torch.Tensor:
     """``(theta - alpha*nabla) + beta*(theta - theta_prev)`` in one pass.
 
-    f32 and f64 leaves are their own compute dtype, so the result equals
-    ``ref.hb_update`` and ``opt.server.HeavyBall.apply`` bit for bit.
+    In ``common.compute_dtype(theta.dtype)``, cast once to theta's dtype:
+    the result equals ``ref.hb_update`` bit for bit, and, for f32 and f64
+    leaves (their own compute dtype), ``opt.server.HeavyBall.apply``.
+    theta and theta_prev share one dtype P, nabla (the worker sum) has the
+    bank dtype H, a pair of ``common.FUSED_DTYPES``.
     """
     name = "hb_update"
     shapes = [tuple(x.shape) for x in (theta, nabla, theta_prev)]
     if len(set(shapes)) != 1:
         raise ValueError(f"{name}: theta, nabla and theta_prev must share "
                          f"one shape, got {shapes}")
-    suffix = check_bank(name, theta, nabla, theta_prev)
+    suffix = fused_suffix(name, (theta, theta_prev), nabla, what="theta")
     n = theta.numel()
     if n == 0:
         return theta

@@ -11,16 +11,18 @@ Two backends:
     censor decision, then one fused pass (B2 / B6) advances the bank, sums
     the workers and applies eq. (4). Inside ``fused_step.force_staged()``
     they take the staged route instead, as top-k, low-rank and any other
-    stateful transport with ``encode_feedback_cuda`` always do (a bank
-    below f32, ``bank_dtype=torch.bfloat16`` or bf16 params, runs the
-    fused route only: the staged kernels take f32 and f64): dense runs
+    stateful transport with ``encode_feedback_cuda`` always do: dense runs
     B1, the bank advance B4, the worker fold (``fold_workers``) and
     ``apply_server`` (B3); a stateful transport runs the pending tree in
     plain torch, its norms (B8), the transport's encode + EF tail (B7a +
     B7b for int8, B10 for top-k, B11 for low-rank), the bank advance (B9),
-    the worker fold and B3. Both routes give the same bits. On CPU tensors the kernel
-    wrappers run their plain versions, so this backend also runs, and is
-    tested, on the CPU.
+    the worker fold and B3. Both routes give the same bits. A bf16 bank
+    (``bank_dtype=torch.bfloat16`` or bf16 params) runs every dense route
+    (fused, staged, ``shard_step``, ``per_tensor``) and int8 fused; the
+    stateful transports off the fused route take f32 and f64 banks only
+    (B7a, B7b, B10 and B11 in bf16 are ROADMAP queue B). On CPU tensors
+    the kernel wrappers run their plain versions, so this backend also
+    runs, and is tested, on the CPU.
 
 ``shard_step`` is the client half of a sharded round (the staged kernels
 on ``cuda``, since the server half runs after the cross-shard fold), and
@@ -44,6 +46,7 @@ from ..core.util import tree_sqnorm, tree_stack_zeros, tree_sum_leading
 from ..kernels import censor as kernel_censor
 from ..kernels import fused_step as kernel_fused
 from ..kernels import ops as kernel_ops
+from ..kernels.common import KERNEL_DTYPES, STAGED_DTYPES
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .api import OptState, ShardStepStats, StepStats, static_pos
 from .censor import Eq8Censor, NeverCensor
@@ -83,11 +86,12 @@ class ComposedOptimizer:
         stateless transport, and degenerates to the global path for
         eps1 = 0 and for any other censor).
       bank_dtype: optional dtype of the stale-gradient bank (bf16 halves
-        it). On ``cuda`` the fused dense and int8 route runs f32, f64 and
-        bf16 params with a bank in their dtype, and f32 params with a bf16
-        bank (``kernels.common.FUSED_DTYPES``); a sub-f32 bank refuses the
-        staged route, top-k, low-rank, ``per_tensor`` and ``shard_step``
-        before any launch (ROADMAP queue B).
+        it). On ``cuda`` every dense route and the fused int8 one run f32,
+        f64 and bf16 params with a bank in their dtype, and f32 params with
+        a bf16 bank (``kernels.common.FUSED_DTYPES``); a sub-f32 bank
+        refuses int8 off the fused route, top-k and low-rank, and an f16
+        bank every route off the fused one, before any launch (ROADMAP
+        queue B).
       backend: ``"reference"`` or ``"cuda"`` (see the module docstring).
     """
 
@@ -227,17 +231,22 @@ class ComposedOptimizer:
             return self._step_kernels(state, params, worker_grads)
         return self._step(state, params, worker_grads)
 
-    def _refuse_sub_f32_bank(self, bank, route: str) -> None:
-        """On ``cuda`` a bank below f32 runs the fused dense and int8 route
-        only; ``route`` names another, which raises here, before any
+    def _refuse_bank(self, bank, route: str, stateful: bool) -> None:
+        """On ``cuda`` a route off the fused one takes the banks its kernels
+        do: a stateful transport's (B7a, B7b, B10, B11) f32 and f64, a
+        dense one's (B4, B8, B9, the fold, B3) bf16 too. ``route`` names
+        one that ``bank`` falls outside, which raises here, before any
         launch."""
-        low = sorted({str(x.dtype) for x in tree_leaves(bank)
-                      if x.dtype.itemsize < 4})
-        if low:
+        allowed = KERNEL_DTYPES if stateful else STAGED_DTYPES
+        bad = sorted({str(x.dtype) for x in tree_leaves(bank)
+                      if x.dtype not in allowed})
+        if bad:
+            takes = ("float32 and float64" if stateful
+                     else "float32, float64 and bfloat16")
             raise TypeError(
-                f"backend='cuda' runs a {', '.join(low)} bank on the fused "
-                f"dense and int8 route only; {route} takes float32 and "
-                "float64 banks (sub-f32 banks there are ROADMAP queue B)")
+                f"backend='cuda' runs {route} on {takes} banks, not on a "
+                f"{', '.join(bad)} one (other banks there are ROADMAP "
+                "queue B)")
 
     def _step(self, state: OptState, params, worker_grads):
         pending = self._pending(state, worker_grads)
@@ -264,9 +273,9 @@ class ComposedOptimizer:
         int8_fused = fusion and type(self.transport) is Int8Transport
         fused = int8_fused or (fusion and not quantized)
         if not fused:
-            self._refuse_sub_f32_bank(
-                state.ghat, "the staged route" if not fusion else
-                f"the {type(self.transport).__name__} transport")
+            self._refuse_bank(
+                state.ghat, f"{type(self.transport).__name__} off the fused "
+                "route", quantized)
         pending = scales = None
         if int8_fused:
             # sweep 1: sqnorms + abs-max from pending recomputed in
@@ -378,9 +387,9 @@ class ComposedOptimizer:
                 "shard_step supports global granularity only (per_tensor "
                 "byte accounting is host-side and unsharded)")
         kernels = self.backend == "cuda"
-        if kernels:
-            self._refuse_sub_f32_bank(state.ghat, "shard_step")
         quantized = self.transport.stateful
+        if kernels:
+            self._refuse_bank(state.ghat, "shard_step", quantized)
         pending = None
         if kernels and not quantized:
             dsq = kernel_ops.tree_delta_sqnorms(worker_grads, state.ghat)
@@ -461,7 +470,7 @@ class ComposedOptimizer:
         eps1 = self.censor.eps1
         kernels = self.backend == "cuda"
         if kernels:
-            self._refuse_sub_f32_bank(state.ghat, "per_tensor granularity")
+            self._refuse_bank(state.ghat, "per_tensor granularity", False)
         pending = self._pending(state, worker_grads)
         leaves_d, treedef = tree_flatten(pending)
         leaves_t = tree_leaves(params)

@@ -194,6 +194,13 @@ def run_fed_sweep(opt, task: FedTask, grid, num_rounds: int, *,
     )
 
 
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A record on the host; numpy has no bf16, so a bf16 task's objective
+    widens to f32 (exactly)."""
+    x = x.cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+
 def _scenario(opt, task: FedTask, point: FedScenarioPoint, draws,
               kernels: bool, dev) -> tuple:
     """One scenario's synchronous rounds (one a row of its ``draws``);
@@ -248,8 +255,7 @@ def _scenario(opt, task: FedTask, point: FedScenarioPoint, draws,
         prev = tree_map(lambda t, tp: torch.where(met, t, tp), params, prev)
         params, ghat = new_params, new_ghat
         del upd, agg
-    obj, gsq, tx, dl, pa, mt = (torch.stack(c).cpu().numpy()
-                                for c in zip(*recs))
+    obj, gsq, tx, dl, pa, mt = (_host(torch.stack(c)) for c in zip(*recs))
     return (obj, gsq, tx.astype(np.int8), dl.astype(np.int8),
             pa.astype(np.int8), mt)
 

@@ -471,40 +471,89 @@ def test_init_honours_the_bank_dtype_on_cuda():
             assert s.err.dtype == err_dtype
 
 
-@pytest.mark.parametrize("route", ["staged", "topk", "lowrank", "per_tensor",
-                                   "shard_step"])
+#: the routes that stay closed on cuda: (bank dtype, opt.make keywords,
+#: how the step runs). The stateful transports off the fused route take f32
+#: and f64 banks only (B7a, B7b, B10 and B11 in bf16 are ROADMAP queue B);
+#: the dense routes that take bf16 banks refuse f16 ones ("staged",
+#: "per_tensor", "shard_step": bf16 runs there, see the test below)
+CLOSED_ROUTES = {
+    "staged": (torch.float16, {}, "staged"),
+    "topk": (BF16, {"transport": "topk", "k": 3}, "step"),
+    "lowrank": (BF16, {"transport": "lowrank", "rank": 1}, "step"),
+    "per_tensor": (torch.float16, {"granularity": "per_tensor"}, "step"),
+    "shard_step": (torch.float16, {}, "shard_step"),
+    "int8_staged": (BF16, {"quantize": "int8"}, "staged"),
+    "int8_shard_step": (BF16, {"quantize": "int8"}, "shard_step"),
+}
+
+
+def _run_route(o, how, params, grads):
+    state = o.init(params)
+    if how == "staged":
+        with fused_step.force_staged():
+            return o.step(state, params, grads)
+    if how == "shard_step":
+        return o.shard_step(state, params, grads)
+    return o.step(state, params, grads)
+
+
+@pytest.mark.parametrize("route", list(CLOSED_ROUTES))
 def test_sub_f32_bank_off_the_fused_route_is_refused(route, monkeypatch):
-    """On cuda a bf16 bank runs the fused dense and int8 route only; the
-    other routes raise before any kernel is called."""
+    """On cuda the routes that CLOSED_ROUTES lists raise before any kernel
+    is called; the reference backend runs them all."""
     called = []
     for name in ("censor_delta_sqnorm_batched", "sqnorm_batched",
                  "bank_advance", "censor_bank_advance"):
         monkeypatch.setattr(censor, name, lambda *a, **k: called.append(1))
-    kw = {"staged": {}, "topk": {"transport": "topk", "k": 3},
-          "lowrank": {"transport": "lowrank", "rank": 1},
-          "per_tensor": {"granularity": "per_tensor"},
-          "shard_step": {}}[route]
-    o = opt.make("chb", 0.1, 3, eps1=1.0, bank_dtype=BF16, backend="cuda",
+    bank, kw, how = CLOSED_ROUTES[route]
+    o = opt.make("chb", 0.1, 3, eps1=1.0, bank_dtype=bank, backend="cuda",
                  **kw)
     params = torch.ones(8)
     grads = torch.randn((3, 8), generator=torch.Generator().manual_seed(0))
-    state = o.init(params)
-    with pytest.raises(TypeError, match="ROADMAP queue B"):
-        if route == "staged":
-            with fused_step.force_staged():
-                o.step(state, params, grads)
-        elif route == "shard_step":
-            o.shard_step(state, params, grads)
-        else:
-            o.step(state, params, grads)
+    with pytest.raises(TypeError, match="ROADMAP queue B") as info:
+        _run_route(o, how, params, grads)
+    assert str(bank) in str(info.value)
     assert not called
-    # the reference backend runs them all
-    o = opt.make("chb", 0.1, 3, eps1=1.0, bank_dtype=BF16,
+    monkeypatch.undo()
+    o = opt.make("chb", 0.1, 3, eps1=1.0, bank_dtype=bank,
                  backend="reference", **kw)
-    if route == "shard_step":
-        o.shard_step(o.init(params), params, grads)
-    else:
-        o.step(o.init(params), params, grads)
+    _run_route(o, how, params, grads)
+
+
+OPENED = [(r, p) for r in ("staged", "per_tensor", "shard_step")
+          for p in ("f32_bf16", "bf16")]
+
+
+@pytest.mark.parametrize("route,combo", OPENED,
+                         ids=[f"{r}-{p}" for r, p in OPENED])
+def test_dense_routes_off_the_fused_one_run_on_a_bf16_bank(route, combo):
+    """force_staged() dense, per_tensor and shard_step run a bf16 bank on
+    cuda (their kernels' plain versions here): the bank, masks, counters
+    and (on f32 params, where both backends run eq. (4) in f32) theta equal
+    the reference backend's bit for bit."""
+    p_dt = COMBOS[combo][0]
+    kw = {"granularity": "per_tensor"} if route == "per_tensor" else {}
+    if p_dt == F32:
+        kw["bank_dtype"] = BF16
+    gen = torch.Generator().manual_seed(1)
+    params = {"a": torch.randn(8, generator=gen).to(p_dt),
+              "b": torch.randn((2, 3), generator=gen).to(p_dt)}
+    grads = {k: torch.randn((3,) + tuple(v.shape), generator=gen).to(p_dt)
+             for k, v in params.items()}
+    how = {"per_tensor": "step"}.get(route, route)
+    outs = [_run_route(opt.make("chb", 0.1, 3, eps1=0.5, backend=b, **kw),
+                       how, params, grads) for b in ("cuda", "reference")]
+    (sc, tc, stc), (sr, tr, str_) = outs
+    assert torch.equal(stc.mask, str_.mask)
+    for x, y in zip(jax.tree_util.tree_leaves(sc),
+                    jax.tree_util.tree_leaves(sr)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert sc.ghat["a"].dtype == BF16
+    for x, y in zip(jax.tree_util.tree_leaves(tc),
+                    jax.tree_util.tree_leaves(tr)):
+        assert x.dtype == (BF16 if route == "shard_step" else p_dt)
+        if p_dt == F32:
+            assert torch.equal(x, y)
 
 
 def test_tree_entry_points_take_sub_f32_banks():
