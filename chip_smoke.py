@@ -49,7 +49,13 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  and 2048 (B4's and B9's 16-byte tiles), against their
                  plain versions (B3, B4, B9 and the fold bit for bit, B8
                  within SQNORM_RTOL), the designs, repeats and M=1 slices
-                 bitwise;
+                 bitwise; (phase stateful_bf16_banks) the 10 launchers of
+                 B7a, B7b, B10 and B11 on a bf16 pending leaf (err and
+                 B11's payload in bf16 and f32), both designs of B7a, the
+                 same shapes and the fed mesh's M = 10^5 rows of 16,
+                 against their plain versions bit for bit, B7a against
+                 B5's abs-max and B7b's err' against B6's, the designs,
+                 repeats and M=1 slices bitwise;
                  (phase attention_kernels) B14 over GQA 1/2/4/6,
                  causal, window and non-causal rectangular shapes on and
                  off its tiles, head dims 32-256, strided and misaligned
@@ -99,7 +105,13 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  the staged dense route, the sharded anchor and per_tensor
                  on both (B3, B4, B8, B9 and the fold on bf16 banks), the
                  staged and sharded runs equal to the fused bf16 ones bit
-                 for bit.
+                 for bit; and the stateful transports on both (B7a, B7b,
+                 B10, B11 on a bf16 pending leaf): staged and sharded int8
+                 (equal to the fused int8 runs bit for bit) and top-k on
+                 one leaf, low-rank on the 12 leaves, f32 params over a
+                 bf16 bank (held against the reference backend whole, and
+                 low-rank step by step: its reference keeps err' in f32)
+                 and bf16 params (Lockstep).
   many_workers -- benchmarks/fed_mesh.py's edge quadratics (d=16, f64)
                  at its frontier M = 100,000 (fused dense and int8) and at
                  M = 70,000 (the staged routes and top-k, whose worker sum
@@ -197,13 +209,16 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  B14 also with its log-sum-exp, the flash backward at
                  training's shape (one worker's 4 x 256 tokens) beside
                  SDPA's autograd backward; B1-B6, B8, B9 and the fold
-                 also on bf16 banks of bf16 and of f32 params; then the
+                 also on bf16 banks of bf16 and of f32 params, B7a, B7b,
+                 B10 and B11 on a bf16 pending leaf; then the
                  ``{"kernels":
                  [...]}`` line of all 18 kernels (16 ported, and
                  fold_workers and flash_attention_bwd, which only the port
-                 has), the 18 rows of the sub-f32 launchers
+                 has), the 28 rows of the sub-f32 launchers
                  (``<kernel>_bf16``, ``<kernel>_f32_bf16`` of B1-B6, B8,
-                 B9 and the fold; B8's warp and the fold's tall design at
+                 B9 and the fold; B7b's and B10's ``_bf16`` and
+                 ``_bf16_f32`` (f32 err), B11's four, B7a's; the warp
+                 designs of B8 and B7a and the fold's tall design at
                  the fed mesh's shape) and B14's and
                  B13's bf16 builds at serve_bf16's serve_long shapes beside
                  bf16 SDPA, bound at the bf16 tensor-core rate.
@@ -1752,6 +1767,133 @@ def phase_staged_bf16_banks(device) -> None:
           "seconds": time.perf_counter() - t0})
 
 
+# --------------------------------------------- phase stateful_bf16_banks
+#: STAGED_BF16_CASES and the fed mesh's frontier (M = 10^5 rows of 16),
+#: where run_mesh runs int8 on a bf16 bank
+STATEFUL_BF16_CASES = STAGED_BF16_CASES + [(MANY_M, MANY_D, 0),
+                                           (MANY_M, MANY_D, 1)]
+#: err dtypes of B7b, B10 and B11 on a bf16 pending leaf, and B11's
+#: payload dtypes
+STATEFUL_ERRS = (torch.bfloat16, torch.float32)
+
+
+def phase_stateful_bf16_banks(device) -> None:
+    """The bf16 launchers of B7a, B7b, B10 and B11 on STATEFUL_BF16_CASES
+    against their plain versions on the card: NaN where the plain version
+    gives NaN and the same bits elsewhere (-0.0 included); B7a's two
+    designs against each other and B5's abs-max, B7b's err' against B6's
+    on B6's pending; repeats and the M=1 calls of sample_workers bitwise
+    (fed/runner.py's row entries run the batched kernels at M = 1), every
+    mask."""
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import (common, fused_step, lowrank_ef,
+                                     quantize_ef, ref, topk_pack)
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    cases, names = 0, set()
+    for m, n, off in STATEFUL_BF16_CASES:
+        tag = f"M={m} n={n} off={off}"
+        # g in f32 (B6's params), ghat, err in f32, theta: B6's operands;
+        # the bf16 pending leaf is B6's (g - ghat) + err
+        g, h, e32, t, tp = _bf16_inputs(
+            m, n, (torch.float32, bf16, torch.float32), off, device, m + n + 2)
+        pend = _offset_copy((g.to(bf16) - h) + e32.to(bf16), off)
+        # B7a: each design, against the plain version, B5's abs-max and
+        # the other design
+        am_p = ref.absmax_batched(pend)
+        designs = ("two_pass", "warp") if n <= 2048 else ("two_pass",)
+        first = None
+        for design in designs:
+            am = quantize_ef.absmax_on_card(pend, design)
+            check(am.dtype == bf16 and same_or_nan(am, am_p),
+                  f"B7a bf16 {design} against the plain version {tag}")
+            first = am if first is None else first
+            check(same_or_nan(am, first), f"B7a bf16 {design} against "
+                  f"two_pass {tag}")
+            check(same_bits(quantize_ef.absmax_on_card(pend, design), am),
+                  f"B7a bf16 {design} repeat {tag}")
+            for w in sample_workers(m):
+                check(same_or_nan(quantize_ef.absmax_on_card(
+                    pend[w:w + 1], design), am[w:w + 1]),
+                      f"B7a bf16 {design} M=1 slice {w} {tag}")
+            names.add(f"absmax_batched{'_warp' if design == 'warp' else ''}"
+                      "_bf16")
+        if m < LARGE_M:
+            sq_am = fused_step.int8_stats_batched(g, h, e32)[1]
+            check(same_or_nan(first, sq_am), f"B7a bf16 against B5's "
+                  f"abs-max {tag}")
+        scale = int8_scale(am_p)
+        keep = _offset_copy(_keep(pend, m + n), off)
+        q32 = _offset_copy(pend.float() + 0.01 * torch.randn(
+            pend.shape, generator=torch.Generator(device=device).manual_seed(
+                m + n), device=device), off)
+        del first, am_p, am
+        for e_dt in STATEFUL_ERRS:
+            e = _offset_copy(e32.to(e_dt), off)
+            ef = "" if e_dt == bf16 else "_f32"
+            qs = {q_dt: _offset_copy(q32.to(q_dt), off)
+                  for q_dt in STATEFUL_ERRS}
+            for mname, mask in _masks(m, device).items():
+                mtag = f"err {e_dt} {tag} mask={mname}"
+                # label: (the kernel on rows r, its plain version, launcher)
+                calls = {
+                    "B7b": (lambda r: quantize_ef.quantize_ef_batched(
+                        pend[r], e[r], mask[r], scale[r]),
+                        ref.quantize_ef_batched(pend, e, mask, scale),
+                        f"quantize_ef_batched_bf16{ef}"),
+                    "B10": (lambda r: topk_pack.select_pack_ef_batched(
+                        pend[r], e[r], keep[r], mask[r]),
+                        ref.select_pack_ef_batched(pend, e, keep, mask),
+                        f"select_pack_ef_batched_bf16{ef}")}
+                for q_dt, q in qs.items():
+                    suffix = common.EF_DTYPES["residual_ef_batched"][
+                        (bf16, q_dt, e_dt)]
+                    calls[f"B11 payload {q_dt}"] = (
+                        lambda r, q=q: (lowrank_ef.residual_ef_batched(
+                            pend[r], q[r], e[r], mask[r]),),
+                        (ref.residual_ef_batched(pend, q, e, mask),),
+                        f"residual_ef_batched_{suffix}")
+                every = slice(None)
+                for label, (fn, want, launcher) in calls.items():
+                    out = fn(every)
+                    check(all(a.dtype == bf16 and same_or_nan(a, b)
+                              for a, b in zip(out, want)),
+                          f"{label} against the plain version {mtag}")
+                    check(all(same_bits(a, b) for a, b in zip(fn(every),
+                                                              out)),
+                          f"{label} repeat {mtag}")
+                    for w in sample_workers(m):
+                        r = slice(w, w + 1)
+                        check(all(same_or_nan(a, b[r])
+                                  for a, b in zip(fn(r), out)),
+                              f"{label} M=1 slice {w} {mtag}")
+                    names.add(launcher)
+                    del out
+                del calls
+                if m < LARGE_M:
+                    # B6 on g, ghat and err (bf16 err: bf16 params)
+                    gg = g if e_dt == torch.float32 else g.to(bf16)
+                    tt = t if e_dt == torch.float32 else t.to(bf16)
+                    b6 = fused_step.fused_int8_step(gg, h, e, tt, tt, mask,
+                                                    scale, 0.1, 0.4)[1]
+                    check(same_or_nan(quantize_ef.quantize_ef_batched(
+                        pend, e, mask, scale)[1], b6),
+                          f"B7b err' against B6's {mtag}")
+                cases += 1
+            del e, qs
+        del g, h, e32, t, tp, pend, keep, q32, scale
+        torch.cuda.empty_cache()
+    check(len(names) == 10, f"{len(names)} stateful bf16 launchers checked")
+    emit({"phase": "stateful_bf16_banks", "cases": cases,
+          "shapes": len(STATEFUL_BF16_CASES),
+          "launchers": sorted(names),
+          "rule": "B7a (both designs), B7b, B10 and B11 against the plain "
+          "version NaN where it gives NaN, the same bits elsewhere (-0.0 "
+          "included); B7a against B5's abs-max, B7b's err' against B6's; "
+          "the designs against each other, repeats and M=1 slices bitwise",
+          "seconds": time.perf_counter() - t0})
+
+
 # ----------------------------------------------------------- phase 3b
 def _flash_f64(q, k, v, causal, window):
     """B14's function in f64 (the plain version without its f32 casts)."""
@@ -2375,14 +2517,17 @@ PATH_KERNELS = {
     "int8_bf16": ("int8_stats_batched", "fused_int8_step"),
 }
 for _bf16 in ("_bf16bank", "_bf16"):
-    for _path in ("dense_staged", "shard_dense", "per_tensor"):
+    for _path in ("dense_staged", "shard_dense", "per_tensor", "int8_staged",
+                  "shard_int8", "topk", "lowrank"):
         PATH_KERNELS[_path + _bf16] = PATH_KERNELS[_path]
 # the path each staged or sharded path must equal bit for bit
 SAME_AS = {"dense_staged": "dense", "int8_staged": "int8",
            "shard_dense": "dense", "shard_int8": "int8",
-           "dense_staged_bf16bank": "dense_bf16bank",
-           "shard_dense_bf16bank": "dense_bf16bank",
-           "dense_staged_bf16": "dense_bf16", "shard_dense_bf16": "dense_bf16"}
+           **{f"{path}{b}": f"{fused}{b}" for b in ("_bf16bank", "_bf16")
+              for path, fused in (("dense_staged", "dense"),
+                                  ("shard_dense", "dense"),
+                                  ("int8_staged", "int8"),
+                                  ("shard_int8", "int8"))}}
 
 
 class ShardAnchor:
@@ -2446,17 +2591,17 @@ def lm_tree_task(task):
                    worker_data=(a, centers), name="edge_quadratics_lm_tree")
 
 
-def lowrank_payload_bytes(rank: int) -> int:
-    """Bytes of one low-rank transmission of the model's leaves: two
-    factors of rank min(rank, rows, cols) per matrix leaf (rows =
-    shape[0]), a vector leaf dense."""
+def lowrank_payload_bytes(rank: int, itemsize: int = 4) -> int:
+    """Bytes of one low-rank transmission of the model's leaves of
+    ``itemsize``-byte params: two factors of rank min(rank, rows, cols) per
+    matrix leaf (rows = shape[0]), a vector leaf dense."""
     total = 0
     for shape in LM_LEAVES.values():
         if len(shape) >= 2:
             r, c = shape[0], math.prod(shape[1:])
-            total += min(rank, r, c) * (r + c) * 4
+            total += min(rank, r, c) * (r + c) * itemsize
         else:
-            total += math.prod(shape) * 4
+            total += math.prod(shape) * itemsize
     return total
 
 
@@ -2500,6 +2645,15 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
         "dense_bf16bank": ({"bank_dtype": torch.bfloat16}, flat, 4 * d),
         "int8_bf16bank": ({**int8, "bank_dtype": torch.bfloat16}, flat,
                           d + 4),
+        # the stateful transports off the fused route (B7a, B7b, B10 on a
+        # bf16 pending leaf): the uplinks are the f32 params' payload
+        "int8_staged_bf16bank": ({**int8, "bank_dtype": torch.bfloat16},
+                                 flat, d + 4),
+        "shard_int8_bf16bank": ({**int8, "bank_dtype": torch.bfloat16},
+                                flat, d + 4),
+        "topk_bf16bank": ({"transport": "topk", "k": FULL_TOPK_K,
+                           "bank_dtype": torch.bfloat16}, flat,
+                          FULL_TOPK_K * (4 + 4)),
         "dense_staged_bf16bank": ({"bank_dtype": torch.bfloat16}, flat,
                                   4 * d),
         "shard_dense_bf16bank": ({"bank_dtype": torch.bfloat16}, flat,
@@ -2549,6 +2703,7 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
         k = one_run(kind, kw, task, "cuda",
                     keep_state=keep or kind.startswith("shard"))
         launches[kind] = dict(common.LAUNCHES)
+        LAUNCHERS_BY_PATH[kind] = dict(common.LAUNCHERS)
         common.reset_launches()
         r = one_run(kind, kw, task, "reference")
         check(not any(common.LAUNCHES.values()),
@@ -2622,9 +2777,10 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
             fused[kind] = k
         del k, r
         torch.cuda.empty_cache()
-    del paths, tree, fused
+    del paths, fused
     torch.cuda.empty_cache()
-    bf16_summary, bf16_launches = _full_bf16_paths(d, m, iters)
+    bf16_summary, bf16_launches = _full_bf16_paths(tree, d, m, iters)
+    del tree
     summary.update(bf16_summary)
     launches.update(bf16_launches)
     emit({"phase": "full", "d": d, "m": m, "iters": iters,
@@ -2633,35 +2789,82 @@ def phase_full(flat, setup_s: float, d=FULL_D, m=FULL_M,
     return launches
 
 
-#: phase full's all-bf16 paths (make_edge_quadratics in bf16; per_tensor
-#: on its view as the model's 12 leaves): eq. (4) runs in f32 in B2, B6
-#: and B3 (compute_dtype, as the JAX kernels run it) and in bf16 on the
-#: reference backend (as the JAX reference step does), so the two are held
-#: step by step from one state. Each cuda theta' lies within
-#: BF16_EQ4_UNITS bf16 unit roundoffs (2^-8) of the sum of the magnitudes
-#: of eq. (4)'s terms of the reference's: the reference rounds alpha, beta
-#: and each of its five operations to bf16, the kernel once. The staged and
-#: sharded paths run B1, B4, the fold and B3 and equal dense_bf16's run
-#: bit for bit (SAME_AS)
-BF16_FULL_PATHS = {"dense_bf16": {}, "int8_bf16": {"quantize": "int8"},
-                   "dense_staged_bf16": {}, "shard_dense_bf16": {},
-                   "per_tensor_bf16": {"granularity": "per_tensor"}}
+#: phase full's paths held step by step against the reference backend
+#: (Lockstep), by (opt.make keywords, params dtype, on the model's 12
+#: leaves). The all-bf16 paths run make_edge_quadratics in bf16 (per_tensor
+#: and low-rank on its view as the model's 12 leaves): eq. (4) runs in f32
+#: in B2, B6 and B3 (compute_dtype, as the JAX kernels run it) and in bf16
+#: on the reference backend (as the JAX reference step does), so the two
+#: are held from one state. Each cuda theta' lies within BF16_EQ4_UNITS
+#: bf16 unit roundoffs (2^-8) of the sum of the magnitudes of eq. (4)'s
+#: terms of the reference's: the reference rounds alpha, beta and each of
+#: its five operations to bf16, the kernel once. The staged and sharded
+#: paths equal the fused runs bit for bit (SAME_AS). lowrank_bf16bank
+#: (f32 params over a bf16 bank, the 12 leaves): its factor products run in
+#: f32, so the reference keeps err' in f32 and B11 writes it in bf16, as the
+#: JAX package's two backends do (ONE_BF16_ROUNDING); theta' is the same
+#: f32 arithmetic on one bank, bit for bit
+BF16 = torch.bfloat16
+_INT8, _TOPK = {"quantize": "int8"}, {"transport": "topk", "k": FULL_TOPK_K}
+_LOWRANK = {"transport": "lowrank", "rank": FULL_RANK}
+BF16_FULL_PATHS = {
+    "dense_bf16": ({}, BF16, False), "int8_bf16": (_INT8, BF16, False),
+    "dense_staged_bf16": ({}, BF16, False),
+    "shard_dense_bf16": ({}, BF16, False),
+    "per_tensor_bf16": ({"granularity": "per_tensor"}, BF16, True),
+    "int8_staged_bf16": (_INT8, BF16, False),
+    "shard_int8_bf16": (_INT8, BF16, False),
+    "topk_bf16": (_TOPK, BF16, False), "lowrank_bf16": (_LOWRANK, BF16, True),
+    "lowrank_bf16bank": ({**_LOWRANK, "bank_dtype": BF16}, torch.float32,
+                         True)}
 BF16_EQ4_UNITS = 8
+#: |err'_cuda - err'_reference| where the reference keeps low-rank's err'
+#: in f32 and B11 rounds it to bf16: bf16(p - bf16(q)) against p - q, at
+#: most u|q| + u|p - q| + u^2|q| with u = 2^-8 and |q| <= |p| + |p - q|
+ONE_BF16_ROUNDING = 2.0 ** -7
 
 
 class Lockstep:
     """Both backends from one state at every step; the run goes on from
     the cuda step. Masks, the comm counters, ghat', err' and the worker
-    sum bit for bit; theta' within BF16_EQ4_UNITS of eq. (4)'s terms."""
+    sum bit for bit (err' of another dtype within ONE_BF16_ROUNDING of
+    |pending| + 2|err'|); theta' bit for bit for f32 params, within
+    BF16_EQ4_UNITS of eq. (4)'s terms for bf16 ones."""
 
     def __init__(self, cuda_opt, ref_opt, tag):
         self.cuda, self.ref, self.tag = StepRecorder(cuda_opt), \
             StepRecorder(ref_opt), tag
         self.alpha, self.beta = cuda_opt.alpha, cuda_opt.beta
         self.theta_units = 0.0
+        self.err_rel = 0.0
 
     def init(self, params):
         return self.cuda.init(params)
+
+    def _err_close(self, state, grads, ec, er) -> bool:
+        """err' of the two backends, leaf by leaf: bit for bit in one dtype,
+        else within ONE_BF16_ROUNDING of |pending| + 2|err'_reference|."""
+        def ef(err):       # the EF bank (low-rank's beside its factors)
+            return err["err"] if isinstance(err, dict) and "q" in err \
+                else err
+        if ef(ec) is not ec and not all(same_bits(a, b) for a, b in zip(
+                tree_leaves(ec["q"]), tree_leaves(er["q"]))):
+            return False
+        for g, h, e0, a, b in zip(*(tree_leaves(x) for x in (
+                grads, state.ghat, ef(state.err), ef(ec), ef(er)))):
+            if a.dtype == b.dtype:
+                if not same_bits(a, b):
+                    return False
+                continue
+            pend = ((g.to(h.dtype) - h) + e0.to(h.dtype)).float()
+            bound = ONE_BF16_ROUNDING * (pend.abs() + 2 * b.float().abs())
+            gap = (a.float() - b.float()).abs()
+            if not bool((gap <= bound).all()):
+                return False
+            scale = float(pend.abs().max()) or 1.0
+            self.err_rel = max(self.err_rel, float(gap.max()) / scale)
+            del pend, bound, gap
+        return True
 
     def step(self, state, params, grads):
         from repro_torch.core.util import sum_leading
@@ -2673,10 +2876,17 @@ class Lockstep:
         check(all(torch.equal(a, b) for a, b in zip(sc.comm, sr.comm)),
               f"{tag} step {k}: comm counters")
         check(all(same_bits(a, b) for a, b in zip(
-            tree_leaves([sc.ghat, sc.err]), tree_leaves([sr.ghat, sr.err]))),
-              f"{tag} step {k}: ghat' or err'")
+            tree_leaves(sc.ghat), tree_leaves(sr.ghat))),
+              f"{tag} step {k}: ghat'")
+        check(self._err_close(state, grads, sc.err, sr.err),
+              f"{tag} step {k}: err'")
         for t, tp, h, a, b in zip(*(tree_leaves(x) for x in (
                 params, state.prev_params, sc.ghat, tc, tr))):
+            check(a.dtype == b.dtype == t.dtype, f"{tag} step {k}: theta' "
+                  f"dtypes {a.dtype}, {b.dtype}")
+            if t.dtype == torch.float32:
+                check(same_bits(a, b), f"{tag} step {k}: theta'")
+                continue
             agg = sum_leading(h).float()
             t, tp = t.float(), tp.float()
             terms = t.abs() + abs(self.alpha) * agg.abs() \
@@ -2684,21 +2894,36 @@ class Lockstep:
             gap = (a.float() - b.float()).abs()
             units = float((gap / (terms * 2.0 ** -8).clamp_min(
                 torch.finfo(torch.float32).tiny)).max())
-            check(units <= BF16_EQ4_UNITS and a.dtype == b.dtype,
-                  f"{tag} step {k}: theta' {units} bf16 units from the "
-                  f"reference's")
+            check(units <= BF16_EQ4_UNITS, f"{tag} step {k}: theta' {units} "
+                  "bf16 units from the reference's")
             self.theta_units = max(self.theta_units, units)
             del agg, t, tp, terms, gap
         return out_c
 
 
-def _full_bf16_paths(d, m, iters, device="cuda") -> tuple:
-    """BF16_FULL_PATHS at full width: chb on make_edge_quadratics in bf16
-    through the cuda backend, in lockstep with the reference backend
-    (Lockstep); launches as PATH_KERNELS says, bytes 2d a dense upload, d +
-    4 an int8 one, at most 2d a per_tensor one; the staged and sharded
-    runs equal to dense_bf16's bit for bit (masks, counters, theta, the
-    state). Returns (summary, launches) by path."""
+def _payload_bytes(kind: str, d: int, itemsize: int):
+    """One upload's bytes on a Lockstep path (None: per_tensor, whose
+    bytes count per transmitted leaf)."""
+    if kind.startswith("per_tensor"):
+        return None
+    if "int8" in kind:
+        return d + 4
+    if kind.startswith("topk"):
+        return FULL_TOPK_K * (4 + itemsize)
+    if kind.startswith("lowrank"):
+        return lowrank_payload_bytes(FULL_RANK, itemsize)
+    return itemsize * d
+
+
+def _full_bf16_paths(tree32, d, m, iters, device="cuda") -> tuple:
+    """BF16_FULL_PATHS at full width: chb through the cuda backend, in
+    lockstep with the reference backend (Lockstep), on make_edge_quadratics
+    in bf16 or (f32 params) on ``tree32``, phase full's task as the model's
+    12 leaves; launches as PATH_KERNELS says, bytes as the port's and the
+    JAX package's payload_bytes count them (_payload_bytes; per_tensor at
+    most 2d an upload); the staged and sharded runs equal to the fused
+    ones' bit for bit (masks, counters, theta, ghat, err). Returns (summary,
+    launches) by path."""
     from repro_torch import opt
     from repro_torch.core import simulator
     from repro_torch.data import edge_tasks
@@ -2709,13 +2934,16 @@ def _full_bf16_paths(d, m, iters, device="cuda") -> tuple:
     tree = lm_tree_task(task)
     setup_s = time.perf_counter() - t0
     summary, launches, kept = {}, {}, {}
-    for kind, kw in BF16_FULL_PATHS.items():
+    for kind, (kw, p_dt, leaves12) in BF16_FULL_PATHS.items():
         ops = [opt.make("chb", FULL_ALPHA, m, eps1=FULL_EPS1, backend=b,
                         **kw) for b in ("cuda", "reference")]
         if kind.startswith("shard"):
             ops = [ShardAnchor(o) for o in ops]
         lock = Lockstep(*ops, f"full {kind}")
-        on = tree if kind.startswith("per_tensor") else task
+        if p_dt == torch.float32:
+            on = tree32
+        else:
+            on = tree if leaves12 else task
         leaves = len(tree_leaves(on.init_params))
         staged = fused_step.force_staged() if "_staged" in kind \
             else contextlib.nullcontext()
@@ -2727,6 +2955,7 @@ def _full_bf16_paths(d, m, iters, device="cuda") -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches[kind] = dict(common.LAUNCHES)
+        LAUNCHERS_BY_PATH[kind] = dict(common.LAUNCHERS)
         want = {name: iters * leaves if name in PATH_KERNELS[kind] else 0
                 for name in common.KERNELS}
         check(launches[kind] == want,
@@ -2734,26 +2963,28 @@ def _full_bf16_paths(d, m, iters, device="cuda") -> tuple:
         comm = hist.final_state.comm
         sent = int(hist.mask.sum())
         got_bytes = comm.uplink_bytes_exact()
-        if kind.startswith("per_tensor"):
-            payload = None
+        el = torch.empty((), dtype=p_dt).element_size()
+        payload = _payload_bytes(kind, d, el)
+        if payload is None:
             check(0 < got_bytes <= sent * 2 * d and got_bytes % 2 == 0,
                   f"full {kind}: uplink bytes {got_bytes} for {sent} uploads")
         else:
-            payload = d + 4 if kind.startswith("int8") else 2 * d
             check(got_bytes == sent * payload,
-                  f"full {kind}: uplink bytes {got_bytes}")
+                  f"full {kind}: uplink bytes {got_bytes}, want {sent} x "
+                  f"{payload}")
         objective = float(hist.objective[-1])
         check(math.isfinite(objective) and all(
-            x.dtype == torch.bfloat16 for x in tree_leaves(hist.final_params)),
+            x.dtype == p_dt for x in tree_leaves(hist.final_params)),
               f"full {kind}: objective {objective}")
+        s = hist.final_state
         res = {"mask": hist.mask.cpu(), "comm_cum": hist.comm_cum.cpu(),
                "theta": tree_leaves(hist.final_params),
-               "state": tree_leaves([hist.final_state.ghat,
-                                     list(hist.final_state.comm)])}
+               "state": tree_leaves([s.ghat, s.err, list(s.comm)])}
         if kind in SAME_AS:
             f = kept[SAME_AS[kind]]
             check(torch.equal(res["mask"], f["mask"])
                   and torch.equal(res["comm_cum"], f["comm_cum"])
+                  and len(res["state"]) == len(f["state"])
                   and all(same_bits(a, b) if a.is_floating_point()
                           else torch.equal(a, b) for a, b in zip(
                               res["theta"] + res["state"],
@@ -2765,16 +2996,17 @@ def _full_bf16_paths(d, m, iters, device="cuda") -> tuple:
         summary[kind] = {
             "uploads": sent, "uplink_bytes": got_bytes,
             "payload_bytes": payload, "leaves": leaves, "lockstep": True,
-            "equals": SAME_AS.get(kind),
+            "params": str(p_dt), "equals": SAME_AS.get(kind),
             "theta_max_bf16_units": lock.theta_units,
             "theta_bound_units": BF16_EQ4_UNITS,
+            "err_max_gap_rel_pending": lock.err_rel,
             "min_eq8_margin": (None if kind.startswith("per_tensor")
                                else min(margins)), "objective": objective,
             "step_ms_cuda": lock.cuda.median_ms(),
             "step_ms_reference": lock.ref.median_ms(), "wall_s_both": wall,
             "setup_s": setup_s,
             "launches": {n: c for n, c in launches[kind].items() if c}}
-        del hist, lock, ops, res
+        del hist, lock, ops, res, s
         torch.cuda.empty_cache()
     del task, tree, kept
     torch.cuda.empty_cache()
@@ -2999,6 +3231,7 @@ def _mesh_bf16bank(device) -> tuple:
 
     ideal = fed.MeshScenario()
     h, lk, ms = _mesh_run(make("cuda"), task, ideal, 1, MESH_ROUNDS, device)
+    LAUNCHERS_BY_PATH["mesh_bf16bank"] = dict(common.LAUNCHERS)
     want = {n: (MESH_ROUNDS if n in MESH_SHARD_KERNELS + ("hb_update",)
                 else 0) for n in common.KERNELS}
     check(lk == want, f"mesh bf16bank: launches {lk}, want {want}")
@@ -3208,11 +3441,15 @@ def _edge_bf16bank(task, device, leaves) -> tuple:
     worker sum, as HeavyBall.apply does); B8 once per client evaluation, B3
     once per round. Returns (summary, the cuda run's launches)."""
     from repro_torch import opt
+    from repro_torch.kernels import common
     algo, kw = EDGE_PATHS["chb"]
-    runs = {b: _edge_run(opt.make(algo, FULL_ALPHA, FULL_M, backend=b,
-                                  bank_dtype=torch.bfloat16, **kw),
-                         task, edge_scenario(), device)
-            for b in ("cuda", "reference")}
+    runs = {}
+    for b in ("cuda", "reference"):
+        runs[b] = _edge_run(opt.make(algo, FULL_ALPHA, FULL_M, backend=b,
+                                     bank_dtype=torch.bfloat16, **kw),
+                            task, edge_scenario(), device)
+        if b == "cuda":
+            LAUNCHERS_BY_PATH["edge_bf16bank"] = dict(common.LAUNCHERS)
     (hk, tk), (hr, tr) = runs["cuda"], runs["reference"]
     for f in ("mask", "comm_cum", "bytes_cum", "energy_cum", "wall_clock"):
         check(np.array_equal(getattr(hk, f), getattr(hr, f)),
@@ -4367,41 +4604,86 @@ def phase_timing(device, launches, max_err, d=FULL_D, m=FULL_M) -> list:
         torch.cuda.empty_cache()
     del g, h, e, t, p, keep, pend, nab
     torch.cuda.empty_cache()
-    rows += bf16_timing_rows(device, launches, d, m)
-    return rows + model_timing_rows(device, launches, max_err, d)
+    sub = bf16_timing_rows(device, d, m)
+    sub_f32_launches(sub, launches)
+    return rows + sub + model_timing_rows(device, launches, max_err, d)
 
 
-#: the paths on sub-f32 banks (phases full, edge and mesh), by the suffix
-#: of their (params, bank) pair, which B1-B6 and B3 run; B8, B9 and the
-#: fold take the bf16 pending leaf, payload and bank of either (``_bf16``)
-SUB_F32_PATHS = {
-    **{p: "f32_bf16" for p in ("dense_bf16bank", "int8_bf16bank",
-                               "dense_staged_bf16bank",
-                               "shard_dense_bf16bank", "per_tensor_bf16bank",
-                               "edge_bf16bank", "mesh_bf16bank")},
-    **{p: "bf16" for p in ("dense_bf16", "int8_bf16", "dense_staged_bf16",
-                           "shard_dense_bf16", "per_tensor_bf16")}}
-ONE_DTYPE_KERNELS = ("sqnorm_batched", "bank_advance", "fold_workers")
-#: the sub-f32 paths at the fed mesh's shape (M = 10^5, n = 16), whose
-#: worker fold runs its tall design
-TALL_SUB_F32_PATHS = ("mesh_bf16bank",)
+#: the paths on sub-f32 banks (phases full, edge and mesh), of bf16 params
+#: and of f32 params on a bf16 bank: their launches go to the sub-f32 rows
+#: of the kernels line, by launcher (LAUNCHERS_BY_PATH), and not to the
+#: f32 rows
+SUB_F32_PATHS = (
+    "dense_bf16bank", "int8_bf16bank", "dense_staged_bf16bank",
+    "shard_dense_bf16bank", "per_tensor_bf16bank", "int8_staged_bf16bank",
+    "shard_int8_bf16bank", "topk_bf16bank", "lowrank_bf16bank",
+    "edge_bf16bank", "mesh_bf16bank", "dense_bf16", "int8_bf16",
+    "dense_staged_bf16", "shard_dense_bf16", "per_tensor_bf16",
+    "int8_staged_bf16", "shard_int8_bf16", "topk_bf16", "lowrank_bf16")
+#: each sub-f32 path's launches per C launcher (``common.LAUNCHERS``),
+#: read just after the path's cuda run
+LAUNCHERS_BY_PATH: dict[str, dict[str, int]] = {}
 
 
-def sub_f32_row(path: str, name: str) -> str:
-    """The row of the kernels line that kernel ``name``'s launches on the
-    sub-f32 ``path`` belong to."""
-    suffix = "bf16" if name in ONE_DTYPE_KERNELS else SUB_F32_PATHS[path]
-    tall = "_tall" if (name == "fold_workers"
-                       and path in TALL_SUB_F32_PATHS) else ""
-    return f"{name}{tall}_{suffix}"
+def kernel_of(launcher: str) -> str:
+    """The kernel (``common.KERNELS``) a C launcher builds."""
+    from repro_torch.kernels import common
+    return max((k for k in common.KERNELS if launcher.startswith(k + "_")),
+               key=len)
 
 
-def _bf16_row(name, row, kfn, pfn, lfn, nbytes, ops, launches, shape,
+def row_of(launcher: str, rows) -> str:
+    """The sub-f32 row that counts ``launcher``'s launches: its own, else
+    (a design or err build timed by no row of its own) its kernel's row of
+    the default design (``_warp``, ``_tall`` dropped) with err in the bank
+    dtype (B5's and B6's ``_f32_bf16_f32``, err f32 in the first step on
+    f32 params, counts under ``_f32_bf16``). Raises if neither is a row."""
+    if launcher in rows:
+        return launcher
+    base = launcher.replace("_warp_", "_").replace("_tall_", "_")
+    if base.endswith("_f32_bf16_f32"):
+        base = base[:-len("_f32")]
+    check(base in rows, f"kernels line: launcher {launcher} has no row")
+    return base
+
+
+def sub_f32_launches(rows: list, launches: dict) -> None:
+    """Fill each sub-f32 row's launches from the launcher counts of the
+    sub-f32 paths' runs: ``launches_by_launcher`` the counts of the
+    launchers it stands for (row_of), ``launches_by_path`` their sum per
+    path, ``launches`` the total. Fails unless every sub-f32 path was read
+    per launcher and its launcher counts add up to its kernel counts."""
+    names = {r["name"] for r in rows}
+    for r in rows:
+        r["launches_by_path"], r["launches_by_launcher"] = {}, {}
+    by_name = {r["name"]: r for r in rows}
+    for path in SUB_F32_PATHS:
+        check(path in launches and path in LAUNCHERS_BY_PATH,
+              f"kernels line: no launch counts of path {path}")
+        per_kernel: dict[str, int] = {}
+        for launcher, c in LAUNCHERS_BY_PATH[path].items():
+            if not c:
+                continue
+            k = kernel_of(launcher)
+            per_kernel[k] = per_kernel.get(k, 0) + c
+            r = by_name[row_of(launcher, names)]
+            r["launches_by_path"][path] = r["launches_by_path"].get(path,
+                                                                    0) + c
+            r["launches_by_launcher"][launcher] = \
+                r["launches_by_launcher"].get(launcher, 0) + c
+        want = {k: c for k, c in launches[path].items() if c}
+        check(per_kernel == want, f"kernels line: {path}'s launcher counts "
+              f"{per_kernel} are not its kernel counts {want}")
+    for r in rows:
+        r["launches"] = sum(r["launches_by_path"].values())
+
+
+def _bf16_row(name, row, kfn, pfn, lfn, nbytes, ops, shape,
               **extra) -> dict:
     """One sub-f32 row of the kernels line: the largest absolute difference
     from the plain version on its finite entries in this run, the kernel's,
-    the plain version's and the library call's ms, the bound, and the
-    launches of the paths whose launches sub_f32_row assigns to ``row``."""
+    the plain version's and the library call's ms and the bound; its
+    launches come from sub_f32_launches."""
     got, want = kfn(), pfn()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -4414,31 +4696,29 @@ def _bf16_row(name, row, kfn, pfn, lfn, nbytes, ops, launches, shape,
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_FLOPS * 1e3
     src, replaces = KERNEL_META[name]
-    by_path = {path: c[name] for path, c in launches.items()
-               if c[name] and path in SUB_F32_PATHS
-               and sub_f32_row(path, name) == row}
     torch.cuda.empty_cache()
     return {"name": row, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": sum(by_path.values()),
+            "replaces": replaces, "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms, "launches_by_path": by_path,
-            "bytes": nbytes, "shape": shape, **extra}
+            "library_ms": library_ms, "bytes": nbytes, "shape": shape,
+            **extra}
 
 
-def bf16_timing_rows(device, launches, d=FULL_D, m=FULL_M) -> list:
+def bf16_timing_rows(device, d=FULL_D, m=FULL_M) -> list:
     """B1-B6, B8, B9 and the worker fold at the full-width shape on a bf16
     bank, of bf16 params (``_bf16``) and of f32 params (``_f32_bf16``, err
     in bf16 as after the first step; B4's g, B9's payload and B3's theta
     f32), B8 and the fold on a bf16 leaf; B8's warp design and the fold's
     tall one at the fed mesh's shape: time, plain version, library call
     in bf16 where one computes the same function, bound from the bytes each
-    reads and writes once, the launches of the sub-f32 paths, and the
+    reads and writes once (launches: sub_f32_launches), and the
     largest absolute difference from the plain version in this run (B1's,
     B5's and B8's sums in another order; the rest bit for bit)."""
     from repro_torch.core.quantize import int8_scale
-    from repro_torch.kernels import censor, fused_step, hb_update, ref
+    from repro_torch.kernels import (censor, fused_step, hb_update,
+                                     quantize_ef, ref)
     gen = torch.Generator(device=device).manual_seed(7)
     mask = torch.tensor([1.0, 0.0] * (m // 2) + [1.0] * (m % 2),
                         device=device)
@@ -4511,27 +4791,85 @@ def bf16_timing_rows(device, launches, d=FULL_D, m=FULL_M) -> list:
                 lambda: torch.sum(h, dim=0), (m + 1) * d * sh, (m - 1) * d)
         for name, (kfn, pfn, lfn, nbytes, ops) in work.items():
             rows.append(_bf16_row(name, f"{name}_{suffix}", kfn, pfn, lfn,
-                                  nbytes, ops, launches, shape))
+                                  nbytes, ops, shape))
         del g, h, e, t, p, scale, agg, mk, work
         torch.cuda.empty_cache()
-    # the other designs of B8 and the fold, at the fed mesh's shape
+    rows += stateful_bf16_rows(randn, mask, d, m)
+    # the other designs of B8, B7a and the fold, at the fed mesh's shape
     mm, nn = MANY_M, MANY_D
     x = randn(mm, nn, dtype=h_dt)
     shape = f"M={mm} n={nn} bfloat16"
     rows.append(_bf16_row(
+        "absmax_batched", "absmax_batched_warp_bf16",
+        lambda: quantize_ef.absmax_on_card(x, "warp"),
+        lambda: ref.absmax_batched(x),
+        lambda: torch.linalg.vector_norm(x, ord=math.inf, dim=1),
+        mm * nn * 2 + 2 * mm, 2 * mm * nn, shape, design="warp"))
+    rows.append(_bf16_row(
         "sqnorm_batched", "sqnorm_batched_warp_bf16",
         lambda: censor.sqnorm_on_card(x, "warp"),
         lambda: ref.sqnorm_batched(x), lambda: torch.linalg.vecdot(x, x),
-        mm * nn * 2 + 4 * mm, 2 * mm * nn, launches, shape,
+        mm * nn * 2 + 4 * mm, 2 * mm * nn, shape,
         design="warp"))
     rows.append(_bf16_row(
         "fold_workers", "fold_workers_tall_bf16",
         lambda: fused_step.fold_on_card(x, "tall"),
         lambda: ref.fold_workers(x), lambda: torch.sum(x, dim=0),
-        (mm + 1) * nn * 2, (mm - 1) * nn, launches, shape, design="tall",
+        (mm + 1) * nn * 2, (mm - 1) * nn, shape, design="tall",
         # the fold is a chain of M - 1 dependent adds a column
         floor="chain of M - 1 dependent f32 adds (chain_floor.py)"))
     del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def stateful_bf16_rows(randn, mask, d=FULL_D, m=FULL_M) -> list:
+    """B7a, B7b, B10 and B11 at the full-width shape on a bf16 pending
+    leaf, err (and B11's payload) in bf16 and in f32: the rows of
+    bf16_timing_rows. B7a's library call is torch.linalg.vector_norm(inf)
+    in bf16; the other three have none."""
+    from repro_torch.core.quantize import int8_scale
+    from repro_torch.kernels import (common, lowrank_ef, quantize_ef, ref,
+                                     topk_pack)
+    bf16 = torch.bfloat16
+    pend = randn(m, d, dtype=bf16)
+    keep = (randn(m, d, dtype=torch.float32) > 0.2533).to(bf16)
+    scale = int8_scale(ref.absmax_batched(pend))
+    shape = f"M={m} n={d} pending bfloat16"
+    rows = [_bf16_row(
+        "absmax_batched", "absmax_batched_bf16",
+        lambda: quantize_ef.absmax_batched(pend),
+        lambda: ref.absmax_batched(pend),
+        lambda: torch.linalg.vector_norm(pend, ord=math.inf, dim=1),
+        m * d * 2 + 2 * m, 2 * m * d, shape)]
+    for e_dt in STATEFUL_ERRS:
+        e = randn(m, d, dtype=e_dt, scale=0.01)
+        se, suf = e.element_size(), "" if e_dt == bf16 else "_f32"
+        etag = f"{shape} err {e_dt}"
+        rows.append(_bf16_row(
+            "quantize_ef_batched", f"quantize_ef_batched_bf16{suf}",
+            lambda: quantize_ef.quantize_ef_batched(pend, e, mask, scale),
+            lambda: ref.quantize_ef_batched(pend, e, mask, scale), None,
+            m * d * (6 + se) + 8 * m, 9 * m * d, etag))
+        rows.append(_bf16_row(
+            "select_pack_ef_batched", f"select_pack_ef_batched_bf16{suf}",
+            lambda: topk_pack.select_pack_ef_batched(pend, e, keep, mask),
+            lambda: ref.select_pack_ef_batched(pend, e, keep, mask), None,
+            m * d * (8 + se) + 4 * m, 5 * m * d, etag))
+        for q_dt in STATEFUL_ERRS:
+            q = randn(m, d, dtype=q_dt)
+            sq = q.element_size()
+            suffix = common.EF_DTYPES["residual_ef_batched"][(bf16, q_dt,
+                                                              e_dt)]
+            rows.append(_bf16_row(
+                "residual_ef_batched", f"residual_ef_batched_{suffix}",
+                lambda: lowrank_ef.residual_ef_batched(pend, q, e, mask),
+                lambda: ref.residual_ef_batched(pend, q, e, mask), None,
+                m * d * (4 + sq + se) + 4 * m, 5 * m * d,
+                f"{etag} payload {q_dt}"))
+            del q
+        del e
+    del pend, keep, scale
     torch.cuda.empty_cache()
     return rows
 
@@ -4802,6 +5140,7 @@ def main() -> None:
     phase_tall_paths(dev)
     phase_fused_bf16_banks(dev)
     phase_staged_bf16_banks(dev)
+    phase_stateful_bf16_banks(dev)
     phase_attention_kernels(dev, max_err)
     phase_golden(dev)
     flat, setup_s = full_task(dev)
@@ -4819,7 +5158,7 @@ def main() -> None:
     phase_train_cli()
     rows = phase_timing(dev, launches, max_err)
     rows += attention_bf16_rows(dev, serve_bf16)
-    check(len(KERNEL_META) == 18 and len(rows) == 18 + 8 + 10 + 2,
+    check(len(KERNEL_META) == 18 and len(rows) == 18 + 8 + 10 + 10 + 2,
           f"{len(rows)} kernel rows")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

@@ -78,6 +78,31 @@ _DECODE_PLAN_ARGS = (_DEV, _P, _P)
 #: attention kernels, by launcher suffix
 SINGLE_DTYPES = {torch.float32: "f32", torch.float64: "f64",
                  torch.bfloat16: "bf16"}
+_F32, _F64, _BF16 = torch.float32, torch.float64, torch.bfloat16
+#: operand dtypes of the stateful transports' elementwise kernels, by
+#: kernel and launcher suffix: B7b (``quantize_ef_batched``) and B10
+#: (``select_pack_ef_batched``, its keep masks in the pending dtype) take
+#: (pending, err), B11 (``residual_ef_batched``) (pending, payload, err);
+#: B7a takes ``STAGED_DTYPES``' one. A bf16 pending leaf takes err, and
+#: B11's payload, in bf16 or f32, cast to bf16 first
+#: (``src/repro/kernels/quantize_ef.py:70-76``, ``topk_pack.py:42-44``,
+#: ``lowrank_ef.py:36-40``); every element operation after the cast
+#: rounds to bf16 and the int8 code's quotient runs in f32. The f32 err
+#: is ``transport.init``'s on f32 params, the f32 payload low-rank's
+#: factor product of a bf16 pending leaf and an f32 factor. The one table:
+#: ``SIGNATURES`` binds a launcher per suffix, ``common`` checks operands
+#: against it
+_EF_PAIRS = {(_F32, _F32): "f32", (_F64, _F64): "f64",
+             (_BF16, _BF16): "bf16", (_BF16, _F32): "bf16_f32"}
+EF_DTYPES = {
+    "quantize_ef_batched": _EF_PAIRS,
+    "select_pack_ef_batched": _EF_PAIRS,
+    "residual_ef_batched": {
+        (_F32, _F32, _F32): "f32", (_F64, _F64, _F64): "f64",
+        (_BF16, _BF16, _BF16): "bf16", (_BF16, _F32, _BF16): "bf16_f32_bf16",
+        (_BF16, _BF16, _F32): "bf16_bf16_f32",
+        (_BF16, _F32, _F32): "bf16_f32_f32"},
+}
 ATTENTION_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -103,9 +128,15 @@ def _fused(name: str, argtypes: tuple, err: bool = False) -> dict:
 
 
 def _one_dtype(name: str, argtypes: tuple) -> dict:
-    """The launchers of a kernel of one input dtype (B8, the worker fold):
-    f32, f64 and bf16."""
+    """The launchers of a kernel of one input dtype (B8, B7a, the worker
+    fold): f32, f64 and bf16."""
     return {**_both(name, argtypes), f"{name}_bf16": argtypes}
+
+
+def _ef(name: str, argtypes: tuple) -> dict:
+    """The launchers of B7b, B10 or B11, one per operand-dtype key of
+    ``EF_DTYPES[name]``."""
+    return {f"{name}_{s}": argtypes for s in EF_DTYPES[name].values()}
 
 
 def _pairs(name: str, argtypes: tuple) -> dict:
@@ -134,11 +165,11 @@ SIGNATURES = {
                    **_one_dtype("fold_workers", _FOLD_ARGS),
                    **_one_dtype("fold_workers_tall", _FOLD_ARGS)},
     "hb_update": _fused("hb_update", _HB_ARGS),
-    "topk_pack": _both("select_pack_ef_batched", _PACK_ARGS),
-    "lowrank_ef": _both("residual_ef_batched", _RESIDUAL_ARGS),
-    "quantize_ef": {**_both("absmax_batched", _SQNORM_ARGS),
-                    **_both("absmax_batched_warp", _FOLD_ARGS),
-                    **_both("quantize_ef_batched", _PACK_ARGS)},
+    "topk_pack": _ef("select_pack_ef_batched", _PACK_ARGS),
+    "lowrank_ef": _ef("residual_ef_batched", _RESIDUAL_ARGS),
+    "quantize_ef": {**_one_dtype("absmax_batched", _SQNORM_ARGS),
+                    **_one_dtype("absmax_batched_warp", _FOLD_ARGS),
+                    **_ef("quantize_ef_batched", _PACK_ARGS)},
     "flash_attention": {f"flash_attention_{s}": _FLASH_ARGS
                         for s in ATTENTION_DTYPES.values()},
     "decode_attention": {**{f"decode_attention_{s}": _DECODE_ARGS
@@ -223,9 +254,11 @@ def launch(lib_name: str, fn_name: str, device: torch.device, *args
            ) -> None:
     """Call one C launcher on ``device`` and PyTorch's current stream there;
     raise if it reports a CUDA error (a refused launch never runs, and a
-    later synchronize would not report it)."""
+    later synchronize would not report it). Counts the launch under
+    ``fn_name`` in the ``launchers`` namespace of ``obs.compile_log``."""
     lib = library(lib_name)
     stream = torch.cuda.current_stream(device).cuda_stream
+    compile_log.record("launchers", fn_name)
     _raise_on(lib, fn_name, getattr(lib, fn_name)(device.index, *args,
                                                   stream))
 

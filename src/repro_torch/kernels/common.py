@@ -7,7 +7,10 @@ hand-written kernel or raises. Nothing falls back from one to the other.
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made in this
 process: each wrapper adds one where it calls into the compiled library
 and nowhere else, so a run can show that it went through the kernels. It
-is the live ``"kernels"`` namespace of ``obs.compile_log``.
+is the live ``"kernels"`` namespace of ``obs.compile_log``. ``LAUNCHERS``
+counts the same launches per C launcher (a kernel's design and dtype
+build, e.g. ``quantize_ef_batched_bf16_f32``): ``build.launch`` adds one
+each time it calls one.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import functools
 import torch
 
 from ..obs import compile_log
-from .build import GRID_X_MAX, REDUCE_CHUNK
+from .build import EF_DTYPES, GRID_X_MAX, REDUCE_CHUNK
 
 KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
            "int8_stats_batched", "fused_int8_step", "sqnorm_batched",
@@ -27,10 +30,11 @@ KERNELS = ("censor_delta_sqnorm_batched", "fused_dense_step",
            "flash_attention_bwd")
 
 LAUNCHES: dict[str, int] = compile_log.namespace("kernels", KERNELS)
+LAUNCHERS: dict[str, int] = compile_log.namespace("launchers")
 
-#: bank dtypes of the kernels that stay at f32 and f64: B7a, B7b, B10 and
-#: B11 (their sub-f32 banks are ROADMAP queue B). B1-B6 and B9 take the
-#: pairs of ``FUSED_DTYPES``, B8 and the worker fold ``STAGED_DTYPES``
+#: the f32 and f64 banks every kernel takes, by launcher suffix. B1-B6
+#: and B9 also take the pairs of ``FUSED_DTYPES``, B8, B7a and the worker
+#: fold ``STAGED_DTYPES``, B7b, B10 and B11 ``EF_DTYPES``
 KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 #: (params dtype P, bank dtype H) of the fused CHB step's kernels (B1, B2,
@@ -52,10 +56,10 @@ FUSED_DTYPES = {(torch.float32, torch.float32): "f32",
 STAGED_DTYPES = {torch.float32: "f32", torch.float64: "f64",
                  torch.bfloat16: "bf16"}
 
-
 def reset_launches() -> None:
-    """Zero every launch count."""
+    """Zero every launch count, per kernel and per launcher."""
     compile_log.reset("kernels")
+    compile_log.reset("launchers")
 
 
 def count_launch(name: str) -> None:
@@ -90,7 +94,7 @@ def on_card(name: str, *tensors: torch.Tensor,
 def check_bank(name: str, *tensors: torch.Tensor,
                dtypes: dict = KERNEL_DTYPES) -> str:
     """All operands share one kernel dtype of ``dtypes`` (``KERNEL_DTYPES``,
-    or ``STAGED_DTYPES`` for B8 and the fold); returns its suffix."""
+    or ``STAGED_DTYPES`` for B8, B7a and the fold); returns its suffix."""
     got = {t.dtype for t in tensors}
     if len(got) != 1:
         raise TypeError(f"{name}: operands must share one dtype, got "
@@ -132,11 +136,22 @@ def fused_suffix(name: str, params, bank: torch.Tensor,
     return suffix
 
 
-def check_leaves(name: str, *xs: torch.Tensor) -> str:
-    """Operands share one (M, ...) shape and one kernel dtype; returns its
-    suffix."""
+def ef_suffix(name: str, *xs: torch.Tensor) -> str:
+    """The launcher suffix of B7b, B10 or B11 (``name``) on operands of one
+    (M, ...) shape whose dtypes, in the kernel's order, are a key of
+    ``EF_DTYPES[name]``; raises ``TypeError`` on any other, before any
+    launch."""
     check_shapes(name, *xs)
-    return check_bank(name, *xs)
+    table = EF_DTYPES[name]
+    key = tuple(x.dtype for x in xs)
+    if key not in table:
+        raise TypeError(
+            f"{name}: bank dtype {xs[0].dtype} with operands "
+            f"{[str(d) for d in key]} is not supported (the kernels take "
+            "float32 and float64 operands of one dtype, or a bfloat16 "
+            "pending leaf with the other operands in bfloat16 or float32; "
+            "other dtypes are ROADMAP queue B)")
+    return table[key]
 
 
 def check_shapes(name: str, *xs: torch.Tensor) -> None:

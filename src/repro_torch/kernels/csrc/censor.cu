@@ -270,25 +270,6 @@ static int launch_sqnorm(const void* x, void* part, void* out, int64_t m, int64_
   return (int)cudaGetLastError();
 }
 
-// The 16-byte tiles of the tall pair pass: a bank row's 16 bytes (A) and
-// the other operand's same elements (B): float4s, double2s, or on a bf16
-// bank 8 elements, of b in bf16 or f32 (16 or 32 bytes)
-template <typename T, typename TB>
-struct Tile16 {
-  using A = Pack<T, 16 / sizeof(T)>;
-  using B = Pack<TB, 16 / sizeof(T)>;
-};
-template <>
-struct Tile16<float, float> {
-  using A = float4;
-  using B = float4;
-};
-template <>
-struct Tile16<double, double> {
-  using A = double2;
-  using B = double2;
-};
-
 // B9 (Op = AdvanceOp, b = payload) and B4 (CensorAdvanceOp, b = g) on the
 // tall tiling, a = ghat in T, b in TB (T, or f32 on a bf16 bank): 16-byte
 // tiles where n is a multiple of their elements and a, b and out start on

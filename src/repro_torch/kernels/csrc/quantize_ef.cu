@@ -9,13 +9,26 @@
 // then emits, from one read of pending and err, the dequantized payload
 // q = clip(rint(f32(p) / s), -127, 127) * s cast to the pending dtype, and
 // the next error-feedback leaf e' = mk*(p - q) + (1 - mk)*e. The quotient
-// is taken in f32 for both bank dtypes, as the reference does; e' is
+// is taken in f32 for every pending dtype, as the reference does; e' is
 // computed in the pending dtype.
+//
+// Both also take a bf16 pending leaf (kernels/common.py:STAGED_DTYPES,
+// EF_DTYPES): B7a takes its max in f32 (exact) and stores the partials
+// and the result in bf16, as the JAX kernel's are in x.dtype; B7b reads
+// err in bf16 or in f32 (the err transport.init makes for f32 params),
+// casts it to bf16, and rounds the payload and each operation of the blend
+// to bf16 (reduce.cuh), as src/repro/kernels/quantize_ef.py:70-76 and
+// kernels/ref.py state them. The f32 scale is read as given: the caller's
+// core.quantize.int8_scale of a bf16 abs-max is a bf16 value.
 //
 // Bound: bytes, for both (a handful of flops an element). At M=4,
 // n=163,597,056 in f32 on an H100 SXM (3.35 TB/s):
 //   B7a reads M*n elements and writes M values:    2.62 GB, >= 0.78 ms;
-//   B7b reads 2*M*n elements and writes 2*M*n:    10.47 GB, >= 3.13 ms.
+//   B7b reads 2*M*n elements and writes 2*M*n:    10.47 GB, >= 3.13 ms;
+// on a bf16 leaf B7a 1.31 GB, >= 0.39 ms; B7b 5.24 GB, >= 1.56 ms (with
+// an f32 err 6.54 GB, >= 1.95 ms). B7b's bf16 build moves 16-byte tiles
+// of 8 elements (Tile16: err's 8 in f32 in two 16-byte loads), as B4's
+// and B9's do.
 //
 // Design: B7a is a two-pass reduction without atomics. Max is exact and
 // does not depend on order, so unlike the sums of B1/B5/B8 its
@@ -77,22 +90,26 @@ constexpr int kFinishItems = 20;
 
 inline int64_t num_spans(int64_t n) { return (n + kAbsmaxSpan - 1) / kAbsmaxSpan; }
 
-// pass 1 on rows of nv 16-byte vectors (float4 / double2), 16-byte aligned
+// pass 1 on rows of nv 16-byte vectors (float4 / double2 / 8 bf16),
+// 16-byte aligned. The max runs in the compute dtype A (f32 for bf16:
+// exact) and each partial is stored in T, as the JAX kernel's partials
+// are in x.dtype.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 absmax_vec_partials(const T* __restrict__ x, T* __restrict__ part, int64_t m, int64_t nv,
                     int64_t nspans) {
   using V = typename Vec16<T>::type;
+  using A = calc_t<T>;
   constexpr int64_t kSpanV = kAbsmaxSpan / (16 / sizeof(T));
   constexpr int kRounds = (int)(kSpanV / (kThreads * kAbsmaxBatch));
-  __shared__ T scratch[kThreads / 32];
+  __shared__ A scratch[kThreads / 32];
   const int64_t c = blockIdx.x;
   const int64_t base = c * kSpanV + threadIdx.x;
   for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
     // the last worker's block_reduce is done with scratch
     if (w != blockIdx.y) __syncthreads();
     const V* xw = reinterpret_cast<const V*>(x) + w * nv;
-    T am = T(0);
+    A am = A(0);
 #pragma unroll 1
     for (int r = 0; r < kRounds; ++r) {
       V v[kAbsmaxBatch];
@@ -104,8 +121,8 @@ absmax_vec_partials(const T* __restrict__ x, T* __restrict__ part, int64_t m, in
 #pragma unroll
       for (int k = 0; k < kAbsmaxBatch; ++k) am = Vec16<T>::absmax(am, v[k]);
     }
-    am = block_reduce(am, T(0), MaxOp(), scratch);
-    if (threadIdx.x == 0) part[w * nspans + c] = am;
+    am = block_reduce(am, A(0), MaxOp(), scratch);
+    if (threadIdx.x == 0) part[w * nspans + c] = Cast<T>::of(am);
   }
 }
 
@@ -115,28 +132,29 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 absmax_partials(const T* __restrict__ x, T* __restrict__ part, int64_t m, int64_t n,
                 int64_t nspans) {
+  using A = calc_t<T>;
   constexpr int kRounds = (int)(kAbsmaxSpan / (kThreads * kAbsmaxBatch));
-  __shared__ T scratch[kThreads / 32];
+  __shared__ A scratch[kThreads / 32];
   const int64_t c = blockIdx.x;
   const int64_t base = c * kAbsmaxSpan + threadIdx.x;
   for (int64_t w = blockIdx.y; w < m; w += gridDim.y) {
     // the last worker's block_reduce is done with scratch
     if (w != blockIdx.y) __syncthreads();
     const T* xw = x + w * n;
-    T am = T(0);
+    A am = A(0);
 #pragma unroll 1
     for (int r = 0; r < kRounds; ++r) {
-      T v[kAbsmaxBatch];
+      A v[kAbsmaxBatch];
 #pragma unroll
       for (int k = 0; k < kAbsmaxBatch; ++k) {
         const int64_t j = base + (int64_t)(r * kAbsmaxBatch + k) * kThreads;
-        v[k] = j < n ? xw[j] : T(0);
+        v[k] = j < n ? widen(xw[j]) : A(0);
       }
 #pragma unroll
       for (int k = 0; k < kAbsmaxBatch; ++k) am = maxval(am, absval(v[k]));
     }
-    am = block_reduce(am, T(0), MaxOp(), scratch);
-    if (threadIdx.x == 0) part[w * nspans + c] = am;
+    am = block_reduce(am, A(0), MaxOp(), scratch);
+    if (threadIdx.x == 0) part[w * nspans + c] = Cast<T>::of(am);
   }
 }
 
@@ -145,21 +163,22 @@ absmax_partials(const T* __restrict__ x, T* __restrict__ part, int64_t m, int64_
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 absmax_finish(const T* __restrict__ part, T* __restrict__ out, int64_t nspans) {
-  __shared__ T scratch[kThreads / 32];
+  using A = calc_t<T>;
+  __shared__ A scratch[kThreads / 32];
   const T* p = part + (int64_t)blockIdx.x * nspans;
-  T am = T(0);
+  A am = A(0);
   for (int64_t i0 = threadIdx.x; i0 < nspans; i0 += (int64_t)kThreads * kFinishItems) {
-    T v[kFinishItems];
+    A v[kFinishItems];
 #pragma unroll
     for (int k = 0; k < kFinishItems; ++k) {
       const int64_t i = i0 + (int64_t)k * kThreads;
-      v[k] = i < nspans ? p[i] : T(0);
+      v[k] = i < nspans ? widen(p[i]) : A(0);
     }
 #pragma unroll
     for (int k = 0; k < kFinishItems; ++k) am = maxval(am, v[k]);
   }
-  am = block_reduce(am, T(0), MaxOp(), scratch);
-  if (threadIdx.x == 0) out[blockIdx.x] = am;
+  am = block_reduce(am, A(0), MaxOp(), scratch);
+  if (threadIdx.x == 0) out[blockIdx.x] = Cast<T>::of(am);
 }
 
 // The warp design: rows of ncols items E (elements, or 16-byte vectors of
@@ -175,6 +194,7 @@ template <typename T, typename E>
 __global__ void __launch_bounds__(kThreads)
 absmax_seg_rows(const E* __restrict__ x, T* __restrict__ out, int64_t m, int64_t ncols,
                 int shift) {
+  using A = calc_t<T>;
   const int seg = 1 << shift;
   const int sub = threadIdx.x & (seg - 1);         // the lane's place in its row
   const int64_t sweep = kThreads >> shift;         // rows a sweep of the block covers
@@ -182,9 +202,9 @@ absmax_seg_rows(const E* __restrict__ x, T* __restrict__ out, int64_t m, int64_t
   const int64_t r = threadIdx.x >> shift;
   // the walk is uniform over the block, so every lane reaches the shuffles
   for (int64_t b0 = (int64_t)blockIdx.x * tile; b0 < m; b0 += (int64_t)gridDim.x * tile) {
-    T am[kRowItems];
+    A am[kRowItems];
 #pragma unroll
-    for (int k = 0; k < kRowItems; ++k) am[k] = T(0);
+    for (int k = 0; k < kRowItems; ++k) am[k] = A(0);
     for (int64_t j = sub; j < ncols; j += seg) {
       E v[kRowItems];
 #pragma unroll
@@ -200,7 +220,7 @@ absmax_seg_rows(const E* __restrict__ x, T* __restrict__ out, int64_t m, int64_t
       for (int off = seg >> 1; off > 0; off >>= 1)
         am[k] = maxval(am[k], __shfl_xor_sync(0xffffffffu, am[k], off));
       const int64_t w = b0 + r + k * sweep;
-      if (sub == 0 && w < m) out[w] = am[k];
+      if (sub == 0 && w < m) out[w] = Cast<T>::of(am[k]);
     }
   }
 }
@@ -229,18 +249,40 @@ __device__ __forceinline__ void int8_ef(double2 p, double2 e, double mk, double 
   int8_ef(p.x, e.x, mk, keep, sc, pay.x, ne.x);
   int8_ef(p.y, e.y, mk, keep, sc, pay.y, ne.y);
 }
+// a bf16 pending element, err in bf16 or f32 cast to bf16 first (the JAX
+// kernel's e.astype(pending.dtype)): the quotient and the payload's
+// product in f32, each operation of the blend rounded to bf16
+// (reduce.cuh), as B6's bf16 build does
+__device__ __forceinline__ void int8_ef(bf16 p, bf16 e, bf16 mk, bf16 keep, float sc, bf16& pay,
+                                        bf16& ne) {
+  const float q = clampval(rintf(__fdiv_rn(widen(p), sc)), -127.0f, 127.0f);
+  pay = Cast<bf16>::of(__fmul_rn(q, sc));
+  ne = add(mul(mk, sub(p, pay)), mul(keep, e));
+}
+__device__ __forceinline__ void int8_ef(bf16 p, float e, bf16 mk, bf16 keep, float sc, bf16& pay,
+                                        bf16& ne) {
+  int8_ef(p, Cast<bf16>::of(e), mk, keep, sc, pay, ne);
+}
+template <typename TE>
+__device__ __forceinline__ void int8_ef(const Pack<bf16, 8>& p, const Pack<TE, 8>& e, bf16 mk,
+                                        bf16 keep, float sc, Pack<bf16, 8>& pay,
+                                        Pack<bf16, 8>& ne) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) int8_ef(p.v[i], e.v[i], mk, keep, sc, pay.v[i], ne.v[i]);
+}
 
 // B7b on the tall tiling of B9 and B4 (censor.cu:tall_pair_kernel) over an
-// (M, ncols) leaf of E, elements (E = T) or 16-byte vectors of them: a
-// block covers 2^shift columns and kThreads >> shift rows a sweep, kRows
-// sweeps (reduce.cuh's tall_grid); a thread issues the loads of pending
-// and err of all its rows, and reads mask[w] and scale[w] once a row,
-// before it computes any.
-template <typename T, typename E, int kRows>
+// (M, ncols) leaf of EP (pending, payload, new_e) and EE (err): elements
+// (EP = T, EE = T or f32 on a bf16 leaf) or 16-byte tiles of them
+// (reduce.cuh's Tile16): a block covers 2^shift columns and
+// kThreads >> shift rows a sweep, kRows sweeps (reduce.cuh's tall_grid); a
+// thread issues the loads of pending and err of all its rows, and reads
+// mask[w] and scale[w] once a row, before it computes any.
+template <typename T, typename EP, typename EE, int kRows>
 __global__ void __launch_bounds__(kThreads)
-tall_quant_kernel(const E* __restrict__ p, const E* __restrict__ e,
+tall_quant_kernel(const EP* __restrict__ p, const EE* __restrict__ e,
                   const float* __restrict__ mask, const float* __restrict__ scale,
-                  E* __restrict__ payload, E* __restrict__ new_e, int64_t m, int64_t ncols,
+                  EP* __restrict__ payload, EP* __restrict__ new_e, int64_t m, int64_t ncols,
                   int shift) {
   const int64_t j = ((int64_t)blockIdx.x << shift) + (threadIdx.x & ((1 << shift) - 1));
   if (j >= ncols) return;
@@ -248,7 +290,8 @@ tall_quant_kernel(const E* __restrict__ p, const E* __restrict__ e,
   const int64_t tile = sweep * kRows;          // rows a block covers
   for (int64_t w0 = (int64_t)blockIdx.y * tile + (threadIdx.x >> shift); w0 < m;
        w0 += (int64_t)gridDim.y * tile) {
-    E pv[kRows], ev[kRows];
+    EP pv[kRows];
+    EE ev[kRows];
     float mk[kRows], sc[kRows];
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
@@ -264,9 +307,9 @@ tall_quant_kernel(const E* __restrict__ p, const E* __restrict__ e,
     for (int k = 0; k < kRows; ++k) {
       const int64_t w = w0 + k * sweep;
       if (w < m) {
-        const T mkw = (T)mk[k];
-        E pay, ne;
-        int8_ef(pv[k], ev[k], mkw, sub(T(1), mkw), sc[k], pay, ne);
+        const T mkw = Cast<T>::of(mk[k]);
+        EP pay, ne;
+        int8_ef(pv[k], ev[k], mkw, sub(Cast<T>::of(1.0f), mkw), sc[k], pay, ne);
         payload[w * ncols + j] = pay;
         new_e[w * ncols + j] = ne;
       }
@@ -312,9 +355,11 @@ static int launch_absmax_warp(const void* x, void* out, int64_t m, int64_t n, vo
   return (int)cudaGetLastError();
 }
 
-// 16-byte vectors where every row of pending, err, payload and new_e
-// starts on a 16-byte boundary, elements otherwise
-template <typename T>
+// 16-byte tiles (float4s, double2s, or 8 bf16 elements with their 8 err
+// values in bf16 or f32) where every row of pending, err, payload and
+// new_e starts on a 16-byte boundary, elements otherwise. T is the pending
+// dtype, TE err's.
+template <typename T, typename TE = T>
 static int launch_quantize_ef(const void* p, const void* e, const void* mask, const void* scale,
                               void* payload, void* new_e, int64_t m, int64_t n, void* stream) {
   if (!tall_grid_ok(m, n)) return (int)cudaErrorInvalidValue;
@@ -322,18 +367,19 @@ static int launch_quantize_ef(const void* p, const void* e, const void* mask, co
   constexpr int64_t per_vec = 16 / sizeof(T);
   if (n % per_vec == 0 && aligned16(p) && aligned16(e) && aligned16(payload) &&
       aligned16(new_e)) {
-    using V = typename Vec16<T>::type;
+    using VP = typename Tile16<T, TE>::A;
+    using VE = typename Tile16<T, TE>::B;
     const int64_t nv = n / per_vec;
     const int shift = pow2_shift(nv, kThreads);
-    tall_quant_kernel<T, V, kAdvanceRows>
+    tall_quant_kernel<T, VP, VE, kAdvanceRows>
         <<<tall_grid(m, nv, shift, kAdvanceRows), kThreads, 0, s>>>(
-            (const V*)p, (const V*)e, (const float*)mask, (const float*)scale, (V*)payload,
-            (V*)new_e, m, nv, shift);
+            (const VP*)p, (const VE*)e, (const float*)mask, (const float*)scale, (VP*)payload,
+            (VP*)new_e, m, nv, shift);
   } else {
     const int shift = pow2_shift(n, kThreads);
-    tall_quant_kernel<T, T, kAdvanceRows>
+    tall_quant_kernel<T, T, TE, kAdvanceRows>
         <<<tall_grid(m, n, shift, kAdvanceRows), kThreads, 0, s>>>(
-            (const T*)p, (const T*)e, (const float*)mask, (const float*)scale, (T*)payload,
+            (const T*)p, (const TE*)e, (const float*)mask, (const float*)scale, (T*)payload,
             (T*)new_e, m, n, shift);
   }
   return (int)cudaGetLastError();
@@ -383,6 +429,39 @@ int quantize_ef_batched_f64(int device, const void* p, const void* e, const void
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
   return launch_quantize_ef<double>(p, e, mask, scale, payload, new_e, m, n, stream);
+}
+
+// B7a on a bf16 leaf (its max in f32, the partials and the result in
+// bf16), both designs; B7b on a bf16 pending leaf with err in bf16, and
+// in f32 (_bf16_f32: transport.init's err of f32 params)
+int absmax_batched_bf16(int device, const void* x, void* part, void* out, int64_t m, int64_t n,
+                        int64_t nchunks, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_absmax<bf16>(x, part, out, m, n, nchunks, stream);
+}
+
+int absmax_batched_warp_bf16(int device, const void* x, void* out, int64_t m, int64_t n,
+                             void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_absmax_warp<bf16>(x, out, m, n, stream);
+}
+
+int quantize_ef_batched_bf16(int device, const void* p, const void* e, const void* mask,
+                             const void* scale, void* payload, void* new_e, int64_t m, int64_t n,
+                             void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_quantize_ef<bf16>(p, e, mask, scale, payload, new_e, m, n, stream);
+}
+
+int quantize_ef_batched_bf16_f32(int device, const void* p, const void* e, const void* mask,
+                                 const void* scale, void* payload, void* new_e, int64_t m,
+                                 int64_t n, void* stream) {
+  const cudaError_t sel = cudaSetDevice(device);
+  if (sel != cudaSuccess) return (int)sel;
+  return launch_quantize_ef<bf16, float>(p, e, mask, scale, payload, new_e, m, n, stream);
 }
 
 }  // extern "C"

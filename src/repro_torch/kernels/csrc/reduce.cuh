@@ -16,7 +16,7 @@
 // reused), never after its last: a block that has one worker, as every
 // block has for M <= 65535, runs what it ran before the walk.
 //
-// bf16 banks (B1-B6, B8, B9 and the worker fold): each element operation
+// bf16 banks (B1-B11 and the worker fold): each element operation
 // on bf16 operands runs in f32 and rounds to bf16 (__float2bfloat16_rn), as
 // a PyTorch eager op on bf16 tensors does, never as a native bf16
 // instruction (which rounds the exact result once, where PyTorch rounds it
@@ -312,6 +312,39 @@ struct __align__(16) Pack {
   T v[kV];
 };
 
+// The 16-byte tiles of a tall pass (B4, B9, B7b, B10, B11): a bank row's
+// 16 bytes (A) and another operand's same elements (B): float4s,
+// double2s, or on a bf16 bank 8 elements, of the operand in bf16 or f32
+// (16 or 32 bytes)
+template <typename T, typename TB>
+struct Tile16 {
+  using A = Pack<T, 16 / sizeof(T)>;
+  using B = Pack<TB, 16 / sizeof(T)>;
+};
+template <>
+struct Tile16<float, float> {
+  using A = float4;
+  using B = float4;
+};
+template <>
+struct Tile16<double, double> {
+  using A = double2;
+  using B = double2;
+};
+
+// 16 bytes of a bf16 leaf (B7a's vector loads), its abs-max folded in f32
+// (exact)
+template <>
+struct Vec16<bf16> {
+  using type = Pack<bf16, 8>;
+  __device__ __forceinline__ static type zero() { return type{}; }
+  __device__ __forceinline__ static float absmax(float am, const type& v) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) am = maxval(am, absval(widen(v.v[i])));
+    return am;
+  }
+};
+
 // One operation of a pass that runs on elements (E = T) or on 16-byte
 // vectors of them (E = Vec16<T>::type, or a Pack on a bf16 bank): out =
 // op(a, mk, b) on each element, and the fold of |v| into a running
@@ -346,6 +379,13 @@ __device__ __forceinline__ float fold_abs(float am, float4 v) {
 }
 __device__ __forceinline__ double fold_abs(double am, double2 v) {
   return Vec16<double>::absmax(am, v);
+}
+// a bf16 leaf's abs-max runs in f32 (exact; B7a rounds it back once)
+__device__ __forceinline__ float fold_abs(float am, bf16 v) {
+  return maxval(am, absval(widen(v)));
+}
+__device__ __forceinline__ float fold_abs(float am, const Pack<bf16, 8>& v) {
+  return Vec16<bf16>::absmax(am, v);
 }
 
 // B9's bank advance of one element, the arithmetic mask form

@@ -4,7 +4,10 @@ Wraps ``csrc/lowrank_ef.cu`` (port of ``repro/kernels/lowrank_ef.py``).
 The PowerSGD factor products stay plain PyTorch (``opt.transport``); given
 the reconstruction, one pass per leaf computes
 ``mask*(pending - payload) + (1 - mask)*err``. CPU tensors run
-``ref.residual_ef_batched``; CUDA tensors launch the kernel.
+``ref.residual_ef_batched``; CUDA tensors launch the kernel. A bf16
+pending leaf takes the payload and err each in bf16 or f32
+(``common.EF_DTYPES``: the payload of f32 factors is f32), cast to bf16
+first; the result is in the pending dtype, each operation rounded to bf16.
 """
 from __future__ import annotations
 
@@ -13,8 +16,7 @@ import torch
 from . import ref
 from .build import launch
 from .censor import _ptr
-from .common import (check_leaves, check_worker_vector, count_launch,
-                     on_card)
+from .common import check_worker_vector, count_launch, ef_suffix, on_card
 
 
 def residual_ef_batched(pending: torch.Tensor, payload: torch.Tensor,
@@ -22,7 +24,7 @@ def residual_ef_batched(pending: torch.Tensor, payload: torch.Tensor,
                         ) -> torch.Tensor:
     """The next EF leaf of one (M, ...) leaf, from one read of each input."""
     name = "residual_ef_batched"
-    suffix = check_leaves(name, pending, payload, err)
+    suffix = ef_suffix(name, pending, payload, err)
     m, n = pending.shape[0], pending[0].numel()
     check_worker_vector(name, "mask", mask, m)
     if n == 0:

@@ -12,6 +12,12 @@ B7a, like B1, B8 and B5, has two designs (``common.sqnorm_path``): two
 passes, or one launch for rows of one reduction chunk on many workers;
 both give the same bits. B7b has one design for every shape, the tall
 tiling of B9 and B4 (a block covers up to 256 columns of several rows).
+
+A bf16 pending leaf runs too: B7a takes its max in f32 (exact) and
+returns it in bf16; B7b takes err in bf16 or f32 (``common.EF_DTYPES``),
+casts it to bf16, divides in f32 by the f32 scale it is given and rounds
+the payload and each operation of the EF blend to bf16, as eager PyTorch
+(and ``ref``) does.
 """
 from __future__ import annotations
 
@@ -20,9 +26,9 @@ import torch
 from . import ref
 from .build import ABSMAX_SPAN, launch
 from .censor import _ptr, warp_design
-from .common import (BLOCK_THREADS, KERNEL_DTYPES, check_leaves,
-                     check_worker_vector, count_launch, grid_chunks, on_card,
-                     sm_count, sqnorm_path)
+from .common import (BLOCK_THREADS, STAGED_DTYPES, check_bank, check_shapes,
+                     check_worker_vector, count_launch, ef_suffix,
+                     grid_chunks, on_card, sm_count, sqnorm_path)
 
 
 def absmax_batched(x: torch.Tensor) -> torch.Tensor:
@@ -34,7 +40,8 @@ def absmax_batched(x: torch.Tensor) -> torch.Tensor:
     give the same bits (which NaN a NaN row returns aside).
     """
     name = "absmax_batched"
-    check_leaves(name, x)
+    check_shapes(name, x)
+    check_bank(name, x, dtypes=STAGED_DTYPES)
     m, n = x.shape[0], x[0].numel()
     if n == 0:
         return torch.zeros((m,), dtype=x.dtype, device=x.device)
@@ -53,7 +60,7 @@ def absmax_on_card(x: torch.Tensor, path: str) -> torch.Tensor:
     the card's checks call both on one input."""
     name = "absmax_batched"
     m, n = x.shape[0], x[0].numel()
-    suffix = KERNEL_DTYPES[x.dtype]
+    suffix = STAGED_DTYPES[x.dtype]
     warp = warp_design(name, path, n)    # raises before any allocation
     out = torch.empty((m,), dtype=x.dtype, device=x.device)
     if warp:
@@ -79,10 +86,15 @@ def quantize_ef_batched(pending: torch.Tensor, err: torch.Tensor,
     of :func:`absmax_batched`). Returns ``(payload, new_err)``: the
     dequantized ``clip(rint(f32(p)/s), -127, 127)*s`` in the pending dtype,
     and ``mask*(p - payload) + (1 - mask)*err``; its ``new_err`` equals
-    B6's on the same operands.
+    B6's on the same operands. ``err`` is in the pending dtype, or in f32
+    on a bf16 pending leaf (``common.EF_DTYPES``); both outputs are in the
+    pending dtype. The kernel reads ``scale`` in f32 as the JAX kernel
+    does, where ``ref`` (as JAX's ``ref.py``) rounds it to the pending
+    dtype first: the two agree on ``int8_scale``'s scales of a bf16
+    abs-max, which bf16 holds exactly.
     """
     name = "quantize_ef_batched"
-    suffix = check_leaves(name, pending, err)
+    suffix = ef_suffix(name, pending, err)
     m, n = pending.shape[0], pending[0].numel()
     check_worker_vector(name, "mask", mask, m)
     check_worker_vector(name, "scale", scale, m)

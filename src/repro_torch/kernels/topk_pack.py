@@ -7,7 +7,10 @@ PyTorch), one pass per leaf emits the payload (kept entries verbatim,
 ``+0.0`` elsewhere: a select, so a kept ``-0.0`` survives) and the next EF
 leaf. The pass is tiled over workers and columns alike (B2's tall pass 1),
 so a bank of 10^5 narrow rows runs on the whole card. CPU tensors run
-``ref.select_pack_ef_batched``; CUDA tensors launch the kernel.
+``ref.select_pack_ef_batched``; CUDA tensors launch the kernel. A bf16
+pending leaf (keep in bf16 too) takes err in bf16 or f32
+(``common.EF_DTYPES``), cast to bf16 before the blend, whose operations
+each round to bf16.
 """
 from __future__ import annotations
 
@@ -16,8 +19,8 @@ import torch
 from . import ref
 from .build import launch
 from .censor import _ptr
-from .common import (check_leaves, check_worker_vector, count_launch,
-                     on_card)
+from .common import (check_shapes, check_worker_vector, count_launch,
+                     ef_suffix, on_card)
 
 
 def select_pack_ef_batched(pending: torch.Tensor, err: torch.Tensor,
@@ -25,9 +28,14 @@ def select_pack_ef_batched(pending: torch.Tensor, err: torch.Tensor,
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(payload, new_err)`` of one (M, ...) leaf from one read of each
     input: ``payload = where(keep != 0, pending, 0)`` and
-    ``new_err = mask*(pending - payload) + (1 - mask)*err``."""
+    ``new_err = mask*(pending - payload) + (1 - mask)*err``. ``keep`` is in
+    the pending dtype, ``err`` in it or in f32 on a bf16 pending leaf."""
     name = "select_pack_ef_batched"
-    suffix = check_leaves(name, pending, err, keep)
+    suffix = ef_suffix(name, pending, err)
+    check_shapes(name, pending, keep)
+    if keep.dtype != pending.dtype:
+        raise TypeError(f"{name}: keep must be in the pending dtype "
+                        f"{pending.dtype}, got {keep.dtype}")
     m, n = pending.shape[0], pending[0].numel()
     check_worker_vector(name, "mask", mask, m)
     if n == 0:

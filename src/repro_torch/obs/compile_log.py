@@ -8,6 +8,9 @@ call, so here each tick counts what the port really repeats:
   * ``kernels``   -- launches of each hand-written CUDA kernel (the live
     dict is ``kernels.common.LAUNCHES``; every kernel name is always
     present, at 0 until launched);
+  * ``launchers`` -- the same launches per C launcher, a kernel's design
+    and dtype build (``kernels.common.LAUNCHERS``, ticked by
+    ``kernels.build.launch``);
   * ``build``     -- ``nvcc`` builds of each kernel library
     (``kernels.build.build``);
   * ``simulator`` -- ``trajectory``: one tick a call (a run), where the

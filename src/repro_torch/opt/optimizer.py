@@ -17,12 +17,11 @@ Two backends:
     plain torch, its norms (B8), the transport's encode + EF tail (B7a +
     B7b for int8, B10 for top-k, B11 for low-rank), the bank advance (B9),
     the worker fold and B3. Both routes give the same bits. A bf16 bank
-    (``bank_dtype=torch.bfloat16`` or bf16 params) runs every dense route
-    (fused, staged, ``shard_step``, ``per_tensor``) and int8 fused; the
-    stateful transports off the fused route take f32 and f64 banks only
-    (B7a, B7b, B10 and B11 in bf16 are ROADMAP queue B). On CPU tensors
-    the kernel wrappers run their plain versions, so this backend also
-    runs, and is tested, on the CPU.
+    (``bank_dtype=torch.bfloat16`` or bf16 params) runs every route
+    (fused, staged, ``shard_step``, ``per_tensor``) of every transport; an
+    f16 bank is refused before any launch (the kernels' f16 builds are
+    ROADMAP queue B). On CPU tensors the kernel wrappers run their plain
+    versions, so this backend also runs, and is tested, on the CPU.
 
 ``shard_step`` is the client half of a sharded round (the staged kernels
 on ``cuda``, since the server half runs after the cross-shard fold), and
@@ -46,7 +45,7 @@ from ..core.util import tree_sqnorm, tree_stack_zeros, tree_sum_leading
 from ..kernels import censor as kernel_censor
 from ..kernels import fused_step as kernel_fused
 from ..kernels import ops as kernel_ops
-from ..kernels.common import KERNEL_DTYPES, STAGED_DTYPES
+from ..kernels.common import FUSED_DTYPES
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .api import OptState, ShardStepStats, StepStats, static_pos
 from .censor import Eq8Censor, NeverCensor
@@ -86,12 +85,10 @@ class ComposedOptimizer:
         stateless transport, and degenerates to the global path for
         eps1 = 0 and for any other censor).
       bank_dtype: optional dtype of the stale-gradient bank (bf16 halves
-        it). On ``cuda`` every dense route and the fused int8 one run f32,
-        f64 and bf16 params with a bank in their dtype, and f32 params with
-        a bf16 bank (``kernels.common.FUSED_DTYPES``); a sub-f32 bank
-        refuses int8 off the fused route, top-k and low-rank, and an f16
-        bank every route off the fused one, before any launch (ROADMAP
-        queue B).
+        it). On ``cuda`` every route runs f32, f64 and bf16 params with a
+        bank in their dtype, and f32 params with a bf16 bank
+        (``kernels.common.FUSED_DTYPES``); an f16 bank is refused before
+        any launch (ROADMAP queue B).
       backend: ``"reference"`` or ``"cuda"`` (see the module docstring).
     """
 
@@ -231,22 +228,21 @@ class ComposedOptimizer:
             return self._step_kernels(state, params, worker_grads)
         return self._step(state, params, worker_grads)
 
-    def _refuse_bank(self, bank, route: str, stateful: bool) -> None:
-        """On ``cuda`` a route off the fused one takes the banks its kernels
-        do: a stateful transport's (B7a, B7b, B10, B11) f32 and f64, a
-        dense one's (B4, B8, B9, the fold, B3) bf16 too. ``route`` names
-        one that ``bank`` falls outside, which raises here, before any
-        launch."""
-        allowed = KERNEL_DTYPES if stateful else STAGED_DTYPES
-        bad = sorted({str(x.dtype) for x in tree_leaves(bank)
-                      if x.dtype not in allowed})
+    def _refuse_bank(self, params, bank, route: str) -> None:
+        """On ``cuda`` a route off the fused one takes the (params, bank)
+        pairs its kernels do (B4, B8, B9, the fold, B3; B7a, B7b, B10, B11):
+        ``FUSED_DTYPES``' f32, f64, bf16 and f32 params on a bf16 bank.
+        ``route`` names one that a leaf falls outside, which raises here,
+        before any launch."""
+        bad = sorted({f"{p.dtype} params on a {h.dtype}" for p, h in zip(
+            tree_leaves(params), tree_leaves(bank))
+            if (p.dtype, h.dtype) not in FUSED_DTYPES})
         if bad:
-            takes = ("float32 and float64" if stateful
-                     else "float32, float64 and bfloat16")
             raise TypeError(
-                f"backend='cuda' runs {route} on {takes} banks, not on a "
-                f"{', '.join(bad)} one (other banks there are ROADMAP "
-                "queue B)")
+                f"backend='cuda' runs {route} on float32, float64 and "
+                "bfloat16 banks of params in their dtype, and on bfloat16 "
+                f"banks of float32 params, not {', '.join(bad)} bank (other "
+                "banks there are ROADMAP queue B)")
 
     def _step(self, state: OptState, params, worker_grads):
         pending = self._pending(state, worker_grads)
@@ -274,8 +270,8 @@ class ComposedOptimizer:
         fused = int8_fused or (fusion and not quantized)
         if not fused:
             self._refuse_bank(
-                state.ghat, f"{type(self.transport).__name__} off the fused "
-                "route", quantized)
+                params, state.ghat, f"{type(self.transport).__name__} off "
+                "the fused route")
         pending = scales = None
         if int8_fused:
             # sweep 1: sqnorms + abs-max from pending recomputed in
@@ -389,7 +385,7 @@ class ComposedOptimizer:
         kernels = self.backend == "cuda"
         quantized = self.transport.stateful
         if kernels:
-            self._refuse_bank(state.ghat, "shard_step", quantized)
+            self._refuse_bank(params, state.ghat, "shard_step")
         pending = None
         if kernels and not quantized:
             dsq = kernel_ops.tree_delta_sqnorms(worker_grads, state.ghat)
@@ -470,7 +466,8 @@ class ComposedOptimizer:
         eps1 = self.censor.eps1
         kernels = self.backend == "cuda"
         if kernels:
-            self._refuse_bank(state.ghat, "per_tensor granularity", False)
+            self._refuse_bank(params, state.ghat,
+                              "per_tensor granularity")
         pending = self._pending(state, worker_grads)
         leaves_d, treedef = tree_flatten(pending)
         leaves_t = tree_leaves(params)

@@ -297,12 +297,22 @@ def _orthonormalize(p: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in ``promote_types`` of the two, as ``jnp.matmul`` promotes
+    (``torch.matmul`` refuses mixed dtypes); one dtype passes unchanged."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def _power_iter_slice(mat: torch.Tensor, q: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """One PowerSGD step on one worker's matrixized leaf: ``mat`` (r, c),
-    ``q`` (c, rank). Returns (reconstruction ``P @ Q'^T``, ``Q'``)."""
-    p = _orthonormalize(mat @ q)
-    q_new = mat.T @ p
+    ``q`` (c, rank). Returns (reconstruction ``P @ Q'^T``, ``Q'``). Each
+    product runs in the promoted dtype of its operands, as in the JAX
+    package: a bf16 pending leaf of f32 params (a bf16 bank) meets an f32
+    factor, and P, Q' and the reconstruction come out in f32."""
+    p = _orthonormalize(_matmul(mat, q))
+    q_new = _matmul(mat.T, p)
     return p @ q_new.T, q_new
 
 

@@ -472,18 +472,23 @@ def test_init_honours_the_bank_dtype_on_cuda():
 
 
 #: the routes that stay closed on cuda: (bank dtype, opt.make keywords,
-#: how the step runs). The stateful transports off the fused route take f32
-#: and f64 banks only (B7a, B7b, B10 and B11 in bf16 are ROADMAP queue B);
-#: the dense routes that take bf16 banks refuse f16 ones ("staged",
-#: "per_tensor", "shard_step": bf16 runs there, see the test below)
+#: how the step runs, the params' shape). Every route off the fused one
+#: takes f32, f64 and bf16 banks (bf16 runs there: see the test below and
+#: tests/test_torch_stateful_bf16.py) and refuses an f16 one (the kernels'
+#: f16 builds are ROADMAP queue B). Low-rank runs a matrix leaf, so the
+#: reference half runs its factor products of an f16 pending leaf and f32
+#: factors in f32, as jnp.matmul promotes them
 CLOSED_ROUTES = {
-    "staged": (torch.float16, {}, "staged"),
-    "topk": (BF16, {"transport": "topk", "k": 3}, "step"),
-    "lowrank": (BF16, {"transport": "lowrank", "rank": 1}, "step"),
-    "per_tensor": (torch.float16, {"granularity": "per_tensor"}, "step"),
-    "shard_step": (torch.float16, {}, "shard_step"),
-    "int8_staged": (BF16, {"quantize": "int8"}, "staged"),
-    "int8_shard_step": (BF16, {"quantize": "int8"}, "shard_step"),
+    "staged": (torch.float16, {}, "staged", (8,)),
+    "topk": (torch.float16, {"transport": "topk", "k": 3}, "step", (8,)),
+    "lowrank": (torch.float16, {"transport": "lowrank", "rank": 1}, "step",
+                (2, 4)),
+    "per_tensor": (torch.float16, {"granularity": "per_tensor"}, "step",
+                   (8,)),
+    "shard_step": (torch.float16, {}, "shard_step", (8,)),
+    "int8_staged": (torch.float16, {"quantize": "int8"}, "staged", (8,)),
+    "int8_shard_step": (torch.float16, {"quantize": "int8"}, "shard_step",
+                        (8,)),
 }
 
 
@@ -505,11 +510,12 @@ def test_sub_f32_bank_off_the_fused_route_is_refused(route, monkeypatch):
     for name in ("censor_delta_sqnorm_batched", "sqnorm_batched",
                  "bank_advance", "censor_bank_advance"):
         monkeypatch.setattr(censor, name, lambda *a, **k: called.append(1))
-    bank, kw, how = CLOSED_ROUTES[route]
+    bank, kw, how, shape = CLOSED_ROUTES[route]
     o = opt.make("chb", 0.1, 3, eps1=1.0, bank_dtype=bank, backend="cuda",
                  **kw)
-    params = torch.ones(8)
-    grads = torch.randn((3, 8), generator=torch.Generator().manual_seed(0))
+    params = torch.ones(shape)
+    grads = torch.randn((3,) + shape,
+                        generator=torch.Generator().manual_seed(0))
     with pytest.raises(TypeError, match="ROADMAP queue B") as info:
         _run_route(o, how, params, grads)
     assert str(bank) in str(info.value)

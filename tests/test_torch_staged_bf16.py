@@ -276,12 +276,25 @@ def test_other_pairs_are_refused_before_any_launch(case):
 
 
 def test_dtype_tables():
-    """KERNEL_DTYPES stays the f32/f64 table of B7a, B7b, B10 and B11;
-    B8 and the fold take STAGED_DTYPES, B3, B4 and B9 FUSED_DTYPES."""
+    """KERNEL_DTYPES stays the f32/f64 table every kernel takes; B8, B7a and
+    the fold take STAGED_DTYPES, B3, B4 and B9 FUSED_DTYPES, B7b, B10 and
+    B11 EF_DTYPES (a bf16 pending leaf with err, and B11's payload, in
+    bf16 or f32)."""
     assert set(common.KERNEL_DTYPES) == {F32, F64}
     assert set(common.STAGED_DTYPES) == {F32, F64, BF16}
     assert common.fused_suffix("x", (torch.zeros(1),),
                                torch.zeros(1, dtype=BF16)) == "f32_bf16"
+    assert set(common.EF_DTYPES) == {"quantize_ef_batched",
+                                     "select_pack_ef_batched",
+                                     "residual_ef_batched"}
+    for table in common.EF_DTYPES.values():
+        assert {k[0] for k in table} == set(common.STAGED_DTYPES)
+        assert {k for k in table if k[0] != BF16} == {
+            (d,) * len(k) for k in table for d in common.KERNEL_DTYPES}
+    assert common.ef_suffix("residual_ef_batched", *(
+        torch.zeros(1, 2, dtype=d) for d in (BF16, F32, BF16))) \
+        == "bf16_f32_bf16"
+    assert common.EF_DTYPES["quantize_ef_batched"][(BF16, F32)] == "bf16_f32"
 
 
 H100_SMS = 132
