@@ -13,6 +13,7 @@ card.
         harsh [--m 100000] [--d 16] [--iters 5]
     python3 benchmarks_torch/step_profile.py --train dense int8 \
         [--iters 3] [--backend cuda reference]
+        [--arch chb-paper-lm-124m|qwen3-4b|gemma3-12b]
 
 Builds the full-width task of ``chip_smoke.py``'s phase 5 (edge quadratics
 at the parameter count of ``chb-paper-lm-124m``, M=4, f32, chb with
@@ -51,13 +52,17 @@ the PRNG's threefry hashes; ``fed.mesh/shard_step``;
 ``fed.mesh/fold_server``) and their share of the window.
 With ``--train``, it profiles scan-strategy training steps of
 chb-paper-lm-124m at full width, ``chip_smoke.py``'s phase train
-(TRAIN_TC: M = 4, 16 x 256 tokens a step, dense or int8 uploads): after a
+(TRAIN_TC: M = 4, 16 x 256 tokens a step, dense or int8 uploads), or with
+``--arch qwen3-4b`` or ``gemma3-12b`` those of phase train_bf16 (bf16 at
+the published widths, the depth and batch of TRAIN_BF16: qwen3-4b's 16
+layers dense, 10 int8; gemma3-12b's one superblock, 4 x 2048 tokens,
+dense only): after a
 warm-up step, ``--iters`` steps queued back to back between two CUDA
 events, ``--iters`` steps as ``train()`` runs them (the batch made and
 the metrics read to the host around each step; ``train_loop_ms``: events
 around each step alone), then ``--iters`` traced steps, on each backend,
 one JSON line each, with the
-device time also summed by group (f32 GEMMs, B14, the flash backward,
+device time also summed by group (the GEMMs, B14, the flash backward,
 the optimizer's kernels B1/B2 or B5/B6, the rest) and the idle share
 against the untraced steps' wall (the profiler's own host time stretches
 the traced window).
@@ -87,8 +92,9 @@ from repro_torch.kernels import fused_step  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 from chip_smoke import (EDGE_PATHS, FULL_ALPHA, FULL_RANK, LM_ARCH,  # noqa: E402
-                        MESH_SCENARIOS, MESH_SEED, SERVE_RUNS, TRAIN_TC,
-                        edge_scenario, lm_tree_task)
+                        MESH_SCENARIOS, MESH_SEED, SERVE_RUNS, TRAIN_BF16,
+                        TRAIN_TC, edge_scenario, lm_tree_task,
+                        train_bf16_config)
 
 TRANSPORTS = ("dense", "int8", "topk", "lowrank", "dense_staged",
               "int8_staged", "per_tensor")
@@ -157,10 +163,12 @@ def _summary(prof, wall: float, iters: int, spans=(), **meta) -> dict:
                           for k, ms, n in rows[:14]]}
 
 
-# device-time groups of a training step, by kernel name (first match)
+# device-time groups of a training step, by kernel name (first match):
+# B14's f32 (flash_fwd) and bf16 (flash_tc) designs; cuBLAS's GEMMs (f32,
+# bf16: nvjet)
 TRAIN_GROUPS = (("flash_backward", ("flash_bwd",)),
-                ("flash_forward", ("flash_fwd",)),
-                ("gemm_f32", ("gemm", "xmma", "cutlass")),
+                ("flash_forward", ("flash_fwd", "flash_tc")),
+                ("gemm", ("gemm", "xmma", "cutlass", "nvjet")),
                 ("optimizer_kernels", ("delta_sqnorm", "finish_partials",
                                        "fused_dense_step", "fused_int8_step",
                                        "int8_stats", "fold_columns")))
@@ -190,11 +198,12 @@ def _groups(prof, groups=TRAIN_GROUPS) -> dict:
     return out
 
 
-def profile_train(uploads: str, backend: str, iters: int) -> dict:
-    """``iters`` traced scan steps of chb-paper-lm-124m at full width
-    (``train``'s pieces: ``make_optimizer``, ``init_params``,
-    ``init_scan_state``, ``make_scan_step``, ``batch_iterator``) after one
-    warm-up step."""
+def profile_train(uploads: str, backend: str, iters: int,
+                  arch: str = LM_ARCH) -> dict:
+    """``iters`` traced scan steps of chb-paper-lm-124m at full width, or of
+    a TRAIN_BF16 config at its cut (``train``'s pieces:
+    ``make_optimizer``, ``init_params``, ``init_scan_state``,
+    ``make_scan_step``, ``batch_iterator``) after one warm-up step."""
     from repro_torch.configs import get
     from repro_torch.core import distributed
     from repro_torch.data import lm_data
@@ -203,9 +212,15 @@ def profile_train(uploads: str, backend: str, iters: int) -> dict:
     from repro_torch.random import PRNGKey
     from repro_torch.train import trainer
     full_f32()
-    tc = trainer.TrainConfig(**TRAIN_TC, quantize=None if uploads == "dense"
-                             else uploads)
-    cfg = get(LM_ARCH)
+    quantize = None if uploads == "dense" else uploads
+    if arch == LM_ARCH:
+        cfg, tcfg = get(arch), TRAIN_TC
+    else:
+        spec = TRAIN_BF16[arch]
+        run = spec["runs"]["chb_int8" if quantize else "chb"]
+        cfg = train_bf16_config(arch, num_layers=run["num_layers"])
+        tcfg = {**TRAIN_TC, **spec["tc"]}
+    tc = trainer.TrainConfig(**tcfg, quantize=quantize)
     o = trainer.make_optimizer(tc)
     params = model.init_params(PRNGKey(tc.seed, device="cuda"), cfg)
     state = distributed.init_scan_state(o, params)
@@ -255,7 +270,7 @@ def profile_train(uploads: str, backend: str, iters: int) -> dict:
         end.record()
         torch.cuda.synchronize()
     out = _summary(prof, start.elapsed_time(end), iters, train=uploads,
-                   backend=backend,
+                   backend=backend, arch=arch, layers=cfg.num_layers,
                    tokens_per_step=tc.global_batch * tc.seq_len)
     out["by_group"] = _groups(prof)
     out["unprofiled_per_iter_ms"] = unprofiled / iters
@@ -412,15 +427,16 @@ def main() -> None:
     ap.add_argument("--serve", nargs="+", choices=("default", "long"),
                     help="profile serving --arch instead")
     ap.add_argument("--arch", default=LM_ARCH,
-                    help="the config --serve serves at full width")
+                    help="the config --serve serves at full width, or "
+                    "--train trains (chb-paper-lm-124m, or a TRAIN_BF16 "
+                    "config at its cut)")
     ap.add_argument("--edge", nargs="+", choices=tuple(EDGE_PATHS),
                     help="profile fed.run_edge's rounds instead")
     ap.add_argument("--mesh", nargs="+", choices=tuple(MESH_SCENARIOS),
                     help="profile fed.run_mesh's rounds instead (at --m "
                     "clients and --d)")
     ap.add_argument("--train", nargs="+", choices=("dense", "int8"),
-                    help="profile training chb-paper-lm-124m's steps "
-                    "instead")
+                    help="profile training --arch's steps instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: needs a CUDA card")
@@ -430,7 +446,8 @@ def main() -> None:
         for uploads in args.train:
             for backend in args.backend:
                 print(json.dumps(profile_train(uploads, backend,
-                                               args.iters)), flush=True)
+                                               args.iters, args.arch)),
+                      flush=True)
                 torch.cuda.empty_cache()
         return
     if args.mesh:

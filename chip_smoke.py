@@ -79,7 +79,13 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  80, 128, 256}, causal, windows (16 on 64-row tiles),
                  misaligned views, training's (4, 12, 256, 64) and L =
                  2048) against its plain version and an f64 version
-                 (ATTN_FACTOR), its bits the same over three calls.
+                 (ATTN_FACTOR), its bits the same over three calls; its
+                 bf16 build (FLASH_BWD_BF16_CASES: qwen3-4b's and
+                 gemma3-12b's training shapes, causal and at window 1024,
+                 then the tile edges) from B14 bf16's output and lse,
+                 each element within bf16_bwd_excess's bound of the f64
+                 function of the same residuals and of its bf16 plain
+                 version, its bits the same over three calls.
   4. golden   -- ``simulator.run`` of chb on the paper's linreg task
                  (m=5, n_per=30, d=20, seed=0) for 60 iterations, dense,
                  int8, top-k (k=8) and low-rank (rank 2), f64 and f32,
@@ -194,6 +200,22 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  equal (each eq.-(8) decision's margin reported), params
                  and ghat within TRAIN_RTOL of the leaf's largest value.
                  Ms a step, tokens a second, peak device memory.
+  train_bf16  -- ``train.trainer.train`` of qwen3-4b and gemma3-12b in
+                 bf16 at their published widths, depth cut to fit the
+                 card (TRAIN_BF16: qwen3-4b at 16 of 36 layers, 3 chb
+                 steps of 16 x 256 tokens, and at 10 layers one int8
+                 step; gemma3-12b at one SSSSSA superblock, 2 chb steps
+                 of 4 x 2048 tokens), params and bank in bf16: every step
+                 through B14 bf16 with its lse and flash_attention_bwd_bf16
+                 once a layer a worker and B1/B2 (B5/B6) bf16 once a
+                 leaf, counted per C launcher; ms a step, tokens a
+                 second, peak memory, losses, uploads, one JSON line a
+                 run. Then (_bf16_lockstep) one state's first three
+                 steps on both backends at 4 and 2 layers, the first two
+                 sending every worker and the third (eps1_scale 64)
+                 censoring every one: each decision's margin above
+                 dsq_bound, masks and counters equal, ghat' and theta'
+                 within their derived bounds.
   train_cli   -- ``python -m repro_torch.launch.train --steps 2`` as a
                  subprocess (full width on the card): exit 0 and one
                  finite loss line a logged step.
@@ -221,7 +243,11 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  designs of B8 and B7a and the fold's tall design at
                  the fed mesh's shape) and B14's and
                  B13's bf16 builds at serve_bf16's serve_long shapes beside
-                 bf16 SDPA, bound at the bf16 tensor-core rate.
+                 bf16 SDPA, bound at the bf16 tensor-core rate; the
+                 bf16 flash backward at phase train_bf16's three
+                 attention shapes beside bf16 SDPA's backward (bound: the
+                 band's five products at the bf16 tensor-core rate), and
+                 B14 bf16 with and without its lse there.
 
 The last line is ``{"ok": true, "device": {...}}``. Every failed check
 raises, so the script exits non-zero and prints no last line; without
@@ -1930,10 +1956,13 @@ def _lse_f64(q, k, causal, window):
     return torch.logsumexp(torch.where(m, s, -1e30), dim=-1).reshape(b, h, lq)
 
 
-def flash_bwd_f64(q, k, v, do, causal, window):
+def flash_bwd_f64(q, k, v, do, causal, window, o=None):
     """The flash backward's function (``repro/models/flash.py``'s custom
     VJP) in f64: (dq, dk, dv). The probabilities are exp(s - lse), so a row
-    with no valid key has p = 1 on every key, as in flash.py."""
+    with no valid key has p = 1 on every key, as in flash.py. ``o``, where
+    given, is the forward output the backward reads in D = sum dO o (the
+    custom VJP's residual: in bf16, B14's rounded output); else the exact
+    one."""
     b, h, lq, d = q.shape
     kh, s_len = k.shape[1], k.shape[2]
     g, scale = h // kh, d ** -0.5
@@ -1950,9 +1979,12 @@ def flash_bwd_f64(q, k, v, do, causal, window):
         m = m & (kpos > qpos - window)
     s = torch.where(m, s, -1e30)
     lse = torch.logsumexp(s, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", torch.softmax(s, dim=-1), v64)
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("bkgqd,bksd->bkgqs", do5, v64)
+    if o is None:
+        o = torch.einsum("bkgqs,bksd->bkgqd", torch.softmax(s, dim=-1), v64)
+    else:
+        o = o.double().reshape(b, kh, g, lq, d)
     ds = p * (dp - torch.sum(do5 * o, dim=-1)[..., None])
     dq = scale * torch.einsum("bkgqs,bksd->bkgqd", ds, k64)
     dk = scale * torch.einsum("bkgqs,bkgqd->bksd", ds, q5)
@@ -2105,6 +2137,35 @@ FLASH_BWD_CASES = [
     (1, 4, 2, 150, 100, 64, True, 20, 0),
     (1, 4, 2, 97, 97, 33, True, 16, 1),
 ]
+# the flash backward in bf16 (flash_attention_bwd_bf16), the same tuples:
+# first training's two shapes, one worker's chunk of each phase train_bf16
+# run (qwen3-4b: 4 x 256 tokens, 32 query heads over 8 kv heads of 128,
+# causal; gemma3-12b: 1 x 2048 tokens, 16 over 8 of 256, causal, and its
+# "S" layers' window 1024); then the key-tile design's edges as the f32
+# cases have them: L one short of and one past its 64-row and 32-key tiles,
+# G 1, 4 and 6, a window of 16 on 64-row tiles, rows with no valid key in a
+# tile that also holds valid ones, Lq != S, non-causal, d 72 (16-byte loads
+# of 8, zero-filled to 128) and 256, d 33 and d 128 one element off their
+# storage's alignment (the element loads)
+FLASH_BWD_BF16_CASES = [
+    (4, 32, 8, 256, 256, 128, True, None, 0),
+    (1, 16, 8, 2048, 2048, 256, True, None, 0),
+    (1, 16, 8, 2048, 2048, 256, True, 1024, 0),
+    (1, 4, 2, 63, 63, 64, True, None, 0),
+    (1, 4, 2, 65, 65, 64, True, None, 0),
+    (1, 4, 2, 129, 95, 64, True, None, 0),
+    (2, 6, 6, 100, 100, 64, True, None, 0),
+    (1, 8, 2, 100, 100, 64, True, None, 0),
+    (1, 12, 2, 100, 100, 64, True, None, 0),
+    (1, 4, 2, 200, 200, 64, True, 16, 0),
+    (1, 4, 2, 150, 100, 64, True, 20, 0),
+    (1, 4, 2, 31, 33, 64, False, None, 0),
+    (1, 4, 2, 33, 33, 128, True, None, 0),
+    (1, 4, 2, 100, 160, 72, False, 20, 0),
+    (1, 2, 2, 33, 31, 256, True, None, 0),
+    (1, 4, 2, 97, 97, 33, True, 16, 1),
+    (2, 4, 2, 130, 130, 128, True, None, 1),
+]
 SINGLE_PAIRS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
                 (torch.float64, torch.float32), (torch.float32, torch.bfloat16),
                 (torch.bfloat16, torch.bfloat16)]
@@ -2195,6 +2256,9 @@ def phase_attention_kernels(device, max_err) -> None:
     max_err["flash_attention_bwd"] = 0.0
     for case in FLASH_BWD_CASES:
         worst.update(_check_flash_bwd(case, randn, max_err))
+    bwd_bf16 = {}
+    for case in FLASH_BWD_BF16_CASES:
+        bwd_bf16.update(_check_flash_bwd_bf16(case, randn))
     single = 0
     for n in (1, 127, 2 ** 20 + 17):
         for dg, dh in SINGLE_PAIRS:
@@ -2226,6 +2290,13 @@ def phase_attention_kernels(device, max_err) -> None:
           "flash_cases_cp_async": async_cases,
           "flash_cases_bf16_16_byte": tc_cases, "flash_lse_cases": lse_cases,
           "flash_bwd_cases": len(FLASH_BWD_CASES),
+          "flash_bwd_bf16_cases": len(FLASH_BWD_BF16_CASES),
+          "flash_bwd_bf16_rule": "each element within half a bf16 ulp of "
+          f"the f64 value plus {ATTN_FACTOR} x the f32 plain version's max "
+          "error, and within one bf16 ulp of the bf16 plain version plus "
+          f"{ATTN_FACTOR + 1} x it (+ {ATTN_FLOOR})",
+          "flash_bwd_bf16_worst": max(bwd_bf16.values()),
+          "flash_bwd_bf16_errors": bwd_bf16,
           "decode_cases": len(DECODE_CASES) + 1, "single_tensor_cases": single,
           "rule": f"attention: error vs f64 <= {ATTN_FACTOR} x plain f32's "
           f"+ {ATTN_FLOOR}, over the tensor and (bf16) each row; B12a rel "
@@ -2268,6 +2339,86 @@ def _check_flash_bwd(case, randn, max_err) -> dict:
         out[f"{tag} {name}"] = _attn_check(g, p_, x, f"{tag} {name}")
         max_err["flash_attention_bwd"] = max(max_err["flash_attention_bwd"],
                                              max_diff(g, p_))
+    for _ in range(2):
+        again = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        check(all(same_bits(a, b_) for a, b_ in zip(got, again)),
+              f"{tag}: the backward is not repeatable")
+    return out
+
+
+def bf16_ulps(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at each |x| (bf16_ulp elementwise; at
+    2^-126 and below, there), in f64."""
+    x = x.double().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+def bf16_bwd_excess(got, plain, plain32, exact) -> float:
+    """The bf16 backward's rule on one output (dq, dk or dv): with err32 the
+    f32 plain version's max error against the f64 value (the plain version
+    on the bf16 inputs widened to f32, before its one rounding), each
+    element of the kernel's output within half a bf16 ulp of the f64
+    value plus ATTN_FACTOR x err32 + ATTN_FLOOR (its f32 sum, in another
+    order, may cost a few times the plain version's rounding; then one
+    rounding to bf16), and within one bf16 ulp of the bf16 plain version
+    plus (ATTN_FACTOR + 1) x err32 + ATTN_FLOOR (both f32 sums within
+    their bounds of the f64 value, each rounded once). Returns the largest
+    ratio of an element's distance to its bound (at most 1 passes)."""
+    err32 = float((plain32.double() - exact).abs().max())
+    g = got.double()
+    to_exact = (g - exact).abs() / (
+        0.5 * bf16_ulps(torch.maximum(g.abs(), exact.abs()))
+        + ATTN_FACTOR * err32 + ATTN_FLOOR)
+    p = plain.double()
+    to_plain = (g - p).abs() / (
+        bf16_ulps(torch.maximum(g.abs(), p.abs()))
+        + (ATTN_FACTOR + 1) * err32 + ATTN_FLOOR)
+    worst = max(float(to_exact.max()), float(to_plain.max()))
+    return worst if math.isfinite(worst) else math.inf
+
+
+def _check_flash_bwd_bf16(case, randn) -> dict:
+    """``flash_attention_bwd_bf16`` on one case from B14 bf16's output and
+    log-sum-exp, against its plain version and the f64 function of the same
+    residuals (bf16_bwd_excess), its outputs bf16 in the operands' strides,
+    its bits the same over three calls, one launch of the bf16 launcher a
+    call, its 16-byte loads where ``tc_copy_ok`` holds. Returns the rule's
+    worst ratio by tag."""
+    from repro_torch.kernels import common, flash_attention, flash_backward
+    from repro_torch.kernels import ref
+    b, h, kh, lq, s_len, d, causal, window, off = case
+    bf = torch.bfloat16
+    tag = f"flash bwd bf16 b={b} h={h} kh={kh} lq={lq} s={s_len} d={d} " \
+          f"causal={causal} window={window} offset={off}"
+
+    def view(n, x):
+        flat = randn(off + b * n * x * d).to(bf)
+        return flat[off:].view(b, n, x, d).transpose(1, 2)
+
+    q, k, v, do = view(lq, h), view(s_len, kh), view(s_len, kh), view(lq, h)
+    vec = flash_attention.tc_copy_ok(q, k, v, do)
+    check(vec == (d % 8 == 0 and off == 0), f"{tag}: 16-byte loads {vec}")
+    kw = {"causal": causal, "window": window}
+    o, lse = flash_attention.flash_attention(q, k, v, return_lse=True, **kw)
+    check(o.dtype == bf and lse.dtype == torch.float32, f"{tag}: B14")
+    before = dict(common.LAUNCHERS)
+    got = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    check({n: c - before.get(n, 0) for n, c in common.LAUNCHERS.items()
+           if c != before.get(n, 0)} == {"flash_attention_bwd_bf16": 1},
+          f"{tag}: launches")
+    plain = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    plain32 = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                      o.float(), lse, do.float(), **kw)
+    exact = flash_bwd_f64(q, k, v, do, causal, window, o=o)
+    out = {}
+    for name, g, p_, p32, x, like in zip(("dq", "dk", "dv"), got, plain,
+                                         plain32, exact, (q, k, v)):
+        check(g.dtype == bf and g.shape == like.shape
+              and g.stride() == like.stride(), f"{tag}: {name} layout")
+        out[f"{tag} {name}"] = bf16_bwd_excess(g, p_, p32, x)
+        check(out[f"{tag} {name}"] <= 1.0, f"{tag} {name}: "
+              f"{out[f'{tag} {name}']} of the bf16 rule's bound")
+    del plain, plain32, exact
     for _ in range(2):
         again = flash_backward.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         check(all(same_bits(a, b_) for a, b_ in zip(got, again)),
@@ -4019,7 +4170,7 @@ class _StepWatch:
 
     def __init__(self, distributed):
         self.dist = distributed
-        self.events, self.launches = [], []
+        self.events, self.launches, self.launchers = [], [], []
 
     def __enter__(self):
         from repro_torch.kernels import common
@@ -4030,6 +4181,7 @@ class _StepWatch:
 
             def watched(*args):
                 before = dict(common.LAUNCHES)
+                before_l = dict(common.LAUNCHERS)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -4038,6 +4190,10 @@ class _StepWatch:
                 self.events.append((start, end))
                 self.launches.append({k: common.LAUNCHES[k] - before[k]
                                       for k in before})
+                self.launchers.append(
+                    {k: c - before_l.get(k, 0)
+                     for k, c in common.LAUNCHERS.items()
+                     if c != before_l.get(k, 0)})
                 return out
             return watched
 
@@ -4217,6 +4373,376 @@ def phase_train(device) -> dict:
           "tokens_per_step": tokens, "config": TRAIN_TC,
           "rtol": TRAIN_RTOL, "tf32": torch.backends.cuda.matmul.allow_tf32,
           **out, "cuda_vs_reference": compare})
+    return launches
+
+
+class _DsqWatch:
+    """Records each eq.-(8) decision's (dsq, threshold eps1 * ssq) and,
+    wrapping ``core.distributed._worker_grads``, the norm of the
+    difference between two backends' eq.-(8) deltas of each worker,
+    ||bf16(g_a - ghat) - bf16(g_b - ghat)||: the first call of a lockstep
+    step keeps its gradient banks, the second measures against them and
+    drops them. Reads to the host inside the step: untimed steps only."""
+
+    def __init__(self, distributed):
+        self.dist = distributed
+        self.decisions, self.delta_diff, self.kept = [], None, None
+
+    def __enter__(self):
+        from repro_torch.opt import censor
+        self.censor, self.saved_mask = censor, censor.transmit_mask
+        self.saved_grads = self.dist._worker_grads
+
+        def decide_watched(dsq, ssq, eps1):
+            self.decisions.append(([float(x) for x in dsq],
+                                   eps1 * float(ssq)))
+            return self.saved_mask(dsq, ssq, eps1)
+
+        def grads_watched(loss_fn, leaves, treedef, batch, banks):
+            loss_sum, grads = self.saved_grads(loss_fn, leaves, treedef,
+                                               batch, banks)
+            if self.kept is None:
+                self.kept = grads
+                return loss_sum, grads
+            sq = [0.0] * banks[0].shape[0]
+            for ga, gb, h in zip(self.kept, grads, banks):
+                fa, fb, fh = (x.reshape(x.shape[0], -1) for x in (ga, gb, h))
+                for s in _chunks(fh.shape[1]):
+                    for m in range(len(sq)):
+                        # bf16 - bf16 in PyTorch: f32, one rounding (B1's
+                        # delta)
+                        diff = (fa[m, s] - fh[m, s]).float() \
+                            - (fb[m, s] - fh[m, s]).float()
+                        sq[m] += float(torch.sum(diff * diff,
+                                                 dtype=torch.float64))
+            self.delta_diff, self.kept = [math.sqrt(x) for x in sq], None
+            return loss_sum, grads
+
+        censor.transmit_mask = decide_watched
+        self.dist._worker_grads = grads_watched
+        return self
+
+    def __exit__(self, *exc):
+        self.censor.transmit_mask = self.saved_mask
+        self.dist._worker_grads = self.saved_grads
+        self.kept = None
+        return False
+
+
+def _chunks(n: int, size: int = 1 << 24):
+    """Slices of [0, n) of ``size`` elements: a leaf's f32 temporaries a
+    chunk at a time (a bf16 leaf of 10^9 elements would need 4 GB each)."""
+    return [slice(i, min(i + size, n)) for i in range(0, n, size)]
+
+
+def dsq_bound(dsq: float, e: float) -> float:
+    """The most that two computations of one worker's eq.-(8) norm can
+    differ by when one is ||d_b||^2 = dsq and their deltas differ by e =
+    ||d_a - d_b||: | ||d_a||^2 - ||d_b||^2 | <= e (2 ||d_b|| + e), plus
+    each f32 sum's own SQNORM_RTOL."""
+    return e * (2 * math.sqrt(dsq) + e) + 2 * SQNORM_RTOL * dsq
+
+
+# phase train_bf16: the dense bf16 configs trained at their published
+# widths (d, heads, head dim, d_ff, vocab; tied embeddings) through B14
+# bf16 with its log-sum-exp, flash_attention_bwd_bf16 and the bf16 CHB
+# step (B1/B2 bf16; int8: B5/B6 bf16), init_params(PRNGKey(0)) in bf16,
+# the bank in the params' dtype (core.distributed.init_scan_state, as the
+# JAX package's makes it), TRAIN_TC but for the batch. Depth is cut to fit
+# the card's 80 GB: a step holds params, prev_params, the (M, ...) bank
+# and gradient bank and, while the fused step runs out of place, the new
+# bank, the f32 worker sum and the new params: 17 copies of the weights in
+# bf16 (dense, M = 4), 25 with int8's err and new err. qwen3-4b: 16 of 36
+# layers for chb (2,003,851,776 parameters; 62.75 GiB at peak on an H100
+# 80GB HBM3), 10 for the int8 step (1,398,266,880; at 8 layers its peak
+# was 56.45 GiB, 23.6 copies, so 16 layers would need about 94 GB),
+# TRAIN_TC's 16 x 256 tokens; gemma3-12b: one "SSSSSA" superblock, 6 of 48 layers
+# (1,997,590,272), 4 x 2048 tokens, so that its "S" layers' 1024-key
+# window masks. The parameter counts are the JAX package's param_count of
+# the cut configs (tests/test_torch_train_bf16.py).
+TRAIN_BF16 = {
+    "qwen3-4b": {"tc": {}, "runs": {
+        "chb": {"num_layers": 16, "params": 2_003_851_776, "steps": 3},
+        "chb_int8": {"num_layers": 10, "params": 1_398_266_880, "steps": 1,
+                     "quantize": "int8"}}},
+    "gemma3-12b": {"tc": {"global_batch": 4, "seq_len": 2048}, "runs": {
+        "chb": {"num_layers": 6, "params": 1_997_590_272, "steps": 2}}},
+}
+# cuda against reference from one state (the first step, then the second
+# from the cuda backend's state), both on the card: the same widths cut
+# shallower, since two steps' outputs, the input state and both backends'
+# gradient banks (_DsqWatch) are alive at once (about 22 copies of the
+# weights): qwen3-4b at 4 layers, gemma3-12b at one "S" and one "A" layer.
+# At these widths the workers' dsq / (eps1 ssq) lie within a few percent
+# of each other, and the backends' deltas differ by about as much (at
+# TRAIN_TC's eps1_scale 8, qwen3-4b's second step left the four workers
+# margins |dsq - eps1 ssq| of 1.6 to 4.1 against dsq_bounds of 3.9 to 4.1
+# on an H100): no eps1 splits them with room to spare, so each lockstep
+# step runs at its own eps1_scale (TRAIN_BF16_LOCKSTEP_EPS1_SCALES), where
+# every decision clears its bound: step 0 sends every worker (ssq is 0),
+# step 1 at a quarter of TRAIN_TC's scale sends every worker (dsq near 4
+# eps1 ssq), step 2 at 8 times it censors every worker (dsq near eps1
+# ssq / 8), so both branches of the bf16 step (a sent worker's ghat' is its
+# gradient; a censored one's keeps its ghat and its counter) are held
+# against reference; the main runs censor at eps1_scale 8
+TRAIN_BF16_LOCKSTEP_EPS1_SCALES = (2.0, 2.0, 64.0)
+TRAIN_BF16_LOCKSTEP = {
+    "qwen3-4b": {"num_layers": 4},
+    "gemma3-12b": {"num_layers": 2, "layer_pattern": "SA", "scan_period": 2},
+}
+# the bank's bound between the backends, in bf16 ulps of each leaf's
+# largest |ghat'|: BASE + one a layer. ghat' is each transmitting worker's
+# bf16 gradient; the backends part only in the attention (B14 and the
+# backward against their blocked plain versions), whose outputs may round
+# to the other bf16 neighbour, and the cotangent carries such flips
+# through every layer of the backward. tests/test_torch_train_bf16.py
+# measures the same carry between the port and the JAX package (every op,
+# not only the attention) at 2 and 4 layers: at most 4.5 ulps, within its
+# bound of 4 + one a layer, which this takes over
+TRAIN_BF16_GHAT_ULPS_BASE = 4
+# the backends' losses (f32 means of per-token terms from bf16 logits)
+# within this share of the loss: one bf16 ulp relative
+TRAIN_BF16_LOSS_RTOL = 2.0 ** -8
+
+
+def train_bf16_config(arch: str, **cut):
+    """``arch``'s config with its depth cut (``cut``: num_layers, and where
+    the pattern changes layer_pattern and scan_period), widths as
+    published."""
+    import dataclasses
+    return dataclasses.replace(get_config(arch), **cut).validate()
+
+
+def _bf16_lockstep(arch, cfg, tc, device,
+                   scales=TRAIN_BF16_LOCKSTEP_EPS1_SCALES) -> dict:
+    """One state's first step on both backends, then each later step from
+    the cuda backend's state, step t at eps1_scale ``scales[t]``: each worker's eq.-(8) margin
+    |dsq - eps1 ssq| above dsq_bound of its delta difference (asserted),
+    then masks, transmitted and counters equal, and over the steps at
+    least one sent and one censored decision compared; each leaf of ghat' within
+    (TRAIN_BF16_GHAT_ULPS_BASE + layers) bf16 ulps of its largest |ghat'|,
+    and each element of theta' within BF16_EQ4_UNITS bf16 unit roundoffs
+    of the magnitudes of eq. (4)'s terms (B2 runs eq. (4) in f32 and rounds
+    once, the reference backend rounds each of its operations to bf16:
+    Lockstep's rule) plus alpha M times the bank's bound (the worker sums
+    differ by at most M times it); losses within TRAIN_BF16_LOSS_RTOL."""
+    from repro_torch.core import distributed
+    from repro_torch.data import lm_data
+    from repro_torch.models import model
+    from repro_torch.train import trainer
+    import dataclasses
+    opts = {e: trainer.make_optimizer(dataclasses.replace(tc, eps1_scale=e))
+            for e in scales}
+    o = opts[scales[0]]
+    params0 = model.init_params(PRNGKey(tc.seed, device=device), cfg)
+    state0 = distributed.init_scan_state(o, params0)
+    data = lm_data.batch_iterator(cfg, global_batch=tc.global_batch,
+                                  seq_len=tc.seq_len,
+                                  num_workers=tc.num_workers, seed=tc.seed,
+                                  device=device)
+    steps = {(e, backend): distributed.make_scan_step(
+        o_e, lambda p, b, be=backend: model.train_loss(
+            p, cfg, b, remat=tc.remat, backend=be)[0], backend=backend)
+        for e, o_e in opts.items() for backend in ("cuda", "reference")}
+    ulps = TRAIN_BF16_GHAT_ULPS_BASE + cfg.num_layers
+    out, state_in = {}, (params0, state0)
+    sent = censored = 0
+    del params0, state0
+    for t, e in enumerate(scales):
+        theta_in, prev_in = state_in[0], state_in[1].prev_params
+        batch = next(data)
+        with _DsqWatch(distributed) as watch:
+            out_c = steps[e, "cuda"](*state_in, batch)
+            out_r = steps[e, "reference"](*state_in, batch)
+        (p_c, s_c, m_c), (p_r, s_r, m_r) = out_c, out_r
+        (dsq_c, thr), (dsq_r, thr_r) = watch.decisions
+        check(thr == thr_r and watch.delta_diff is not None,
+              f"train_bf16 {arch} step {t}: thresholds {thr} {thr_r}")
+        bounds = [dsq_bound(x, e) for x, e in zip(dsq_r, watch.delta_diff)]
+        margins = [abs(x - thr) for x in dsq_r]
+        check(all(mg > bd for mg, bd in zip(margins, bounds)),
+              f"train_bf16 {arch} step {t}: a decision too close to call: "
+              f"margins {margins}, bounds {bounds}, dsq {dsq_r}, threshold "
+              f"{thr}")
+        check(torch.equal(s_c.comm.uplink_count, s_r.comm.uplink_count)
+              and s_c.comm.uplink_bytes_exact()
+              == s_r.comm.uplink_bytes_exact()
+              and float(m_c["transmitted"]) == float(m_r["transmitted"]),
+              f"train_bf16 {arch} step {t}: masks or counters differ: "
+              f"{s_c.comm.uplink_count.tolist()} "
+              f"{s_r.comm.uplink_count.tolist()}")
+        worst = {"ghat": 0.0, "params": 0.0}
+        for a, b_, pa, pb, t_, tp in zip(*(tree_leaves(x) for x in (
+                s_c.ghat, s_r.ghat, p_c, p_r, theta_in, prev_in))):
+            m_w = b_.shape[0]
+            fa, fb = a.reshape(m_w, -1), b_.reshape(m_w, -1)
+            ft, ftp, fpa, fpb = (x.reshape(-1) for x in (t_, tp, pa, pb))
+            parts = _chunks(ft.numel())
+            top = max(float(fb[:, s].abs().max()) for s in parts)
+            g_bound = ulps * bf16_ulp(top) if top > 0 else 0.0
+            g_diff = max(float((fa[:, s].float() - fb[:, s].float()).abs()
+                               .max()) for s in parts)
+            p_share = 0.0
+            for s in parts:
+                t32, tp32 = ft[s].float(), ftp[s].float()
+                p_bound = BF16_EQ4_UNITS * 2.0 ** -8 * (
+                    t32.abs() + o.alpha * fb[:, s].float().sum(dim=0).abs()
+                    + o.beta * (t32 - tp32).abs()) \
+                    + o.alpha * o.num_workers * g_bound
+                p_share = max(p_share, float(
+                    ((fpa[s].float() - fpb[s].float()).abs()
+                     / p_bound.clamp_min(ATTN_FLOOR)).max()))
+            check(g_diff <= g_bound and p_share <= 1.0,
+                  f"train_bf16 {arch} step {t}: a leaf's ghat' differs by "
+                  f"{g_diff} (bound {g_bound}), theta' by {p_share} of its "
+                  "bound")
+            worst["ghat"] = max(worst["ghat"], g_diff / g_bound
+                                if g_bound else 0.0)
+            worst["params"] = max(worst["params"], p_share)
+        lc, lr = float(m_c["loss"]), float(m_r["loss"])
+        check(math.isfinite(lc) and abs(lc - lr) <= TRAIN_BF16_LOSS_RTOL
+              * abs(lr), f"train_bf16 {arch} step {t}: loss {lc} against "
+              f"{lr}")
+        n_sent = int(float(m_r["transmitted"]))
+        sent, censored = sent + n_sent, censored + len(dsq_r) - n_sent
+        out[f"step{t}"] = {
+            "eps1_scale": e,
+            "uplinks": s_c.comm.uplink_count.tolist(),
+            "transmitted": float(m_c["transmitted"]),
+            "loss_cuda": lc, "loss_reference": lr,
+            "dsq_over_threshold": [x / thr if thr else None for x in dsq_r],
+            "margins": margins, "bounds": bounds,
+            "delta_diff": watch.delta_diff,
+            "worst_share_of_bound": worst}
+        state_in = out_c[:2]
+        del out_r, p_r, s_r, p_c, s_c, out_c, theta_in, prev_in
+        gc.collect()
+    check(sent > 0 and censored > 0,
+          f"train_bf16 {arch}: the lockstep compared {sent} sent and "
+          f"{censored} censored decisions, want both")
+    del state_in, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "layer_pattern": cfg.layer_pattern,
+            "params": sum(math.prod(x.shape) for x in tree_leaves(
+                init_params(PRNGKey(0, device="cpu"), cfg, device="meta"))),
+            "ghat_ulps": ulps, **out}
+
+
+def phase_train_bf16(device, card: str) -> dict:
+    """``train.trainer.train`` of qwen3-4b and gemma3-12b in bf16 at their
+    published widths, depth cut (TRAIN_BF16), on the cuda backend: each
+    step's launches the scan step's (train_launches) and every launcher a
+    bf16 build (B14 bf16 with its log-sum-exp and flash_attention_bwd_bf16
+    once a layer a worker, B1/B2 or B5/B6 bf16 once a leaf), finite
+    losses, CUDA events around every step, peak device memory; then
+    _bf16_lockstep at TRAIN_BF16_LOCKSTEP. Returns each run's launch counts
+    by kernel (its launchers go to LAUNCHERS_BY_PATH)."""
+    import dataclasses
+
+    from repro_torch.core import distributed
+    from repro_torch.kernels import common
+    from repro_torch.train import trainer
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    for arch, spec in TRAIN_BF16.items():
+        base = trainer.TrainConfig(**{**TRAIN_TC, **spec["tc"]},
+                                   log_every=1)
+        res = {"published_layers": get_config(arch).num_layers,
+               "config": {**TRAIN_TC, **spec["tc"]}}
+        for run, r in spec["runs"].items():
+            cfg = train_bf16_config(arch, num_layers=r["num_layers"])
+            rtc = dataclasses.replace(base, steps=r["steps"],
+                                      quantize=r.get("quantize"))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            common.reset_launches()
+            t = time.perf_counter()
+            with _StepWatch(distributed) as watch:
+                params, state, hist = trainer.train(cfg, rtc, verbose=False,
+                                                    device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            leaves = tree_leaves(params)
+            n = sum(x.numel() for x in leaves)
+            check(n == r["params"] and all(x.dtype == torch.bfloat16
+                                           for x in leaves)
+                  and all(x.dtype == torch.bfloat16
+                          for x in tree_leaves(state.ghat)),
+                  f"train_bf16 {arch} {run}: {n} parameters, want "
+                  f"{r['params']}, params and bank in bf16")
+            want = train_launches(cfg, rtc.num_workers, len(leaves),
+                                  rtc.quantize == "int8")
+            check(len(watch.launches) == rtc.steps,
+                  f"train_bf16 {arch} {run}: steps")
+            for s_i, (got, got_l) in enumerate(zip(watch.launches,
+                                                   watch.launchers)):
+                per_kernel: dict[str, int] = {}
+                for launcher, c in got_l.items():
+                    k = kernel_of(launcher)
+                    per_kernel[k] = per_kernel.get(k, 0) + c
+                check(got == want and all(
+                    x.endswith("_bf16") for x in got_l)
+                    and per_kernel == {k: c for k, c in want.items() if c}
+                    and got_l.get("flash_attention_bf16")
+                    == got_l.get("flash_attention_bwd_bf16")
+                    == rtc.num_workers * cfg.num_layers,
+                    f"train_bf16 {arch} {run} step {s_i}: launches "
+                    f"{ {k: c for k, c in got.items() if c} }, launchers "
+                    f"{got_l}, want {want}")
+            check(len(hist) == rtc.steps and all(
+                math.isfinite(h[k]) for h in hist
+                for k in ("loss", "step_sqnorm", "agg_grad_sqnorm")),
+                f"train_bf16 {arch} {run}: history {hist}")
+            check(int(state.step) == rtc.steps
+                  and int(state.comm.total_uplinks) == hist[-1]["comms"],
+                  f"train_bf16 {arch} {run}: counters")
+            path = f"train_bf16_{arch}_{run}"
+            launches[path] = {k: rtc.steps * c for k, c in want.items()}
+            LAUNCHERS_BY_PATH[path] = {}
+            for got_l in watch.launchers:
+                for k, c in got_l.items():
+                    LAUNCHERS_BY_PATH[path][k] = \
+                        LAUNCHERS_BY_PATH[path].get(k, 0) + c
+            ms = watch.ms()
+            med = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+            tokens = rtc.global_batch * rtc.seq_len
+            res[run] = {
+                "layers": cfg.num_layers, "params": n, "steps": rtc.steps,
+                "ms_steps": ms, "ms_per_step": med,
+                "ms_per_step_is": "median after the first" if len(ms) > 1
+                else "the one step (the first)",
+                "tokens_per_step": tokens,
+                "tokens_per_s": tokens / med * 1e3, "wall_s": wall,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "loss": [h["loss"] for h in hist],
+                "transmitted": [h["transmitted"] for h in hist],
+                "comms": hist[-1]["comms"],
+                "launches_per_step": {k: c for k, c in want.items() if c},
+                "launchers_per_step": watch.launchers[-1]}
+            print(f"train_bf16 {arch} {run} ({cfg.num_layers} layers): "
+                  f"{med:.2f} ms a step ({ms}), "
+                  f"{res[run]['tokens_per_s']:.0f} tokens/s, peak "
+                  f"{res[run]['peak_gib']:.2f} GiB, loss "
+                  f"{res[run]['loss']}", flush=True)
+            emit({"phase": "train_bf16_run", "arch": arch, "run": run,
+                  "config": res["config"], **res[run], "card": card})
+            del params, state, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["cuda_vs_reference"] = _bf16_lockstep(
+            arch, train_bf16_config(arch, **TRAIN_BF16_LOCKSTEP[arch]),
+            base, device)
+        emit({"phase": "train_bf16_lockstep", "arch": arch,
+              "eps1_scales": TRAIN_BF16_LOCKSTEP_EPS1_SCALES,
+              **res["cuda_vs_reference"], "card": card})
+        out[arch] = res
+    emit({"phase": "train_bf16", "tf32": False,
+          "bf16_reduced_precision_reduction":
+          torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          "card": card, **out,
+          "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -5118,9 +5644,130 @@ def attention_bf16_rows(device, launches) -> list:
     return rows
 
 
+def train_bf16_timing(device) -> tuple:
+    """At phase train_bf16's attention shapes (one worker's chunk:
+    qwen3-4b's 4 x 256 tokens, H 32, K 8, d 128, causal; gemma3-12b's 1 x
+    2048, H 16, K 8, d 256, causal and window 1024): the row of
+    ``flash_attention_bwd_bf16`` (qwen3-4b's shape in the row, gemma3's
+    under ``at``) with its largest difference from its plain version, its
+    plain version's time, bf16 SDPA's autograd backward on the same views
+    (k and v expanded to H heads before the clock, as leaves: it returns
+    per-head dk and dv, which the kernel sums over each group) and its
+    bound: the band's five products (s again, dp, dq, dk, dv) at
+    BF16_FLOPS, what the card could do for this work on its tensor cores,
+    or the bytes read and written once, the larger; and B14 bf16 with and
+    without its log-sum-exp at the same shapes beside bf16 SDPA's forward,
+    with its bound (four products of the band at BF16_FLOPS). Launches
+    come from phase train_bf16 (add_path_launches)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, flash_backward, ref
+    gen = torch.Generator(device=device).manual_seed(23)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(bf)
+
+    bwd, fwd = [], []
+    for arch, b, h, kh, l, d, window in (
+            ("qwen3-4b", 4, 32, 8, 256, 128, None),
+            ("gemma3-12b 'A'", 1, 16, 8, 2048, 256, None),
+            ("gemma3-12b 'S'", 1, 16, 8, 2048, 256, 1024)):
+        q, do = (randn(b, l, h, d).transpose(1, 2) for _ in range(2))
+        k, v = (randn(b, l, kh, d).transpose(1, 2) for _ in range(2))
+        o, lse = flash_attention.flash_attention(q, k, v, window=window,
+                                                 return_lse=True)
+        sq = q.detach().clone().requires_grad_()
+        ske, sve = (x.repeat_interleave(h // kh, dim=1).detach()
+                    .requires_grad_() for x in (k, v))
+        mask = None
+        if window is not None:
+            i = torch.arange(l, device=device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+        sdpa = F.scaled_dot_product_attention(sq, ske, sve, attn_mask=mask,
+                                              is_causal=mask is None)
+        pairs = _valid_pairs(l, window)
+        shape = (f"{arch}: B={b} H={h} K={kh} L={l} d={d} bfloat16, causal"
+                 + ("" if window is None else f", window {window}"))
+        kw = {"window": window}
+
+        def kfn():
+            return flash_backward.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      **kw)
+
+        def pfn():
+            return ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+        got, want = kfn(), pfn()
+        err = max(max_diff(a, b_) for a, b_ in zip(got, want))
+        del got, want
+        # reads q, k, v, o, dO and lse, writes dq, dk and dv
+        nbytes = 2 * (3 * b * h * l * d + 2 * b * kh * l * d) + 4 * b * h * l \
+            + 2 * (b * h * l * d + 2 * b * kh * l * d)
+        ops_ = 10 * b * h * pairs * d
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, \
+            ops_ / BF16_FLOPS * 1e3
+        bwd.append({
+            "max_abs_err": err, "ms": _time_ms(kfn, 10),
+            "plain_ms": _time_ms(pfn, 3),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": _time_ms(lambda: torch.autograd.grad(
+                sdpa, (sq, ske, sve), do, retain_graph=True), 10),
+            "bytes": nbytes, "operations": ops_, "shape": shape,
+            "grids_a_call": _grids_a_call(kfn)})
+        f_bytes = 2 * (2 * b * h * l * d + 2 * b * kh * l * d) + 4 * b * h * l
+        f_ops = 4 * b * h * pairs * d
+        fwd.append({
+            "shape": shape,
+            "ms_with_lse": _time_ms(lambda: flash_attention.flash_attention(
+                q, k, v, window=window, return_lse=True), 10),
+            "ms": _time_ms(lambda: flash_attention.flash_attention(
+                q, k, v, window=window), 10),
+            "bound_ms": max(f_bytes / HBM_BYTES_PER_S,
+                            f_ops / BF16_FLOPS) * 1e3,
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                q, ske.detach(), sve.detach(), attn_mask=mask,
+                is_causal=mask is None), 10)})
+        del q, k, v, o, lse, do, sq, ske, sve, sdpa
+        torch.cuda.empty_cache()
+    src, replaces = KERNEL_META["flash_attention_bwd"]
+    row = {"name": "flash_attention_bwd_bf16", "route": "cuda",
+           "source": src, "replaces": replaces, "launches": 0,
+           **bwd[0], "port_only": True, "at": bwd[1:],
+           "launches_by_path": {}, "launches_by_launcher": {}}
+    return row, fwd
+
+
+def add_path_launches(rows: list, launches: dict) -> None:
+    """Add the launches of more sub-f32 paths (``launches``: each path's
+    counts by kernel; LAUNCHERS_BY_PATH: by launcher) to the rows of their
+    launchers (row_of), as sub_f32_launches does; fails unless each path's
+    launcher counts add up to its kernel counts."""
+    names = {r["name"] for r in rows}
+    by_name = {r["name"]: r for r in rows}
+    for path, counts in launches.items():
+        check(path in LAUNCHERS_BY_PATH,
+              f"kernels line: no launcher counts of path {path}")
+        per_kernel: dict[str, int] = {}
+        for launcher, c in LAUNCHERS_BY_PATH[path].items():
+            k = kernel_of(launcher)
+            per_kernel[k] = per_kernel.get(k, 0) + c
+            r = by_name[row_of(launcher, names)]
+            for key, sub in (("launches_by_path", path),
+                             ("launches_by_launcher", launcher)):
+                r.setdefault(key, {})
+                r[key][sub] = r[key].get(sub, 0) + c
+            r["launches"] += c
+        check(per_kernel == {k: c for k, c in counts.items() if c},
+              f"kernels line: {path}'s launcher counts {per_kernel} are "
+              f"not its kernel counts {counts}")
+
+
 def main() -> None:
     t0 = time.perf_counter()
-    phase_device()
+    card = phase_device()
     # the low-rank factors are plain matmuls: full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5155,10 +5802,16 @@ def main() -> None:
     phase_pin(dev)
     launches["ops"] = phase_ops(dev)
     launches.update(phase_train(dev))
+    train_bf16 = phase_train_bf16(dev, card)
     phase_train_cli()
     rows = phase_timing(dev, launches, max_err)
     rows += attention_bf16_rows(dev, serve_bf16)
-    check(len(KERNEL_META) == 18 and len(rows) == 18 + 8 + 10 + 10 + 2,
+    bwd_bf16, b14_train = train_bf16_timing(dev)
+    rows.append(bwd_bf16)
+    next(r for r in rows if r["name"] == "flash_attention_bf16")[
+        "train_shapes"] = b14_train
+    add_path_launches(rows, train_bf16)
+    check(len(KERNEL_META) == 18 and len(rows) == 18 + 8 + 10 + 10 + 3,
           f"{len(rows)} kernel rows")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

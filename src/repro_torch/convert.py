@@ -25,8 +25,15 @@ F16_TODO = ("f16 model weights are not ported yet (ROADMAP.md A13, sub-f32 "
 
 
 def params(tree, device) -> object:
-    """A tree of numpy arrays (dicts / tuples / lists) as tensors."""
-    return tree_map(lambda x: torch.tensor(np.asarray(x), device=device), tree)
+    """A tree of numpy arrays (dicts / tuples / lists) as tensors; a bf16
+    array (the JAX package's, numpy through ``ml_dtypes``) becomes a
+    ``torch.bfloat16`` tensor of the same bits."""
+    def leaf(x):
+        x = np.asarray(x)
+        if _is_bf16(x):
+            return _bf16_tensor(x.view(np.uint16), device)
+        return torch.tensor(x, device=device)
+    return tree_map(leaf, tree)
 
 
 def comm_stats(comm, device) -> CommStats:

@@ -175,7 +175,8 @@ SIGNATURES = {
     "decode_attention": {**{f"decode_attention_{s}": _DECODE_ARGS
                             for s in ATTENTION_DTYPES.values()},
                          "decode_attention_bf16_chunk": _DECODE_PLAN_ARGS},
-    "flash_backward": {"flash_attention_bwd_f32": _FLASH_BWD_ARGS},
+    "flash_backward": {f"flash_attention_bwd_{s}": _FLASH_BWD_ARGS
+                       for s in ATTENTION_DTYPES.values()},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

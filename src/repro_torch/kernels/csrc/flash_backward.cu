@@ -13,17 +13,31 @@
 //
 // with GQA (kv head = h / G; dk and dv sum over the G query heads of a kv
 // head), the causal and sliding-window masks on absolute positions of B14
-// and flash.py's _block_mask (kpos <= qpos, kpos > qpos - window), f32 math
-// on f32 inputs. Lq != S is allowed; q, k, v, o and dO are read by strides
-// (the model's (B, H, L, d) views of (B, L, H, d) tensors), dq, dk and dv
-// written by strides.
+// and flash.py's _block_mask (kpos <= qpos, kpos > qpos - window). Lq != S
+// is allowed; q, k, v, o and dO are read by strides (the model's (B, H, L,
+// d) views of (B, L, H, d) tensors), dq, dk and dv written by strides.
+//
+// Two builds of one design, by operand type T: float32
+// (flash_attention_bwd_f32) and bfloat16 (flash_attention_bwd_bf16). lse,
+// D, every product, sum and exp, the shared-memory tiles and the dq
+// partials are f32 in both: a bf16 operand is widened to f32 (exact) as it
+// is loaded, and dq, dk and dv are rounded to bf16 once, at the store
+// (__float2bfloat16_rn). That is JAX's bwd on bf16 operands: it upcasts
+// dO, o, k and v, runs _sdot on bf16 q and k with f32 accumulation (each
+// bf16 product is exact in f32) and casts dq, dk and dv to their operands'
+// dtypes once at the end (flash.py:103-104, :120-131, :149-162).
 //
 // Bound: operations. Five products of the causal band: at training's shape
 // (B 4 a worker, H = K = 12, L 256, d 64: 32,896 (q, k) pairs a head)
 // 2 * 5 * 48 * 32,896 * 64 = 1.01 GFLOP, 0.0151 ms at an H100 SXM's 67
 // TFLOP/s of f32 outside the tensor cores, against 6 x 3.1 MB read and 3 x
 // 3.1 MB written (0.0075 ms at 3.35 TB/s). The products are fmaf on the
-// CUDA cores: TF32 would not hold the f32 tolerance.
+// CUDA cores: TF32 would not hold the f32 tolerance. The bf16 build runs
+// the same f32 products on the CUDA cores; what the card could do for its
+// work is the band's five products on the bf16 tensor cores (989 TFLOP/s
+// dense): at qwen3-4b's training shape (B 4, H 32, K 8, L 256, d 128) 2 *
+// 5 * 128 * 32,896 * 128 = 5.4 GFLOP, 0.0054 ms there, against 0.080 ms
+// as f32 FMAs at 67 TFLOP/s. A wgmma design is left to a later change.
 //
 // Three grids a call on the caller's stream, behind the one C entry point;
 // the second and third start by programmatic dependent launch (their blocks
@@ -61,7 +75,10 @@
 // copies where an operand allows them: a unit last stride, the head dim and
 // every other stride a multiple of 4, a 16-byte aligned base, which the
 // wrapper checks per operand and the launcher checks again; else element by
-// element), p^T and ds^T [BK][BQ + 4] and ds [BQ][BK + 4]. Rows are padded
+// element; bf16: 16-byte loads of 8 elements where the head dim and every
+// other stride are multiples of 8, widened and stored to shared memory by
+// the thread, so its copies land before the products rather than during
+// them), p^T and ds^T [BK][BQ + 4] and ds [BQ][BK + 4]. Rows are padded
 // to 4 floats past a multiple of 32, so the eight rows or eight column
 // groups a warp reads as float4s fall on distinct banks.
 //
@@ -146,12 +163,31 @@ struct BwdArgs {
   int64_t nq, nk, pairs;          // query tiles, key tiles, tile pairs of one head's band
 };
 
+template <typename T>
 struct BwdPtrs {
-  const float *q, *k, *v, *o, *dout, *lse;
-  float *dq, *dk, *dv;
+  const T *q, *k, *v, *o, *dout;  // operands in T (float or bf16)
+  const float* lse;
+  T *dq, *dk, *dv;
   float* part;                    // dq partials [b][h][pairs][BQ][DMAX]
   float* delta;                   // D [b][h][lq]
 };
+
+// elements of T in 16 bytes: the unit of the 16-byte copies
+template <typename T>
+constexpr int kVecElems = 16 / (int)sizeof(T);
+
+// a computed f32 value stored in T: itself, or rounded once to bf16
+__device__ __forceinline__ void put(float* dst, float y) { *dst = y; }
+__device__ __forceinline__ void put(bf16* dst, float y) { *dst = __float2bfloat16_rn(y); }
+
+// 8 bf16 of one 16-byte word widened to f32 (exact: a bf16 is the top
+// half of an f32)
+__device__ __forceinline__ void widen8(const uint4& raw, float4& lo, float4& hi) {
+  lo = make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                   __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+  hi = make_float4(__uint_as_float(raw.z << 16), __uint_as_float(raw.z & 0xffff0000u),
+                   __uint_as_float(raw.w << 16), __uint_as_float(raw.w & 0xffff0000u));
+}
 
 __host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 __host__ __device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
@@ -261,9 +297,44 @@ __device__ __forceinline__ void wait_for_previous_grid() {
 }
 
 // Rows row0 .. row0 + ROWS - 1 of one (rows, d) operand into a row-major f32
-// tile of row stride STRIDE and DMAX columns, zero past nrows and past d:
-// by cp.async 16 bytes at a time where vec, else element by element. Each
-// thread moves 4 neighbouring columns of a row at a time.
+// tile of row stride STRIDE and DMAX columns, zero past nrows and past d.
+// f32: by cp.async 16 bytes at a time where vec, else element by element,
+// each thread moving 4 neighbouring columns of a row at a time. bf16: where
+// vec, 8 neighbouring columns a thread from one 16-byte load, widened to
+// f32 and stored; else element by element, widened.
+template <int ROWS, int DMAX, int STRIDE>
+__device__ __forceinline__ void load_tile(float* dst, const bf16* src, int64_t row0,
+                                          int64_t nrows, int64_t rs, int64_t cs, int64_t d,
+                                          bool vec) {
+  if (vec) {                           // d % 8 == 0 on this path
+    constexpr int G8 = DMAX / 8;
+    for (int e = threadIdx.x; e < ROWS * G8; e += kBwdThreads) {
+      const int r = e / G8, c = (e % G8) * 8;
+      const int64_t row = row0 + r;
+      float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
+      if (row < nrows && c < d)
+        widen8(*reinterpret_cast<const uint4*>(src + row * rs + c), lo, hi);
+      float* sp = dst + r * STRIDE + c;
+      *reinterpret_cast<float4*>(sp) = lo;
+      *reinterpret_cast<float4*>(sp + 4) = hi;
+    }
+    return;
+  }
+  constexpr int G4 = DMAX / 4;
+  for (int e = threadIdx.x; e < ROWS * G4; e += kBwdThreads) {
+    const int r = e / G4, c = (e % G4) * 4;
+    const int64_t row = row0 + r;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row < nrows && c < d) {
+      const bf16* p = src + row * rs + c * cs;
+      x.x = to_f32(p[0]);
+      if (c + 1 < d) x.y = to_f32(p[cs]);
+      if (c + 2 < d) x.z = to_f32(p[2 * cs]);
+      if (c + 3 < d) x.w = to_f32(p[3 * cs]);
+    }
+    *reinterpret_cast<float4*>(dst + r * STRIDE + c) = x;
+  }
+}
 template <int ROWS, int DMAX, int STRIDE>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t row0,
                                           int64_t nrows, int64_t rs, int64_t cs, int64_t d,
@@ -292,8 +363,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t 
 
 // The q and dO tiles of query tile q0 of head (bi, hq) and its rows' lse and
 // D into one buffer (q [BQ][RP], dO [BQ][RP], lse [BQ], D [BQ]).
-template <int DMAX>
-__device__ __forceinline__ void load_query_tile(const BwdPtrs& p, const BwdArgs& a, int64_t bi,
+template <int DMAX, typename T>
+__device__ __forceinline__ void load_query_tile(const BwdPtrs<T>& p, const BwdArgs& a, int64_t bi,
                                                 int64_t hq, int64_t q0, float* buf) {
   using L = BwdLayout<DMAX>;
   constexpr int BQ = L::BQ, RP = L::RP;
@@ -384,8 +455,8 @@ __device__ __forceinline__ float prob(const BwdArgs& a, float s, float lse, int6
 // Writes a thread's RM x 4 NC tile (rows r0 + r + RSTEP i, columns 4 cg +
 // 64 c + x), times scale or not, by strides; rows past nrows and columns
 // past d are dropped.
-template <int RM, int RSTEP, int NC>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[RM][4 * NC], int64_t r0,
+template <int RM, int RSTEP, int NC, typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[RM][4 * NC], int64_t r0,
                                            int64_t nrows, int64_t rs, int64_t cs, int64_t d,
                                            float scale, bool scaled, int r, int cg) {
 #pragma unroll
@@ -399,7 +470,7 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[RM][4 
         const int col = 4 * cg + 64 * c + x;
         if (col < d) {
           const float y = acc[i][4 * c + x];
-          dst[row * rs + col * cs] = scaled ? __fmul_rn(scale, y) : y;
+          put(dst + row * rs + col * cs, scaled ? __fmul_rn(scale, y) : y);
         }
       }
   }
@@ -407,29 +478,53 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[RM][4 
 
 // The first grid: D of query rows blockIdx.x * 32 .. + 31 of the flattened
 // (b, h, lq) rows (the 8 lanes of a row each sum their columns in order, 4
-// neighbours at a time where dO and o allow 16-byte loads, then a xor
-// butterfly adds their sums).
+// (f32) or 8 (bf16) neighbours at a time where dO and o allow 16-byte
+// loads, then a xor butterfly adds their sums).
+__device__ __forceinline__ float dot_vec(const float* dr, const float* orow, int tx, int64_t d) {
+  float acc = 0.0f;
+  for (int64_t c = 4 * tx; c < d; c += 4 * kTX) {
+    const float4 x = *reinterpret_cast<const float4*>(dr + c);
+    const float4 y = *reinterpret_cast<const float4*>(orow + c);
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+    acc = fmaf(x.z, y.z, acc);
+    acc = fmaf(x.w, y.w, acc);
+  }
+  return acc;
+}
+__device__ __forceinline__ float dot_vec(const bf16* dr, const bf16* orow, int tx, int64_t d) {
+  float acc = 0.0f;
+  for (int64_t c = 8 * tx; c < d; c += 8 * kTX) {
+    float4 x[2], y[2];
+    widen8(*reinterpret_cast<const uint4*>(dr + c), x[0], x[1]);
+    widen8(*reinterpret_cast<const uint4*>(orow + c), y[0], y[1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      acc = fmaf(x[i].x, y[i].x, acc);
+      acc = fmaf(x[i].y, y[i].y, acc);
+      acc = fmaf(x[i].z, y[i].z, acc);
+      acc = fmaf(x[i].w, y[i].w, acc);
+    }
+  }
+  return acc;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_prep_kernel(BwdPtrs p, BwdArgs a, int64_t rows) {
+flash_bwd_prep_kernel(BwdPtrs<T> p, BwdArgs a, int64_t rows) {
   launch_dependents();                // the main grid may load its K and V tiles
   const int64_t row = (int64_t)blockIdx.x * (kBwdThreads / kTX) + threadIdx.x / kTX;
   const int tx = threadIdx.x % kTX;
   float acc = 0.0f;
   if (row < rows) {
     const int64_t bi = row / (a.h * a.lq), hi = row / a.lq % a.h, r = row % a.lq;
-    const float* dr = p.dout + bi * a.dos[0] + hi * a.dos[1] + r * a.dos[2];
-    const float* orow = p.o + bi * a.os[0] + hi * a.os[1] + r * a.os[2];
-    if ((a.vec & kVecDO) && (a.vec & kVecO)) {     // unit column strides, d % 4 == 0
-      for (int64_t c = 4 * tx; c < a.d; c += 4 * kTX) {
-        const float4 x = *reinterpret_cast<const float4*>(dr + c);
-        const float4 y = *reinterpret_cast<const float4*>(orow + c);
-        acc = fmaf(x.x, y.x, acc);
-        acc = fmaf(x.y, y.y, acc);
-        acc = fmaf(x.z, y.z, acc);
-        acc = fmaf(x.w, y.w, acc);
-      }
+    const T* dr = p.dout + bi * a.dos[0] + hi * a.dos[1] + r * a.dos[2];
+    const T* orow = p.o + bi * a.os[0] + hi * a.os[1] + r * a.os[2];
+    if ((a.vec & kVecDO) && (a.vec & kVecO)) {     // unit column strides, 16-byte rows
+      acc = dot_vec(dr, orow, tx, a.d);
     } else {
-      for (int64_t c = tx; c < a.d; c += kTX) acc = fmaf(dr[c * a.dos[3]], orow[c * a.os[3]], acc);
+      for (int64_t c = tx; c < a.d; c += kTX)
+        acc = fmaf(to_f32(dr[c * a.dos[3]]), to_f32(orow[c * a.os[3]]), acc);
     }
   }
 #pragma unroll
@@ -449,9 +544,9 @@ flash_bwd_prep_kernel(BwdPtrs p, BwdArgs a, int64_t rows) {
 // So a pair passes two barriers of the whole block: the halves wait on each
 // other only where warps 4-7 need p. dk and dv add each pair's product,
 // summed apart, to their sums (a two-level sum, shorter rounding chains).
-template <int DMAX>
+template <int DMAX, typename T>
 __global__ void __launch_bounds__(kBwdThreads, BwdTiles<DMAX>::MIN_BLOCKS)
-flash_bwd_kernel(BwdPtrs p, BwdArgs a) {
+flash_bwd_kernel(BwdPtrs<T> p, BwdArgs a) {
   using L = BwdLayout<DMAX>;
   constexpr int BQ = L::BQ, BK = L::BK, RP = L::RP, TP = L::TP, SP = L::SP, BUF = L::BUF;
   constexpr int S_RM = L::S_RM, S_CN = L::S_CN, K_RM = L::K_RM, Q_RM = L::Q_RM, NC = L::NC;
@@ -483,7 +578,7 @@ flash_bwd_kernel(BwdPtrs p, BwdArgs a) {
   Visit cur = {-1, 0, 0, 0, 0};
   bool have = advance<BQ, BK>(a, kt, g, cur);
   wait_for_previous_grid();         // D
-  if (have) load_query_tile<DMAX>(p, a, bi, khi * g + cur.gi, (int64_t)cur.qt * BQ, bufs);
+  if (have) load_query_tile<DMAX, T>(p, a, bi, khi * g + cur.gi, (int64_t)cur.qt * BQ, bufs);
   cp_async_commit();
 
   float acc[K_RM][4 * NC];          // dv (warps 0-3) or dk (warps 4-7)
@@ -499,8 +594,8 @@ flash_bwd_kernel(BwdPtrs p, BwdArgs a) {
     cp_async_wait_all();
     __syncthreads();                  // this tile landed; the last pair's readers are done
     if (more)
-      load_query_tile<DMAX>(p, a, bi, khi * g + nxt.gi, (int64_t)nxt.qt * BQ,
-                            bufs + (buf ^ 1) * BUF);
+      load_query_tile<DMAX, T>(p, a, bi, khi * g + nxt.gi, (int64_t)nxt.qt * BQ,
+                               bufs + (buf ^ 1) * BUF);
     cp_async_commit();                // the next tile lands during this pair's products
 
     const int64_t hq = khi * g + cur.gi, q0 = (int64_t)cur.qt * BQ;
@@ -586,9 +681,9 @@ flash_bwd_kernel(BwdPtrs p, BwdArgs a) {
 // The third grid: dq. A query tile of one (b, head) takes PARTS blocks; a
 // thread sums one float4 of the tile's slots in key-tile order (all its
 // loads in flight together), times scale, and writes its 4 columns.
-template <int DMAX>
+template <int DMAX, typename T>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dq_kernel(BwdPtrs p, BwdArgs a) {
+flash_bwd_dq_kernel(BwdPtrs<T> p, BwdArgs a) {
   using L = BwdLayout<DMAX>;
   constexpr int SLOT = L::SLOT, PARTS = SLOT / 4 / kBwdThreads;
   static_assert(PARTS * 4 * kBwdThreads == SLOT, "whole blocks a tile");
@@ -615,18 +710,18 @@ flash_bwd_dq_kernel(BwdPtrs p, BwdArgs a) {
     s.w = __fadd_rn(s.w, x.w);
   }
   if (row >= a.lq) return;
-  float* dst = p.dq + bh / a.h * a.dqs[0] + bh % a.h * a.dqs[1] + row * a.dqs[2];
+  T* dst = p.dq + bh / a.h * a.dqs[0] + bh % a.h * a.dqs[1] + row * a.dqs[2];
   const float y[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
   for (int x = 0; x < 4; ++x)
-    if (col + x < a.d) dst[(col + x) * a.dqs[3]] = __fmul_rn(a.scale, y[x]);
+    if (col + x < a.d) put(dst + (col + x) * a.dqs[3], __fmul_rn(a.scale, y[x]));
 }
 
 // One grid of the call, launched after the previous one by programmatic
 // dependent launch (it waits inside for what it reads).
-template <typename... Args>
+template <typename T, typename... Args>
 static cudaError_t launch_after(void (*kernel)(Args...), int64_t blocks, size_t smem,
-                                cudaStream_t s, BwdPtrs p, BwdArgs a) {
+                                cudaStream_t s, BwdPtrs<T> p, BwdArgs a) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3(kBwdThreads);
@@ -657,24 +752,25 @@ static int64_t plan_bytes(BwdArgs& a) {
   return 4 * (bh * a.pairs * L::SLOT + bh * a.lq);
 }
 
-template <int DMAX>
-static int launch_bwd_d(BwdPtrs p, BwdArgs a, void* scratch, int64_t scratch_bytes,
+template <int DMAX, typename T>
+static int launch_bwd_d(BwdPtrs<T> p, BwdArgs a, void* scratch, int64_t scratch_bytes,
                         cudaStream_t s) {
   using L = BwdLayout<DMAX>;
   if (plan_bytes<DMAX>(a) != scratch_bytes) return (int)cudaErrorInvalidValue;
   const int64_t bh = a.b * a.h, rows = bh * a.lq;
   p.part = (float*)scratch;
   p.delta = p.part + bh * a.pairs * L::SLOT;
-  static bool opted_in[kMaxDevices] = {};   // per device, once per instantiation
+  static bool opted_in[kMaxDevices] = {};   // per device, once per instantiation (DMAX, T)
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!opted_in[dev]) {
-    e = cudaFuncSetAttribute(flash_bwd_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)L::SMEM);
+    e = cudaFuncSetAttribute(flash_bwd_kernel<DMAX, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(flash_bwd_kernel<DMAX>, cudaFuncAttributePreferredSharedMemoryCarveout,
+    e = cudaFuncSetAttribute(flash_bwd_kernel<DMAX, T>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     opted_in[dev] = true;
@@ -685,38 +781,34 @@ static int launch_bwd_d(BwdPtrs p, BwdArgs a, void* scratch, int64_t scratch_byt
   if (prep_blocks > 0x7fffffff || blocks > 0x7fffffff || dq_blocks > 0x7fffffff ||
       a.pairs > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  flash_bwd_prep_kernel<<<(unsigned)prep_blocks, kBwdThreads, 0, s>>>(p, a, rows);
+  flash_bwd_prep_kernel<T><<<(unsigned)prep_blocks, kBwdThreads, 0, s>>>(p, a, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = launch_after(flash_bwd_kernel<DMAX>, blocks, L::SMEM, s, p, a);
+  e = launch_after(flash_bwd_kernel<DMAX, T>, blocks, L::SMEM, s, p, a);
   if (e != cudaSuccess) return (int)e;
-  e = launch_after(flash_bwd_dq_kernel<DMAX>, dq_blocks, 0, s, p, a);
+  e = launch_after(flash_bwd_dq_kernel<DMAX, T>, dq_blocks, 0, s, p, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// an operand read 16 bytes (kV elements) at a time: a 16-byte aligned base,
+// a unit last stride, the head dim and every other stride multiples of kV
+template <int kV>
 __host__ __forceinline__ bool vec_ok(const void* ptr, const int64_t* st, int64_t d) {
-  return aligned16(ptr) && st[3] == 1 && d % 4 == 0 && st[0] % 4 == 0 && st[1] % 4 == 0 &&
-         st[2] % 4 == 0;
+  return aligned16(ptr) && st[3] == 1 && d % kV == 0 && st[0] % kV == 0 && st[1] % kV == 0 &&
+         st[2] % kV == 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// dims: b, h, kh, lq, s, d, the strides (4 each) of q, k, v, o, dO, dq, dk
-// and dv, causal, has_window, window, vec (kVec* bits: the operands read 16
-// bytes at a time), the scratch's bytes (flash_backward.plan)
-int flash_attention_bwd_f32(int device, const void* q, const void* k, const void* v,
-                            const void* o, const void* dout, const void* lse, void* dq, void* dk,
-                            void* dv, void* scratch, const int64_t* dims, double scale,
-                            void* stream) {
+// The body of both entry points: dims as below, operands in T.
+template <typename T>
+static int flash_bwd_entry(int device, const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const void* lse, void* dq, void* dk,
+                           void* dv, void* scratch, const int64_t* dims, double scale,
+                           void* stream) {
   const cudaError_t sel = cudaSetDevice(device);
   if (sel != cudaSuccess) return (int)sel;
-  BwdPtrs p = {(const float*)q,  (const float*)k,    (const float*)v,
-               (const float*)o,  (const float*)dout, (const float*)lse,
-               (float*)dq,       (float*)dk,         (float*)dv,
-               nullptr,          nullptr};
+  BwdPtrs<T> p = {(const T*)q, (const T*)k,    (const T*)v, (const T*)o, (const T*)dout,
+                  (const float*)lse, (T*)dq, (T*)dk, (T*)dv, nullptr, nullptr};
   BwdArgs a;
   a.b = dims[0]; a.h = dims[1]; a.kh = dims[2]; a.lq = dims[3]; a.s = dims[4]; a.d = dims[5];
   int64_t* st[8] = {a.qs, a.ks, a.vs, a.os, a.dos, a.dqs, a.dks, a.dvs};
@@ -732,12 +824,37 @@ int flash_attention_bwd_f32(int device, const void* q, const void* k, const void
   const void* vec_ptrs[5] = {q, k, v, dout, o};
   const int64_t* vec_strides[5] = {a.qs, a.ks, a.vs, a.dos, a.os};
   for (int x = 0; x < 5; ++x)
-    if ((a.vec >> x & 1) && !vec_ok(vec_ptrs[x], vec_strides[x], a.d))
+    if ((a.vec >> x & 1) && !vec_ok<kVecElems<T>>(vec_ptrs[x], vec_strides[x], a.d))
       return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (a.d <= 64) return launch_bwd_d<64>(p, a, scratch, scratch_bytes, s);
-  if (a.d <= 128) return launch_bwd_d<128>(p, a, scratch, scratch_bytes, s);
-  return launch_bwd_d<256>(p, a, scratch, scratch_bytes, s);
+  if (a.d <= 64) return launch_bwd_d<64, T>(p, a, scratch, scratch_bytes, s);
+  if (a.d <= 128) return launch_bwd_d<128, T>(p, a, scratch, scratch_bytes, s);
+  return launch_bwd_d<256, T>(p, a, scratch, scratch_bytes, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dims: b, h, kh, lq, s, d, the strides (4 each) of q, k, v, o, dO, dq, dk
+// and dv, causal, has_window, window, vec (kVec* bits: the operands read 16
+// bytes at a time), the scratch's bytes (flash_backward.plan). q, k, v, o,
+// dO, dq, dk and dv are float32 here, bfloat16 in flash_attention_bwd_bf16;
+// lse is float32 in both
+int flash_attention_bwd_f32(int device, const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* lse, void* dq, void* dk,
+                            void* dv, void* scratch, const int64_t* dims, double scale,
+                            void* stream) {
+  return flash_bwd_entry<float>(device, q, k, v, o, dout, lse, dq, dk, dv, scratch, dims, scale,
+                                stream);
+}
+
+int flash_attention_bwd_bf16(int device, const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const void* lse, void* dq,
+                             void* dk, void* dv, void* scratch, const int64_t* dims,
+                             double scale, void* stream) {
+  return flash_bwd_entry<bf16>(device, q, k, v, o, dout, lse, dq, dk, dv, scratch, dims, scale,
+                               stream);
 }
 
 }  // extern "C"

@@ -6,9 +6,12 @@ it). ``models.flash.flash_attention`` runs it on the ``cuda`` backend, once
 a layer a worker in a training step, after B14 wrote the forward's output
 and log-sum-exp. CPU tensors run ``ref.flash_attention_bwd``; CUDA tensors
 launch the kernel or raise. The kernel reads its operands by strides and
-takes any Lq, S and head dim up to 256, float32. Where
-:func:`flash_attention.async_copy_ok` holds for an operand it copies that
-operand 16 bytes at a time (``cp.async``); otherwise element by element.
+takes any Lq, S and head dim up to 256, in float32
+(``flash_attention_bwd_f32``) or bfloat16 (``flash_attention_bwd_bf16``:
+operands widened to f32 as they load, dq, dk and dv rounded once at the
+store; lse f32 in both). Where :func:`flash_attention.async_copy_ok` (f32)
+or :func:`flash_attention.tc_copy_ok` (bf16) holds for an operand it copies
+that operand 16 bytes at a time; otherwise element by element.
 
 The kernel works by key tile: a block owns a tile of keys of one kv head
 and walks the query tiles of its band, computing each (query tile, key
@@ -29,9 +32,9 @@ from dataclasses import dataclass
 import torch
 
 from . import ref
-from .build import launch
+from .build import ATTENTION_DTYPES, launch
 from .common import count_launch, on_card
-from .flash_attention import _check, async_copy_ok
+from .flash_attention import _check, async_copy_ok, tc_copy_ok
 
 #: (query rows, keys) of one tile pair by head-dim capacity (BwdTiles in
 #: csrc/flash_backward.cu)
@@ -167,8 +170,8 @@ def _dims(q, k, v, o, do, dq, dk, dv, causal, window,
     b, h, lq, d = q.shape
     kh, s_len = k.shape[1], k.shape[2]
     strides = [st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()]
-    vec = sum(1 << i for i, t in enumerate((q, k, v, do, o))
-              if async_copy_ok(t))
+    ok = async_copy_ok if q.dtype == torch.float32 else tc_copy_ok
+    vec = sum(1 << i for i, t in enumerate((q, k, v, do, o)) if ok(t))
     return (ctypes.c_int64 * 43)(
         b, h, kh, lq, s_len, d, *strides, int(bool(causal)),
         int(window is not None), 0 if window is None else int(window), vec,
@@ -182,12 +185,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from the forward's ``lse`` (B14's ``return_lse``): FlashAttention-2's
     equations as ``repro/models/flash.py``'s custom VJP computes them (the
     same masks and -1e30). dq comes back in q's shape and strides, dk and
-    dv in k's and v's (``torch.empty_like``). On the card the wrapper
-    allocates one scratch buffer (``torch.empty``, :func:`plan`'s bytes:
-    the dq partials, then D) and counts one launch of
-    ``flash_attention_bwd`` a call; the C entry point runs three grids on
-    the current stream (D; the key-tile walk; the sum of dq's partials),
-    the last two by programmatic dependent launch."""
+    dv in k's and v's (``torch.empty_like``). q, k, v, o and do share one
+    dtype, float32 or bfloat16 (lse is float32); on the card any other
+    raises ``TypeError`` naming ROADMAP queue B, before any launch. On the
+    card the wrapper allocates one scratch buffer (``torch.empty``,
+    :func:`plan`'s bytes: the dq partials, then D) and counts one launch
+    of ``flash_attention_bwd`` a call (``build.launch`` counts its
+    launcher, ``flash_attention_bwd_f32`` or ``_bf16``, in
+    ``common.LAUNCHERS``); the C entry point runs three grids on the
+    current stream (D; the key-tile walk; the sum of dq's partials), the
+    last two by programmatic dependent launch."""
     name = "flash_attention_bwd"
     b, h, kh, lq, s_len, d = _check(name, q, k, v)
     for what, t, shape in (("o", o, q.shape), ("do", do, q.shape),
@@ -200,10 +207,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not on_card(name, q, k, v, o, lse, do, contiguous=False):
         return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                        window=window, scale=scale)
-    if {t.dtype for t in (q, k, v, o, do, lse)} != {torch.float32}:
-        raise NotImplementedError(
-            f"{name}: float32 only (bf16 training is not ported yet: "
-            "ROADMAP.md A13, bf16 configs)")
+    dtypes = {t.dtype for t in (q, k, v, o, do)}
+    if len(dtypes) != 1 or q.dtype not in ATTENTION_DTYPES \
+            or lse.dtype != torch.float32:
+        raise TypeError(
+            f"{name}: q, k, v, o and do in {sorted(map(str, dtypes))} with "
+            f"lse in {lse.dtype} are not supported (the kernel takes one "
+            "dtype, float32 or bfloat16, and an f32 lse; other dtypes are "
+            "ROADMAP queue B)")
     if s_len == 0 or d > 256:
         raise ValueError(f"{name}: needs at least one key and a head dim "
                          f"up to 256, got S={s_len}, d={d}")
@@ -218,7 +229,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dims = _dims(q, k, v, o, do, dq, dk, dv, causal, window,
                  layout.scratch_bytes)
     count_launch(name)
-    launch("flash_backward", "flash_attention_bwd_f32", q.device,
+    launch("flash_backward", f"{name}_{ATTENTION_DTYPES[q.dtype]}", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
            dv.data_ptr(), scratch.data_ptr(), ctypes.addressof(dims),

@@ -7,7 +7,9 @@
 The JAX launcher's flags, plus ``--device`` (default: the card; without
 one it raises rather than fall back to the CPU), ``--seed`` (the weights'
 PRNG key and the data's seed, ``TrainConfig.seed``) and ``--backend`` (the
-kernels, or their plain versions). ``--strategy pod``, ``--use-mesh`` and
+kernels, or their plain versions). The params and the bank are in the
+config's dtype, bf16 through B14 bf16, the bf16 flash backward and the
+bf16 CHB step. ``--strategy pod``, ``--use-mesh`` and
 ``--pods`` above 1 (a mesh of devices) raise ``NotImplementedError``
 (ROADMAP.md A13); ``--model-parallel`` acts only on a mesh, as in the JAX
 launcher.

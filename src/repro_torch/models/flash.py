@@ -8,7 +8,9 @@ does; the backward computes dq, dk and dv from them and the gradient of o,
 as JAX's ``bwd`` does. On the ``cuda`` backend with CUDA tensors the
 forward is B14 with its log-sum-exp (``kernels.flash_attention``) and the
 backward the port's ``flash_attention_bwd`` kernel
-(``kernels.flash_backward``). On the ``reference`` backend, and on CPU
+(``kernels.flash_backward``), each in its f32 or bf16 build by q's dtype:
+in bf16, o and dq, dk, dv come back in bf16 (one rounding each) and lse
+in f32, as JAX's ``fwd`` and ``bwd`` give them. On the ``reference`` backend, and on CPU
 tensors, both are the plain versions that follow JAX's blocked
 recurrences (``kernels.ref.flash_attention_blocked`` and
 ``flash_attention_bwd``), in blocks of ``q_block`` query rows and

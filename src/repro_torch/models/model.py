@@ -16,11 +16,12 @@ leading superblock axis, so a JAX tree carries across as it is
 ``backend="cuda"`` runs each layer's attention through B14 (prefill, and
 training's forward with its log-sum-exp), the flash backward kernel
 (training) and B13 (decode); ``"reference"`` through their plain
-versions. Serving runs f32, f64 and bf16 configs (bf16 as the JAX package
-rounds it: f32 statistics, softmax and attention, one rounding to bf16 an
-op), training f32 and f64. mamba2, cross-attention, frontends, MoE, bf16
-training, other dtypes and ``remat="dots"`` raise ``NotImplementedError``
-(ROADMAP.md A13).
+versions. Serving and training run f32, f64 and bf16 configs (bf16 as the
+JAX package rounds it: f32 statistics, softmax and attention, one rounding
+to bf16 an op; in training the attention's backward too, and autograd
+through the same bf16 ops). mamba2, cross-attention, frontends, MoE, other
+dtypes and ``remat="dots"`` raise ``NotImplementedError`` (ROADMAP.md
+A13).
 """
 from __future__ import annotations
 
@@ -38,10 +39,10 @@ from .kvcache import UNPORTED, effective_mixer
 
 
 #: the dtypes of the configs ``prefill`` and ``serve_step`` run, and of
-#: those ``forward`` and ``train_loss`` run (training a bf16 config needs a
-#: bf16 build of the flash backward: ROADMAP.md A13)
+#: those ``forward`` and ``train_loss`` run (bf16 through B14 bf16 with its
+#: log-sum-exp and the bf16 build of the flash backward)
 SERVE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
-TRAIN_DTYPES = (torch.float32, torch.float64)
+TRAIN_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 
 def check_supported(cfg: ModelConfig, train: bool = False) -> None:

@@ -378,19 +378,26 @@ def test_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
                                         if a != "chb-paper-lm-124m"))
 def test_unported_configs_raise_naming_the_roadmap(arch):
     """mamba2, cross-attention, frontends and MoE (also when reduced to
-    f32) raise; the dense bf16 configs serve (their parameter count is the
-    JAX package's) and raise on bf16 ``forward`` and ``train_loss``."""
+    f32) raise; the dense bf16 configs serve and train (their parameter
+    count is the JAX package's; bf16 ``forward`` and ``train_loss`` run on
+    tiny inputs of the config reduced in bf16)."""
     cfg = get(arch)
     if set(cfg.layer_pattern) <= {"A", "S"} and not cfg.num_experts \
             and not cfg.frontend:
         assert cfg.dtype == "bfloat16"
         assert model.param_count(cfg) == j_model.param_count(j_get(arch))
+        model.check_supported(cfg, train=True)
+        tiny = dataclasses.replace(cfg.reduced(), dtype="bfloat16")
+        tp = convert.model_params(convert.numpy_model_params(tiny, 0), tiny,
+                                  "cpu")
         tokens = torch.zeros((1, 4), dtype=torch.int64)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-            model.forward(None, cfg, tokens)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-            model.train_loss(None, cfg, {"tokens": tokens,
-                                         "labels": tokens})
+        x, aux = model.forward(tp, tiny, tokens, backend="reference")
+        assert x.dtype == torch.bfloat16 and x.shape == (1, 4, tiny.d_model)
+        assert float(aux) == 0.0
+        loss, _ = model.train_loss(tp, tiny, {"tokens": tokens,
+                                              "labels": tokens},
+                                   backend="reference")
+        assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
             model.init_params(jrandom.PRNGKey(0, device="cpu"), cfg,

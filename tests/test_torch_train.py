@@ -696,16 +696,25 @@ def test_lse_and_backward_launchers_match_their_c_definitions(on_card):
 
 
 def test_backward_refuses_bf16_naming_the_roadmap(on_card):
+    """bf16 operands launch the bf16 build (``flash_attention_bwd_bf16``,
+    bf16 dq, dk and dv); f16 raises ``TypeError`` naming ROADMAP queue B,
+    a wrong lse shape ``ValueError``, both before any launch. (The name is
+    the one this test had while the backward refused bf16; it is kept so
+    that the test's record runs on.)"""
     q = _meta(1, 2, 8, 16, dtype=torch.bfloat16)
     lse = _meta(1, 2, 8)
-    with pytest.raises(NotImplementedError, match=A13):
-        kbwd.flash_attention_bwd(q, q, q, q, lse, q)
+    half = _meta(1, 2, 8, 16, dtype=torch.float16)
+    with pytest.raises(TypeError, match="ROADMAP queue B"):
+        kbwd.flash_attention_bwd(half, half, half, half, lse, half)
     with pytest.raises(ValueError, match="lse"):
         kbwd.flash_attention_bwd(q, q, q, q, _meta(1, 2, 9), q)
     assert on_card == []
     kflash.flash_attention(q, q, q)          # bf16 prefill is ported
     kflash.flash_attention(q, q, q, return_lse=True)
-    assert [c[1] for c in on_card] == ["flash_attention_bf16"] * 2
+    grads = kbwd.flash_attention_bwd(q, q, q, q, lse, q)
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    assert [c[1] for c in on_card] == ["flash_attention_bf16"] * 2 + [
+        "flash_attention_bwd_bf16"]
 
 
 def test_model_routes_training_through_the_gradient_path(on_card):
