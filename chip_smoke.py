@@ -8,7 +8,11 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
 
   1. device   -- CUDA must be present; prints ``nvidia-smi``'s name and
                  power limit.
-  2. build    -- compiles ``src/repro_torch/kernels/csrc`` with nvcc.
+  2. build    -- compiles ``src/repro_torch/kernels/csrc`` with nvcc;
+                 then (phase bwd_bf16_sass) counts the HGMMA (wgmma)
+                 instructions ``cuobjdump --dump-sass`` finds in each of
+                 the bf16 flash backward's dk/dv and dq kernels, and fails
+                 if one has none.
   3. kernels  -- each kernel against its plain PyTorch version on the
                  card: M in {1, 4, 9}, n in {1, 127, 128*257+3, 2^20+17},
                  f32 and f64, masks all 0 / all 1 / mixed, inputs salted
@@ -82,7 +86,9 @@ and imports only ``repro_torch``. Phases, each printing one JSON line:
                  (ATTN_FACTOR), its bits the same over three calls; its
                  bf16 build (FLASH_BWD_BF16_CASES: qwen3-4b's and
                  gemma3-12b's training shapes, causal and at window 1024,
-                 then the tile edges) from B14 bf16's output and lse,
+                 then the edges of the tensor-core design's 64-row,
+                 64-key and 32-row tiles and of the SIMT design's 64-row
+                 and 32-key ones) from B14 bf16's output and lse,
                  each element within bf16_bwd_excess's bound of the f64
                  function of the same residuals and of its bf16 plain
                  version, its bits the same over three calls.
@@ -660,6 +666,44 @@ def phase_build() -> None:
         build.library(name)
     emit({"phase": "build", "seconds": seconds,
           "compiled": sorted(logs), "dir": str(build.BUILD_DIR)})
+    emit({"phase": "bwd_bf16_sass", "hgmma": bwd_bf16_hgmma()})
+
+
+# the bf16 flash backward's tensor-core kernels, by head-dim capacity
+BWD_BF16_KERNELS = tuple(f"{k}<{d}>" for k in ("flash_bwd_dkv_kernel",
+                                               "flash_bwd_dq_tc_kernel")
+                         for d in (64, 128, 256))
+
+
+def count_hgmma(sass: str) -> dict:
+    """HGMMA instructions by bf16 backward kernel (``name<DMAX>``) in the
+    text of ``cuobjdump --dump-sass``; other functions are not counted."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"(flash_bwd_(?:dkv|dq_tc)_kernel)ILi(\d+)E",
+                              line)
+            fn = f"{found.group(1)}<{found.group(2)}>" if found else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def bwd_bf16_hgmma() -> dict:
+    """The HGMMA (wgmma) instructions ``cuobjdump --dump-sass`` finds in
+    each of the bf16 flash backward's dk/dv and dq kernels of the built
+    ``flash_backward`` library; fails unless every one has some."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    counts = count_hgmma(subprocess.run(
+        [str(tool), "--dump-sass", str(build.library_path("flash_backward"))],
+        capture_output=True, text=True, check=True).stdout)
+    check(sorted(counts) == sorted(BWD_BF16_KERNELS)
+          and all(counts.values()),
+          f"flash_backward's bf16 kernels without HGMMA: {counts}")
+    return counts
 
 
 # ------------------------------------------------------------ phase 3
@@ -2146,7 +2190,10 @@ FLASH_BWD_CASES = [
 # G 1, 4 and 6, a window of 16 on 64-row tiles, rows with no valid key in a
 # tile that also holds valid ones, Lq != S, non-causal, d 72 (16-byte loads
 # of 8, zero-filled to 128) and 256, d 33 and d 128 one element off their
-# storage's alignment (the element loads)
+# storage's alignment (the element loads); then the tensor-core design's
+# edges: L one short of and one past its 64-row and 64-key tiles at d 64,
+# 128 and 256 and its 32-row stages at d 256, causal and windowed, and Lq > S
+# under a window (rows 94 on have no valid key)
 FLASH_BWD_BF16_CASES = [
     (4, 32, 8, 256, 256, 128, True, None, 0),
     (1, 16, 8, 2048, 2048, 256, True, None, 0),
@@ -2165,6 +2212,15 @@ FLASH_BWD_BF16_CASES = [
     (1, 2, 2, 33, 31, 256, True, None, 0),
     (1, 4, 2, 97, 97, 33, True, 16, 1),
     (2, 4, 2, 130, 130, 128, True, None, 1),
+    (1, 4, 2, 63, 63, 128, True, None, 0),
+    (1, 4, 2, 65, 65, 128, True, 40, 0),
+    (1, 4, 2, 127, 129, 64, True, 48, 0),
+    (1, 4, 2, 129, 127, 64, False, 70, 0),
+    (1, 2, 2, 31, 31, 256, True, None, 0),
+    (1, 4, 2, 33, 33, 256, True, 20, 0),
+    (1, 4, 2, 63, 65, 256, True, None, 0),
+    (1, 4, 2, 65, 63, 256, True, 40, 0),
+    (1, 4, 2, 160, 65, 128, True, 30, 0),
 ]
 SINGLE_PAIRS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
                 (torch.float64, torch.float32), (torch.float32, torch.bfloat16),
@@ -5655,7 +5711,9 @@ def train_bf16_timing(device) -> tuple:
     per-head dk and dv, which the kernel sums over each group) and its
     bound: the band's five products (s again, dp, dq, dk, dv) at
     BF16_FLOPS, what the card could do for this work on its tensor cores,
-    or the bytes read and written once, the larger; and B14 bf16 with and
+    or the bytes read and written once, the larger, with the share of it
+    the kernel reaches, the scratch its plan allocates and the device
+    kernels a call runs (``_grids_a_call``); and B14 bf16 with and
     without its log-sum-exp at the same shapes beside bf16 SDPA's forward,
     with its bound (four products of the band at BF16_FLOPS). Launches
     come from phase train_bf16 (add_path_launches)."""
@@ -5702,20 +5760,23 @@ def train_bf16_timing(device) -> tuple:
         got, want = kfn(), pfn()
         err = max(max_diff(a, b_) for a, b_ in zip(got, want))
         del got, want
+        layout = flash_backward.plan(b, h, kh, l, l, d, True, window, bf)
         # reads q, k, v, o, dO and lse, writes dq, dk and dv
         nbytes = 2 * (3 * b * h * l * d + 2 * b * kh * l * d) + 4 * b * h * l \
             + 2 * (b * h * l * d + 2 * b * kh * l * d)
         ops_ = 10 * b * h * pairs * d
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, \
             ops_ / BF16_FLOPS * 1e3
+        ms = _time_ms(kfn, 10)
         bwd.append({
-            "max_abs_err": err, "ms": _time_ms(kfn, 10),
-            "plain_ms": _time_ms(pfn, 3),
+            "max_abs_err": err, "ms": ms, "plain_ms": _time_ms(pfn, 3),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "pct_of_bound": 100 * max(bytes_ms, ops_ms) / ms,
             "library_ms": _time_ms(lambda: torch.autograd.grad(
                 sdpa, (sq, ske, sve), do, retain_graph=True), 10),
             "bytes": nbytes, "operations": ops_, "shape": shape,
+            "scratch_bytes": layout.scratch_bytes,
             "grids_a_call": _grids_a_call(kfn)})
         f_bytes = 2 * (2 * b * h * l * d + 2 * b * kh * l * d) + 4 * b * h * l
         f_ops = 4 * b * h * pairs * d

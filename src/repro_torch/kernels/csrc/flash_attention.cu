@@ -91,12 +91,12 @@
 // a window narrower than the gap) visits every tile, as the TPU kernel
 // does, and such a row comes out as the mean of v, as in JAX. Keys past S
 // in the last tile score -inf, so they add nothing in any case.
-#include <cuda.h>          // CUtensorMap (the bf16 design's TMA copies)
 #include <cuda_bf16.h>
 
 #include <type_traits>
 
 #include "reduce.cuh"
+#include "tc.cuh"           // the bf16 design's TMA, mbarrier and wgmma helpers
 
 using namespace repro;
 
@@ -569,12 +569,12 @@ static int launch_flash(const void* q, const void* k, const void* v, void* out, 
 // Shared memory: 1024 bytes of alignment slack, q 16 KB per column block,
 // NST tiles each of k and v at 8 KB per column block, 4 NST mbarriers:
 // 83,072 bytes at DMAX 64, 164,992 at 128, 197,696 at 256. No atomics:
-// the same bits on every call.
+// the same bits on every call. The swizzle, TMA, mbarrier and wgmma
+// helpers are in tc.cuh, which the flash backward's bf16 passes share.
 
 constexpr int kTcBM = 128;            // query rows of a block
 constexpr int kTcBN = 64;             // keys of a tile
 constexpr int kTcThreads = 256;       // two warpgroups
-constexpr int kSwRow = 128;           // bytes of one swizzled row (64 bf16)
 
 template <int DMAX>
 struct TcTiles {
@@ -590,218 +590,6 @@ struct TcTiles {
       1024 + (size_t)Q_BYTES + 2 * NST * (size_t)KV_BYTES + 32 * NST;
 };
 
-// Byte offset of 16-byte chunk c of row r in a swizzled tile of `rows` rows.
-__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
-  return (uint32_t)((c >> 3) * rows * kSwRow + r * kSwRow + (((c & 7) ^ (r & 7)) << 4));
-}
-
-// One box (64 columns x the map's rows) of a 4-D tensor map (d, L, heads,
-// batch) into shared memory at dst, 128-byte swizzled, completing `bar`'s
-// transaction count; columns and rows past the tensor are zero-filled.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map, int col, int64_t row,
-                                        int64_t head, int64_t batch, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(col), "r"((int)row), "r"((int)head),
-      "r"((int)batch), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t a, uint32_t b, uint32_t c,
-                                            uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(a), "r"(b), "r"(c),
-               "r"(d)
-               : "memory");
-}
-
-// generic-proxy writes to shared memory (cp.async, st.shared) before the
-// async proxy (wgmma) reads them
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// mbarriers in shared memory: init (one thread), arrive, and the wait for
-// the phase of the given parity to complete
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// Rows row0 .. row0 + ROWS - 1 of one (rows, d) bf16 operand, gathered
-// by strides into a swizzled tile at shared address dst, zero past nrows
-// and past d (the element path). Thread e moves 16-byte chunk e % (DMAX /
-// 8) of row e / (DMAX / 8).
-template <int ROWS, int DMAX>
-__device__ __forceinline__ void tc_gather(uint32_t dst, const __nv_bfloat16* src, int64_t row0,
-                                          int64_t nrows, int64_t rs, int64_t cs, int64_t d) {
-  constexpr int CPR = DMAX / 8;       // chunks of a row
-  const unsigned short* raw = reinterpret_cast<const unsigned short*>(src);
-  for (int e = threadIdx.x; e < ROWS * CPR; e += kTcThreads) {
-    const int r = e / CPR, c = e % CPR;
-    const int64_t row = row0 + r;
-    const uint32_t sp = dst + swz(r, c, ROWS);
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t lo = 0, hi = 0;
-      const int64_t col = c * 8 + 2 * i;
-      if (row < nrows && col < d) lo = raw[row * rs + col * cs];
-      if (row < nrows && col + 1 < d) hi = raw[row * rs + (col + 1) * cs];
-      w[i] = lo | (hi << 16);
-    }
-    st_shared16(sp, w[0], w[1], w[2], w[3]);
-  }
-}
-
-// wgmma shared-memory descriptors of 128-byte-swizzled tiles: K-major (q,
-// k: the leading offset unused, 1024 bytes between 8-row groups) and
-// MN-major (v: `lbo` bytes between 64-column blocks, 1024 between 8-key
-// groups)
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// ties registers to this point of the program, so the compiler neither
-// reads an accumulator before wgmma_wait nor writes it after an issue
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-
-// D (64 x 64, f32) {+}= A (64 x 16, shared, K-major) B (16 x 64, shared, K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 64, f32) += A (64 x 16, registers) B (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16, registers) B (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 256, f32) += A (64 x 16, registers) B (16 x 256, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-template <int DMAX>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DMAX / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (DMAX == 64) wgmma_rs_n64(o, a, db);
-  else if constexpr (DMAX == 128) wgmma_rs_n128(o, a, db);
-  else wgmma_rs_n256(o, a, db);
-}
-
 // O += P_hi V + P_lo V of one key tile: 4 steps of 16 keys, 2048 bytes
 // apart in the v tile at vt
 template <int DMAX>
@@ -810,20 +598,11 @@ __device__ __forceinline__ void pv_tile(float (&o)[DMAX / 2], const uint32_t (&p
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t db = desc_mnmajor(vt + kk * 16 * kSwRow, TcTiles<DMAX>::KV_CB);
-    wgmma_pv<DMAX>(o, ph[kk], db);
-    wgmma_pv<DMAX>(o, pl[kk], db);
+    wgmma_rs<DMAX>(o, ph[kk], db);
+    wgmma_rs<DMAX>(o, pl[kk], db);
   }
 }
 
-// p_hi = bf16(x), p_lo = bf16(x - p_hi) of two neighbouring scores, packed
-// as wgmma's A registers take them (the lower column in the low half)
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);        // one cvt.rn.bf16x2.f32
-  hi = reinterpret_cast<const uint32_t&>(h);
-  const float h0 = __uint_as_float(hi << 16), h1 = __uint_as_float(hi & 0xffff0000u);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(__fsub_rn(x0, h0), __fsub_rn(x1, h1));
-  lo = reinterpret_cast<const uint32_t&>(r);
-}
 
 // One key tile's step of the online softmax for the two rows row0 and
 // row0 + 8 of a thread, whose scores of keys k0 + 8 n + 2 tq + j lie in
@@ -962,7 +741,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       return;
     }
     if (rel >= NST) mbar_wait(empty + 8 * j, (uint32_t)((rel / NST - 1) & 1));
-    tc_gather<kTcBN, DMAX>(dst, base, kt * kTcBN, a.s, st[2], st[3], a.d);
+    tc_gather<kTcBN, DMAX, kTcThreads>(dst, base, kt * kTcBN, a.s, st[2], st[3], a.d);
     fence_proxy_async();
     mbar_arrive(full + 8 * j);
   };
@@ -985,7 +764,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   // prologue: q (behind k's first barrier), k's tiles t_lo .. t_lo + NST - 2
   // and v's tiles t_lo .. t_lo + NST - 3
   if (!vec) {
-    tc_gather<kTcBM, DMAX>(qs, qb, q0, a.lq, a.qs[2], a.qs[3], a.d);
+    tc_gather<kTcBM, DMAX, kTcThreads>(qs, qb, q0, a.lq, a.qs[2], a.qs[3], a.d);
   } else if (tid == 0) {
     mbar_expect(full_k, (uint32_t)L::Q_BYTES);
 #pragma unroll
@@ -1120,44 +899,6 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's
-// cudaGetDriverEntryPoint (no link against libcuda); null where missing
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// The 4-D map (d, L, heads, batch) of one (B, heads, L, d) bf16 operand with
-// element strides st, boxes of 64 columns x `rows` rows, 128-byte swizzle.
-// A dimension of size 1 gets a stride TMA accepts (it is never stepped).
-static bool tensor_map(CUtensorMap* map, const void* base, const int64_t* st, int64_t batch,
-                       int64_t heads, int64_t len, int64_t d, int rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const int64_t size[3] = {len, heads, batch};
-  const int64_t es[3] = {st[2], st[1], st[0]};
-  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)len, (cuuint64_t)heads, (cuuint64_t)batch};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)(size[i] == 1 ? 16 : 2 * es[i]);
-  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  cuuint32_t step[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int DMAX, bool kLse>
 static int launch_flash_tc_d(const void* q, const void* k, const void* v, void* out, float* lse,

@@ -17,33 +17,32 @@
 // is allowed; q, k, v, o and dO are read by strides (the model's (B, H, L,
 // d) views of (B, L, H, d) tensors), dq, dk and dv written by strides.
 //
-// Two builds of one design, by operand type T: float32
-// (flash_attention_bwd_f32) and bfloat16 (flash_attention_bwd_bf16). lse,
-// D, every product, sum and exp, the shared-memory tiles and the dq
-// partials are f32 in both: a bf16 operand is widened to f32 (exact) as it
-// is loaded, and dq, dk and dv are rounded to bf16 once, at the store
-// (__float2bfloat16_rn). That is JAX's bwd on bf16 operands: it upcasts
-// dO, o, k and v, runs _sdot on bf16 q and k with f32 accumulation (each
-// bf16 product is exact in f32) and casts dq, dk and dv to their operands'
-// dtypes once at the end (flash.py:103-104, :120-131, :149-162).
+// Two designs behind the one C signature, by operand type: float32
+// (flash_attention_bwd_f32) runs the SIMT design of the first part of this
+// note on the CUDA cores; bfloat16 (flash_attention_bwd_bf16) the
+// tensor-core design of the second part. lse, D, every sum and exp are f32
+// in both, and the bf16 build rounds dq, dk and dv to bf16 once, at the
+// store (__float2bfloat16_rn): that is JAX's bwd on bf16 operands, which
+// upcasts dO, o, k and v, runs _sdot on bf16 q and k with f32 accumulation
+// (each bf16 product is exact in f32) and casts dq, dk and dv to their
+// operands' dtypes once at the end (flash.py:103-104, :120-131, :149-162).
+// Both start with the same grid, prep: D of every query row, once (8 lanes
+// a row, a xor butterfly), so every block after it reads the same bits.
+// The grids after it start by programmatic dependent launch (their blocks
+// load what does not depend on the grid before, then wait for it). No
+// float atomics in either design: two calls give the same bits.
+//
+// ---- f32: the SIMT design.
 //
 // Bound: operations. Five products of the causal band: at training's shape
 // (B 4 a worker, H = K = 12, L 256, d 64: 32,896 (q, k) pairs a head)
 // 2 * 5 * 48 * 32,896 * 64 = 1.01 GFLOP, 0.0151 ms at an H100 SXM's 67
 // TFLOP/s of f32 outside the tensor cores, against 6 x 3.1 MB read and 3 x
 // 3.1 MB written (0.0075 ms at 3.35 TB/s). The products are fmaf on the
-// CUDA cores: TF32 would not hold the f32 tolerance. The bf16 build runs
-// the same f32 products on the CUDA cores; what the card could do for its
-// work is the band's five products on the bf16 tensor cores (989 TFLOP/s
-// dense): at qwen3-4b's training shape (B 4, H 32, K 8, L 256, d 128) 2 *
-// 5 * 128 * 32,896 * 128 = 5.4 GFLOP, 0.0054 ms there, against 0.080 ms
-// as f32 FMAs at 67 TFLOP/s. A wgmma design is left to a later change.
+// CUDA cores: TF32 would not hold the f32 tolerance.
 //
-// Three grids a call on the caller's stream, behind the one C entry point;
-// the second and third start by programmatic dependent launch (their blocks
-// load what does not depend on the grid before, then wait for it):
-//   prep: D of every query row, once (8 lanes a row, a xor butterfly), so
-//     every block of the next grid reads the same bits.
+// Three grids a call on the caller's stream:
+//   prep: D.
 //   main: one block of 256 threads (8 warps) per (b, kv head, tile of BK
 //     keys), key tile 0 first (the heaviest under causal). A block walks the
 //     G query heads of its kv head in order and, for each, the query tiles
@@ -56,7 +55,7 @@
 //     memory to 64 FMA). dk and dv stay in registers; each pair's product is
 //     summed apart, then added (a two-level sum).
 //   dq: the slots of a query tile summed in key-tile order, times scale;
-//     a thread a float4. No float atomics: two calls give the same bits.
+//     a thread a float4.
 // The slot of (b, h, query tile qt, key tile kt) lies at ((b H + h) pairs +
 // base[qt] + kt - lo[qt]) BQ DMAX floats, base[qt] the pairs of the query
 // tiles before qt in the band, so the scratch holds the band's pairs, not
@@ -75,10 +74,7 @@
 // copies where an operand allows them: a unit last stride, the head dim and
 // every other stride a multiple of 4, a 16-byte aligned base, which the
 // wrapper checks per operand and the launcher checks again; else element by
-// element; bf16: 16-byte loads of 8 elements where the head dim and every
-// other stride are multiples of 8, widened and stored to shared memory by
-// the thread, so its copies land before the products rather than during
-// them), p^T and ds^T [BK][BQ + 4] and ds [BQ][BK + 4]. Rows are padded
+// element), p^T and ds^T [BK][BQ + 4] and ds [BQ][BK + 4]. Rows are padded
 // to 4 floats past a multiple of 32, so the eight rows or eight column
 // groups a warp reads as float4s fall on distinct banks.
 //
@@ -91,15 +87,135 @@
 // 960 pairs are 3.6 a slot, so in whole pairs some slot runs 4 whatever
 // the split, and the split would add dk and dv partials and their sum.
 //
-// Skipped tiles: a query tile whose rows all have a valid key in [0, S)
-// meets only the key tiles of its causal/window band; outside it p =
-// exp(-1e30 - lse) = 0 exactly, so nothing is added. A row with no valid key
-// has lse = -1e30 (flash.py's forward gives it the mean of v) and p = 1 on
-// every key, as in flash.py, so a query tile that holds such a row meets
-// every key tile. The rows with a valid key form a prefix of [0, Lq) (a
-// row's band moves right by at most one key a row), so the tile's last row
-// decides. Keys past S and query rows past Lq get p = 0.
+// Skipped tiles (both designs): a query tile whose rows all have a valid
+// key in [0, S) meets only the key tiles of its causal/window band; outside
+// it p = exp(-1e30 - lse) = 0 exactly, so nothing is added. A row with no
+// valid key has lse = -1e30 (flash.py's forward gives it the mean of v) and
+// p = 1 on every key, as in flash.py, so a query tile that holds such a row
+// meets every key tile. The rows with a valid key form a prefix of [0, Lq)
+// (a row's band moves right by at most one key a row), so the tile's last
+// row decides. Keys past S and query rows past Lq get p = 0.
+//
+// ---- bf16: the tensor-core design.
+//
+// Bound: the five products of the band on the bf16 tensor cores (989
+// TFLOP/s dense) or the bytes, the larger. qwen3-4b's training shape (B 4,
+// H 32, K 8, L 256, d 128, causal: 32,896 pairs a head): 2 * 5 * 128 *
+// 32,896 * 128 = 5.39 GFLOP, 0.0054 ms, against 29.5 MB read (q, dO, o
+// 8.4 MB each, k, v 2.1 MB, lse) and 12.6 MB written, 0.0126 ms at 3.35
+// TB/s: bytes. gemma3-12b's (B 1, H 16, K 8, L 2048, d 256, causal:
+// 2,098,176 pairs a head): 85.9 GFLOP, 0.0869 ms: operations. This design
+// runs 14 products of the band, not 5 (below), so its own floor at the
+// tensor cores' rate is 2.8 times the operations bound.
+//
+// Arithmetic. S (or S^T) = Q K^T and dP (or dP^T) = dO V^T have bf16
+// operands, so every product is exact in f32: plain wgmma with f32
+// accumulation, the scale after the product. p and ds are f32 (IEEE-rounded
+// operations under the build's -fmad=false, expf). In dV += P^T dO, dK +=
+// dS^T Q and dQ += dS K each is split in three, x_hi = bf16(x), x_mid =
+// bf16(x - x_hi), x_lo = bf16(x - x_hi - x_mid) (each residual exact in
+// f32; the three within 2^-24 |x| of x), and the three products go into
+// one f32 accumulator. Split in two (x_hi + x_lo, within 2^-16 |x|, as B14
+// bf16 splits p) the result broke chip_smoke.bf16_bwd_excess, each output
+// element's rule, on 3 of 26 cases on the card (by up to 6.7%) and 4 of 23
+// in the CPU emulation (tests/test_torch_bwd_tc_numerics.py): a split error
+// of 2^-16 of the large ds of rows with no valid key (p = 1 on every key)
+// or of an element that cancels lands past the rule's f32 margin.
+//
+// Three grids a call on the caller's stream, each output element written
+// by one block, its sum in a fixed order (flash.py's own split: dq_block by
+// query block, dkv_block by key block), no dq scratch:
+//   prep: D (flash_bwd_prep_kernel<bf16>, 16-byte loads of 8 where dO and o
+//     allow them).
+//   dk/dv (flash_bwd_dkv_kernel): one block of two warpgroups per (b, kv
+//     head, tile of 64 keys), key tile 0 first. k and v stay in shared
+//     memory; the block walks the G heads in order and each head's query
+//     tiles of KV_BQ rows that meet its key tile, from the last down,
+//     through a ring of KV_NST stages, each the q and dO tiles and their
+//     rows' lse and D. A visit: S^T = K Q^T by wgmma m64nKV_BQk16 with the
+//     keys as M and both operands K-major from shared memory, in both
+//     warpgroups; warpgroup 1 also dP^T = V dO^T. p^T and ds^T then lie in
+//     the accumulator fragment, which is the A-register fragment of dV +=
+//     P^T dO (warpgroup 0) and dK += dS^T Q (warpgroup 1) (m64nDMAXk16, dO
+//     and q MN-major from the stage): nothing goes through shared memory,
+//     and the two warpgroups run one update sequence on two tiles. lse and
+//     D are read along N from the stage. dK and dV sum over the heads and
+//     query tiles in the walk's order; dk is scaled once at the store.
+//     One warpgroup can not hold both dK and dV with the three-way split's
+//     fragments (at d = 128: 128 f32 of sums, 48 of fragments, 64 of S^T
+//     and dP^T a thread; at d = 256 the sums alone take 256), so each
+//     warpgroup holds one, as the f32 design splits its halves, and
+//     warpgroup 1 computes S^T again. Handing p^T from warpgroup 0 to 1
+//     through shared memory instead measured 1-5% slower (PERF.md §6): it
+//     puts warpgroup 1 behind warpgroup 0 on every visit. The stage copies
+//     are warpgroup 1's (its first warp), the warpgroup that does more: a
+//     thread that waits for a stage to empty stalls its warpgroup's
+//     wgmmas, so warpgroup 0 runs ahead instead of in step.
+//   dq (flash_bwd_dq_tc_kernel): one block of two warpgroups per (b, head,
+//     tile of 128 query rows), warpgroup w on rows 64 w .. 64 w + 63, the
+//     heaviest query tile first under causal. q and dO stay in shared
+//     memory; the key tiles of DQ_BK keys that meet the query tile's band
+//     go through a ring of DQ_NST stages (k, v) in order, both warpgroups
+//     reading each (a tile outside one warpgroup's band adds exactly 0 to
+//     its rows: p = 0 there). A key tile: S = Q K^T, dP = dO V^T
+//     (m64nDQ_BKk16), p and ds in registers, dQ += dS K (A from registers,
+//     k MN-major). dQ is one f32 sum in key-tile order, scaled and rounded
+//     once at the store.
+//   Products: S^T twice, dP^T and three each of dV and dK in the dk/dv
+//   pass; S, dP and three of dQ in the dq pass: 14 in all, where the
+//   function needs 5 (the dq pass recomputes S and dP, against a dq
+//   scratch that cost more than the products: see (2) below).
+// Copies: where q, k, v and dO all have unit last stride, a head dim and
+// strides that are multiples of 8 elements and 16-byte aligned bases
+// (flash_attention.tc_copy_ok, checked again here), TMA: one thread copies
+// each tile as boxes of 64 columns of a 4-D tensor map (d, L, heads, batch),
+// 128-byte swizzled, zero-filled past L and d, completing the stage's
+// "full" mbarrier by its bytes. Otherwise (d 33, a view off by one
+// element) every thread gathers 8 elements at a time by strides and stores
+// the 16 bytes itself (tc.cuh:tc_gather), then a proxy fence and an
+// arrive. The lse and D rows of a dk/dv stage come by 4-byte cp.async from
+// the copying warp, whose 32 lanes each arrive on the stage's barrier when
+// theirs landed. A stage's "empty" mbarrier completes when every thread has
+// read it (an arrive after the wgmma that read it). The tiles, swizzle,
+// descriptors and wgmma helpers are B14 bf16's (tc.cuh).
+// Masks: a visited tile pair wholly inside a warpgroup's band and before
+// Lq and S takes p = exp(s * scale - lse) with no test; any other the
+// per-element test as int32 compares against a row's column bounds
+// (RowMask: prob's function). Both choices are uniform over a warpgroup.
+//
+// Tiles by head dim (TcBwdTiles; registers and spills as ptxas reports
+// them for the H100 build are in PERF.md §6):
+//   d <= 64: dk/dv 64 keys x 64 query rows a stage, 4 stages, 85,064 bytes
+//     of shared memory; dq 128 rows x 64 keys a stage, 3 stages, 83,000.
+//   d <= 128: dk/dv 64 x 64, 3 stages, 133,688 bytes; dq 128 x 64, 2
+//     stages, 132,136.
+//   d <= 256: dk/dv 64 keys x 32 query rows a stage: k and v take 64 KB
+//     and a stage of 32 rows 32 KB (64 rows would take 64 KB), so 3 stages
+//     of 32 rows, 165,688 bytes. dq 128 rows x 32 keys a stage (the 128 f32
+//     of dQ a thread leave no room for 64-key S and dP with the split's
+//     fragments), 2 stages, 197,672 bytes.
+//   Every block is two warpgroups, one block an SM.
+//
+// What became of the SIMT bf16 build's three limits (PERF.md §6 has the
+// times): (1) every product runs on the tensor cores (wgmma; chip_smoke's
+// phase bwd_bf16_sass counts HGMMA in all six kernels), where the SIMT
+// build widened each operand and ran fmaf at about 11-19 TFLOP/s; (2) no
+// dq scratch: dq is summed in registers by one block a query tile, so the
+// bf16 scratch is D alone (4 b h Lq bytes: 0.13 MB at qwen3-4b's and
+// gemma3-12b's shapes, where the slots took 75.6 MB and 1.09 GB); (3) the
+// heaviest dk/dv block at qwen3-4b's shape walks 4 heads x 4 query tiles
+// of 64 rows, 16 visits, on a grid of 128 blocks (one wave of 132 SMs),
+// and the dq grid has 256 blocks of at most 4 key tiles.
+// The G heads are not split across blocks: at qwen3-4b's shape that would
+// give 512 dk/dv blocks of 4 visits, but their dk and dv partials (4 heads
+// x 4 x 8 x 256 x 128 x 2 f32, 33.6 MB) would go to device memory and need
+// a fixed-order sum after: 67 MB written and read, 0.02 ms at 3.35 TB/s,
+// as long as the heaviest block's 16 visits take at the tensor cores' rate
+// (16 x 9 products of 64 x 64 x 128, 0.15 GFLOP on one SM's 7.5 TFLOP/s).
+#include <type_traits>
+
 #include "reduce.cuh"
+#include "tc.cuh"
 
 using namespace repro;
 
@@ -176,9 +292,8 @@ struct BwdPtrs {
 template <typename T>
 constexpr int kVecElems = 16 / (int)sizeof(T);
 
-// a computed f32 value stored in T: itself, or rounded once to bf16
+// a computed f32 value stored in T (the SIMT design's f32)
 __device__ __forceinline__ void put(float* dst, float y) { *dst = y; }
-__device__ __forceinline__ void put(bf16* dst, float y) { *dst = __float2bfloat16_rn(y); }
 
 // 8 bf16 of one 16-byte word widened to f32 (exact: a bf16 is the top
 // half of an f32)
@@ -209,15 +324,16 @@ __device__ __forceinline__ bool masked(const BwdArgs& a, int64_t qpos, int64_t k
   return (a.causal && kpos > qpos) || (a.has_window && kpos <= qpos - a.window);
 }
 
-// The key tiles [lo, hi) that query tile qt meets (see the note on skipped
-// tiles): its rows' band, or every key tile if its last row has no key.
+// The key tiles [lo, hi) of BK keys (nk of them) that query tile qt of BQ
+// rows meets (see the note on skipped tiles): its rows' band, or every key
+// tile if its last row has no key.
 template <int BQ, int BK>
-__host__ __device__ __forceinline__ void key_tiles(const BwdArgs& a, int64_t qt, int64_t& lo,
-                                                   int64_t& hi) {
+__host__ __device__ __forceinline__ void band_tiles(const BwdArgs& a, int64_t qt, int64_t nk,
+                                                    int64_t& lo, int64_t& hi) {
   const int64_t q0 = qt * BQ, qlast = imin(q0 + BQ, a.lq) - 1;
   if (!row_has_key(a, qlast)) {
     lo = 0;
-    hi = a.nk;
+    hi = nk;
     return;
   }
   int64_t klo = 0, khi = a.s - 1;
@@ -225,6 +341,12 @@ __host__ __device__ __forceinline__ void key_tiles(const BwdArgs& a, int64_t qt,
   if (a.has_window) klo = imax(klo, q0 - a.window + 1);
   lo = klo / BK;
   hi = khi / BK + 1;
+}
+// the SIMT design's: BwdArgs::nk key tiles
+template <int BQ, int BK>
+__host__ __device__ __forceinline__ void key_tiles(const BwdArgs& a, int64_t qt, int64_t& lo,
+                                                   int64_t& hi) {
+  band_tiles<BQ, BK>(a, qt, a.nk, lo, hi);
 }
 
 // One step of a block's walk: head gi of the kv head's group, query tile qt,
@@ -296,45 +418,10 @@ __device__ __forceinline__ void wait_for_previous_grid() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// Rows row0 .. row0 + ROWS - 1 of one (rows, d) operand into a row-major f32
-// tile of row stride STRIDE and DMAX columns, zero past nrows and past d.
-// f32: by cp.async 16 bytes at a time where vec, else element by element,
-// each thread moving 4 neighbouring columns of a row at a time. bf16: where
-// vec, 8 neighbouring columns a thread from one 16-byte load, widened to
-// f32 and stored; else element by element, widened.
-template <int ROWS, int DMAX, int STRIDE>
-__device__ __forceinline__ void load_tile(float* dst, const bf16* src, int64_t row0,
-                                          int64_t nrows, int64_t rs, int64_t cs, int64_t d,
-                                          bool vec) {
-  if (vec) {                           // d % 8 == 0 on this path
-    constexpr int G8 = DMAX / 8;
-    for (int e = threadIdx.x; e < ROWS * G8; e += kBwdThreads) {
-      const int r = e / G8, c = (e % G8) * 8;
-      const int64_t row = row0 + r;
-      float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
-      if (row < nrows && c < d)
-        widen8(*reinterpret_cast<const uint4*>(src + row * rs + c), lo, hi);
-      float* sp = dst + r * STRIDE + c;
-      *reinterpret_cast<float4*>(sp) = lo;
-      *reinterpret_cast<float4*>(sp + 4) = hi;
-    }
-    return;
-  }
-  constexpr int G4 = DMAX / 4;
-  for (int e = threadIdx.x; e < ROWS * G4; e += kBwdThreads) {
-    const int r = e / G4, c = (e % G4) * 4;
-    const int64_t row = row0 + r;
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row < nrows && c < d) {
-      const bf16* p = src + row * rs + c * cs;
-      x.x = to_f32(p[0]);
-      if (c + 1 < d) x.y = to_f32(p[cs]);
-      if (c + 2 < d) x.z = to_f32(p[2 * cs]);
-      if (c + 3 < d) x.w = to_f32(p[3 * cs]);
-    }
-    *reinterpret_cast<float4*>(dst + r * STRIDE + c) = x;
-  }
-}
+// Rows row0 .. row0 + ROWS - 1 of one (rows, d) f32 operand into a
+// row-major tile of row stride STRIDE and DMAX columns, zero past nrows and
+// past d: by cp.async 16 bytes at a time where vec, else element by
+// element, each thread moving 4 neighbouring columns of a row at a time.
 template <int ROWS, int DMAX, int STRIDE>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t row0,
                                           int64_t nrows, int64_t rs, int64_t cs, int64_t d,
@@ -717,14 +804,588 @@ flash_bwd_dq_kernel(BwdPtrs<T> p, BwdArgs a) {
     if (col + x < a.d) put(dst + (col + x) * a.dqs[3], __fmul_rn(a.scale, y[x]));
 }
 
+// ------------------------------------------------------------------------
+// The bf16 build: the tensor-core design (see the note at the top).
+
+constexpr int kTcWG = 128;             // threads of a warpgroup
+constexpr int kTcKvThreads = 2 * kTcWG;  // the dk/dv pass: dV's and dK's warpgroups
+
+// Tiles of the two passes by head-dim capacity: the dk/dv pass's query
+// rows a stage (KV_BQ) and keys a block (KV_BK), the dq pass's query rows a
+// block (DQ_BQ) and keys a stage (DQ_BK); stages of each ring.
+// kernels/flash_backward.py's TILES_BF16 mirrors the four tile sizes.
+template <int DMAX>
+struct TcBwdTiles;
+template <>
+struct TcBwdTiles<64> {
+  static constexpr int KV_BQ = 64, KV_BK = 64, DQ_BQ = 128, DQ_BK = 64;
+  static constexpr int KV_NST = 4, DQ_NST = 3;
+};
+template <>
+struct TcBwdTiles<128> {
+  static constexpr int KV_BQ = 64, KV_BK = 64, DQ_BQ = 128, DQ_BK = 64;
+  static constexpr int KV_NST = 3, DQ_NST = 2;
+};
+template <>
+struct TcBwdTiles<256> {
+  static constexpr int KV_BQ = 32, KV_BK = 64, DQ_BQ = 128, DQ_BK = 32;
+  static constexpr int KV_NST = 3, DQ_NST = 2;
+};
+
+// Shared memory of the two passes: 128-byte-swizzled bf16 tiles (tc.cuh),
+// DMAX / 64 column blocks of rows x 128 bytes each, every tile 1024-byte
+// aligned; then f32 rows and 8-byte mbarriers.
+template <int DMAX>
+struct TcBwdLayout : TcBwdTiles<DMAX> {
+  using T = TcBwdTiles<DMAX>;
+  static constexpr int CB = DMAX / 64;
+  static_assert(T::KV_BK == 64 && T::DQ_BQ % 64 == 0, "a warpgroup's 64 rows of M");
+  static constexpr int DQ_THREADS = kTcWG * (T::DQ_BQ / 64);  // a warpgroup per 64 rows
+  // dk/dv pass: k and v resident, a ring of (q, dO, lse, D) stages
+  static constexpr int K_CB = T::KV_BK * kSwRow;              // a k (v) tile's column block
+  static constexpr int K_BYTES = CB * K_CB;
+  static constexpr int Q_CB = T::KV_BQ * kSwRow;              // a streamed q (dO) tile's
+  static constexpr int Q_BYTES = CB * Q_CB;
+  static constexpr int KV_STAGE = 2 * Q_BYTES;                // q, dO
+  static constexpr size_t KV_SMEM = 1024 + 2 * (size_t)K_BYTES + T::KV_NST * (size_t)KV_STAGE +
+                                    T::KV_NST * 2 * T::KV_BQ * sizeof(float) +
+                                    8 * (1 + 2 * T::KV_NST);
+  // dq pass: q and dO resident, a ring of (k, v) stages
+  static constexpr int QQ_CB = T::DQ_BQ * kSwRow;             // the q (dO) tile's column block
+  static constexpr int QQ_BYTES = CB * QQ_CB;
+  static constexpr int KQ_CB = T::DQ_BK * kSwRow;             // a streamed k (v) tile's
+  static constexpr int KQ_BYTES = CB * KQ_CB;
+  static constexpr int DQ_STAGE = 2 * KQ_BYTES;               // k, v
+  static constexpr size_t DQ_SMEM = 1024 + 2 * (size_t)QQ_BYTES + T::DQ_NST * (size_t)DQ_STAGE +
+                                    8 * (1 + 2 * T::DQ_NST);
+  static_assert(KV_SMEM <= 232448 && DQ_SMEM <= 232448, "shared memory of a block");
+};
+
+// bits of the tc kernels' `pair` argument: dq, dk, dv stored two bf16 at a
+// time (a unit column stride, the other strides even, a 4-byte aligned base)
+constexpr int kPairDQ = 1, kPairDK = 2, kPairDV = 4;
+
+// 4 bytes from global to shared memory (cp_async4) land, then count as one
+// arrival on the mbarrier at shared address bar (the arrival is in its
+// expected count)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// The A-register fragments of one step of 16 along K, in three pieces:
+// f[kk][piece][register]
+template <int DEPTH>
+using TcFrags = uint32_t[DEPTH / 16][3][4];
+
+// x = x_hi + x_mid + x_lo: x_hi = bf16(x), x_mid = bf16(x - x_hi), x_lo =
+// bf16(x - x_hi - x_mid), each residual exact in f32, so the three are
+// within 2^-24 |x| of x (three roundings of 8 significant bits); two
+// neighbouring values packed as wgmma's A registers take them (the lower
+// column in the low half)
+__device__ __forceinline__ void split3_pair(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = reinterpret_cast<const uint32_t&>(h);
+  const float r0 = __fsub_rn(x0, __uint_as_float(hi << 16));
+  const float r1 = __fsub_rn(x1, __uint_as_float(hi & 0xffff0000u));
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  mid = reinterpret_cast<const uint32_t&>(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(r0, __uint_as_float(mid << 16)),
+                                                 __fsub_rn(r1, __uint_as_float(mid & 0xffff0000u)));
+  lo = reinterpret_cast<const uint32_t&>(l);
+}
+
+// The next (head of the group, query tile) of key tile kt's walk in the
+// dk/dv pass: the G heads in order, each head's query tiles (nq of BQ
+// rows) from the last down, those that meet kt; false past the end. Start
+// from gi = -1, qt = 0; once false, false again.
+template <int BQ, int BK>
+__device__ __forceinline__ bool next_visit(const BwdArgs& a, int64_t nq, int64_t nk, int kt, int g,
+                                           int& gi, int& qt) {
+  while (true) {
+    if (qt == 0) {
+      if (gi + 1 >= g) {              // past the end, and stays there
+        gi = g;
+        return false;
+      }
+      ++gi;
+      qt = (int)nq;
+    }
+    --qt;
+    int64_t lo, hi;
+    band_tiles<BQ, BK>(a, qt, nk, lo, hi);
+    if (lo <= kt && kt < hi) return true;
+  }
+}
+
+// A tile pair (rows q0 .. q0 + ROWS - 1, keys k0 .. k0 + KEYS - 1) inside
+// the band and before Lq and S: every p there is exp(s * scale - lse), no
+// test (uniform over the warpgroup, so it picks one of two straight-line
+// copies of the fragment code)
+template <int ROWS, int KEYS>
+__device__ __forceinline__ bool pair_inside(const BwdArgs& a, int64_t q0, int64_t k0) {
+  return q0 + ROWS <= a.lq && k0 + KEYS <= a.s && (!a.causal || k0 + KEYS - 1 <= q0) &&
+         (!a.has_window || k0 > q0 + ROWS - 1 - a.window);
+}
+
+// The mask of one of a thread's two M rows in a tile pair, as column
+// bounds in the tile (N columns; each bound clamped to [-1, N + 1]):
+// column c is past Lq or S (p = 0) from cend on, and masked (-1e30, so p
+// = exp(-1e30 - lse)) outside [clo, chi); prob's function in int32
+// compares.
+struct RowMask {
+  int cend, clo, chi;
+};
+__device__ __forceinline__ int clamp_col(int64_t c, int n) {
+  return (int)imin(imax(c, -1), n + 1);
+}
+// dk/dv pass: M row = key `key`, columns = query rows q0 + c
+template <int N>
+__device__ __forceinline__ RowMask key_row_mask(const BwdArgs& a, int64_t q0, int64_t key) {
+  return {key < a.s ? clamp_col(a.lq - q0, N) : 0,
+          a.causal ? clamp_col(key - q0, N) : -1,
+          a.has_window ? clamp_col(key - q0 + a.window, N) : N + 1};
+}
+// dq pass: M row = query row `row`, columns = keys k0 + c
+template <int N>
+__device__ __forceinline__ RowMask query_row_mask(const BwdArgs& a, int64_t k0, int64_t row) {
+  return {row < a.lq ? clamp_col(a.s - k0, N) : 0,
+          a.has_window ? clamp_col(row - a.window + 1 - k0, N) : -1,
+          a.causal ? clamp_col(row - k0 + 1, N) : N + 1};
+}
+// p of score s at column c of a row with mask m (MASK), or of an unmasked
+// one
+template <bool MASK>
+__device__ __forceinline__ float tile_prob(float s, float lse, float scale, const RowMask& m,
+                                           int c) {
+  if (!MASK) return expf(__fsub_rn(__fmul_rn(s, scale), lse));
+  if (c >= m.cend) return 0.0f;
+  return expf(__fsub_rn(c < m.clo || c >= m.chi ? kNeg : __fmul_rn(s, scale), lse));
+}
+
+// The dk/dv pass's fragment step. st and dpt are wgmma m64nBQ accumulators
+// of s^T and dp^T (M = the block's 64 keys, N = the stage's BQ query rows):
+// x[4 n + 2 i + j] is key key0 + 8 i (key0 this thread's first) and query
+// row 8 n + 2 tq + j of the stage, whose lse and D lie in shared memory.
+// Computes p^T, or under DS ds^T = p^T (dp^T - D), and splits it into the
+// A fragments of m64nDMAXk16 over the query rows: step kk, register r
+// holds x[8 kk + 2 r] and x[8 kk + 2 r + 1] (rows 16 kk .. 16 kk + 15).
+template <int BQ, bool MASK, bool DS>
+__device__ __forceinline__ void dkv_frags(const float (&st)[BQ / 2], const float (&dpt)[BQ / 2],
+                                          const float* lse_s, const float* d_s, float scale,
+                                          const RowMask (&m)[2], int tq, TcFrags<BQ>& f) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float y[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int x = 8 * kk + 2 * r + j;
+        const int c = 16 * kk + 8 * (r / 2) + 2 * tq + j;
+        const float p = tile_prob<MASK>(st[x], lse_s[c], scale, m[r % 2], c);
+        y[j] = DS ? __fmul_rn(p, __fsub_rn(dpt[x], d_s[c])) : p;
+      }
+      split3_pair(y[0], y[1], f[kk][0][r], f[kk][1][r], f[kk][2][r]);
+    }
+}
+
+// The dq pass's fragment step: s and dp are m64nBK accumulators (M = the
+// block's 64 query rows, N = the stage's BK keys): x[4 n + 2 i + j] is
+// query row row0 + 8 i (lse[i], D[i]) and key k0 + 8 n + 2 tq + j. Computes
+// ds = p (dp - D) and splits it into the A fragments of m64nDMAXk16 over
+// the keys.
+template <int BK, bool MASK>
+__device__ __forceinline__ void dq_frags(const float (&s)[BK / 2], const float (&dp)[BK / 2],
+                                         const float (&lse)[2], const float (&del)[2],
+                                         float scale, const RowMask (&m)[2], int tq,
+                                         TcFrags<BK>& f) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float y[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int x = 8 * kk + 2 * r + j, i = r % 2;
+        const float p = tile_prob<MASK>(s[x], lse[i], scale, m[i],
+                                        16 * kk + 8 * (r / 2) + 2 * tq + j);
+        y[j] = __fmul_rn(p, __fsub_rn(dp[x], del[i]));
+      }
+      split3_pair(y[0], y[1], f[kk][0][r], f[kk][1][r], f[kk][2][r]);
+    }
+}
+
+// D (64 x N) = A B^T over DMAX columns: A's 64 rows and B's N rows both
+// K-major swizzled tiles (column blocks a_cb and b_cb bytes apart), DMAX /
+// 16 steps of 16 columns, 32 bytes apart in a swizzled row
+template <int N, int DMAX>
+__device__ __forceinline__ void tc_scores(float (&d)[N / 2], uint32_t at, int a_cb, uint32_t bt,
+                                          int b_cb) {
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
+    const uint32_t col = (uint32_t)(kk % 4) * 32;
+    wgmma_ss<N>(d, desc_kmajor(at + (kk / 4) * a_cb + col), desc_kmajor(bt + (kk / 4) * b_cb + col),
+                kk > 0);
+  }
+}
+
+// D (64 x DMAX) += (X_hi + X_mid + X_lo) B over DEPTH rows of B: the A
+// fragments from registers, B an MN-major swizzled tile of DEPTH rows
+// (column blocks DEPTH x 128 bytes apart), DEPTH / 16 steps of 16 rows,
+// three products a step into the one accumulator
+template <int DMAX, int DEPTH>
+__device__ __forceinline__ void tc_update(float (&d)[DMAX / 2], const TcFrags<DEPTH>& f,
+                                          uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < DEPTH / 16; ++kk) {
+    const uint64_t db = desc_mnmajor(bt + kk * 16 * kSwRow, (uint32_t)(DEPTH * kSwRow));
+#pragma unroll
+    for (int x = 0; x < 3; ++x) wgmma_rs<DMAX>(d, f[kk][x], db);
+  }
+}
+
+// Stores a warpgroup's m64nDMAX accumulator (x[4 n + 2 i + j]: row row0 +
+// 8 i, column 8 n + 2 tq + j), times scale where `scaled`, rounded once to
+// bf16, by strides; rows past nrows and columns past d are dropped. `pair`:
+// two neighbouring columns at a time.
+template <int DMAX>
+__device__ __forceinline__ void tc_store(bf16* dst, const float (&x)[DMAX / 2], int64_t row0,
+                                         int64_t nrows, const int64_t* st, int64_t d, float scale,
+                                         bool scaled, bool pair, int tq) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + 8 * i;
+    if (row >= nrows) continue;
+    bf16* out = dst + row * st[2];
+#pragma unroll
+    for (int n = 0; n < DMAX / 8; ++n) {
+      const int64_t col = 8 * n + 2 * tq;
+      float y0 = x[4 * n + 2 * i], y1 = x[4 * n + 2 * i + 1];
+      if (scaled) {
+        y0 = __fmul_rn(scale, y0);
+        y1 = __fmul_rn(scale, y1);
+      }
+      if (pair && col + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(y0, y1);
+      } else {
+        if (col < d) out[col * st[3]] = __float2bfloat16_rn(y0);
+        if (col + 1 < d) out[(col + 1) * st[3]] = __float2bfloat16_rn(y1);
+      }
+    }
+  }
+}
+
+// The second grid of the bf16 build: dk and dv, one block of two
+// warpgroups per (b, kv head, key tile of KV_BK = 64 keys), key tile 0
+// first. k and v stay in shared memory; the stages of a ring hold the q and
+// dO tiles of KV_BQ rows and their lse and D, one stage a visit (head,
+// query tile) of the walk (next_visit). A visit: S^T = K Q^T by wgmma with
+// both operands from shared memory in both warpgroups; warpgroup 0 splits
+// p^T and adds dV += P^T dO, warpgroup 1 computes dP^T = V dO^T too, splits
+// ds^T and adds dK += dS^T Q, A from registers and dO or q MN-major from
+// the stage: the two run the same update on another tile.
+template <int DMAX>
+__global__ void __launch_bounds__(kTcKvThreads, 1)
+flash_bwd_dkv_kernel(BwdPtrs<bf16> p, BwdArgs a, int pair,
+                     const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v) {
+  using L = TcBwdLayout<DMAX>;
+  constexpr int BQ = L::KV_BQ, BK = L::KV_BK, NST = L::KV_NST, NT = kTcKvThreads;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(tc_smem);
+  const uint32_t ks = (sbase + 1023u) & ~1023u;
+  const uint32_t vs = ks + L::K_BYTES, ring = vs + L::K_BYTES;
+  const uint32_t rows = ring + NST * L::KV_STAGE;              // [NST][lse BQ, D BQ] f32
+  float* const rows_f = reinterpret_cast<float*>(tc_smem + (rows - sbase));
+  const uint32_t kvbar = rows + NST * 2 * BQ * (uint32_t)sizeof(float);
+  const uint32_t full = kvbar + 8, empty = full + 8 * NST;
+
+  launch_dependents();              // the dq grid may take SMs as blocks finish
+  // the warpgroup's index through a shuffle, so ptxas sees every branch on
+  // it uniform over each warp (a branch it may take as divergent makes it
+  // serialize every wgmma); warpgroup 1 holds dK, warpgroup 0 dV
+  const int tid = threadIdx.x;
+  const bool dk_wg = __shfl_sync(0xffffffffu, tid / kTcWG, 0) == 1;
+  const int lane = tid % 32, warp = (tid % kTcWG) / 32, tq = lane % 4;
+  const int nbk = (int)(a.b * a.kh);
+  const int bk = (int)(blockIdx.x % nbk), kt = (int)(blockIdx.x / nbk);
+  const int64_t bi = bk / a.kh, khi = bk % a.kh;
+  const int g = (int)(a.h / a.kh);
+  const int64_t k0 = (int64_t)kt * BK, nq = (a.lq + BQ - 1) / BQ, nk = (a.s + BK - 1) / BK;
+  const bool tma = (a.vec & (kVecQ | kVecK | kVecV | kVecDO)) == (kVecQ | kVecK | kVecV | kVecDO);
+
+  // kvbar completes when k and v landed; full[j] when stage j's q, dO (TMA:
+  // the lead producer thread's arrive with their bytes; element path: every
+  // thread's, after its stores and a proxy fence) and lse, D (the producer
+  // warp's 32 cp.async arrivals) landed; empty[j] when every thread has
+  // read stage j
+  if (tid == 0) {
+    mbar_init(kvbar, tma ? 1 : NT);
+    for (int j = 0; j < NST; ++j) {
+      mbar_init(full + 8 * j, (tma ? 1 : NT) + 32);
+      mbar_init(empty + 8 * j, NT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (!tma) {
+    tc_gather<BK, DMAX, NT>(ks, p.k + bi * a.ks[0] + khi * a.ks[1], k0, a.s, a.ks[2], a.ks[3], a.d);
+    tc_gather<BK, DMAX, NT>(vs, p.v + bi * a.vs[0] + khi * a.vs[1], k0, a.s, a.vs[2], a.vs[3], a.d);
+    fence_proxy_async();
+    mbar_arrive(kvbar);
+  } else if (tid == 0) {
+    mbar_arrive_expect(kvbar, 2 * L::K_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < L::CB; ++cb) {
+      tma_box(ks + cb * L::K_CB, map_k, 64 * cb, k0, khi, bi, kvbar);
+      tma_box(vs + cb * L::K_CB, map_v, 64 * cb, k0, khi, bi, kvbar);
+    }
+  }
+  wait_for_previous_grid();         // D
+
+  // visit n of the walk into stage n % NST, once use n - NST is over. The
+  // copies are warpgroup 1's (its first warp): a thread that waits for a
+  // stage to empty stalls its warpgroup's wgmmas, and warpgroup 1, which
+  // also computes dP^T and ds, is the one behind, so warpgroup 0 runs up
+  // to NST - 1 visits ahead instead of in step with it
+  const bool producer = tid / 32 == kTcWG / 32, lead = tid == kTcWG;
+  int fg = -1, fq = 0, filled = 0;
+  auto fill_next = [&]() {
+    if (!next_visit<BQ, BK>(a, nq, nk, kt, g, fg, fq)) return;
+    const int n = filled++;
+    const uint32_t j = (uint32_t)(n % NST), st = ring + j * L::KV_STAGE;
+    const int64_t hq = khi * g + fg, q0 = (int64_t)fq * BQ;
+    if (!tma || producer) {
+      if (n >= NST) mbar_wait(empty + 8 * j, (uint32_t)((n / NST - 1) & 1));
+    }
+    if (!tma) {
+      tc_gather<BQ, DMAX, NT>(st, p.q + bi * a.qs[0] + hq * a.qs[1], q0, a.lq, a.qs[2], a.qs[3],
+                              a.d);
+      tc_gather<BQ, DMAX, NT>(st + L::Q_BYTES, p.dout + bi * a.dos[0] + hq * a.dos[1], q0, a.lq,
+                              a.dos[2], a.dos[3], a.d);
+      fence_proxy_async();
+      mbar_arrive(full + 8 * j);
+    } else if (lead) {
+      mbar_arrive_expect(full + 8 * j, L::KV_STAGE);
+#pragma unroll
+      for (int cb = 0; cb < L::CB; ++cb) {
+        tma_box(st + cb * L::Q_CB, map_q, 64 * cb, q0, hq, bi, full + 8 * j);
+        tma_box(st + L::Q_BYTES + cb * L::Q_CB, map_do, 64 * cb, q0, hq, bi, full + 8 * j);
+      }
+    }
+    if (producer) {                 // the rows' lse and D
+      const int64_t rb = (bi * a.h + hq) * a.lq;
+      float* dst = rows_f + j * 2 * BQ;
+      for (int r = lane; r < 2 * BQ; r += 32) {
+        const int64_t row = q0 + r % BQ;
+        const bool ok = row < a.lq;
+        cp_async4(dst + r, (r < BQ ? p.lse : p.delta) + (ok ? rb + row : 0), ok);
+      }
+      cp_async_arrive(full + 8 * j);
+    }
+  };
+  for (int i = 0; i < NST - 1; ++i) fill_next();
+
+  float acc[DMAX / 2];              // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) acc[i] = 0.0f;
+  const int64_t key0 = k0 + 16 * warp + lane / 4;   // this thread's first key
+  mbar_wait(kvbar, 0);
+
+  int ug = -1, uq = 0;
+  for (int u = 0; next_visit<BQ, BK>(a, nq, nk, kt, g, ug, uq); ++u) {
+    fill_next();                    // visit u + NST - 1
+    const uint32_t j = (uint32_t)(u % NST), st = ring + j * L::KV_STAGE, dst = st + L::Q_BYTES;
+    const float* lse_s = rows_f + j * 2 * BQ;
+    const float* d_s = lse_s + BQ;
+    const int64_t q0 = (int64_t)uq * BQ;
+    mbar_wait(full + 8 * j, (uint32_t)((u / NST) & 1));
+
+    float s_t[BQ / 2], dp_t[BQ / 2];
+    TcFrags<BQ> f;
+    const bool inside = pair_inside<BQ, BK>(a, q0, k0);
+    wgmma_fence();
+    tc_scores<BQ, DMAX>(s_t, ks, L::K_CB, st, L::Q_CB);                  // S^T = K Q^T
+    if (dk_wg) tc_scores<BQ, DMAX>(dp_t, vs, L::K_CB, dst, L::Q_CB);     // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s_t);
+    const RowMask m[2] = {key_row_mask<BQ>(a, q0, key0), key_row_mask<BQ>(a, q0, key0 + 8)};
+    if (dk_wg) {
+      reg_fence(dp_t);
+      if (inside)
+        dkv_frags<BQ, false, true>(s_t, dp_t, lse_s, d_s, a.scale, m, tq, f);
+      else
+        dkv_frags<BQ, true, true>(s_t, dp_t, lse_s, d_s, a.scale, m, tq, f);
+    } else {
+      if (inside)
+        dkv_frags<BQ, false, false>(s_t, dp_t, lse_s, d_s, a.scale, m, tq, f);
+      else
+        dkv_frags<BQ, true, false>(s_t, dp_t, lse_s, d_s, a.scale, m, tq, f);
+    }
+    reg_fence(acc);
+    wgmma_fence();
+    tc_update<DMAX, BQ>(acc, f, dk_wg ? st : dst);      // dK += dS^T Q, dV += P^T dO
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(empty + 8 * j);     // this thread is done with stage j
+  }
+
+  if (dk_wg)
+    tc_store<DMAX>(p.dk + bi * a.dks[0] + khi * a.dks[1], acc, key0, a.s, a.dks, a.d, a.scale,
+                   true, pair & kPairDK, tq);
+  else
+    tc_store<DMAX>(p.dv + bi * a.dvs[0] + khi * a.dvs[1], acc, key0, a.s, a.dvs, a.d, a.scale,
+                   false, pair & kPairDV, tq);
+}
+
+// The third grid of the bf16 build: dq, one block (a warpgroup) per (b,
+// head, tile of DQ_BQ = 64 query rows), the heaviest query tile first under
+// causal. q and dO stay in shared memory; the stages of a ring hold the k
+// and v tiles of DQ_BK keys, the key tiles that meet the query tile's band
+// in order. A key tile: S = Q K^T and dP = dO V^T by wgmma with both
+// operands from shared memory; p and ds in registers and split; dQ +=
+// dS K with A from registers and k MN-major from the stage. dQ is one f32
+// sum in key-tile order, scaled and rounded once at the store.
+template <int DMAX>
+__global__ void __launch_bounds__(TcBwdLayout<DMAX>::DQ_THREADS, 1)
+flash_bwd_dq_tc_kernel(BwdPtrs<bf16> p, BwdArgs a, int pair,
+                       const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v) {
+  using L = TcBwdLayout<DMAX>;
+  constexpr int BM = L::DQ_BQ, BN = L::DQ_BK, NST = L::DQ_NST, NT = L::DQ_THREADS;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const uint32_t qs = ((uint32_t)__cvta_generic_to_shared(tc_smem) + 1023u) & ~1023u;
+  const uint32_t dos = qs + L::QQ_BYTES, ring = dos + L::QQ_BYTES;
+  const uint32_t qbar = ring + NST * L::DQ_STAGE, full = qbar + 8, empty = full + 8 * NST;
+
+  // warpgroup wg owns rows 64 wg .. 64 wg + 63 of the block's (its index
+  // through a shuffle: see the dk/dv pass)
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / kTcWG, 0);
+  const int lane = tid % 32, warp = (tid % kTcWG) / 32, tq = lane % 4;
+  const int64_t nbh = a.b * a.h;
+  const int64_t bh = (int64_t)blockIdx.x % nbh, rank = (int64_t)blockIdx.x / nbh;
+  const int64_t nq = (a.lq + BM - 1) / BM, nk = (a.s + BN - 1) / BN;
+  const int64_t bi = bh / a.h, hq = bh % a.h, khi = hq / (a.h / a.kh);
+  const int64_t qt = a.causal ? nq - 1 - rank : rank, q0 = qt * BM;
+  const bool tma = (a.vec & (kVecQ | kVecK | kVecV | kVecDO)) == (kVecQ | kVecK | kVecV | kVecDO);
+  int64_t t_lo, t_hi;
+  band_tiles<BM, BN>(a, qt, nk, t_lo, t_hi);
+
+  // qbar completes when q and dO landed, full[j] when stage j's k and v
+  // did, empty[j] when every thread has read stage j
+  if (tid == 0) {
+    mbar_init(qbar, tma ? 1 : NT);
+    for (int j = 0; j < NST; ++j) {
+      mbar_init(full + 8 * j, tma ? 1 : NT);
+      mbar_init(empty + 8 * j, NT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const bf16* const kb = p.k + bi * a.ks[0] + khi * a.ks[1];
+  const bf16* const vb = p.v + bi * a.vs[0] + khi * a.vs[1];
+  // key tile t into stage (t - t_lo) % NST, once its previous use is over
+  auto fill = [&](int64_t t) {
+    const int64_t n = t - t_lo;
+    const uint32_t j = (uint32_t)(n % NST), st = ring + j * L::DQ_STAGE;
+    if (!tma || tid == 0) {
+      if (n >= NST) mbar_wait(empty + 8 * j, (uint32_t)((n / NST - 1) & 1));
+    }
+    if (!tma) {
+      tc_gather<BN, DMAX, NT>(st, kb, t * BN, a.s, a.ks[2], a.ks[3], a.d);
+      tc_gather<BN, DMAX, NT>(st + L::KQ_BYTES, vb, t * BN, a.s, a.vs[2], a.vs[3], a.d);
+      fence_proxy_async();
+      mbar_arrive(full + 8 * j);
+    } else if (tid == 0) {
+      mbar_arrive_expect(full + 8 * j, L::DQ_STAGE);
+#pragma unroll
+      for (int cb = 0; cb < L::CB; ++cb) {
+        tma_box(st + cb * L::KQ_CB, map_k, 64 * cb, t * BN, khi, bi, full + 8 * j);
+        tma_box(st + L::KQ_BYTES + cb * L::KQ_CB, map_v, 64 * cb, t * BN, khi, bi, full + 8 * j);
+      }
+    }
+  };
+  if (!tma) {
+    tc_gather<BM, DMAX, NT>(qs, p.q + bi * a.qs[0] + hq * a.qs[1], q0, a.lq, a.qs[2], a.qs[3], a.d);
+    tc_gather<BM, DMAX, NT>(dos, p.dout + bi * a.dos[0] + hq * a.dos[1], q0, a.lq, a.dos[2],
+                            a.dos[3], a.d);
+    fence_proxy_async();
+    mbar_arrive(qbar);
+  } else if (tid == 0) {
+    mbar_arrive_expect(qbar, 2 * L::QQ_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < L::CB; ++cb) {
+      tma_box(qs + cb * L::QQ_CB, map_q, 64 * cb, q0, hq, bi, qbar);
+      tma_box(dos + cb * L::QQ_CB, map_do, 64 * cb, q0, hq, bi, qbar);
+    }
+  }
+  for (int i = 0; i < NST - 1; ++i)
+    if (t_lo + i < t_hi) fill(t_lo + i);
+
+  // this thread's rows row0 and row0 + 8: their lse and D (0 past Lq,
+  // where p is 0)
+  const int64_t w0 = q0 + 64 * wg, row0 = w0 + 16 * warp + lane / 4;
+  float lse[2], del[2];
+  wait_for_previous_grid();         // D
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + 8 * i;
+    const bool ok = row < a.lq;
+    lse[i] = ok ? p.lse[bh * a.lq + row] : 0.0f;
+    del[i] = ok ? p.delta[bh * a.lq + row] : 0.0f;
+  }
+  float dq[DMAX / 2];
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) dq[i] = 0.0f;
+  mbar_wait(qbar, 0);
+
+  for (int64_t t = t_lo; t < t_hi; ++t) {
+    if (t + NST - 1 < t_hi) fill(t + NST - 1);
+    const int64_t n = t - t_lo, k0 = t * BN;
+    const uint32_t j = (uint32_t)(n % NST), st = ring + j * L::DQ_STAGE;
+    mbar_wait(full + 8 * j, (uint32_t)((n / NST) & 1));
+    float s[BN / 2], dp[BN / 2];
+    TcFrags<BN> f;
+    wgmma_fence();
+    const uint32_t rows = wg * 64 * kSwRow;    // this warpgroup's rows of q and dO
+    tc_scores<BN, DMAX>(s, qs + rows, L::QQ_CB, st, L::KQ_CB);          // S = Q K^T
+    tc_scores<BN, DMAX>(dp, dos + rows, L::QQ_CB, st + L::KQ_BYTES, L::KQ_CB);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    const RowMask m[2] = {query_row_mask<BN>(a, k0, row0), query_row_mask<BN>(a, k0, row0 + 8)};
+    if (pair_inside<64, BN>(a, w0, k0))
+      dq_frags<BN, false>(s, dp, lse, del, a.scale, m, tq, f);
+    else
+      dq_frags<BN, true>(s, dp, lse, del, a.scale, m, tq, f);
+    reg_fence(dq);
+    wgmma_fence();
+    tc_update<DMAX, BN>(dq, f, st);                                    // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dq);
+    mbar_arrive(empty + 8 * j);     // this thread is done with stage j
+  }
+  tc_store<DMAX>(p.dq + bi * a.dqs[0] + hq * a.dqs[1], dq, row0, a.lq, a.dqs, a.d, a.scale, true,
+                 pair & kPairDQ, tq);
+}
+
 // One grid of the call, launched after the previous one by programmatic
 // dependent launch (it waits inside for what it reads).
-template <typename T, typename... Args>
-static cudaError_t launch_after(void (*kernel)(Args...), int64_t blocks, size_t smem,
-                                cudaStream_t s, BwdPtrs<T> p, BwdArgs a) {
+template <typename... Params, typename... Args>
+static cudaError_t launch_after(void (*kernel)(Params...), int64_t blocks, int threads,
+                                size_t smem, cudaStream_t s, const Args&... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(kBwdThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -732,7 +1393,7 @@ static cudaError_t launch_after(void (*kernel)(Args...), int64_t blocks, size_t 
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, p, a);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // The plan of one call (flash_backward.plan in Python): tile counts, the
@@ -784,11 +1445,84 @@ static int launch_bwd_d(BwdPtrs<T> p, BwdArgs a, void* scratch, int64_t scratch_
   flash_bwd_prep_kernel<T><<<(unsigned)prep_blocks, kBwdThreads, 0, s>>>(p, a, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = launch_after(flash_bwd_kernel<DMAX, T>, blocks, L::SMEM, s, p, a);
+  e = launch_after(flash_bwd_kernel<DMAX, T>, blocks, kBwdThreads, L::SMEM, s, p, a);
   if (e != cudaSuccess) return (int)e;
-  e = launch_after(flash_bwd_dq_kernel<DMAX, T>, dq_blocks, 0, s, p, a);
+  e = launch_after(flash_bwd_dq_kernel<DMAX, T>, dq_blocks, kBwdThreads, 0, s, p, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The bf16 build (the tensor-core design): its scratch is D alone, b h Lq
+// floats (flash_backward.plan with dtype bfloat16); `pair` holds the
+// kPair* bits of the outputs stored two at a time.
+template <int DMAX>
+static int launch_bwd_tc(BwdPtrs<bf16> p, BwdArgs a, void* scratch, int64_t scratch_bytes,
+                         int pair, cudaStream_t s) {
+  using L = TcBwdLayout<DMAX>;
+  const int64_t bh = a.b * a.h, rows = bh * a.lq;
+  if (4 * rows != scratch_bytes) return (int)cudaErrorInvalidValue;
+  p.part = nullptr;
+  p.delta = (float*)scratch;
+  static bool opted_in[kMaxDevices] = {};   // per device, once per instantiation
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    // the shared memory each block takes, and all of it for shared memory
+    // (not L1), so that as many blocks fit an SM as TcBwdTiles says
+    e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DMAX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::KV_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DMAX>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<DMAX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::DQ_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<DMAX>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    opted_in[dev] = true;
+  }
+  const int64_t prep_blocks = (rows + kBwdThreads / kTX - 1) / (kBwdThreads / kTX);
+  const int64_t kv_blocks = a.b * a.kh * ((a.s + L::KV_BK - 1) / L::KV_BK);
+  const int64_t dq_blocks = bh * ((a.lq + L::DQ_BQ - 1) / L::DQ_BQ);
+  // grid x, and the walks' tile indices and TMA's coordinates in 32-bit ints
+  if (prep_blocks > 0x7fffffff || kv_blocks > 0x7fffffff || dq_blocks > 0x7fffffff ||
+      a.lq > 0x7fffffff || a.s > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  constexpr int kAll = kVecQ | kVecK | kVecV | kVecDO;
+  CUtensorMap maps[8] = {};             // unused on the element path
+  if ((a.vec & kAll) == kAll &&
+      !(tensor_map(&maps[0], p.q, a.qs, a.b, a.h, a.lq, a.d, L::KV_BQ) &&
+        tensor_map(&maps[1], p.dout, a.dos, a.b, a.h, a.lq, a.d, L::KV_BQ) &&
+        tensor_map(&maps[2], p.k, a.ks, a.b, a.kh, a.s, a.d, L::KV_BK) &&
+        tensor_map(&maps[3], p.v, a.vs, a.b, a.kh, a.s, a.d, L::KV_BK) &&
+        tensor_map(&maps[4], p.q, a.qs, a.b, a.h, a.lq, a.d, L::DQ_BQ) &&
+        tensor_map(&maps[5], p.dout, a.dos, a.b, a.h, a.lq, a.d, L::DQ_BQ) &&
+        tensor_map(&maps[6], p.k, a.ks, a.b, a.kh, a.s, a.d, L::DQ_BK) &&
+        tensor_map(&maps[7], p.v, a.vs, a.b, a.kh, a.s, a.d, L::DQ_BK)))
+    return (int)cudaErrorInvalidValue;
+  flash_bwd_prep_kernel<bf16><<<(unsigned)prep_blocks, kBwdThreads, 0, s>>>(p, a, rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = launch_after(flash_bwd_dkv_kernel<DMAX>, kv_blocks, kTcKvThreads, L::KV_SMEM, s, p, a, pair,
+                 maps[0], maps[1], maps[2], maps[3]);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_after(flash_bwd_dq_tc_kernel<DMAX>, dq_blocks, L::DQ_THREADS, L::DQ_SMEM, s, p, a,
+                 pair, maps[4], maps[5], maps[6], maps[7]);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// an output of the bf16 build stored two elements at a time: a 4-byte
+// aligned base, a unit last stride, every other stride even
+__host__ __forceinline__ bool pair_ok(const void* ptr, const int64_t* st) {
+  return (uintptr_t)ptr % 4 == 0 && st[3] == 1 && st[0] % 2 == 0 && st[1] % 2 == 0 &&
+         st[2] % 2 == 0;
 }
 
 // an operand read 16 bytes (kV elements) at a time: a 16-byte aligned base,
@@ -799,7 +1533,8 @@ __host__ __forceinline__ bool vec_ok(const void* ptr, const int64_t* st, int64_t
          st[2] % kV == 0;
 }
 
-// The body of both entry points: dims as below, operands in T.
+// The body of both entry points: dims as below, operands in T (f32: the
+// SIMT design, bf16: the tensor-core design).
 template <typename T>
 static int flash_bwd_entry(int device, const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const void* lse, void* dq, void* dk,
@@ -827,9 +1562,17 @@ static int flash_bwd_entry(int device, const void* q, const void* k, const void*
     if ((a.vec >> x & 1) && !vec_ok<kVecElems<T>>(vec_ptrs[x], vec_strides[x], a.d))
       return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (a.d <= 64) return launch_bwd_d<64, T>(p, a, scratch, scratch_bytes, s);
-  if (a.d <= 128) return launch_bwd_d<128, T>(p, a, scratch, scratch_bytes, s);
-  return launch_bwd_d<256, T>(p, a, scratch, scratch_bytes, s);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int pair = (pair_ok(dq, a.dqs) ? kPairDQ : 0) | (pair_ok(dk, a.dks) ? kPairDK : 0) |
+                     (pair_ok(dv, a.dvs) ? kPairDV : 0);
+    if (a.d <= 64) return launch_bwd_tc<64>(p, a, scratch, scratch_bytes, pair, s);
+    if (a.d <= 128) return launch_bwd_tc<128>(p, a, scratch, scratch_bytes, pair, s);
+    return launch_bwd_tc<256>(p, a, scratch, scratch_bytes, pair, s);
+  } else {
+    if (a.d <= 64) return launch_bwd_d<64, T>(p, a, scratch, scratch_bytes, s);
+    if (a.d <= 128) return launch_bwd_d<128, T>(p, a, scratch, scratch_bytes, s);
+    return launch_bwd_d<256, T>(p, a, scratch, scratch_bytes, s);
+  }
 }
 
 }  // namespace
@@ -838,9 +1581,9 @@ extern "C" {
 
 // dims: b, h, kh, lq, s, d, the strides (4 each) of q, k, v, o, dO, dq, dk
 // and dv, causal, has_window, window, vec (kVec* bits: the operands read 16
-// bytes at a time), the scratch's bytes (flash_backward.plan). q, k, v, o,
-// dO, dq, dk and dv are float32 here, bfloat16 in flash_attention_bwd_bf16;
-// lse is float32 in both
+// bytes at a time), the scratch's bytes (flash_backward.plan of the
+// dtype). q, k, v, o, dO, dq, dk and dv are float32 here, bfloat16 in
+// flash_attention_bwd_bf16; lse is float32 in both
 int flash_attention_bwd_f32(int device, const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse, void* dq, void* dk,
                             void* dv, void* scratch, const int64_t* dims, double scale,

@@ -8,20 +8,26 @@ and log-sum-exp. CPU tensors run ``ref.flash_attention_bwd``; CUDA tensors
 launch the kernel or raise. The kernel reads its operands by strides and
 takes any Lq, S and head dim up to 256, in float32
 (``flash_attention_bwd_f32``) or bfloat16 (``flash_attention_bwd_bf16``:
-operands widened to f32 as they load, dq, dk and dv rounded once at the
-store; lse f32 in both). Where :func:`flash_attention.async_copy_ok` (f32)
-or :func:`flash_attention.tc_copy_ok` (bf16) holds for an operand it copies
-that operand 16 bytes at a time; otherwise element by element.
+dq, dk and dv rounded once at the store; lse f32 in both). Where
+:func:`flash_attention.async_copy_ok` (f32) or
+:func:`flash_attention.tc_copy_ok` (bf16) holds for an operand it copies
+that operand 16 bytes at a time (bf16: by TMA, where it holds for q, k, v
+and dO); otherwise element by element.
 
-The kernel works by key tile: a block owns a tile of keys of one kv head
-and walks the query tiles of its band, computing each (query tile, key
-tile) pair's s, p, dp and ds once (five products). dk and dv add up in
+Both builds run three grids a call: D = rowsum(dO o) first. The f32 build
+(a SIMT design) then works by key tile: a block owns a tile of keys of one
+kv head and walks the query tiles of its band, computing each (query tile,
+key tile) pair's s, p, dp and ds once (five products). dk and dv add up in
 registers; each pair's dq partial goes to a scratch slot of its own, and
-a last grid sums each query tile's slots in key-tile order (no float
-atomics, so two calls give the same bits). :func:`plan` is that layout in
-Python: the tiles by head dim, the grid, the band of (query tile, key
-tile) pairs and the slots, and the scratch's bytes, which the launcher
-recomputes and checks.
+a last grid sums each query tile's slots in key-tile order. The bf16 build
+(a tensor-core design, ``wgmma``) runs flash.py's own two passes: dk and dv
+by key tile (a block walks the query tiles of its band, as above), then dq
+by query tile (a block walks the key tiles of its band in order), with no
+dq scratch: its scratch is D alone. No float atomics in either, so two
+calls give the same bits. :func:`plan` is each layout in Python: the tiles
+by head dim, the grids, the bands of (query tile, key tile) pairs and (f32)
+the slots, and the scratch's bytes, which the launcher recomputes and
+checks.
 """
 from __future__ import annotations
 
@@ -36,9 +42,14 @@ from .build import ATTENTION_DTYPES, launch
 from .common import count_launch, on_card
 from .flash_attention import _check, async_copy_ok, tc_copy_ok
 
-#: (query rows, keys) of one tile pair by head-dim capacity (BwdTiles in
-#: csrc/flash_backward.cu)
+#: (query rows, keys) of one tile pair by head-dim capacity: the f32
+#: design's (BwdTiles in csrc/flash_backward.cu)
 TILES = {64: (64, 32), 128: (32, 32), 256: (32, 32)}
+#: the bf16 design's tiles by head-dim capacity (TcBwdTiles): the dk/dv
+#: pass's query rows a stage and keys a block, then the dq pass's query rows
+#: a block and keys a stage
+TILES_BF16 = {64: (64, 64, 128, 64), 128: (64, 64, 128, 64),
+              256: (32, 64, 128, 32)}
 
 
 def head_dim_cap(d: int) -> int:
@@ -144,12 +155,98 @@ class Plan:
             self.bq * self.bk * d
 
 
+@dataclass(frozen=True)
+class Walk:
+    """One pass of the bf16 design over one head's band: ``band[qt]`` is
+    the key tiles [lo, hi) (``nk`` tiles of ``bk`` keys) that query tile qt
+    (``nq`` tiles of ``bq`` rows) meets."""
+    g: int
+    bq: int
+    bk: int
+    nq: int
+    nk: int
+    band: tuple
+
+    def visits(self, kt: int) -> list[tuple[int, int]]:
+        """The (head of the group, query tile) pairs a dk/dv block of key
+        tile ``kt`` walks, in its order (csrc's next_visit): the G heads in
+        order, each head's query tiles from the last down."""
+        return [(gi, qt) for gi in range(self.g)
+                for qt in range(self.nq - 1, -1, -1)
+                if self.band[qt][0] <= kt < self.band[qt][1]]
+
+    def key_walk(self, qt: int) -> list[int]:
+        """The key tiles a dq block of query tile ``qt`` walks, in order."""
+        return list(range(*self.band[qt]))
+
+
+@dataclass(frozen=True)
+class TcPlan:
+    """The bf16 design's layout of one call: the dk/dv pass ``kv`` (a block
+    per (batch row, kv head, key tile) walks ``kv.visits``) and the dq pass
+    ``dq`` (a block per (batch row, head, query tile) walks
+    ``dq.key_walk``). The scratch is D alone (b h lq floats)."""
+    b: int
+    h: int
+    kh: int
+    lq: int
+    dmax: int
+    causal: bool
+    kv: Walk
+    dq: Walk
+
+    @property
+    def g(self) -> int:
+        return self.h // self.kh
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * self.b * self.h * self.lq
+
+    @property
+    def kv_blocks(self) -> int:
+        return self.b * self.kh * self.kv.nk
+
+    @property
+    def dq_blocks(self) -> int:
+        return self.b * self.h * self.dq.nq
+
+    def kv_block(self, index: int) -> tuple[int, int, int]:
+        """(batch row, kv head, key tile) of dk/dv block ``index``: the key
+        tiles in order, the lowest (the heaviest under causal) first."""
+        nbk = self.b * self.kh
+        bk, kt = index % nbk, index // nbk
+        return bk // self.kh, bk % self.kh, kt
+
+    def dq_block(self, index: int) -> tuple[int, int, int]:
+        """(batch row, head, query tile) of dq block ``index``: under causal
+        the last query tile (the heaviest) first."""
+        nbh = self.b * self.h
+        bh, rank = index % nbh, index // nbh
+        qt = self.dq.nq - 1 - rank if self.causal else rank
+        return bh // self.h, bh % self.h, qt
+
+
+def _walk(g, lq, s_len, bq, bk, causal, window) -> Walk:
+    nq, nk = -(-lq // bq), -(-s_len // bk)
+    return Walk(g, bq, bk, nq, nk, tuple(
+        key_tiles(qt, lq, s_len, bq, bk, causal, window) for qt in range(nq)))
+
+
 @functools.lru_cache(maxsize=256)
 def plan(b: int, h: int, kh: int, lq: int, s_len: int, d: int, causal: bool,
-         window) -> Plan:
-    """The layout the kernel uses for one call (csrc/flash_backward.cu's
-    plan_bytes and key_tiles)."""
+         window, dtype: torch.dtype = torch.float32):
+    """The layout the kernel uses for one call: a :class:`Plan` for float32
+    (csrc/flash_backward.cu's plan_bytes and key_tiles), a :class:`TcPlan`
+    for bfloat16 (launch_bwd_tc, next_visit and band_tiles)."""
     dmax = head_dim_cap(d)
+    if dtype == torch.bfloat16:
+        kv_bq, kv_bk, dq_bq, dq_bk = TILES_BF16[dmax]
+        return TcPlan(b, h, kh, lq, dmax, bool(causal),
+                      _walk(h // kh, lq, s_len, kv_bq, kv_bk, causal, window),
+                      _walk(h // kh, lq, s_len, dq_bq, dq_bk, causal, window))
+    if dtype != torch.float32:
+        raise TypeError(f"flash_backward.plan: no design for {dtype}")
     bq, bk = TILES[dmax]
     nq, nk = -(-lq // bq), -(-s_len // bk)
     band = tuple(key_tiles(qt, lq, s_len, bq, bk, causal, window)
@@ -189,12 +286,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, float32 or bfloat16 (lse is float32); on the card any other
     raises ``TypeError`` naming ROADMAP queue B, before any launch. On the
     card the wrapper allocates one scratch buffer (``torch.empty``,
-    :func:`plan`'s bytes: the dq partials, then D) and counts one launch
-    of ``flash_attention_bwd`` a call (``build.launch`` counts its
-    launcher, ``flash_attention_bwd_f32`` or ``_bf16``, in
+    :func:`plan`'s bytes: f32 the dq partials, then D; bf16 D alone) and
+    counts one launch of ``flash_attention_bwd`` a call (``build.launch``
+    counts its launcher, ``flash_attention_bwd_f32`` or ``_bf16``, in
     ``common.LAUNCHERS``); the C entry point runs three grids on the
-    current stream (D; the key-tile walk; the sum of dq's partials), the
-    last two by programmatic dependent launch."""
+    current stream (D; the key-tile walk; f32 the sum of dq's partials,
+    bf16 the query-tile walk), the last two by programmatic dependent
+    launch."""
     name = "flash_attention_bwd"
     b, h, kh, lq, s_len, d = _check(name, q, k, v)
     for what, t, shape in (("o", o, q.shape), ("do", do, q.shape),
@@ -223,7 +321,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk, dv
     window = None if window is None else int(window)
-    layout = plan(b, h, kh, lq, s_len, d, bool(causal), window)
+    layout = plan(b, h, kh, lq, s_len, d, bool(causal), window, q.dtype)
     scratch = torch.empty(layout.scratch_bytes, dtype=torch.uint8,
                           device=q.device)
     dims = _dims(q, k, v, o, do, dq, dk, dv, causal, window,

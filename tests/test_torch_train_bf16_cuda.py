@@ -60,6 +60,17 @@ CASES = [
     (1, 4, 2, 300, 300, 256, True, 100, 0),     # gemma3-12b's "S" heads
     (1, 4, 2, 97, 97, 33, True, 16, 1),         # d = 33, misaligned
     (2, 4, 2, 130, 130, 128, True, None, 1),    # d 128, misaligned
+    # the tensor-core design's tiles: 64 query rows and keys (32-row
+    # stages at d 256), one short of and one past each, causal and windowed
+    (1, 4, 2, 63, 63, 128, True, None, 0),
+    (1, 4, 2, 65, 65, 128, True, 40, 0),
+    (1, 4, 2, 127, 129, 64, True, 48, 0),
+    (1, 4, 2, 129, 127, 64, False, 70, 0),
+    (1, 2, 2, 31, 31, 256, True, None, 0),
+    (1, 4, 2, 33, 33, 256, True, 20, 0),
+    (1, 4, 2, 63, 65, 256, True, None, 0),
+    (1, 4, 2, 65, 63, 256, True, 40, 0),
+    (1, 4, 2, 160, 65, 128, True, 30, 0),       # Lq > S: rows 94+ no key
 ]
 IDS = [f"b{c[0]}h{c[1]}k{c[2]}q{c[3]}s{c[4]}d{c[5]}"
        f"{'c' if c[6] else 'n'}w{c[7]}o{c[8]}" for c in CASES]
